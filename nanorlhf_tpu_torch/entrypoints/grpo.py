@@ -1,0 +1,100 @@
+"""GRPO launcher — the port of `nanorlhf_tpu/entrypoints/grpo.py`.
+
+`build_config` is the JAX launcher's config literal, field for field. The
+knobs that select paths not ported yet (sequence parallelism, the
+orchestrator and fleet, disaggregated rollouts, speculative decode,
+multi-turn environments) are accepted for parity and make `run_rollout`
+raise NotImplementedError.
+
+Run (one rollout-and-score on the card):
+    python -m nanorlhf_tpu_torch.entrypoints.grpo
+"""
+
+from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+from nanorlhf_tpu_torch.trainer.config import AlgoName, MeshConfig, RLConfig
+
+
+def build_config(sequence_parallel: int = 1,
+                 rollout_staleness: int | None = None,
+                 rollout_devices: int = 0,
+                 rollout_workers: int = 1,
+                 rollout_spec_k: int = 0,
+                 status_port: int = 0,
+                 env_name: str = "",
+                 env_max_turns: int = 1) -> RLConfig:
+    """The reference GRPO launcher's settings (`GRPO/grpo.py:108-155`)."""
+    cfg = RLConfig(
+        algo=AlgoName.GRPO,
+        exp_name="grpo-v1",
+        sft_model_path="Qwen/Qwen2.5-1.5B-Instruct",
+        reward_model_path="OpenAssistant/reward-model-deberta-v3-large-v2",
+        output_dir="output/grpo-v1",
+        kl_coef=0.01,
+        cliprange=0.2,
+        temperature=0.9,
+        learning_rate=6e-6,
+        warmup_steps=0,
+        min_lr_rate=0.1,
+        response_length=1500,
+        per_device_train_batch_size=4,
+        gradient_accumulation_steps=8,
+        num_mini_batches=16,
+        num_ppo_epochs=1,
+        total_episodes=250000,
+        whiten_rewards=False,
+        advantage_whiten=False,
+        sample_n=4,
+        use_lora=True,
+        lora_r=64,
+        lora_alpha=16,
+        gradient_checkpointing=True,
+        missing_eos_penalty=None,
+        save_steps=1,
+        save_total_limit=8,
+        metric_for_best_model="eval_objective/rlhf_reward_old",
+        greater_is_better=True,
+        load_best_model_at_end=True,
+        stop_token="eos",
+    )
+    if sequence_parallel > 1:
+        cfg.mesh = MeshConfig(data=-1, sp=sequence_parallel)
+    if rollout_staleness is not None:
+        cfg.rollout_orchestrator = True
+        cfg.max_staleness = rollout_staleness
+        cfg.sampler_logprob_capture = True
+    if rollout_workers > 1:
+        cfg.rollout_orchestrator = True
+        cfg.rollout_workers = rollout_workers
+        cfg.sampler_logprob_capture = True
+        if rollout_staleness is None:
+            cfg.max_staleness = rollout_workers
+    if rollout_devices > 0:
+        cfg.rollout_devices = rollout_devices
+    cfg.rollout_spec_k = rollout_spec_k
+    cfg.status_port = status_port
+    if env_name:
+        cfg.env_name = env_name
+        cfg.env_max_turns = env_max_turns
+        if env_max_turns > 1:
+            if cfg.rollout_page_size <= 0:
+                cfg.rollout_page_size = 128
+            if cfg.rollout_decode_rows <= 0:
+                cfg.rollout_decode_rows = cfg.batch_size * cfg.sample_n // 2
+            cfg.rollout_orchestrator = False
+            cfg.rollout_workers = 1
+            cfg.sampler_logprob_capture = False
+            cfg.rollout_spec_k = 0
+            cfg.env_turn_tokens = cfg.response_length // (2 * env_max_turns)
+            cfg.env_obs_budget = min(
+                256,
+                (cfg.response_length - cfg.env_turn_tokens * env_max_turns)
+                // max(1, env_max_turns - 1))
+    return cfg
+
+
+if __name__ == "__main__":
+    # the launcher's full batch (512 prompts x 4 samples at 1500 tokens)
+    # does not fit one card's KV cache: a few prompts show the path
+    result = run_rollout(build_config(), num_prompts=4)
+    print(f"rollout: {result['responses'].shape[0]} responses, mean score "
+          f"{float(result['scores'].mean()):.4f}")

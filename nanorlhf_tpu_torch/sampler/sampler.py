@@ -1,0 +1,289 @@
+"""Autoregressive sampler — the port of `nanorlhf_tpu/sampler/sampler.py`
+(the monolithic contiguous-cache path).
+
+Output contract as in JAX (vllm_generate): `[B*N, max_tokens]` int,
+N consecutive samples per prompt, each row the generated tokens including
+the terminating EOS, right-padded with `pad_token_id`; `(tokens, logprobs)`
+with `capture_logprobs`.
+
+The JAX loop is a jitted `lax.while_loop`; here it is a Python loop over
+`decode_step` with the same all-EOS early exit (one host sync per step).
+`jax.random` keys become a `torch.Generator`: the per-step
+`fold_in(key, step)` draws become consecutive draws from the generator, so
+sampled streams match JAX in distribution, not bit for bit (greedy streams
+match exactly). `approx_top_k` is exact here (`torch.topk`): the JAX
+docstring notes ApproxTopK is exact off-TPU too.
+
+Knobs that select paths not ported yet (paged cache, speculative decode,
+compaction, chunked prefill, the radix prefix cache, the int8 cache) raise
+NotImplementedError instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from nanorlhf_tpu_torch.core.config import ModelConfig
+from nanorlhf_tpu_torch.core.model import decode_step, init_kv_cache, prefill
+from nanorlhf_tpu_torch.ops.masking import guard_temperature
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 1.0
+    top_p: float = 0.95
+    n: int = 1
+    max_tokens: int = 256
+    greedy: bool = False
+    top_k: int = 64
+    capture_logprobs: bool = False
+    approx_top_k: bool = True
+    compaction_segments: int = 0
+    page_size: int = 0
+    decode_rows: int = 0
+    spec_k: int = 0
+    spec_ngram: int = 3
+    prefill_chunk: int = 0
+    shared_prompt_prefill: bool = True
+
+
+def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> None:
+    """The decode-feature gate. The JAX legality matrix (ValueError on
+    illegal combinations) comes first; then every knob that selects a path
+    this port has not ported raises NotImplementedError."""
+    if sampling.page_size > 0 and sampling.compaction_segments > 0:
+        raise ValueError("page_size > 0 is incompatible with compaction_segments > 0")
+    if sampling.spec_k > 0 and sampling.compaction_segments > 0:
+        raise ValueError("spec_k > 0 is incompatible with compaction_segments > 0")
+    queued_capable = sampling.page_size > 0 and sampling.decode_rows > 0
+    if prefix_cache and not queued_capable:
+        raise ValueError("prefix_cache requires continuous batching "
+                         "(page_size > 0 and decode_rows > 0)")
+    if sampling.prefill_chunk > 0 and not queued_capable:
+        raise ValueError("prefill_chunk > 0 requires continuous batching "
+                         "(page_size > 0 and decode_rows > 0)")
+    unported = {
+        "page_size > 0 (paged KV cache)": sampling.page_size > 0,
+        "decode_rows > 0 (continuous batching)": sampling.decode_rows > 0,
+        "spec_k > 0 (speculative decode)": sampling.spec_k > 0,
+        "compaction_segments > 0 (compacting decode)": sampling.compaction_segments > 0,
+        "prefix_cache (radix prefix cache)": prefix_cache,
+    }
+    for what, on in unported.items():
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to nanorlhf_tpu_torch yet: only the "
+                "monolithic contiguous-cache sampler is")
+
+
+def top_p_filter_bisect(logits: torch.Tensor, top_p: float,
+                        iters: int = 26) -> torch.Tensor:
+    """Nucleus filter by bisection on the probability threshold (no sort):
+    keep {i : p_i >= tau}, tau the smallest probability of the minimal
+    prefix reaching mass top_p."""
+    probs = torch.softmax(logits, dim=-1)
+    p_max = probs.max(dim=-1, keepdim=True).values
+    lo = torch.zeros_like(p_max)
+    hi = p_max * (1 + 1e-6)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        mass = torch.where(probs >= mid, probs, torch.zeros_like(probs)).sum(
+            dim=-1, keepdim=True)
+        ok = mass >= top_p
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return torch.where(probs >= lo, logits, torch.full_like(logits, -float("inf")))
+
+
+def _nucleus_candidates(logits, top_p, top_k, approx_top_k):
+    """(top_logits, top_idx, keep): the top-k candidates (descending) and the
+    exclusive-cum nucleus keep rule over their TRUE probabilities. `logits`
+    arrive temperature-scaled. `approx_top_k` is exact here."""
+    k = min(top_k, logits.shape[-1])
+    top_logits, top_idx = torch.topk(logits, k, dim=-1)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    probs = torch.exp(top_logits - lse)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p
+    return top_logits, top_idx, keep
+
+
+def filtered_logits_full(logits, temperature, top_p, top_k, approx_top_k):
+    """Full-vocab filtered, temperature-scaled logits whose softmax is
+    exactly the distribution `_sample_token` draws from (-inf outside)."""
+    scaled = logits.float() / guard_temperature(temperature)
+    if top_p >= 1.0:
+        return scaled
+    if top_k <= 0:
+        return top_p_filter_bisect(scaled, top_p)
+    lead, V = scaled.shape[:-1], scaled.shape[-1]
+    flat = scaled.reshape(-1, V)
+    top_logits, top_idx, keep = _nucleus_candidates(flat, top_p, top_k, approx_top_k)
+    kept = torch.where(keep, top_logits, torch.full_like(top_logits, -float("inf")))
+    full = torch.full_like(flat, -float("inf")).scatter(-1, top_idx, kept)
+    return full.reshape(*lead, V)
+
+
+def sync_device(device: torch.device) -> None:
+    """Wait for the device (a no-op on the CPU) — for phase timings."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _categorical(generator, logits):
+    """Gumbel-max draw per row (what `jax.random.categorical` does)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def _sample_token(generator, logits, temperature, top_p, greedy, top_k=64,
+                  approx_top_k=True):
+    """One token per row: argmax when greedy; an exact full-vocab categorical
+    when top_p >= 1 (bisection nucleus when top_k <= 0); else the top-k
+    candidates with the nucleus rule and a k-space categorical."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    logits = logits.float() / guard_temperature(temperature)
+    if top_p >= 1.0 or top_k <= 0:
+        if top_p < 1.0:
+            logits = top_p_filter_bisect(logits, top_p)
+        return _categorical(generator, logits)
+    top_logits, top_idx, keep = _nucleus_candidates(logits, top_p, top_k, approx_top_k)
+    top_logits = torch.where(keep, top_logits, torch.full_like(top_logits, -float("inf")))
+    choice = _categorical(generator, top_logits)
+    return torch.gather(top_idx, -1, choice[:, None])[:, 0]
+
+
+def _token_logprob(logits, tok, temperature):
+    """Full-distribution logprob of `tok` at the sampling temperature (the
+    scoring pass's quantity, through the same temperature guard)."""
+    scaled = logits.float() / guard_temperature(temperature)
+    lse = torch.logsumexp(scaled, dim=-1)
+    return torch.gather(scaled, -1, tok[:, None].long())[:, 0] - lse
+
+
+def _prefill_state(params, config, prompt_ids, prompt_mask, generator, *,
+                   max_tokens, eos_token_id, pad_token_id, temperature, top_p,
+                   greedy, lora_scale, top_k, capture_logprobs, approx_top_k,
+                   prompt_fanout=1):
+    """Prefill + first sampled token → the decode-loop state dict. With
+    `prompt_fanout` N the [B] prompts are prefilled once and the first
+    logits, prompt KV and row metadata fan out ×N (prompt-major)."""
+    B, Tp = prompt_ids.shape
+    T_max = Tp + max_tokens
+    prompt_mask = prompt_mask.bool()
+    dtype = params["embed_tokens"].dtype
+    device = prompt_ids.device
+    caches = init_kv_cache(config, B, T_max, dtype, device)
+    first_logits, caches = prefill(params, config, prompt_ids, prompt_mask,
+                                   caches, lora_scale=lora_scale)
+    if prompt_fanout > 1:
+        first_logits = first_logits.repeat_interleave(prompt_fanout, dim=0)
+        caches = tuple(c.repeat_interleave(prompt_fanout, dim=1) for c in caches)
+        prompt_mask = prompt_mask.repeat_interleave(prompt_fanout, dim=0)
+        B = B * prompt_fanout
+
+    prompt_len = prompt_mask.sum(dim=1).to(torch.int64)
+    key_mask = torch.zeros((B, T_max), dtype=torch.bool, device=device)
+    key_mask[:, :Tp] = prompt_mask
+    out = torch.full((B, max_tokens), pad_token_id, dtype=torch.int64, device=device)
+    lp_out = torch.zeros((B, max_tokens), dtype=torch.float32, device=device)
+    tok = _sample_token(generator, first_logits, temperature, top_p, greedy,
+                        top_k, approx_top_k)
+    out[:, 0] = tok
+    if capture_logprobs:
+        lp_out[:, 0] = _token_logprob(first_logits, tok, temperature)
+    return {"step": 1, "out": out, "lp_out": lp_out, "caches": caches,
+            "key_mask": key_mask, "done": tok == eos_token_id, "cur_tok": tok,
+            "prompt_len": prompt_len}
+
+
+def _decode_body(params, config, state, *, Tp, max_tokens, eos_token_id,
+                 pad_token_id, temperature, top_p, greedy, lora_scale, top_k,
+                 capture_logprobs, approx_top_k, generator):
+    """One decode step over the state (the cache and buffers in place)."""
+    step, done = state["step"], state["done"]
+    # token `step` was sampled from logits at position prompt_len + step - 1;
+    # its KV lands in cache slot Tp + step - 1
+    cache_slot = Tp + step - 1
+    state["key_mask"][:, cache_slot] = True
+    position = state["prompt_len"] + step - 1
+    logits, _ = decode_step(params, config, state["cur_tok"], position,
+                            cache_slot, state["key_mask"], state["caches"],
+                            lora_scale=lora_scale)
+    tok = _sample_token(generator, logits, temperature, top_p, greedy, top_k,
+                        approx_top_k)
+    tok = torch.where(done, torch.full_like(tok, pad_token_id), tok)
+    live = ~done
+    state["out"][:, step] = torch.where(live, tok, state["out"][:, step])
+    if capture_logprobs:
+        lp = _token_logprob(logits, tok, temperature)
+        state["lp_out"][:, step] = torch.where(live, lp, state["lp_out"][:, step])
+    state["done"] = done | (tok == eos_token_id)
+    state["cur_tok"] = tok
+    state["step"] = step + 1
+
+
+@torch.no_grad()
+def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
+                    generator: torch.Generator, *, max_tokens: int,
+                    eos_token_id: int, pad_token_id: int,
+                    temperature: float = 1.0, top_p: float = 0.95,
+                    greedy: bool = False, lora_scale: float = 1.0,
+                    top_k: int = 64, capture_logprobs: bool = False,
+                    approx_top_k: bool = True, prompt_fanout: int = 1,
+                    timings: dict | None = None):
+    """Core loop: prefill, then decode until `max_tokens` or every row has
+    emitted EOS. Returns [B*fanout, max_tokens] (+ logprobs f32).
+    `timings`, when given, receives `prefill_s`, `decode_s` (wall seconds,
+    device-synchronized) and `decode_steps`."""
+    Tp = prompt_ids.shape[1]
+    kw = dict(max_tokens=max_tokens, eos_token_id=eos_token_id,
+              pad_token_id=pad_token_id, temperature=temperature, top_p=top_p,
+              greedy=greedy, lora_scale=lora_scale, top_k=top_k,
+              capture_logprobs=capture_logprobs, approx_top_k=approx_top_k)
+    t0 = time.perf_counter()
+    state = _prefill_state(params, config, prompt_ids, prompt_mask, generator,
+                           prompt_fanout=prompt_fanout, **kw)
+    if timings is not None:
+        sync_device(prompt_ids.device)
+        timings["prefill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while state["step"] < max_tokens and not bool(state["done"].all()):
+        _decode_body(params, config, state, Tp=Tp, generator=generator, **kw)
+    if timings is not None:
+        sync_device(prompt_ids.device)
+        timings["decode_s"] = time.perf_counter() - t0
+        timings["decode_steps"] = state["step"] - 1
+    out = state["out"]
+    return (out, state["lp_out"]) if capture_logprobs else out
+
+
+def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
+             generator: torch.Generator, sampling: SamplingParams,
+             eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
+             timings: dict | None = None):
+    """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
+    prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
+    see `generate_tokens`."""
+    compose_check(sampling)
+    fanout = 1
+    if sampling.n > 1:
+        if sampling.shared_prompt_prefill:
+            fanout = sampling.n  # prefill once, fan the prompt KV out
+        else:
+            prompt_ids = prompt_ids.repeat_interleave(sampling.n, dim=0)
+            prompt_mask = prompt_mask.repeat_interleave(sampling.n, dim=0)
+    return generate_tokens(
+        params, config, prompt_ids, prompt_mask, generator,
+        max_tokens=sampling.max_tokens, eos_token_id=eos_token_id,
+        pad_token_id=pad_token_id, temperature=sampling.temperature,
+        top_p=sampling.top_p, greedy=sampling.greedy, lora_scale=lora_scale,
+        top_k=sampling.top_k, capture_logprobs=sampling.capture_logprobs,
+        approx_top_k=sampling.approx_top_k, prompt_fanout=fanout,
+        timings=timings,
+    )
