@@ -9,7 +9,9 @@ import time: the CPU tests import every module of the port.
 
 `KERNELS` is the registry the wrappers launch through. Each `Kernel` counts
 its successful launches (`launches`), which is how `chip_smoke.py` shows
-that the main path really ran on the kernels.
+that the main path really ran on the kernels. Several kernels may share
+one source (the flash backward's `dq` and `dkv` live in `flash_bwd.cu`):
+each keeps its own counter, the source is built once.
 """
 
 from __future__ import annotations
@@ -48,10 +50,11 @@ def nvcc_path() -> str:
 class Kernel:
     """One CUDA source, its shared library, and its launch counter."""
 
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, source: str | None = None):
         self.name = name
         self.replaces = replaces  # the Pallas kernel this one ports
-        self.source = SRC_DIR / f"{name}.cu"
+        self.source_name = source or name
+        self.source = SRC_DIR / f"{self.source_name}.cu"
         self.launches = 0
         self.build_log = ""
         self._lib = None
@@ -59,11 +62,11 @@ class Kernel:
 
     @property
     def repo_source(self) -> str:
-        return f"nanorlhf_tpu_torch/csrc/{self.name}.cu"
+        return f"nanorlhf_tpu_torch/csrc/{self.source_name}.cu"
 
     def library_path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.source_name}-{digest}.so"
 
     def compile_command(self, out: Path) -> list[str]:
         return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3",
@@ -126,6 +129,12 @@ KERNELS = {
         "nanorlhf_tpu/ops/decode_attention.py:61 _decode_kernel"),
     "fused_logprob": Kernel(
         "fused_logprob", "nanorlhf_tpu/ops/fused_logprob.py:228 _fused_kernel"),
+    "flash_bwd_dq": Kernel(
+        "flash_bwd_dq", "nanorlhf_tpu/ops/attention.py:230 _dq_kernel",
+        source="flash_bwd"),
+    "flash_bwd_dkv": Kernel(
+        "flash_bwd_dkv", "nanorlhf_tpu/ops/attention.py:282 _dkv_kernel",
+        source="flash_bwd"),
 }
 
 
@@ -133,18 +142,20 @@ def build_all() -> float:
     """Compile every kernel not yet built, all nvcc processes at once, and
     load them. Returns the wall seconds it took."""
     t0 = time.perf_counter()
-    started = {name: k.start_build() for name, k in KERNELS.items()}
+    by_source = {k.source_name: k for k in KERNELS.values()}
+    started = {src: k.start_build() for src, k in by_source.items()}
     failures = []
-    for name, s in started.items():
+    for src, s in started.items():
         if s is None:
             continue
         try:
-            KERNELS[name].finish_build(s)
+            by_source[src].finish_build(s)
         except RuntimeError as e:
             failures.append(str(e))
     if failures:
         raise RuntimeError("\n".join(failures))
     for k in KERNELS.values():
+        k.build_log = by_source[k.source_name].build_log
         k.load()
     return time.perf_counter() - t0
 

@@ -7,9 +7,11 @@ stacked layout in torch's nn.Linear orientation: kernels `[L, out, in]`,
 `lm_head` `[V, D]`, `a: [L, r, in]`, `b: [L, out, r]`. Everything else
 (embeddings, norms, biases) is laid out identically.
 
-Both functions take and return nested dicts. `params_from_numpy` takes
-numpy arrays (`jax.tree.map(np.asarray, params)`); this module imports no
-JAX.
+Both functions take and return nested dicts: parameters, or any tree laid
+out like them by leaf name (gradients, the optimizer's Adam moments), so
+the tests compare the port's update with the JAX trainer's in one layout.
+`params_from_numpy` takes numpy arrays (`jax.tree.map(np.asarray,
+params)`); this module imports no JAX.
 """
 
 from __future__ import annotations

@@ -62,3 +62,24 @@ def init_lora_params(config: ModelConfig, lora: LoraConfig,
             "b": torch.zeros((L, d_out, lora.r), dtype=dtype, device=device),
         }
     return {"layers": layers}
+
+
+def trainable_mask(params: dict, lora: LoraConfig | None) -> dict:
+    """Nested bool dict: which leaves the optimizer updates (the JAX
+    `trainable_mask`). Full fine-tuning (lora=None): everything. LoRA: the
+    adapter leaves plus, as PEFT's `modules_to_save`, `embed_tokens` /
+    `lm_head` when `train_embed` / `train_lm_head`."""
+
+    def walk(tree, top):
+        if isinstance(tree, dict):
+            return {k: walk(v, top if top is not None else k)
+                    for k, v in tree.items()}
+        if lora is None or top == "lora":
+            return True
+        if top == "embed_tokens":
+            return lora.train_embed
+        if top == "lm_head":
+            return lora.train_lm_head
+        return False
+
+    return walk(params, None)

@@ -25,6 +25,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.ops.attention import flash_attention
@@ -239,16 +240,36 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
 
 
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
-                cache_index=0, lora_scale=1.0, decode_bounds=None):
+                cache_index=0, lora_scale=1.0, decode_bounds=None,
+                remat: bool = False):
     """Run the stacked layers in order. kv_caches: (k, v) each
-    [L, B, KV, T_max, hd] (updated in place) or None."""
+    [L, B, KV, T_max, hd] (updated in place) or None.
+
+    `remat=True` (the training path, `gradient_checkpointing`) checkpoints
+    each layer: only its input is kept for the backward, which re-runs the
+    layer's forward (`torch.utils.checkpoint`, non-reentrant) — the
+    counterpart of JAX's `jax.checkpoint` around the scan body with
+    `remat_policy="full"`. It changes memory, not values."""
+    if remat:
+        if config.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' (keep the weight-projection outputs) is "
+                "not ported yet: use remat_policy='full'")
+        if config.remat_policy != "full":
+            raise ValueError(f"remat_policy={config.remat_policy!r}: must be "
+                             "'full' or 'dots'")
     layers = _unstack(params["layers"])
     lora = params.get("lora")
     lora_layers = _unstack(lora["layers"]) if lora else [None] * len(layers)
     for i, (layer, lora_layer) in enumerate(zip(layers, lora_layers)):
         kv = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
-        x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
-                        lora_layer, lora_scale, decode_bounds=decode_bounds)
+        if remat and kv is None:
+            x = checkpoint(_layer_body, config, x, layer, cos, sin, mask, None,
+                           cache_index, lora_layer, lora_scale,
+                           use_reentrant=False)
+        else:
+            x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
+                            lora_layer, lora_scale, decode_bounds=decode_bounds)
     return x
 
 
@@ -288,7 +309,7 @@ def padding_inputs(query_responses: torch.Tensor, pad_token_id: int):
 
 
 def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
-                        lora_scale):
+                        lora_scale, remat: bool = False):
     """embed → rope → causal+padding mask → layers."""
     attention_mask = attention_mask.bool()
     x = params["embed_tokens"][input_ids]
@@ -296,23 +317,28 @@ def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
     cos, sin = rope_tables(position_ids, config.actual_head_dim, config.rope_theta)
     causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
     mask = causal[None, None, :, :] & attention_mask[:, None, None, :]
-    return _run_layers(config, params, x, cos, sin, mask, lora_scale=lora_scale)
+    return _run_layers(config, params, x, cos, sin, mask, lora_scale=lora_scale,
+                       remat=remat)
 
 
-def _padded_hidden(params, config, query_responses, pad_token_id, lora_scale=1.0):
+def _padded_hidden(params, config, query_responses, pad_token_id, lora_scale=1.0,
+                   remat: bool = False):
     input_ids, attention_mask, position_ids = padding_inputs(
         query_responses, pad_token_id)
     return _hidden_from_inputs(params, config, input_ids, attention_mask,
-                               position_ids, lora_scale)
+                               position_ids, lora_scale, remat)
 
 
 def padded_forward_logits(params, config, query_responses, pad_token_id,
                           lora_scale: float = 1.0,
-                          response_context_length: int | None = None):
+                          response_context_length: int | None = None,
+                          remat: bool = False):
     """Padding-robust forward → logits [B, T, V]. With
     `response_context_length=ctx`, next-token logits for the response
-    positions only (hidden sliced [ctx-1:-1] before the head)."""
-    x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale)
+    positions only (hidden sliced [ctx-1:-1] before the head). `remat`
+    checkpoints each layer (the training path)."""
+    x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
+                       remat)
     if response_context_length is not None:
         x = x[:, response_context_length - 1 : -1]
     return _logits(config, params, x)
@@ -320,10 +346,12 @@ def padded_forward_logits(params, config, query_responses, pad_token_id,
 
 def padded_forward_hidden(params, config, query_responses, pad_token_id,
                           lora_scale: float = 1.0,
-                          response_context_length: int | None = None):
+                          response_context_length: int | None = None,
+                          remat: bool = False):
     """`padded_forward_logits` minus the vocab projection: final-normed
     hidden states [B, T', D], the fused logprob op's input."""
-    x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale)
+    x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
+                       remat)
     if response_context_length is not None:
         x = x[:, response_context_length - 1 : -1]
     return rms_norm(x, params["norm"], config.rms_norm_eps)

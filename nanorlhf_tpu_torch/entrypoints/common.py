@@ -2,10 +2,10 @@
 (the offline branches: random-init demo model, toy tokenizer, synthetic
 prompts, the rule-based stand-in reward).
 
-`run_rollout` is this slice's counterpart of the JAX `run`: it builds
-everything from a launcher config and runs the rollout-and-score half of
-one GRPO update (the training half comes with the next slice). It runs on
-`cuda` unless the caller passes `device="cpu"`.
+`run` is the counterpart of the JAX `run`: it builds model, data, reward
+and `RLTrainer` from a launcher config and trains. `run_rollout` builds the
+same pieces and runs only the rollout-and-score half of one update. Both
+run on `cuda` unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -13,21 +13,22 @@ from __future__ import annotations
 import dataclasses
 import os
 
-import numpy as np
 import torch
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
-from nanorlhf_tpu_torch.core.lora import LoraConfig, init_lora_params
 from nanorlhf_tpu_torch.core.model import init_params
 from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
 from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
 from nanorlhf_tpu_torch.rewards.builders import make_rule_reward
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.config import RLConfig
-from nanorlhf_tpu_torch.trainer.rollout import rollout_and_score, rollout_generator
-
-# seed stream of the LoRA init (the JAX trainer splits its key for it)
-_LORA_STREAM = 0x10AA
+from nanorlhf_tpu_torch.trainer.rollout import (
+    KEEP_STREAM,
+    rollout_and_score,
+    rollout_generator,
+    stream_generator,
+)
+from nanorlhf_tpu_torch.trainer.trainer import RLTrainer, build_policy
 
 
 def resolve_model(sft_model_path: str, seed: int = 0, attention_impl: str = "auto",
@@ -87,18 +88,38 @@ def resolve_rm_reward(reward_model_path: str, batch_size: int = 16):
     return make_rule_reward(fn)
 
 
-def build_policy(cfg: RLConfig, mcfg: ModelConfig, params: dict, device):
-    """(policy params with a fresh LoRA subtree, ref params, lora_scale):
-    the trainer's LoRA/ref setup. The ref tree shares the frozen base
-    tensors (nothing trains in this slice, so no copy is needed)."""
-    if not cfg.use_lora:
-        return params, dict(params), 1.0
-    lora = LoraConfig(r=cfg.lora_r, alpha=cfg.lora_alpha)
-    seed = np.random.SeedSequence([cfg.seed, _LORA_STREAM]).generate_state(1)[0]
-    gen = torch.Generator(device=device).manual_seed(int(seed))
-    policy = {**params, "lora": init_lora_params(
-        mcfg, lora, gen, dtype=params["embed_tokens"].dtype, device=device)}
-    return policy, dict(params), lora.scale
+def _device(device, who: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device='cuda' but no CUDA device is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def _resolve_all(cfg: RLConfig, device):
+    """(mcfg, params, tokenizer, dataset, reward_func) of a launcher config."""
+    mcfg, params, tokenizer = resolve_model(
+        cfg.sft_model_path, cfg.seed, attention_impl=cfg.attention_impl,
+        device=device)
+    return (mcfg, params, tokenizer, resolve_dataset(cfg, tokenizer),
+            resolve_rm_reward(cfg.reward_model_path))
+
+
+def build_trainer(cfg: RLConfig, *, device="cuda") -> RLTrainer:
+    """Model, data, reward and the `RLTrainer` over them, on `device`."""
+    mcfg, params, tokenizer, dataset, reward_func = _resolve_all(
+        cfg, _device(device, "build_trainer"))
+    return RLTrainer(cfg, mcfg, tokenizer, params, dataset, reward_func)
+
+
+def run(cfg: RLConfig, *, device="cuda", num_updates: int | None = None) -> dict:
+    """Build everything and train — the tail of every launcher. Returns the
+    trainer state ({episode, global_step, opt_steps, rollouts})."""
+    trainer = build_trainer(cfg, device=device)
+    try:
+        return trainer.train(num_updates)
+    finally:
+        trainer.close()
 
 
 def run_rollout(cfg: RLConfig, *, device="cuda", num_prompts: int | None = None,
@@ -106,18 +127,11 @@ def run_rollout(cfg: RLConfig, *, device="cuda", num_prompts: int | None = None,
     """Build model, data and reward from `cfg` and run one rollout-and-score
     (`trainer/rollout.py`) on `num_prompts` prompts (default: the config's
     batch size). Returns the rollout dict plus `mcfg` and `params`."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_rollout: device='cuda' but no CUDA device is "
-                           "available (pass device='cpu' to run on the CPU)")
+    device = _device(device, "run_rollout")
     if cfg.batch_size == 0:
         cfg.finalize(1)
-    mcfg, params, tokenizer = resolve_model(
-        cfg.sft_model_path, cfg.seed, attention_impl=cfg.attention_impl,
-        device=device)
-    dataset = resolve_dataset(cfg, tokenizer)
-    reward_func = resolve_rm_reward(cfg.reward_model_path)
-    policy, ref, lora_scale = build_policy(cfg, mcfg, params, device)
+    mcfg, params, tokenizer, dataset, reward_func = _resolve_all(cfg, device)
+    policy, ref, _, lora_scale = build_policy(cfg, mcfg, params)
     kl_free = not (cfg.score_ref_logprobs if cfg.score_ref_logprobs is not None
                    else cfg.kl_coef != 0.0)
     batch = num_prompts or cfg.batch_size
@@ -125,7 +139,8 @@ def run_rollout(cfg: RLConfig, *, device="cuda", num_prompts: int | None = None,
     out = rollout_and_score(
         policy, None if kl_free else ref, mcfg, cfg, tokenizer, queries,
         reward_func, rollout_generator(cfg.seed, rollout_index, device),
-        lora_scale, ctx_menu=shape_menu(dataset.input_ids.shape[1], min_value=16),
+        lora_scale, stream_generator(cfg.seed, KEEP_STREAM, rollout_index),
+        ctx_menu=shape_menu(dataset.input_ids.shape[1], min_value=16),
         timings=timings)
     out.update(mcfg=mcfg, params=policy, ref_params=ref, tokenizer=tokenizer,
                lora_scale=lora_scale)

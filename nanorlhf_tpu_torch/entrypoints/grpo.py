@@ -3,14 +3,14 @@
 `build_config` is the JAX launcher's config literal, field for field. The
 knobs that select paths not ported yet (sequence parallelism, the
 orchestrator and fleet, disaggregated rollouts, speculative decode,
-multi-turn environments) are accepted for parity and make `run_rollout`
-raise NotImplementedError.
+multi-turn environments) are accepted for parity and make `run` raise
+NotImplementedError.
 
-Run (one rollout-and-score on the card):
-    python -m nanorlhf_tpu_torch.entrypoints.grpo
+Run (one GRPO update on the card, with the batch cut of `one_card_cut`):
+    python -m nanorlhf_tpu_torch.entrypoints.grpo [--device cpu]
 """
 
-from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+from nanorlhf_tpu_torch.entrypoints.common import run
 from nanorlhf_tpu_torch.trainer.config import AlgoName, MeshConfig, RLConfig
 
 
@@ -92,9 +92,24 @@ def build_config(sequence_parallel: int = 1,
     return cfg
 
 
+def one_card_cut(cfg: RLConfig) -> RLConfig:
+    """The batch one card runs. The launcher's update (4 rows per
+    microbatch × 8 accumulation steps × 16 minibatches = 512 prompts × 4
+    samples at 1500 tokens) needs a KV cache of 2048 rows × 1510 slots,
+    which does not fit one card. Cut to 16 prompts × 4 samples: the
+    launcher's own microbatch of 4 rows, gradient_accumulation_steps=2 and
+    num_mini_batches=2, i.e. 2 optimizer steps of 2 microbatches each."""
+    cfg.gradient_accumulation_steps = 2
+    cfg.num_mini_batches = 2
+    return cfg
+
+
 if __name__ == "__main__":
-    # the launcher's full batch (512 prompts x 4 samples at 1500 tokens)
-    # does not fit one card's KV cache: a few prompts show the path
-    result = run_rollout(build_config(), num_prompts=4)
-    print(f"rollout: {result['responses'].shape[0]} responses, mean score "
-          f"{float(result['scores'].mean()):.4f}")
+    import argparse
+
+    ap = argparse.ArgumentParser(description="one GRPO update (one_card_cut)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    state = run(one_card_cut(build_config()), device=ap.parse_args().device,
+                num_updates=1)
+    print(f"trained: {state}")

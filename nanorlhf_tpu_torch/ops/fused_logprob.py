@@ -1,5 +1,5 @@
 """Fused hidden→logprob scoring — the port of
-`nanorlhf_tpu/ops/fused_logprob.py` (forward).
+`nanorlhf_tpu/ops/fused_logprob.py`.
 
 Per-token `log softmax(hidden @ W / T)[labels]` (+ entropy) without the
 [rows, V] logits tensor:
@@ -16,9 +16,16 @@ Per-token `log softmax(hidden @ W / T)[labels]` (+ entropy) without the
 the chunked path for CPU tensors; "pallas" → the kernel (a CPU tensor takes
 its plain version); "lax" → the chunked path. `with_margin` needs the
 chunked path (the kernel does not track top-2): on CUDA tensors it takes
-`impl="lax"` and raises otherwise. The
-backward (a chunked recompute in JAX) belongs to the training slice; a CUDA
-input that requires grad raises until then.
+`impl="lax"` and raises otherwise.
+
+Gradients (`_FusedLogprob`, the JAX `custom_vjp`): the backward is JAX's
+`_core_bwd`, which is no Pallas kernel but a scan that recomputes each
+chunk's logits and replays the naive VJP. Here it is `_chunked_backward`:
+per row chunk, z = h·W (torch.matmul, as XLA does it in JAX), then
+dz = g ⊙ (onehot(label) − softmax(z / T)) / T in f32, cast once to the
+logits' dtype; dh = dz·W and, only when the weight needs a gradient,
+dW += dzᵀ·h straight in the weight's own orientation ([V, D] when
+`transposed`), accumulated in f32. Entropy and margin carry no gradient.
 """
 
 from __future__ import annotations
@@ -117,10 +124,6 @@ def fused_logprob_kernel(hidden, unembed, labels, temperature: float = 1.0,
     labels [R] int. CUDA tensors only."""
     if not hidden.is_cuda:
         raise ValueError("fused_logprob_kernel runs on CUDA tensors only")
-    if hidden.requires_grad or unembed.requires_grad:
-        raise NotImplementedError(
-            "fused_logprob has no backward yet: its chunked-recompute "
-            "backward is ported by the training slice")
     R, D = hidden.shape
     V = unembed.shape[0] if transposed else unembed.shape[1]
     if (unembed.shape[1] if transposed else unembed.shape[0]) != D:
@@ -155,6 +158,63 @@ def fused_logprob_kernel(hidden, unembed, labels, temperature: float = 1.0,
     return lp, ent
 
 
+def _chunked_backward(hidden, unembed, labels, g, temperature, chunk: int,
+                      transposed: bool, need_dw: bool):
+    """(dh [R, D], dW or None) for cotangent g [R] of the logprobs: each
+    chunk's logits are recomputed, never saved."""
+    R = hidden.shape[0]
+    t = guard_temperature(temperature)
+    w = unembed.t() if transposed else unembed          # [D, V] view
+    dh = torch.empty_like(hidden)
+    dw = torch.zeros(unembed.shape, dtype=torch.float32,
+                     device=unembed.device) if need_dw else None
+    for i in range(0, R, chunk):
+        h_c = hidden[i:i + chunk]
+        z = h_c @ w
+        dz = torch.softmax(z.float() / t, dim=-1).neg_()
+        dz.scatter_add_(1, labels[i:i + chunk, None].long(),
+                        torch.ones_like(dz[:, :1]))
+        dz.mul_(g[i:i + chunk, None].float() / t)
+        dz = dz.to(z.dtype)
+        dh[i:i + chunk] = dz @ w.t()
+        if need_dw:
+            dw += (dz.t() @ h_c).float() if transposed else (h_c.t() @ dz).float()
+    return dh, (dw.to(unembed.dtype) if need_dw else None)
+
+
+class _FusedLogprob(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the chunked plain version (CPU), saving
+    only (hidden, unembed, labels). Backward: `_chunked_backward` for the
+    logprob cotangent; the entropy/margin outputs are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, hidden, unembed, labels, temperature, chunk, route,
+                with_entropy, with_margin, transposed):
+        if route == "kernel":
+            lp, ent = fused_logprob_kernel(hidden, unembed, labels, temperature,
+                                           with_entropy=with_entropy,
+                                           transposed=transposed)
+            outs = (lp,) if ent is None else (lp, ent)
+        else:
+            outs = fused_logprob_chunked(hidden, unembed, labels, temperature,
+                                         chunk, with_entropy, with_margin,
+                                         transposed)
+        ctx.save_for_backward(hidden, unembed, labels)
+        ctx.temperature, ctx.chunk, ctx.transposed = temperature, chunk, transposed
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_lp, *_stat_grads):
+        hidden, unembed, labels = ctx.saved_tensors
+        dh, dw = _chunked_backward(hidden, unembed, labels, g_lp,
+                                   ctx.temperature, ctx.chunk, ctx.transposed,
+                                   need_dw=ctx.needs_input_grad[1])
+        if not ctx.needs_input_grad[0]:
+            dh = None
+        return dh, dw, None, None, None, None, None, None, None
+
+
 def _resolve_impl(impl: str, with_margin: bool, is_cuda: bool) -> str:
     if impl not in ("auto", "lax", "pallas"):
         raise ValueError(f"fused_logprob impl={impl!r}: auto | lax | pallas")
@@ -184,18 +244,15 @@ def fused_logprob(hidden, unembed, labels, temperature: float = 1.0, *,
     R = int(np.prod(lead)) if lead else 1
     h2 = hidden.reshape(R, D)
     l2 = labels.reshape(R)
-    if _resolve_impl(impl, with_margin, hidden.is_cuda) == "kernel":
-        lp, ent = fused_logprob_kernel(h2.contiguous(), unembed, l2, temperature,
-                                       with_entropy=with_entropy,
-                                       transposed=transposed)
-        outs = (lp,) if ent is None else (lp, ent)
-    else:
-        if chunk is None:
-            chunk = fused_chunk_rows(V, R, dtype_bytes=hidden.element_size(),
-                                     bytes_budget=bytes_budget)
-        chunk = max(1, min(int(chunk), R))
-        outs = fused_logprob_chunked(h2, unembed, l2, temperature, chunk,
-                                     with_entropy, with_margin, transposed)
+    route = _resolve_impl(impl, with_margin, hidden.is_cuda)
+    if chunk is None:
+        chunk = fused_chunk_rows(V, R, dtype_bytes=hidden.element_size(),
+                                 bytes_budget=bytes_budget)
+    chunk = max(1, min(int(chunk), R))
+    if route == "kernel":
+        h2 = h2.contiguous()
+    outs = _FusedLogprob.apply(h2, unembed, l2, temperature, chunk, route,
+                               with_entropy, with_margin, transposed)
     outs = tuple(o.reshape(lead) for o in outs)
     if not with_entropy and not with_margin:
         return outs[0]

@@ -1,6 +1,6 @@
 """Sequence-masking / whitening / logprob numerics — the port of
-`nanorlhf_tpu/ops/masking.py` (the functions the rollout-and-score path
-and its tests use). Same semantics, torch tensors in and out.
+`nanorlhf_tpu/ops/masking.py` (the functions the GRPO rollout, scoring and
+update use). Same semantics, torch tensors in and out.
 """
 
 from __future__ import annotations
@@ -30,6 +30,25 @@ def first_true_indices(bools: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     idxs = torch.arange(row_len, dtype=torch.int64, device=bools.device)
     masked = torch.where(bools, idxs, torch.full_like(idxs, row_len))
     return masked.min(dim=-1).values.to(dtype)
+
+
+def truncate_response(stop_token_id: int, pad_token_id: int,
+                      responses: torch.Tensor) -> torch.Tensor:
+    """Replace everything *after* the first stop token with pad; the stop
+    token itself is kept (TRL's `truncate_response`)."""
+    trunc = first_true_indices(responses == stop_token_id, torch.int64)[..., None]
+    idxs = torch.arange(responses.shape[-1], device=responses.device)
+    return torch.where(idxs > trunc, torch.full_like(responses, pad_token_id),
+                       responses)
+
+
+def response_padding_masks(responses: torch.Tensor, sequence_lengths: torch.Tensor):
+    """(padding_mask, padding_mask_p1): True strictly after the last real
+    token `sequence_lengths` (logprobs/advantages), and strictly after the
+    one-past position (values/rewards)."""
+    idxs = torch.arange(responses.shape[-1], device=responses.device)
+    seq = sequence_lengths[..., None]
+    return idxs > seq, idxs > seq + 1
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor, axis=None) -> torch.Tensor:

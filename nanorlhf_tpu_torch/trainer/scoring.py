@@ -43,14 +43,15 @@ def pad_chunk(rows: np.ndarray, chunk: int) -> np.ndarray:
 
 def fused_response_logprobs(tree, mcfg, query_responses, responses, pad_id,
                             context_length: int, cfg, lora_scale: float = 1.0,
-                            with_entropy: bool = False):
+                            with_entropy: bool = False, remat: bool = False):
     """Response-position hidden states → per-token logprobs (+ entropy)
-    through the fused op, with the cfg's chunk/impl knobs. The tied
-    embedding goes in vocab-major ([V, D], transposed=True), never as a
-    transposed copy."""
+    through the fused op, with the cfg's chunk/impl knobs — shared by the
+    scoring pass and the update's microbatch loss, so their numerics cannot
+    drift apart. The tied embedding goes in vocab-major ([V, D],
+    transposed=True), never as a transposed copy."""
     hidden = padded_forward_hidden(
         tree, mcfg, query_responses, pad_id, lora_scale=lora_scale,
-        response_context_length=context_length,
+        response_context_length=context_length, remat=remat,
     )
     w, w_transposed = unembedding(mcfg, tree)
     return fused_logprob(

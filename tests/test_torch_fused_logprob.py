@@ -1,10 +1,12 @@
 """The fused hidden→logprob op's plain version (ops/fused_logprob.py — what
 the port runs for CPU tensors and holds the Hopper kernel against) against
 the JAX Pallas kernel in interpret mode, the JAX lax chunk scan and the
-full-logits oracle, in f32."""
+full-logits oracle, in f32; and its backward (the chunked recompute) against
+`jax.vjp` of the JAX op."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,3 +122,59 @@ def test_routing_never_swaps_the_kernel_for_a_cuda_tensor(impl, margin, is_cuda,
 def test_fused_chunk_rows_matches_jax(V, rows, dtype_bytes):
     assert tf.fused_chunk_rows(V, rows, dtype_bytes) == jf.fused_chunk_rows(
         V, rows, dtype_bytes)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("temp", [1.0, 0.7])
+@pytest.mark.parametrize("with_entropy", [False, True])
+def test_backward_matches_jax_vjp(transposed, temp, with_entropy, rng):
+    """dh [R, D] and dW (in the weight's own orientation) of the chunked
+    recompute vs `jax.vjp` of the JAX op's lax path, on 37 rows in chunks
+    of 8 (a ragged last chunk of 5). The entropy output carries no
+    gradient in either package."""
+    R, D, V = 37, 16, 300
+    h, w, labels = _inputs(rng, R, D, V, transposed)
+    g = rng.standard_normal(R).astype(np.float32)
+    th = torch.as_tensor(h).requires_grad_()
+    tw = torch.as_tensor(w).requires_grad_()
+    out = tf.fused_logprob(th, tw, torch.as_tensor(labels), temp, chunk=8,
+                           with_entropy=with_entropy, transposed=transposed)
+    lp = out[0] if with_entropy else out
+    dh, dw = torch.autograd.grad(lp, (th, tw), torch.as_tensor(g))
+
+    def f(h_, w_):
+        o = jf.fused_logprob(h_, w_, jnp.asarray(labels), temp, chunk=8, impl="lax",
+                             with_entropy=with_entropy, transposed=transposed)
+        return o[0] if with_entropy else o
+
+    _, vjp = jax.vjp(f, jnp.asarray(h), jnp.asarray(w))
+    jdh, jdw = vjp(jnp.asarray(g))
+    assert tuple(dw.shape) == w.shape
+    np.testing.assert_allclose(dh.numpy(), np.asarray(jdh), atol=ATOL, rtol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), atol=ATOL, rtol=1e-5)
+
+
+def test_backward_skips_dw_for_a_frozen_weight(rng, monkeypatch):
+    """With a weight that needs no gradient only dh is computed, and it is
+    the same dh."""
+    h, w, labels = _inputs(rng, 20, 16, 100, True)
+    th = torch.as_tensor(h).requires_grad_()
+    lab = torch.as_tensor(labels)
+    frozen = torch.autograd.grad(
+        tf.fused_logprob(th, torch.as_tensor(w), lab, 0.9, chunk=6, transposed=True).sum(),
+        th)[0]
+    tw = torch.as_tensor(w).requires_grad_()
+    both = torch.autograd.grad(
+        tf.fused_logprob(th, tw, lab, 0.9, chunk=6, transposed=True).sum(), (th, tw))
+    torch.testing.assert_close(frozen, both[0], atol=0, rtol=0)
+    calls = []
+    real = tf._chunked_backward
+
+    def spy(*args, need_dw, **kw):
+        calls.append(need_dw)
+        return real(*args, need_dw=need_dw, **kw)
+
+    monkeypatch.setattr(tf, "_chunked_backward", spy)
+    torch.autograd.grad(tf.fused_logprob(th, torch.as_tensor(w), lab, 0.9,
+                                         transposed=True).sum(), th)
+    assert calls == [False]

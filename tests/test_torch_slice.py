@@ -1,7 +1,8 @@
 """The whole rollout-and-score slice of the port against the JAX package on
 the tiny f32 model (greedy tokens identical; rewards, advantages and the
-policy/ref logprobs within 1e-5), plus the port's import hygiene: no JAX,
-nothing of nanorlhf_tpu, and no kernel launch for CPU tensors."""
+policy/ref logprobs of the kept rows within 1e-5), plus the port's import
+hygiene: no JAX, nothing of nanorlhf_tpu, and no kernel launch for CPU
+tensors."""
 
 import dataclasses
 import os
@@ -32,7 +33,7 @@ from nanorlhf_tpu_torch.entrypoints.grpo import build_config
 from nanorlhf_tpu_torch.sampler.sampler import SamplingParams
 from nanorlhf_tpu_torch.trainer import bucketing
 from nanorlhf_tpu_torch.trainer.rollout import (
-    check_supported, rollout_and_score, rollout_generator)
+    KEEP_STREAM, check_supported, rollout_and_score, rollout_generator, stream_generator)
 
 torch.set_num_threads(1)
 
@@ -66,7 +67,9 @@ def _take(it, n):
 
 def test_rollout_and_score_matches_jax():
     """depad → greedy generate (n=4, shared prefill) → rule reward → GRPO
-    advantage → fused policy (LoRA) and ref scoring, both stacks."""
+    advantage → keep 1 of N → fused policy (LoRA) and ref scoring of the
+    kept rows, both stacks (the JAX side keeps the port's draw: the two
+    generators give other bits)."""
     jcfg = jax_config("qwen_tied", vocab_size=4096)
     mcfg = port_config(jcfg)
     jparams, tparams = make_params(jcfg, seed=21)
@@ -83,7 +86,8 @@ def test_rollout_and_score_matches_jax():
     out = rollout_and_score(
         tparams, {k: v for k, v in tparams.items() if k != "lora"}, mcfg, cfg, tok,
         queries, common.resolve_rm_reward(cfg.reward_model_path),
-        rollout_generator(cfg.seed, 0, "cpu"), LORA.scale, ctx_menu=menu,
+        rollout_generator(cfg.seed, 0, "cpu"), LORA.scale,
+        stream_generator(cfg.seed, KEEP_STREAM, 0), ctx_menu=menu,
         sampling=SamplingParams(**greedy))
 
     # the same path through the JAX package, step by step
@@ -97,7 +101,11 @@ def test_rollout_and_score_matches_jax():
                                    jtok.batch_decode(responses))]
     scores = jax_common.resolve_rm_reward(jrl.reward_model_path)(texts, jtok.eos_token)
     adv = np.asarray(jax_group_advantage(jnp.asarray(scores), n))
-    qr = jnp.asarray(np.concatenate([np.repeat(jq, n, axis=0), responses], axis=1))
+    keep, rows = out["keep"], np.arange(jq.shape[0])
+    assert keep.shape == (jq.shape[0],) and ((keep >= 0) & (keep < n)).all()
+    adv = adv.reshape(-1, n)[rows, keep]
+    responses = responses.reshape(jq.shape[0], n, -1)[rows, keep]
+    qr = jnp.asarray(np.concatenate([jq, responses], axis=1))
     ctx = jq.shape[1]
     lp = jax_fused_scores(jparams, jcfg, qr, qr[:, ctx:], pad, ctx, jrl,
                           lora_scale=LORA.scale)
@@ -143,8 +151,9 @@ def test_run_rollout_tiny_cpu():
     cfg.response_length = 5
     timings = {}
     out = common.run_rollout(cfg, device="cpu", num_prompts=2, timings=timings)
-    assert out["responses"].shape == (2 * cfg.sample_n, 5)
-    assert out["logprobs"].shape == out["ref_logprobs"].shape == (8, 5)
+    # one kept sample per prompt is scored; every sample has a score
+    assert out["responses"].shape == (2, 5) and out["scores"].shape == (2 * cfg.sample_n,)
+    assert out["logprobs"].shape == out["ref_logprobs"].shape == (2, 5)
     assert np.isfinite(out["logprobs"]).all() and (out["logprobs"] <= 0).all()
     # LoRA B starts at zero: the policy equals the ref
     np.testing.assert_array_equal(out["logprobs"], out["ref_logprobs"])
