@@ -11,10 +11,15 @@ Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
      nvcc per source, all at once) and load them;
   2. kernel checks — each kernel against its plain PyTorch version on the
-     card, in bf16, at the shapes the rollout and the update give it, with
-     the stated tolerance; then the kernel's time, its plain version's time,
-     one library call's time as a yardstick, and the bound (the least time
-     the card could take: bytes / 3.35 TB/s or flops / 989 TFLOP/s);
+     card, in bf16 (int8 for the int8 cache), at the shapes the rollout and
+     the update give it, with the stated tolerance; the paged kernels (K7,
+     K8) on pages scattered through a pool with spare pages and a sentinel
+     block, each equal bit for bit to its contiguous twin (K4, K5) on the
+     same logical cache; then the kernel's time, its plain version's time,
+     one library call's time as a yardstick (for the paged and int8 cache,
+     where no single call exists: SDPA over a pre-gathered / pre-dequantized
+     view, "not one call"), and the bound (the least time the card could
+     take: bytes / 3.35 TB/s or flops / 989 TFLOP/s);
   3. rollout and score — the rollout-and-score half of one GRPO update
      through the launcher's own config (`entrypoints/grpo.build_config`) at
      the full Qwen2.5-1.5B width (random weights from the seed), 4 synthetic
@@ -34,7 +39,23 @@ Phases (any failure exits non-zero):
      (new vs old logprobs from the same kernels) small, the checkpoint
      written and reloading to the same tensors; and, on a small input, the
      LoRA gradients through the kernels no less accurate than the plain
-     bf16 route against the plain route in f32.
+     bf16 route against the plain route in f32. Phases 3 and 4 run
+     responses of at most 512 tokens (a cut, printed), so that the whole
+     script stays within half its time limit;
+  5. one GRPO update over continuous batching — the same, with
+     rollout_page_size=128 and rollout_decode_rows=32 (32 of the 64 rows
+     resident, the rest admitted mid-loop into recycled pages), at the full
+     response length: K7 launched once per layer and executed decode step,
+     K4 never, one flash forward per layer for the bootstrap prefill and
+     each admission; the pool statistics and metrics rows; then, at full
+     width on the 2-layer model, a queue whose rows stop at staggered
+     lengths: the queued greedy rows against the contiguous ones, in fewer
+     decode iterations than the fixed-batch schedule;
+  6. the int8 KV cache — `run_rollout` with kv_cache_quant="int8",
+     contiguous (K5) and paged + queued (K8), 4 prompts × 4 samples of at
+     most 512 tokens (a cut), with their launch counts, decode ms per step
+     and cache bytes per row; on the 2-layer input, the int8 routes' decode
+     logits against the exact route in f32 beside the exact bf16 route's.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -290,6 +311,204 @@ def check_decode(torch, F, prompt_width: int, resp: int) -> dict:
     bms, by = bound_ms(nbytes, flops)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                 max_abs_err=err, shape=f"B={B} H={H} KV={KV} T_max={T} hd={hd}")
+
+
+def _scattered_table(torch, gen, B: int, nb: int, spare: int = 7):
+    """A block table [B, nb] int32 of distinct pages scattered through a
+    pool of N = B·nb + spare pages; row 0's last block is the sentinel N
+    (unallocated) when rows have more than one block. Returns (table, N)."""
+    N = B * nb + spare
+    table = torch.randperm(N, generator=gen, device="cuda")[:B * nb].reshape(B, nb)
+    if nb > 1:
+        table[0, -1] = N
+    return table.int(), N
+
+
+def _scatter(torch, logical, table, N: int, P: int):
+    """The pool [N, KV, P, ...] holding the logical cache [B, KV, nb·P, ...]
+    at the table's pages (sentinel blocks left out)."""
+    B, KV, T = logical.shape[:3]
+    nb = T // P
+    pool = torch.zeros((N, KV, P) + tuple(logical.shape[3:]), dtype=logical.dtype,
+                       device="cuda")
+    blocks = logical.reshape(B, KV, nb, P, *logical.shape[3:]).transpose(1, 2)
+    live = table.long() < N
+    pool[table.long()[live]] = blocks[live]
+    return pool
+
+
+def _paged_case(torch, gen, B, H, KV, hd, P, T_need, pad_max):
+    """Inputs of one paged decode check: q, the logical K/V [B, KV, nb·P,
+    hd] (bf16), their int8 copies, each laid out contiguously and through a
+    scattered pool, and mixed [start, filled) bounds below row 0's sentinel
+    block, with a row whose window is empty (filled == start)."""
+    from nanorlhf_tpu_torch.core.model import quantize_kv
+
+    nb = -(-T_need // P)
+    T = nb * P
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    start = torch.randint(0, max(1, pad_max), (B,), generator=gen, device="cuda")
+    filled = torch.randint(1, T_need + 1, (B,), generator=gen, device="cuda")
+    filled = torch.maximum(filled, start + 1)
+    if nb > 1:  # row 0 stays below its sentinel last block
+        filled[0] = min(int(filled[0]), (nb - 1) * P)
+        start[0] = min(int(start[0]), int(filled[0]) - 1)
+    filled[1] = T_need                    # a full row
+    empty = B - 1
+    filled[empty] = start[empty]          # an empty window: zeros
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    table, N = _scattered_table(torch, gen, B, nb)
+    c = dict(q=q, k=k, v=v, kq=kq, ks=ks, vq=vq, vs=vs, table=table,
+             start=start.int(), filled=filled.int(), empty=empty, nb=nb, T=T, N=N)
+    _pools(torch, c, P)
+    return c
+
+
+def _pools(torch, c, P: int) -> None:
+    """Lay case `c`'s logical caches out through its table."""
+    c["kp"], c["vp"] = (_scatter(torch, c[n], c["table"], c["N"], P) for n in "kv")
+    c["q8_pools"] = [_scatter(torch, c[n], c["table"], c["N"], P)
+                     for n in ("kq", "ks", "vq", "vs")]
+
+
+def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
+    """K7 (paged bf16), K5 (int8) and K8 (paged int8) at the rollout's
+    decode shape — 32 resident rows, H=12, KV=2, hd=128, T_max = prompt
+    width + response, page size 128 — with the pages scattered through a
+    pool with spare pages and row 0's last block a sentinel. Each is held
+    against its plain version evaluated in f32 on the same bf16 / int8
+    inputs (tolerance 2e-2: f32 inside, the bf16 output rounds by up to one
+    ulp of |out| < 4); K7 must equal K4 bit for bit on the same logical
+    cache laid out contiguously, and K8 must equal K5. Then edge shapes:
+    page sizes 16 and 48 (not a multiple of 32), hd 64, GQA groups 4 and 7,
+    page sizes not dividing T_max; every case has a row with an empty
+    window, which must come out zeros."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    tol = 2e-2
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    T_need = prompt_width + resp
+
+    def run_case(B, H, KV, hd, P, label):
+        c = _paged_case(torch, gen, B, H, KV, hd, P, T_need, prompt_width)
+        q, start, filled, table = c["q"], c["start"], c["filled"], c["table"]
+        rows = torch.ones(B, dtype=torch.bool, device="cuda")
+        rows[c["empty"]] = False
+        k7 = da.paged_decode_attention(q, c["kp"], c["vp"], table, start, filled)
+        k4 = da.decode_attention(q, c["k"], c["v"], start, filled)
+        k5 = da.decode_attention_q8(q, c["kq"], c["ks"], c["vq"], c["vs"], start, filled)
+        k8 = da.paged_decode_attention_q8(q, *c["q8_pools"], table, start, filled)
+        torch.cuda.synchronize()
+        want = da.reference_paged_decode_attention(
+            q.float(), c["kp"].float(), c["vp"].float(), table, start, filled)
+        want8 = da.reference_decode_attention_q8(
+            q.float(), c["kq"], c["ks"], c["vq"], c["vs"], start, filled)
+        e7 = hold(torch, f"{label} paged_decode_attention P={P}", [(
+            "out", k7, want,
+            da.reference_paged_decode_attention(q, c["kp"], c["vp"], table, start, filled),
+            rows)], tol)
+        e5 = hold(torch, f"{label} decode_attention_q8", [(
+            "out", k5, want8,
+            da.reference_decode_attention_q8(q, c["kq"], c["ks"], c["vq"], c["vs"],
+                                             start, filled), rows)], tol)
+        e8 = hold(torch, f"{label} paged_decode_attention_q8 P={P}", [(
+            "out", k8, want8,
+            da.reference_paged_decode_attention_q8(q, *c["q8_pools"], table, start,
+                                                   filled), rows)], tol)
+        d74 = float((k7.float() - k4.float()).abs().max())
+        d85 = float((k8.float() - k5.float()).abs().max())
+        log(f"  {label} P={P}: max|K7 - K4| on the same logical cache {d74:.3e}, "
+            f"max|K8 - K5| {d85:.3e}")
+        if not (torch.equal(k7, k4) and torch.equal(k8, k5)):
+            fail(f"{label}: the paged kernels differ from the contiguous ones "
+                 "on the same logical cache")
+        for name, out in (("K7", k7), ("K5", k5), ("K8", k8)):
+            if out[c["empty"]].float().abs().max() != 0:
+                fail(f"{label} {name}: a row with an empty window must return zeros")
+        return c, (e7, e5, e8)
+
+    B, H, KV, hd, P = 32, 12, 2, 128, 128
+    c, (e7, e5, e8) = run_case(B, H, KV, hd, P, "rollout shape")
+    for (eB, eH, eKV, ehd, eP) in ((4, 12, 2, 128, 16), (4, 12, 2, 128, 48),
+                                  (3, 32, 8, 64, 48), (3, 14, 2, 64, 16)):
+        run_case(eB, eH, eKV, ehd, eP, f"edge B={eB} H={eH} KV={eKV} hd={ehd}")
+
+    # timings at the rollout shape: 4 distinct pools (> L2, as 28 layers are)
+    q, start, filled, table = c["q"], c["start"], c["filled"], c["table"]
+    sets = [c] + [_paged_case(torch, gen, B, H, KV, hd, P, T_need, prompt_width)
+                  for _ in range(3)]
+    for extra in sets[1:]:  # the same bounds and table layout as the first
+        extra.update(table=table, start=start, filled=filled, N=c["N"])
+        _pools(torch, extra, P)
+    it = iter(range(10**9))
+
+    def rot():
+        return sets[next(it) % 4]
+
+    ms7 = time_ms(torch, lambda: (lambda s: da.paged_decode_attention(
+        q, s["kp"], s["vp"], table, start, filled))(rot()), 40)
+    ms4 = time_ms(torch, lambda: (lambda s: da.decode_attention(
+        q, s["k"], s["v"], start, filled))(rot()), 40)
+    log(f"  K4 on the same logical caches laid out contiguously (B={B}): "
+        f"{ms4:.4f} ms; K7 through the pages {ms7:.4f} ms")
+    ms5 = time_ms(torch, lambda: (lambda s: da.decode_attention_q8(
+        q, s["kq"], s["ks"], s["vq"], s["vs"], start, filled))(rot()), 40)
+    ms8 = time_ms(torch, lambda: (lambda s: da.paged_decode_attention_q8(
+        q, *s["q8_pools"], table, start, filled))(rot()), 40)
+    plain7 = time_ms(torch, lambda: da.reference_paged_decode_attention(
+        q, c["kp"], c["vp"], table, start, filled), 10)
+    plain5 = time_ms(torch, lambda: da.reference_decode_attention_q8(
+        q, c["kq"], c["ks"], c["vq"], c["vs"], start, filled), 10)
+    plain8 = time_ms(torch, lambda: da.reference_paged_decode_attention_q8(
+        q, *c["q8_pools"], table, start, filled), 10)
+    # the yardstick: no single PyTorch call reads a paged or an int8 cache;
+    # SDPA over a pre-gathered (and for int8 pre-dequantized) contiguous
+    # view — "not one call" — with the gather / dequantize timed beside it
+    T = c["T"]
+    pos = torch.arange(T, device="cuda")[None, :]
+    mask = ((pos >= start[:, None]) & (pos < filled[:, None]))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    kg = da._gather_pool(c["kp"], table)
+    vg = da._gather_pool(c["vp"], table)
+    kd = da.dequantize_kv(c["kq"], c["ks"], torch.bfloat16)
+    vd = da.dequantize_kv(c["vq"], c["vs"], torch.bfloat16)
+    sdpa = lambda kk, vv: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kk, vv, attn_mask=mask, enable_gqa=True)
+    lib7 = time_ms(torch, lambda: sdpa(kg, vg), 20)
+    lib5 = time_ms(torch, lambda: sdpa(kd, vd), 20)
+    gather_ms = time_ms(torch, lambda: (da._gather_pool(c["kp"], table),
+                                        da._gather_pool(c["vp"], table)), 10)
+    deq_ms = time_ms(torch, lambda: (da.dequantize_kv(c["kq"], c["ks"], torch.bfloat16),
+                                     da.dequantize_kv(c["vq"], c["vs"], torch.bfloat16)), 10)
+    gdeq_ms = time_ms(torch, lambda: [da.dequantize_kv(
+        da._gather_pool(c["q8_pools"][i], table), da._gather_pool(c["q8_pools"][i + 1], table),
+        torch.bfloat16) for i in (0, 2)], 10)
+    log(f"  library yardsticks (not one call): SDPA over the pre-gathered view "
+        f"{lib7:.4f} ms + gather {gather_ms:.4f} ms; SDPA over the pre-dequantized "
+        f"view {lib5:.4f} ms + dequantize {deq_ms:.4f} ms (gather + dequantize "
+        f"{gdeq_ms:.4f} ms for the paged int8 cache)")
+    live = torch.arange(B, device="cuda") != c["empty"]
+    n_valid = float((filled - start)[live].sum())
+    io = 2 * 2 * q.numel() + 8 * B        # q in, out back, start/filled
+    flops = 4.0 * n_valid * H * hd
+    b7 = bound_ms(2 * (2 * n_valid * KV * hd) + 4 * table.numel() + io, flops)
+    b5 = bound_ms(2 * (n_valid * KV * hd + 2 * n_valid * KV) + io, flops)
+    b8 = bound_ms(2 * (n_valid * KV * hd + 2 * n_valid * KV) + 4 * table.numel() + io,
+                  flops)
+    shape = f"B={B} H={H} KV={KV} T_max={T_need} hd={hd}"
+    return {
+        "paged_decode_attention": dict(
+            ms=ms7, plain_ms=plain7, library_ms=lib7, bound_ms=b7[0], bound_by=b7[1],
+            max_abs_err=e7, shape=f"{shape} P={P}, pool of {c['N']} pages"),
+        "decode_attention_q8": dict(
+            ms=ms5, plain_ms=plain5, library_ms=lib5, bound_ms=b5[0], bound_by=b5[1],
+            max_abs_err=e5, shape=f"{shape}, int8 + bf16 scales"),
+        "paged_decode_attention_q8": dict(
+            ms=ms8, plain_ms=plain8, library_ms=lib5, bound_ms=b8[0], bound_by=b8[1],
+            max_abs_err=e8, shape=f"{shape} P={P}, int8 pools"),
+    }
 
 
 def check_fused(torch, resp: int) -> dict:
@@ -667,8 +886,15 @@ def train_update(torch, max_tokens: int) -> dict:
     for name, want in expected.items():
         if upd[name] != want:
             fail(f"update half: kernel {name} launched {upd[name]} times, expected {want}")
+    # the contiguous exact cache: every kernel but the paged and int8
+    # decode kernels (phases 5 and 6 run those)
+    other_paths = ("paged_decode_attention", "decode_attention_q8",
+                   "paged_decode_attention_q8")
     for name in _build.KERNELS:
-        if counts[name] <= 0:
+        if name in other_paths:
+            if counts[name] != 0:
+                fail(f"kernel {name} ran on the contiguous exact path")
+        elif counts[name] <= 0:
             fail(f"kernel {name} was never launched in the GRPO update")
 
     loss, gnorm = metrics["loss/policy_avg_new"], metrics["policy/grad_norm_new"]
@@ -722,6 +948,376 @@ def train_update(torch, max_tokens: int) -> dict:
     trainer.close()
     shutil.rmtree(cfg.output_dir, ignore_errors=True)
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 5: one GRPO update over continuous batching (the paged KV cache)
+# --------------------------------------------------------------------------
+
+def paged_update(torch, max_tokens: int) -> dict:
+    """`one_card_cut(build_config())` with rollout_page_size=128 and
+    rollout_decode_rows=32 through `build_trainer`/`train(1)`: 16 prompts ×
+    4 samples = 64 rows, 32 resident, the other 32 admitted mid-loop as
+    rows finish. Checks the launch counts (K7 once per layer and executed
+    decode step, K4 never, one flash forward per layer for the batched
+    bootstrap and for each single-row admission), the pool statistics, the
+    metrics rows, the update (finite loss and grad norm, LoRA moved, ref
+    not) and the checkpoint; prints the phase timings and peak memory."""
+    import json as _json
+    import os
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    cfg = one_card_cut(build_config())
+    cfg.rollout_page_size, cfg.rollout_decode_rows = 128, 32
+    if max_tokens != cfg.response_length:
+        log(f"CUT: response_length {cfg.response_length} -> {max_tokens}")
+        cfg.response_length = max_tokens
+    cfg.output_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "output", "chip_smoke_paged")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    trainer = build_trainer(cfg, device="cuda")
+    rows = cfg.batch_size * cfg.sample_n
+    log(f"  {cfg.batch_size} prompts x {cfg.sample_n} samples = {rows} rows, "
+        f"{cfg.rollout_decode_rows} resident, page size {cfg.rollout_page_size}")
+    policy = flatten(trainer.params)
+    trained = set(flatten(trainer.trainable))
+    before = {p: t.detach().clone() for p, t in policy.items()}
+    ref_before = {p: t.clone() for p, t in flatten(trainer.ref_params).items()}
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.train(num_updates=1)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches, t, pages = trainer.last_launches, trainer.last_timings, trainer.pages_status
+    L = trainer.mcfg.num_hidden_layers
+    iters = int(pages["decode_iterations"])
+    admitted = int(pages["admitted_midloop"])
+    log(f"  launches: whole update {counts}; generate {launches['generate']}; "
+        f"score {launches['score']}; update half {launches['update']}")
+    log(f"  pages: {pages}; session counters {trainer.session_status['counters']}")
+    gen_expected = {"paged_decode_attention": L * iters, "decode_attention": 0,
+                    "flash_fwd": L * (1 + admitted), "decode_attention_q8": 0,
+                    "paged_decode_attention_q8": 0}
+    n_micro = state["opt_steps"] * cfg.gradient_accumulation_steps
+    upd_expected = {"flash_fwd": 2 * L * n_micro, "flash_bwd_dq": L * n_micro,
+                    "flash_bwd_dkv": L * n_micro, "fused_logprob": n_micro}
+    for half, expected in (("generate", gen_expected), ("update", upd_expected)):
+        for name, want in expected.items():
+            if launches[half][name] != want:
+                fail(f"paged update, {half}: kernel {name} launched "
+                     f"{launches[half][name]} times, expected {want}")
+    if counts["decode_attention"] != 0 or counts["paged_decode_attention"] <= 0:
+        fail("paged update: K4 ran or K7 did not")
+    if admitted != rows - cfg.rollout_decode_rows:
+        fail(f"admitted_midloop {admitted}, expected {rows - cfg.rollout_decode_rows}")
+    if not pages["pages_recycled"] > 0 or not 0 < pages["page_utilization"] <= 1:
+        fail(f"paged stats inconsistent: {pages}")
+    metrics = trainer.logger.latest()
+    with open(os.path.join(cfg.output_dir, "metrics.jsonl")) as fh:
+        row = _json.loads(fh.readlines()[-1])
+    missing = [k for k in ("rollout/page_utilization", "rollout/pages_recycled",
+                           "rollout/admitted_midloop", "session/dispatch_events")
+               if k not in row]
+    if missing:
+        fail(f"metrics.jsonl lacks {missing}")
+    loss, gnorm = metrics["loss/policy_avg_new"], metrics["policy/grad_norm_new"]
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or gnorm <= 0:
+        fail("paged update: loss / grad norm not finite, or a zero gradient")
+    after = flatten(trainer.params)
+    moved_b = [p for p in trained if p[-1] == "b"
+               and not torch.equal(after[p].detach(), before[p])]
+    ref_moved = [p for p, v in flatten(trainer.ref_params).items()
+                 if not torch.equal(v, ref_before[p])]
+    if not moved_b or ref_moved:
+        fail(f"paged update: LoRA B moved {len(moved_b)}, ref moved {ref_moved[:3]}")
+    if trainer.ckpt.latest_step() != state["global_step"]:
+        fail("paged update: no checkpoint written")
+    n_steps = state["opt_steps"]
+    log(f"  rollout_s={t['generate_s']:.3f} (prefill+admissions {t['prefill_s']:.3f} s "
+        f"for 1 batched prefill + {t['admissions']} single-row admissions; decode "
+        f"{t['decode_s']:.3f} s, {iters} iterations, "
+        f"{t['decode_s'] / max(iters, 1) * 1e3:.3f} ms/step) "
+        f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
+        f"({t['update_s'] / n_steps:.3f} s/step, "
+        f"{metrics['perf/tokens_per_sec_update']:.2f} update tokens/s) "
+        f"checkpoint_write_s={trainer.last_save_s:.3f} peak_mem_gb={peak / 1e9:.2f}")
+    log(f"  update: loss {loss:.6e}, grad_norm {gnorm:.6e}, {len(moved_b)} LoRA B "
+        f"leaves moved, ref unchanged; page_utilization "
+        f"{row['rollout/page_utilization']:.4f}, pages_recycled "
+        f"{row['rollout/pages_recycled']:.0f}, admitted_midloop "
+        f"{row['rollout/admitted_midloop']:.0f}")
+    trainer.close()
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    return counts
+
+
+def _small_model(torch, mcfg, seed: int, **over):
+    """The 2-layer, full-width, well-scaled model of `small_reference`
+    (projections N(0, 1/fan_in) instead of the demo init's N(0, 1/L)):
+    (config, params)."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core import model as tm
+
+    small = dataclasses.replace(mcfg, num_hidden_layers=2, attention_impl="auto", **over)
+    params = tm.init_params(small, seed=seed, device="cuda")
+    for entry in params["layers"].values():
+        if isinstance(entry, dict):
+            entry["kernel"].mul_(math.sqrt(2 / entry["kernel"].shape[-1]))
+    return small, params
+
+
+def _row_lengths(tokens, eos: int, max_tokens: int) -> list[int]:
+    """Generated length of each row (its stop token included)."""
+    out = []
+    for row in tokens:
+        hits = (row == eos).nonzero()[0]
+        out.append(int(hits[0]) + 1 if hits.size else max_tokens)
+    return out
+
+
+def _fixed_schedule(lengths, rows: int) -> int:
+    """Decode iterations of the fixed-batch schedule: waves of `rows`, each
+    running until its longest row is done."""
+    return sum(max(lengths[i:i + rows]) - 1 for i in range(0, len(lengths), rows))
+
+
+def _queued_schedule(lengths, rows: int, sync_every: int = 8) -> int:
+    """Decode iterations the queued scheduler takes for rows of these
+    lengths (queue order): `rows` resident, finished rows replaced at each
+    sync (every `sync_every` iterations, or as soon as all are done)."""
+    left = [n - 1 for n in lengths[:rows]]
+    nxt, it = rows, 0
+    while True:
+        for _ in range(sync_every):
+            if all(n <= 0 for n in left):
+                break
+            left = [n - 1 for n in left]
+            it += 1
+        for r in range(len(left)):
+            if left[r] <= 0 and nxt < len(lengths):
+                left[r], nxt = lengths[nxt] - 1, nxt + 1
+            elif left[r] <= 0:
+                left[r] = -10**9  # empty
+        if nxt >= len(lengths) and all(n <= 0 for n in left):
+            return it
+
+
+def staggered_queue(torch, mcfg, queries, pad_id: int) -> None:
+    """Continuous batching with rows of staggered lengths, at full width on
+    the 2-layer model (the demo model never samples its EOS, so in phase 5
+    every row runs to the end and admissions cannot save anything).
+
+    The queue: one prompt's greedy continuation (no stop token, 96 tokens)
+    cut at 16 depths (0, 4, ..., 60 tokens appended to the prompt), so the
+    rows continue one text from different points and share its tokens at
+    shifted positions (greedy rows of unrelated prompts share almost none).
+    A first contiguous greedy pass over the queue without a stop token
+    gives each row's tokens; the stop token is the one whose first
+    occurrences give the largest gain of the scheduler's own schedule
+    (`_queued_schedule`) over the fixed batch (`_fixed_schedule`). Then the
+    queued greedy rows (4 resident of 16) are held against the contiguous
+    greedy rows token for token, and the scheduler must finish in fewer
+    decode iterations than the fixed-batch schedule of its own rows'
+    lengths. Where a row differs, the monolithic paged route (the same
+    batch as the contiguous one) must equal it token for token, and the
+    first differing position of the queued row and the contiguous route's
+    top-2 logit margin there are printed."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    small, params = _small_model(torch, mcfg, seed=11)
+    M, R, P, depth = 96, 4, 16, 4
+
+    def run(ids, eos, **sp):
+        stats = []
+        out = generate(params, small, ids, ids != pad_id,
+                       torch.Generator(device="cuda").manual_seed(0),
+                       SamplingParams(greedy=True, max_tokens=M, **sp),
+                       eos_token_id=eos, pad_token_id=pad_id, paged_stats_out=stats)
+        torch.cuda.synchronize()
+        return out, (stats[0] if stats else None)
+
+    base = torch.as_tensor(queries[0], device="cuda").long()
+    base = base[base != pad_id]
+    text = run(base[None], -1)[0][0]
+    rows = [torch.cat([base, text[:depth * i]]) for i in range(16)]
+    q = torch.full((16, max(len(r) for r in rows)), pad_id, dtype=torch.long,
+                   device="cuda")
+    for i, r in enumerate(rows):
+        q[i, q.shape[1] - len(r):] = r
+    free = run(q, -1)[0].cpu().numpy()
+
+    def gain(t):
+        lengths = _row_lengths(free, t, M)
+        return _fixed_schedule(lengths, R) - _queued_schedule(lengths, R)
+
+    eos = max(sorted(set(free.ravel().tolist()) - {pad_id}), key=gain)
+    contiguous, _ = run(q, eos)
+    _build.reset_launch_counts()
+    queued, st = run(q, eos, page_size=P, decode_rows=R)
+    counts = _build.launch_counts()
+    lengths = _row_lengths(queued.cpu().numpy(), eos, M)
+    fixed = _fixed_schedule(lengths, R)
+    log(f"  staggered queue (2 layers, full width, 16 rows: one prompt's greedy "
+        f"text cut at depths 0..{depth * 15}, {R} resident, P={P}, stop token "
+        f"{eos}: of the first greedy pass's tokens, the one with the largest "
+        f"predicted gain {gain(eos)}): lengths {lengths}; decode "
+        f"iterations {st['decode_iterations']} (predicted "
+        f"{_queued_schedule(lengths, R)}) vs fixed-batch {fixed}; admitted_midloop "
+        f"{st['admitted_midloop']}, pages_recycled {st['pages_recycled']}, "
+        f"launches {counts}")
+    if not st["decode_iterations"] < fixed:
+        fail("continuous batching did not beat the fixed-batch schedule")
+    if st["admitted_midloop"] != 16 - R or counts["decode_attention"] != 0 \
+            or counts["paged_decode_attention"] != small.num_hidden_layers * st["decode_iterations"]:
+        fail(f"staggered queue: stats or launch counts off ({st}, {counts})")
+    same = (queued == contiguous).all(dim=1)
+    log(f"  queued rows equal to the contiguous greedy rows: {int(same.sum())}/16")
+    if not bool(same.all()):
+        mono, _ = run(q, eos, page_size=P)
+        if not torch.equal(mono, contiguous):
+            fail("the monolithic paged route differs from the contiguous one")
+        log("  monolithic paged route (same batch) equals the contiguous route "
+            "token for token")
+        for r in (~same).nonzero()[:, 0].tolist():
+            pos = int((queued[r] != contiguous[r]).nonzero()[0])
+            seq = torch.cat([q[r], contiguous[r, :pos]])[None]
+            logits = tm.padded_forward_logits(params, small, seq, pad_id)[0, -1].float()
+            top2 = logits.topk(2).values
+            log(f"    row {r}: first difference at token {pos}, contiguous top-2 "
+                f"logit margin there {float(top2[0] - top2[1]):.4e}")
+        # the queued rows still keep the output contract
+        for row in queued.cpu().numpy():
+            hits = (row == eos).nonzero()[0]
+            if hits.size and (row[hits[0] + 1:] != pad_id).any():
+                fail("a queued row continues past its stop token")
+
+
+# --------------------------------------------------------------------------
+# phase 6: rollout-and-score with the int8 KV cache
+# --------------------------------------------------------------------------
+
+def int8_rollouts(torch, max_tokens: int) -> dict:
+    """`run_rollout` with kv_cache_quant="int8", 4 prompts × 4 samples:
+    contiguous (K5; K4 never) and paged + queued with 8 resident rows (K8;
+    K7 never). Prints the decode ms per step and the cache bytes per row
+    against the exact cache's; then, on the 2-layer small input, the int8
+    routes' decode-step logits against the exact route in f32 beside the
+    exact bf16 route's error."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    out_counts = {}
+    for label, page, rows_res in (("contiguous", 0, 0), ("paged+queued", 128, 8)):
+        cfg = build_config()
+        cfg.kv_cache_quant = "int8"
+        cfg.rollout_page_size, cfg.rollout_decode_rows = page, rows_res
+        cfg.response_length = max_tokens
+        timings: dict = {}
+        _build.reset_launch_counts()
+        out = run_rollout(cfg, device="cuda", num_prompts=4, timings=timings)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        mcfg = out["mcfg"]
+        L, hd = mcfg.num_hidden_layers, mcfg.actual_head_dim
+        KV = mcfg.num_key_value_heads
+        steps = timings["decode_steps"]
+        want = {"decode_attention": 0, "paged_decode_attention": 0,
+                "decode_attention_q8": 0 if page else L * steps,
+                "paged_decode_attention_q8": L * steps if page else 0}
+        for name, n in want.items():
+            if counts[name] != n:
+                fail(f"int8 {label}: kernel {name} launched {counts[name]} times, "
+                     f"expected {n}")
+        lp = out["logprobs"]
+        import numpy as np
+
+        if not np.isfinite(lp).all() or lp.shape != out["responses"].shape:
+            fail(f"int8 {label}: logprobs not finite or of the wrong shape")
+        T = out["context_length"] + max_tokens
+        int8_bytes = 2 * L * KV * T * (hd + 2)
+        exact_bytes = 2 * L * KV * T * hd * 2
+        log(f"  int8 {label}: {16} rows x {max_tokens} tokens, {steps} decode steps, "
+            f"decode {timings['decode_s'] / max(steps, 1) * 1e3:.3f} ms/step, rollout "
+            f"{timings['generate_s']:.3f} s; cache bytes per row {int8_bytes} (int8 + "
+            f"bf16 scales) vs {exact_bytes} exact ({exact_bytes / int8_bytes:.3f}x); "
+            f"launches {counts}")
+        out_counts[label] = counts
+        queries, pad_id = out["queries"], out["tokenizer"].pad_token_id
+    int8_small_reference(torch, mcfg, queries, pad_id)
+    return out_counts
+
+
+def int8_small_reference(torch, mcfg, queries, pad_id: int) -> None:
+    """Prefill + 16 teacher-forced decode steps on the 2-layer full-width
+    model: the int8 routes (contiguous K5, paged K8) and the exact bf16
+    route (K4) against the exact plain route in f32. The two int8 routes
+    must agree bit for bit and stay within 8x the exact bf16 route's error
+    (the int8 cache rounds K/V to 1/254 of each (slot, head) row's absmax,
+    bf16 to 2^-9 relative)."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core import model as tm
+
+    small, params = _small_model(torch, mcfg, seed=3)
+    q = torch.as_tensor(queries, device="cuda").long()
+    mask = q != pad_id
+    B, Tp = q.shape
+    n_steps = 16
+    toks = torch.randint(3, 4096, (B, n_steps),
+                         generator=torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    f32 = _tree_map(lambda t: t.float(), params)
+    plain = dataclasses.replace(small, attention_impl="xla")
+    q8 = dataclasses.replace(small, kv_cache_quant="int8")
+    T = Tp + n_steps
+    P = 8
+    nb = -(-T // P)
+    table = torch.arange(B * nb, device="cuda", dtype=torch.int32).reshape(B, nb)
+    routes = {"f32": (plain, f32, None), "exact bf16": (small, params, None),
+              "int8 contiguous": (q8, params, None), "int8 paged": (q8, params, table)}
+    logits = {}
+    with torch.no_grad():
+        for name, (c, p, tab) in routes.items():
+            kw = {}
+            if tab is None:
+                caches = tm.init_kv_cache(c, B, T, dtype=p["embed_tokens"].dtype,
+                                          device="cuda")
+            else:
+                caches = tm.init_paged_kv_cache(c, B * nb, P, device="cuda")
+                kw = dict(page_table=tab, page_size=P)
+            first, caches = tm.prefill(p, c, q, mask, caches,
+                                       **(dict(kw, logical_len=T) if kw else {}))
+            key_mask = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+            key_mask[:, :Tp] = mask
+            plen = mask.sum(1)
+            steps = []
+            for s in range(1, n_steps):
+                key_mask[:, Tp + s - 1] = True
+                lg, caches = tm.decode_step(p, c, toks[:, s - 1], plen + s - 1,
+                                            Tp + s - 1, key_mask, caches, **kw)
+                steps.append(lg)
+            logits[name] = torch.stack(steps, 1).float()
+    errs = {k: float((v - logits["f32"]).abs().max()) for k, v in logits.items()
+            if k != "f32"}
+    log(f"  int8 small-input reference (2 layers, full width, {B} rows, "
+        f"{n_steps - 1} decode steps, max|logits - f32 exact|): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not torch.equal(logits["int8 contiguous"], logits["int8 paged"]):
+        fail("int8 contiguous and paged routes differ on the same input")
+    if not all(math.isfinite(v) for v in errs.values()) \
+            or errs["int8 contiguous"] > 8 * errs["exact bf16"]:
+        fail("int8 route error beyond 8x the exact bf16 route's")
 
 
 def small_grad_reference(torch, trainer) -> None:
@@ -790,6 +1386,14 @@ def small_grad_reference(torch, trainer) -> None:
         fail("kernel route LoRA gradients less accurate than the plain route")
 
 
+def _demo_config():
+    """The launcher's model geometry (Qwen2.5-1.5B), as `resolve_model`
+    builds it."""
+    from nanorlhf_tpu_torch.core.config import ModelConfig
+
+    return ModelConfig.qwen2_1_5b()
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -835,15 +1439,16 @@ def main() -> None:
     # de-padded to the shape menu
     tok = ToyTokenizer(4096)
     ds = load_prompt_dataset("synthetic:512", tok)
-    first = next(ds.loader(4, 1))
-    prompt_width = depad_queries(first, tok.pad_token_id,
-                                 shape_menu(ds.input_ids.shape[1], 16)).shape[1]
+    first = depad_queries(next(ds.loader(4, 1)), tok.pad_token_id,
+                          shape_menu(ds.input_ids.shape[1], 16))
+    prompt_width = first.shape[1]
     resp = args.max_tokens
     results = {
         "flash_fwd": check_flash(torch, F, prompt_width, resp),
         "decode_attention": check_decode(torch, F, prompt_width, resp),
         "fused_logprob": check_fused(torch, resp),
         **check_flash_bwd(torch, F, prompt_width, resp),
+        **check_paged(torch, F, prompt_width, resp),
     }
     check_edges(torch)
     for name, r in results.items():
@@ -851,20 +1456,44 @@ def main() -> None:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
+    # phases 3, 4 and 6 run shorter responses than the launcher's 1500 so the
+    # whole script stays within half its time limit: phase 5 (this slice's
+    # main path) keeps the full length
+    short = min(resp, 512)
     log("phase 3: GRPO rollout-and-score, Qwen2.5-1.5B width")
-    end_to_end(torch, args.max_tokens)
+    end_to_end(torch, short)
 
     log("phase 4: one GRPO update (rollout, score, loss, backward, AdamW, "
-        "checkpoint), Qwen2.5-1.5B width")
-    # the main path of this slice: its launch counts fill the kernels line
-    counts = train_update(torch, args.max_tokens)
+        "checkpoint), Qwen2.5-1.5B width, contiguous KV cache")
+    counts4 = train_update(torch, short)
 
+    log("phase 5: one GRPO update over continuous batching (paged KV cache, "
+        "page size 128, 32 resident rows), Qwen2.5-1.5B width")
+    counts5 = paged_update(torch, resp)
+    staggered_queue(torch, _demo_config(),
+                    depad_queries(next(ds.loader(16, 2)), tok.pad_token_id,
+                                  shape_menu(ds.input_ids.shape[1], 16)),
+                    tok.pad_token_id)
+
+    log("phase 6: GRPO rollout-and-score with the int8 KV cache (contiguous, "
+        "then paged + queued), Qwen2.5-1.5B width")
+    counts6 = int8_rollouts(torch, short)
+
+    # each kernel's launches from the run of the path that runs it, counts
+    # reset just before that run: the contiguous update (phase 4), the
+    # paged update (phase 5), the int8 rollouts (phase 6)
+    launches = dict(counts4)
+    launches["paged_decode_attention"] = counts5["paged_decode_attention"]
+    launches["decode_attention_q8"] = counts6["contiguous"]["decode_attention_q8"]
+    launches["paged_decode_attention_q8"] = counts6["paged+queued"]["paged_decode_attention_q8"]
     kernels = []
     for name, k in _build.KERNELS.items():
         r = results[name]
+        if launches[name] <= 0:
+            fail(f"kernel {name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": k.repo_source,
-            "replaces": k.replaces.split()[0], "launches": counts[name],
+            "replaces": k.replaces.split()[0], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

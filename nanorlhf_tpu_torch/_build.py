@@ -10,8 +10,9 @@ import time: the CPU tests import every module of the port.
 `KERNELS` is the registry the wrappers launch through. Each `Kernel` counts
 its successful launches (`launches`), which is how `chip_smoke.py` shows
 that the main path really ran on the kernels. Several kernels may share
-one source (the flash backward's `dq` and `dkv` live in `flash_bwd.cu`):
-each keeps its own counter, the source is built once.
+one source (the flash backward's `dq` and `dkv` live in `flash_bwd.cu`,
+the four decode kernels in `decode_attention.cu`): each keeps its own
+counter, the source is built once.
 """
 
 from __future__ import annotations
@@ -127,6 +128,18 @@ KERNELS = {
     "decode_attention": Kernel(
         "decode_attention",
         "nanorlhf_tpu/ops/decode_attention.py:61 _decode_kernel"),
+    "paged_decode_attention": Kernel(
+        "paged_decode_attention",
+        "nanorlhf_tpu/ops/decode_attention.py:537 _paged_decode_kernel",
+        source="decode_attention"),
+    "decode_attention_q8": Kernel(
+        "decode_attention_q8",
+        "nanorlhf_tpu/ops/decode_attention.py:124 _decode_q8_kernel",
+        source="decode_attention"),
+    "paged_decode_attention_q8": Kernel(
+        "paged_decode_attention_q8",
+        "nanorlhf_tpu/ops/decode_attention.py:546 _paged_decode_q8_kernel",
+        source="decode_attention"),
     "fused_logprob": Kernel(
         "fused_logprob", "nanorlhf_tpu/ops/fused_logprob.py:228 _fused_kernel"),
     "flash_bwd_dq": Kernel(

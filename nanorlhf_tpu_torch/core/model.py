@@ -1,6 +1,6 @@
 """Qwen2-family decoder over a stacked-layer parameter dict — the port of
-`nanorlhf_tpu/core/model.py` (contiguous KV cache; no paged layout, no
-speculative verify, no int8 weights or cache yet).
+`nanorlhf_tpu/core/model.py` (contiguous and paged KV caches, exact or
+int8; no speculative verify and no int8 weights yet).
 
 Parameters keep the JAX tree's names and its stacked `[L, ...]` layout, in
 torch's nn.Linear orientation: every projection `kernel` is `[L, out, in]`
@@ -11,12 +11,29 @@ JAX.
 
 Attention routing (`ModelConfig.attention_impl`): "xla" is the plain
 masked einsum path everywhere; "pallas" sends prefill/scoring to the flash
-kernel and single-token decode to the prefix-bounded decode kernel; "auto"
-does the same for CUDA tensors and takes the plain path for CPU tensors.
+kernel and single-token decode to the decode kernel of the cache's layout
+(K4 contiguous, K7 paged, K5 int8, K8 int8 paged — never K4 over a gathered
+or dequantized copy); "auto" does the same for CUDA tensors and takes the
+plain path for CPU tensors.
 
 Unlike JAX's functional cache, `prefill`/`decode_step` write the KV cache
 IN PLACE (saving a [L, B, KV, T_max, hd] copy per step) and return the same
 tensors.
+
+Caches (`init_kv_cache`, `init_paged_kv_cache`): exact `(k, v)` or, with
+`kv_cache_quant="int8"`, `(k_q, k_s, v_q, v_s)` — int8 values and one
+bf16 scale per (kv head, slot). The scales are `[L, B, KV, T]` /
+`[L, N, KV, P]`: JAX's `[.., 8, T]` sublane expansion was a TPU tiling
+workaround and would multiply the scale stream by 8.
+
+The paged layout: a pool of pages `[L, N + 1, KV, P, hd]` shared by all
+rows and a block table `[B, nb]` (logical slot t of row b at page
+table[b, t // P], offset t % P; sentinel N = unallocated). JAX drops a
+write to a sentinel page or past the table with `mode="drop"`; torch's
+`index_put_` has no such mode, so the pool carries ONE SCRATCH PAGE at
+index N that absorbs those writes. Readers see only pages [0, N): the
+kernels and the gathered view clamp sentinel entries to N - 1, as JAX
+does, so the scratch page is never read.
 """
 
 from __future__ import annotations
@@ -29,7 +46,14 @@ from torch.utils.checkpoint import checkpoint
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.ops.attention import flash_attention
-from nanorlhf_tpu_torch.ops.decode_attention import decode_attention
+from nanorlhf_tpu_torch.ops.decode_attention import (
+    _gather_pool,
+    decode_attention,
+    decode_attention_q8,
+    dequantize_kv,
+    paged_decode_attention,
+    paged_decode_attention_q8,
+)
 
 NEG_INF = -2.0**30  # large-but-finite mask value, as in JAX
 
@@ -183,18 +207,140 @@ def _proj(h, layer, lora_layer, name, lora_scale):
     return y
 
 
-def _cache_update(cache, new, idx: int):
-    """Write `new` [B, KV, T, hd] into `cache` [B, KV, T_max, hd] at slot
-    `idx`, in place."""
-    cache[:, :, idx:idx + new.shape[2]] = new
+def _slots(cache_index, B: int, T: int, device):
+    """Logical cache slots [B, T] of a write of T tokens starting at
+    `cache_index`: an int shared by every row, or a per-row [B] tensor
+    (continuous-batching rows sit at different depths)."""
+    idx = torch.as_tensor(cache_index, device=device).to(torch.int64)
+    if idx.dim() == 0:
+        idx = idx.expand(B)
+    return idx[:, None] + torch.arange(T, device=device)[None, :]
+
+
+def _cache_update(cache, new, idx):
+    """Write `new` [B, KV, T, ...] into `cache` [B, KV, T_max, ...] at slot
+    `idx` (int, or per-row [B] tensor), in place. Values carry a trailing
+    hd axis, int8 scales do not."""
+    if isinstance(idx, int):
+        cache[:, :, idx:idx + new.shape[2]] = new
+        return cache
+    B, T = new.shape[0], new.shape[2]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, :, _slots(idx, B, T, cache.device)] = new.transpose(1, 2)
     return cache
+
+
+def _paged_pages(num_pages: int, table, slots, page_size: int):
+    """Resolve logical slots [B, T] to (physical page, offset). Slots past
+    the table and sentinel entries both map to the scratch page
+    `num_pages`, the counterpart of JAX's `mode="drop"`."""
+    nb = table.shape[1]
+    lb = slots // page_size
+    page = torch.where(
+        lb < nb,
+        torch.gather(table.long(), 1, lb.clamp(0, nb - 1)).clamp(max=num_pages),
+        torch.full_like(lb, num_pages))
+    return page, slots % page_size
+
+
+def _paged_cache_update(pool, new, dest):
+    """Write `new` [B, KV, T, ...] into the pool [N + 1, KV, P, ...] in
+    place (values [.., hd] or int8 scales) at `dest` = (page, offset), each
+    [B, T], from `_paged_pages`."""
+    page, off = dest
+    pool[page, :, off] = new.transpose(1, 2)
+    return pool
+
+
+def live_pages(pool):
+    """The readable pages [0, N) of a pool (the scratch page dropped)."""
+    return pool[:-1]
+
+
+def _paged_view(pool, table, width: int):
+    """The row-contiguous [B, KV, width, ...] view gathered through the
+    table (the plain read path): sentinel entries clamp to page N - 1, whose
+    values sit in slots the mask excludes, so this view gives the same
+    attention as the contiguous cache under the same mask."""
+    return _gather_pool(live_pages(pool), table)[:, :, :width]
+
+
+def quantize_kv(x):
+    """[B, KV, T, hd] → (int8 [B, KV, T, hd], bf16 scales [B, KV, T]): the
+    scale absmax/127 is rounded to bf16 first and the values are divided by
+    the ROUNDED scale (round half to even, clip ±127), as JAX's
+    `_quantize_kv` does, so dequantization is exact with respect to what
+    the cache holds."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8).to(torch.bfloat16)
+    q = torch.round(xf / scale.float()[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _write_kv(kv_cache, k, v, cache_index, paged):
+    """Write the layer's new K/V (quantized for the int8 cache) into the
+    cache tuple, in place, through the table when paged."""
+    if len(kv_cache) == 4:
+        # K and V quantized in one call: the same per-(slot, head) math,
+        # half the launches
+        values, scales = quantize_kv(torch.stack((k, v)))
+        new = (values[0], scales[0], values[1], scales[1])
+    else:
+        new = (k, v)
+    for cache, n in zip(kv_cache, new):
+        if paged is not None:
+            _paged_cache_update(cache, n, paged[2])
+        else:
+            _cache_update(cache, n, cache_index)
+
+
+def _decode_kernel_attention(q, kv_cache, paged, decode_bounds):
+    """Single-token decode through the kernel of the cache's layout:
+    K4 (contiguous), K7 (paged), K5 (int8), K8 (int8 paged)."""
+    q1 = q[:, :, 0, :].contiguous()
+    start, filled = decode_bounds
+    if paged is not None:
+        table = paged[0]
+        pools = tuple(live_pages(c) for c in kv_cache)
+        if len(kv_cache) == 4:
+            out = paged_decode_attention_q8(q1, *pools, table, start, filled)
+        else:
+            out = paged_decode_attention(q1, *pools, table, start, filled)
+    elif len(kv_cache) == 4:
+        out = decode_attention_q8(q1, *kv_cache, start, filled)
+    else:
+        out = decode_attention(q1, *kv_cache, start, filled)
+    return out[:, :, None, :]
+
+
+def _cache_views(kv_cache, paged, width: int, dtype):
+    """(k, v) row-contiguous, dequantized views of the cache for the plain
+    masked attention."""
+    if paged is not None:
+        parts = tuple(_paged_view(c, paged[0], width) for c in kv_cache)
+    else:
+        parts = kv_cache
+    if len(parts) == 4:
+        return (dequantize_kv(parts[0], parts[1], dtype),
+                dequantize_kv(parts[2], parts[3], dtype))
+    return parts
 
 
 def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
                 cache_index, lora_layer=None, lora_scale=1.0,
-                decode_bounds=None):
-    """One decoder layer. kv_cache: (k, v) each [B, KV, T_max, hd] or None.
-    Returns the layer output (the cache is updated in place)."""
+                decode_bounds=None, paged=None):
+    """One decoder layer. kv_cache: the layer's cache tuple — exact (k, v)
+    or int8 (k_q, k_s, v_q, v_s), contiguous [B, KV, T_max, ...] or paged
+    pools [N + 1, KV, P, ...] with `paged=(table [B, nb], page_size,
+    (page, offset) of this write)` — or None. Returns the layer output
+    (the cache is updated in place).
+
+    With a cache: prefill (T > 1) attends over the layer's own exact K/V
+    (through the flash kernel on the kernel route; the slots beyond T are
+    masked anyway) and writes the (quantized) K/V; decode (T == 1) reads the
+    cache through its layout's kernel, or, on the plain route, through a
+    gathered, dequantized view under the same mask as the contiguous cache
+    (the CPU tests pin paged == contiguous bit for bit)."""
     hd = config.actual_head_dim
     H, KV = config.num_attention_heads, config.num_key_value_heads
     B, T, _ = x.shape
@@ -211,20 +357,22 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     k = apply_rope(k, cos, sin)
 
     if kv_cache is not None:
-        k_cache, v_cache = kv_cache
-        _cache_update(k_cache, k, cache_index)
-        _cache_update(v_cache, v, cache_index)
+        _write_kv(kv_cache, k, v, cache_index, paged)
+        quantized = len(kv_cache) == 4
         if T > 1 and use_kernel(impl, q):
             # prefill: slots beyond T are masked anyway, so attend over the
             # local K/V through the flash kernel
             out = gqa_attention(q, k, v, mask[..., :T], impl="pallas",
                                 mask_is_causal_x_keyvalid=True)
+        elif T > 1 and quantized:
+            # the plain int8 prefill attends over the local exact K/V, as
+            # JAX's int8 branch does (the cache holds the quantized copy)
+            out = gqa_attention(q, k, v, mask[..., :T])
         elif T == 1 and decode_bounds is not None and use_kernel(impl, q):
-            # decode: the kernel reads only the filled cache range
-            out = decode_attention(q[:, :, 0, :].contiguous(), k_cache, v_cache,
-                                   *decode_bounds)[:, :, None, :]
+            out = _decode_kernel_attention(q, kv_cache, paged, decode_bounds)
         else:
-            out = gqa_attention(q, k_cache, v_cache, mask)
+            kd, vd = _cache_views(kv_cache, paged, mask.shape[-1], q.dtype)
+            out = gqa_attention(q, kd, vd, mask)
     else:
         out = gqa_attention(q, k, v, mask, impl=impl,
                             mask_is_causal_x_keyvalid=True)
@@ -241,9 +389,10 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
 
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
                 cache_index=0, lora_scale=1.0, decode_bounds=None,
-                remat: bool = False):
-    """Run the stacked layers in order. kv_caches: (k, v) each
-    [L, B, KV, T_max, hd] (updated in place) or None.
+                remat: bool = False, paged=None):
+    """Run the stacked layers in order. kv_caches: the stacked cache tuple
+    ((k, v) or (k_q, k_s, v_q, v_s), each [L, ...], updated in place) or
+    None; `paged=(table, page_size)` when it is a page pool.
 
     `remat=True` (the training path, `gradient_checkpointing`) checkpoints
     each layer: only its input is kept for the backward, which re-runs the
@@ -258,18 +407,26 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
         if config.remat_policy != "full":
             raise ValueError(f"remat_policy={config.remat_policy!r}: must be "
                              "'full' or 'dots'")
+    if paged is not None and kv_caches is not None:
+        # where this forward's K/V land in the pool: resolved once, not
+        # per layer and cache
+        table, page_size = paged
+        slots = _slots(cache_index, x.shape[0], x.shape[1], x.device)
+        paged = (table, page_size, _paged_pages(kv_caches[0].shape[1] - 1,
+                                                table, slots, page_size))
     layers = _unstack(params["layers"])
     lora = params.get("lora")
     lora_layers = _unstack(lora["layers"]) if lora else [None] * len(layers)
     for i, (layer, lora_layer) in enumerate(zip(layers, lora_layers)):
-        kv = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
+        kv = None if kv_caches is None else tuple(c[i] for c in kv_caches)
         if remat and kv is None:
             x = checkpoint(_layer_body, config, x, layer, cos, sin, mask, None,
                            cache_index, lora_layer, lora_scale,
                            use_reentrant=False)
         else:
             x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
-                            lora_layer, lora_scale, decode_bounds=decode_bounds)
+                            lora_layer, lora_scale, decode_bounds=decode_bounds,
+                            paged=paged)
     return x
 
 
@@ -357,25 +514,65 @@ def padded_forward_hidden(params, config, query_responses, pad_token_id,
     return rms_norm(x, params["norm"], config.rms_norm_eps)
 
 
-def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cuda"):
-    """Stacked contiguous KV cache: (k, v), each [L, B, KV, max_len, hd]."""
-    if config.kv_cache_quant != "none":
-        raise NotImplementedError(
-            f"kv_cache_quant={config.kv_cache_quant!r}: the int8 KV cache "
-            "(and its q8 decode kernels) is not ported yet")
-    shape = (config.num_hidden_layers, batch, config.num_key_value_heads,
-             max_len, config.actual_head_dim)
+def _check_quant(config: ModelConfig) -> bool:
+    if config.kv_cache_quant not in ("none", "int8"):
+        raise ValueError(f"kv_cache_quant={config.kv_cache_quant!r}: must be "
+                         "'none' or 'int8'")
+    return config.kv_cache_quant == "int8"
+
+
+def _cache_tuple(config, lead: tuple, dtype, device):
+    """(k, v) [L, *lead, hd] of `dtype`, or the int8 4-tuple (k_q, k_s,
+    v_q, v_s): int8 values [L, *lead, hd] and bf16 scales [L, *lead]
+    (initialised to ones, as JAX does)."""
+    shape = (config.num_hidden_layers, *lead, config.actual_head_dim)
+    if _check_quant(config):
+        def scales():
+            return torch.ones(shape[:-1], dtype=torch.bfloat16, device=device)
+
+        return (torch.zeros(shape, dtype=torch.int8, device=device), scales(),
+                torch.zeros(shape, dtype=torch.int8, device=device), scales())
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def init_kv_cache(config: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    """Stacked contiguous KV cache: (k, v), each [L, B, KV, max_len, hd];
+    with `kv_cache_quant="int8"` (k_q, k_s, v_q, v_s): int8 [L, B, KV,
+    max_len, hd] and bf16 scales [L, B, KV, max_len]."""
+    return _cache_tuple(config, (batch, config.num_key_value_heads, max_len),
+                        dtype, device)
+
+
+def init_paged_kv_cache(config: ModelConfig, num_pages: int, page_size: int,
+                        dtype=torch.bfloat16, device="cuda"):
+    """Paged KV cache: pools shared by every row, addressed through a block
+    table [B, nb] that is NOT part of the tuple. Exact: (k, v) each
+    [L, num_pages + 1, KV, page_size, hd]; int8: (k_q, k_s, v_q, v_s) with
+    scale pools [L, num_pages + 1, KV, page_size]. The extra page at index
+    num_pages is the scratch page that absorbs dropped writes (module
+    docstring); `live_pages` is the readable part."""
+    return _cache_tuple(
+        config, (num_pages + 1, config.num_key_value_heads, page_size),
+        dtype, device)
+
+
 def prefill(params, config, input_ids, attention_mask, kv_caches,
-            lora_scale: float = 1.0):
+            lora_scale: float = 1.0, page_table=None, page_size: int = 0,
+            logical_len: int = 0):
     """Prompt ingestion (prompts left-padded): fills the KV cache slots
-    [0, T) in place, returns (last-position logits [B, V], caches)."""
+    [0, T) in place, returns (last-position logits [B, V], caches).
+    `page_table` [B, nb] + `page_size` write through the table into a paged
+    pool; `logical_len` is then the logical cache width T_max (the mask
+    width, which the contiguous run takes from its cache)."""
     B, T = input_ids.shape
-    T_max = kv_caches[0].shape[3]
+    paged = None
+    if page_table is not None:
+        T_max = logical_len or page_table.shape[1] * page_size
+        paged = (page_table, page_size)
+    else:
+        T_max = kv_caches[0].shape[3]
     attention_mask = attention_mask.bool()
     m = attention_mask.to(torch.int64)
     position_ids = torch.cumsum(m, dim=1) - m
@@ -387,26 +584,35 @@ def prefill(params, config, input_ids, attention_mask, kv_caches,
     mask_full = torch.zeros((B, 1, T, T_max), dtype=torch.bool, device=x.device)
     mask_full[:, :, :, :T] = mask
     x = _run_layers(config, params, x, cos, sin, mask_full, kv_caches=kv_caches,
-                    cache_index=0, lora_scale=lora_scale)
+                    cache_index=0, lora_scale=lora_scale, paged=paged)
     logits = _logits(config, params, x[:, -1:, :])[:, 0, :]
     return logits, kv_caches
 
 
-def decode_step(params, config, token, position, cache_index: int, key_mask,
-                kv_caches, lora_scale: float = 1.0):
-    """One autoregressive decode step: token [B], position [B], the shared
-    cache slot `cache_index`, key_mask [B, T_max] (valid slots incl. this
-    one). Returns (logits [B, V], caches updated in place)."""
+def decode_step(params, config, token, position, cache_index, key_mask,
+                kv_caches, lora_scale: float = 1.0, page_table=None,
+                page_size: int = 0):
+    """One autoregressive decode step: token [B], position [B], the cache
+    slot `cache_index` (an int shared by every row, or a per-row [B] tensor
+    — continuous-batching rows sit at different depths), key_mask
+    [B, T_max] (valid slots incl. this one). `page_table` [B, nb] +
+    `page_size`: the paged layout. Returns (logits [B, V], caches updated in
+    place)."""
     B = token.shape[0]
+    paged = (page_table, page_size) if page_table is not None else None
     x = params["embed_tokens"][token][:, None, :]
     cos, sin = rope_tables(position[:, None], config.actual_head_dim, config.rope_theta)
     mask = key_mask[:, None, None, :]
     # the valid slots form the contiguous range [start, cache_index + 1):
-    # the bounds the prefix-reading decode kernel needs
+    # the bounds the prefix-reading decode kernels need
     start = key_mask.to(torch.uint8).argmax(dim=1).to(torch.int32)
-    filled = torch.full((B,), cache_index + 1, dtype=torch.int32, device=x.device)
+    if isinstance(cache_index, int):
+        filled = torch.full((B,), cache_index + 1, dtype=torch.int32,
+                            device=x.device)
+    else:
+        filled = (cache_index + 1).to(torch.int32)
     x = _run_layers(config, params, x, cos, sin, mask, kv_caches=kv_caches,
                     cache_index=cache_index, lora_scale=lora_scale,
-                    decode_bounds=(start, filled))
+                    decode_bounds=(start, filled), paged=paged)
     logits = _logits(config, params, x)[:, 0, :]
     return logits, kv_caches

@@ -1,33 +1,62 @@
-// Prefix-bounded single-query GQA decode attention for Hopper (sm_90a).
+// Prefix-bounded single-query GQA decode attention for Hopper (sm_90a):
+// the contiguous bf16 cache, the paged bf16 cache, and their int8 twins.
 //
-// Replaces the Pallas kernel nanorlhf_tpu/ops/decode_attention.py:61
-// `_decode_kernel` (driver `decode_attention`, :409). Same function: for
-// each row b, the G query heads of kv head g attend over the contiguous
-// cache slots [start[b], filled[b]) only; slots outside are never read, and
-// a row with no valid slot (filled <= start, e.g. filled == 0) reads nothing
-// and returns zeros, as the Pallas kernel does. The TPU's Gp = max(8, G)
-// query padding was a sublane workaround and is not copied.
+// Replaces four Pallas kernels of nanorlhf_tpu/ops/decode_attention.py:
+//   K4 `_decode_kernel` (:61)           -> decode_attention_bf16
+//   K7 `_paged_decode_kernel` (:537)    -> paged_decode_attention_bf16
+//   K5 `_decode_q8_kernel` (:124)       -> decode_attention_q8
+//   K8 `_paged_decode_q8_kernel` (:546) -> paged_decode_attention_q8
+// Same function as there: for each row b, the G query heads of kv head g
+// attend over the logical cache slots [start[b], filled[b]) only; slots
+// outside are never read, and a row with no valid slot (filled <= start,
+// e.g. filled == 0) reads nothing and returns zeros. The TPU's Gp = max(8, G)
+// query padding and its [.., 8, T] sublane-expanded scales were tiling
+// workarounds and are not copied.
+//
+// One body, four ways to read the cache. As in JAX, where K7/K8 are the
+// K4/K5 bodies behind another index map, only the address of a logical slot
+// differs between the four instances (`slot_index` below):
+//   * contiguous: slot t of row b sits at [b, kvh, t] of [B, KV, T, hd];
+//   * paged: at [table[b, t / P], kvh, t % P] of the pool [N, KV, P, hd].
+//     The table row goes into shared memory once per block. Each key is
+//     resolved on its own, so a 32-key tile may straddle pages and any page
+//     size works (P need not divide 32 or T_max). K7 walks the same tiles in
+//     the same order as K4 and does the same arithmetic, so on the same
+//     logical cache it returns the same bits. A sentinel entry (>= N, an
+//     unallocated or released block) is clamped to N - 1, as in JAX: such
+//     slots lie outside [start, filled) or belong to a released row whose
+//     output the caller discards, and the clamp keeps a bad table inside the
+//     pool.
+//   * int8 (K5/K8): values int8 [.., hd] with one bf16 scale per (kv head,
+//     slot), scales [B, KV, T] or [N, KV, P]. The int8 bytes are read once
+//     and widened in registers only; the K scale folds into the score, the V
+//     scale into the probability (sum_t p_t * (vq_t * vs_t) = sum_t (p_t *
+//     vs_t) * vq_t), as the Pallas kernel does.
 //
 // What bounds it on this card: bytes. Each call reads the valid K/V prefix
-// once (2 · KV · n_valid · hd · 2 B per row) and does only ~2 · G flops per
-// byte, far below the ~295 flop/byte at which the tensor cores would be the
-// limit. The design therefore spends nothing on the tensor cores and
-// everything on reading the prefix once, coalesced:
+// once (bf16: 2 * KV * n_valid * hd * 2 B per row; int8: half that plus 2 *
+// 2 B of scales per (kv head, slot)) and does only ~2 * G flops per byte, far
+// below the ~295 flop/byte at which the tensor cores would be the limit. The
+// design therefore spends nothing on the tensor cores and everything on
+// reading the prefix once, coalesced:
 //   * one block of 8 warps per (kv head, row); the G query vectors sit in
 //     shared memory and every K/V row is read once for all G heads;
 //   * warps take 32-key tiles round-robin; in a tile each lane scores one
-//     key against all G heads (its K row as 16-byte vectors), the warp runs
-//     the online-softmax update with shuffles, and the V rows are read
-//     coalesced, each lane accumulating hd/32 output dims for every head;
+//     key against all G heads (its K row as 16-byte bf16 or 8-byte int8
+//     vectors), the warp runs the online-softmax update with shuffles, and
+//     the V rows are read coalesced, each lane accumulating hd/32 output
+//     dims for every head;
 //   * the 8 warps' partial (m, l, acc) are merged through shared memory.
-// Known limit, left for the next PR: B·KV blocks (32 at the rollout shape)
-// occupy a quarter of the 132 SMs; splitting the prefix over more blocks
-// with an LSE merge (flash-decoding) is the fix.
+// Known limit, left for later work: B*KV blocks (64 at the rollout's 32
+// resident rows) occupy half of the 132 SMs or less; splitting the prefix
+// over more blocks with an LSE merge (flash-decoding) is the fix.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -35,8 +64,23 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAXG = 8;  // query heads per kv head handled by one block
+constexpr int MAXG = 8;     // query heads per kv head handled by one block
+constexpr int MAX_NB = 1024;  // block-table entries per row (paged)
 constexpr float NEG_INF = -1e30f;
+
+struct Args {
+  const bf16* q;        // [B, H, HD]
+  const void* k;        // bf16 or int8, contiguous [B, KV, T, HD] or pool [N+, KV, P, HD]
+  const void* v;
+  const bf16* ks;       // int8 only: scales [B, KV, T] or [N+, KV, P]
+  const bf16* vs;
+  const int* table;     // paged only: [B, nb]
+  const int* start;     // [B]
+  const int* filled;    // [B]
+  bf16* out;            // [B, H, HD]
+  int H, KV, T, N, P, nb;
+  float scale;
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -50,20 +94,37 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-              const bf16* __restrict__ vc, const int* __restrict__ start,
-              const int* __restrict__ filled, bf16* __restrict__ out, int H,
-              int KV, int T, float scale) {
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+// 8 consecutive elements of a K row as floats (16 bytes of bf16, 8 of int8)
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(h[e]);
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = (float)c[e];
+}
+
+template <int HD, bool PAGED, bool Q8>
+__global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
+  typedef typename std::conditional<Q8, int8_t, bf16>::type E;
   constexpr int PER = HD / 32;  // output dims per lane
   __shared__ float qs[MAXG][HD];
   __shared__ float part_m[WARPS][MAXG];
   __shared__ float part_l[WARPS][MAXG];
   __shared__ float part_acc[WARPS][MAXG][HD];
+  __shared__ int tbl[PAGED ? MAX_NB : 1];
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int H = a.H, KV = a.KV;
   const int G = H / KV;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -71,14 +132,30 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 
   for (int i = tid; i < G * HD; i += THREADS) {
     const int g = i / HD, d = i % HD;
-    qs[g][d] = __bfloat162float(q[((size_t)b * H + kvh * G + g) * HD + d]);
+    qs[g][d] = __bfloat162float(a.q[((size_t)b * H + kvh * G + g) * HD + d]);
+  }
+  if constexpr (PAGED) {
+    for (int i = tid; i < a.nb; i += THREADS)
+      tbl[i] = min(max(a.table[(size_t)b * a.nb + i], 0), a.N - 1);
   }
   __syncthreads();
 
-  const int s0 = max(start[b], 0);
-  const int s1 = min(filled[b], T);
-  const bf16* kb = kc + (size_t)(b * KV + kvh) * T * HD;
-  const bf16* vb = vc + (size_t)(b * KV + kvh) * T * HD;
+  // the index of logical slot t of this (row, kv head) in units of HD
+  // elements of K/V, and in elements of the scales
+  auto slot_index = [&](int t) -> size_t {
+    if constexpr (PAGED) {
+      const int page = tbl[t / a.P];
+      return ((size_t)page * KV + kvh) * a.P + (t % a.P);
+    } else {
+      return ((size_t)b * KV + kvh) * a.T + t;
+    }
+  };
+
+  const int t_max = PAGED ? a.nb * a.P : a.T;
+  const int s0 = max(a.start[b], 0);
+  const int s1 = min(a.filled[b], t_max);
+  const E* kc = static_cast<const E*>(a.k);
+  const E* vc = static_cast<const E*>(a.v);
 
   float m[MAXG], l[MAXG], acc[MAXG][PER];
 #pragma unroll
@@ -95,15 +172,18 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     float s[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
+    float kscale = 1.f, vscale = 1.f;
     if (ok) {
-      const bf16* krow = kb + (size_t)key * HD;
+      const size_t si = slot_index(key);
+      const E* krow = kc + si * HD;
+      if constexpr (Q8) {
+        kscale = __bfloat162float(a.ks[si]);
+        vscale = __bfloat162float(a.vs[si]);
+      }
 #pragma unroll 4
       for (int c = 0; c < HD; c += 8) {
-        const uint4 u = *reinterpret_cast<const uint4*>(krow + c);
-        const bf16* kv8 = reinterpret_cast<const bf16*>(&u);
         float kf[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(kv8[e]);
+        load8(krow + c, kf);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -117,22 +197,24 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g < G) {
-        const float sg = ok ? s[g] * scale : NEG_INF;
+        float sg = NEG_INF;
+        if (ok) sg = Q8 ? s[g] * a.scale * kscale : s[g] * a.scale;
         const float m_new = fmaxf(m[g], warp_max(sg));
         const float alpha = __expf(m[g] - m_new);
         p[g] = ok ? __expf(sg - m_new) : 0.f;
         l[g] = alpha * l[g] + warp_sum(p[g]);
         m[g] = m_new;
+        if (Q8) p[g] *= vscale;  // the V scale folds into the probability
 #pragma unroll
         for (int d = 0; d < PER; ++d) acc[g][d] *= alpha;
       }
     }
     const int nk = min(32, s1 - t0);
     for (int j = 0; j < nk; ++j) {
-      const bf16* vrow = vb + (size_t)(t0 + j) * HD + lane * PER;
+      const E* vrow = vc + slot_index(t0 + j) * HD + lane * PER;
       float vf[PER];
 #pragma unroll
-      for (int d = 0; d < PER; ++d) vf[d] = __bfloat162float(vrow[d]);
+      for (int d = 0; d < PER; ++d) vf[d] = to_f(vrow[d]);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         if (g < G) {
@@ -161,42 +243,104 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     const int g = i / HD, d = i % HD;
     float mx = NEG_INF;
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, part_m[w][g]);
-    float lsum = 0.f, a = 0.f;
+    float lsum = 0.f, acc_d = 0.f;
     for (int w = 0; w < WARPS; ++w) {
       const float f = __expf(part_m[w][g] - mx);
       lsum += part_l[w][g] * f;
-      a += part_acc[w][g][d] * f;
+      acc_d += part_acc[w][g][d] * f;
     }
-    out[((size_t)b * H + kvh * G + g) * HD + d] =
-        __float2bfloat16(a / fmaxf(lsum, 1e-30f));
+    a.out[((size_t)b * H + kvh * G + g) * HD + d] =
+        __float2bfloat16(acc_d / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* kc, const void* vc, const void* start,
-           const void* filled, void* out, int B, int H, int KV, int T,
-           cudaStream_t stream) {
-  dim3 grid(KV, B);
-  decode_kernel<HD><<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kc),
-      static_cast<const bf16*>(vc), static_cast<const int*>(start),
-      static_cast<const int*>(filled), static_cast<bf16*>(out), H, KV, T,
-      (float)(1.0 / sqrt((double)HD)));
+template <bool PAGED, bool Q8>
+int launch(Args a, int B, int HD, void* stream) {
+  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG)
+    return (int)cudaErrorInvalidValue;
+  if (PAGED && (a.P <= 0 || a.N <= 0 || a.nb <= 0 || a.nb > MAX_NB))
+    return (int)cudaErrorInvalidValue;
+  a.scale = (float)(1.0 / sqrt((double)HD));
+  dim3 grid(a.KV, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (HD == 128)
+    decode_kernel<128, PAGED, Q8><<<grid, THREADS, 0, s>>>(a);
+  else if (HD == 64)
+    decode_kernel<64, PAGED, Q8><<<grid, THREADS, 0, s>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, H, HD], k/v cache [B, KV, T, HD] bf16, start/filled [B] int32;
-// out [B, H, HD] bf16. Returns the CUDA error code of the launch.
+// Each entry returns the CUDA error code of the launch (0 = launched).
+
+// K4. q [B, H, HD], k/v cache [B, KV, T, HD] bf16, start/filled [B] int32;
+// out [B, H, HD] bf16.
 extern "C" int decode_attention_bf16(const void* q, const void* kc,
                                      const void* vc, const void* start,
                                      const void* filled, void* out, int B,
                                      int H, int KV, int T, int HD,
                                      void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (HD == 128) return launch<128>(q, kc, vc, start, filled, out, B, H, KV, T, s);
-  if (HD == 64) return launch<64>(q, kc, vc, start, filled, out, B, H, KV, T, s);
-  return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = static_cast<const bf16*>(q); a.k = kc; a.v = vc;
+  a.start = static_cast<const int*>(start);
+  a.filled = static_cast<const int*>(filled);
+  a.out = static_cast<bf16*>(out);
+  a.H = H; a.KV = KV; a.T = T;
+  return launch<false, false>(a, B, HD, stream);
+}
+
+// K7. k/v pools [>= N, KV, P, HD] bf16 (entries >= N of the table clamp to
+// N - 1), table [B, nb] int32; logical slots [0, nb * P).
+extern "C" int paged_decode_attention_bf16(const void* q, const void* kp,
+                                           const void* vp, const void* table,
+                                           const void* start,
+                                           const void* filled, void* out,
+                                           int B, int H, int KV, int N, int P,
+                                           int nb, int HD, void* stream) {
+  Args a{};
+  a.q = static_cast<const bf16*>(q); a.k = kp; a.v = vp;
+  a.table = static_cast<const int*>(table);
+  a.start = static_cast<const int*>(start);
+  a.filled = static_cast<const int*>(filled);
+  a.out = static_cast<bf16*>(out);
+  a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb;
+  return launch<true, false>(a, B, HD, stream);
+}
+
+// K5. k/v int8 [B, KV, T, HD], scales bf16 [B, KV, T].
+extern "C" int decode_attention_q8(const void* q, const void* kq,
+                                   const void* ks, const void* vq,
+                                   const void* vs, const void* start,
+                                   const void* filled, void* out, int B, int H,
+                                   int KV, int T, int HD, void* stream) {
+  Args a{};
+  a.q = static_cast<const bf16*>(q); a.k = kq; a.v = vq;
+  a.ks = static_cast<const bf16*>(ks); a.vs = static_cast<const bf16*>(vs);
+  a.start = static_cast<const int*>(start);
+  a.filled = static_cast<const int*>(filled);
+  a.out = static_cast<bf16*>(out);
+  a.H = H; a.KV = KV; a.T = T;
+  return launch<false, true>(a, B, HD, stream);
+}
+
+// K8. int8 pools [>= N, KV, P, HD], scale pools bf16 [>= N, KV, P].
+extern "C" int paged_decode_attention_q8(const void* q, const void* kq,
+                                         const void* ks, const void* vq,
+                                         const void* vs, const void* table,
+                                         const void* start, const void* filled,
+                                         void* out, int B, int H, int KV,
+                                         int N, int P, int nb, int HD,
+                                         void* stream) {
+  Args a{};
+  a.q = static_cast<const bf16*>(q); a.k = kq; a.v = vq;
+  a.ks = static_cast<const bf16*>(ks); a.vs = static_cast<const bf16*>(vs);
+  a.table = static_cast<const int*>(table);
+  a.start = static_cast<const int*>(start);
+  a.filled = static_cast<const int*>(filled);
+  a.out = static_cast<bf16*>(out);
+  a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb;
+  return launch<true, true>(a, B, HD, stream);
 }

@@ -8,6 +8,11 @@ NotImplementedError.
 
 Run (one GRPO update on the card, with the batch cut of `one_card_cut`):
     python -m nanorlhf_tpu_torch.entrypoints.grpo [--device cpu]
+        [--page-size 128 --decode-rows 32] [--kv-cache-quant int8]
+`--page-size` rolls out over the paged KV cache, `--decode-rows` (with a
+page size) through the continuous-batching scheduler with that many
+resident rows, `--kv-cache-quant int8` with the int8 KV cache. The
+defaults are the JAX launcher's: contiguous, exact.
 """
 
 from nanorlhf_tpu_torch.entrypoints.common import run
@@ -110,6 +115,17 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="one GRPO update (one_card_cut)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    state = run(one_card_cut(build_config()), device=ap.parse_args().device,
-                num_updates=1)
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="rollout_page_size: > 0 rolls out over the paged KV cache")
+    ap.add_argument("--decode-rows", type=int, default=0,
+                    help="rollout_decode_rows: resident rows of continuous "
+                         "batching (needs --page-size)")
+    ap.add_argument("--kv-cache-quant", default="none", choices=("none", "int8"),
+                    help="kv_cache_quant: the rollout's KV cache in int8")
+    args = ap.parse_args()
+    cfg = one_card_cut(build_config())
+    cfg.rollout_page_size = args.page_size
+    cfg.rollout_decode_rows = args.decode_rows
+    cfg.kv_cache_quant = args.kv_cache_quant
+    state = run(cfg, device=args.device, num_updates=1)
     print(f"trained: {state}")

@@ -1,15 +1,28 @@
 """Prefix-bounded decode attention — the port of
-`nanorlhf_tpu/ops/decode_attention.py` (the contiguous single-token path).
+`nanorlhf_tpu/ops/decode_attention.py`: the single-token decode over the
+contiguous cache, the paged cache, and their int8 twins.
 
-`decode_attention` wraps the Hopper kernel `csrc/decode_attention.cu`
-(which replaces the Pallas `_decode_kernel`): for a CUDA tensor it launches
-the kernel, which reads only the cache slots [start, filled) of each row;
-for a CPU tensor it runs `reference_decode_attention`, the plain masked
-softmax over the whole cache (the JAX XLA oracle). The TPU's Gp = max(8, G)
-query padding and the 128-multiple T padding are not copied.
+Each wrapper launches its Hopper kernel (`csrc/decode_attention.cu`, one
+body with four ways to address a cache slot) for CUDA tensors, and runs its
+plain version for CPU tensors; on a CUDA tensor it launches or raises, it
+never falls back. The kernels read only the logical slots [start, filled)
+of each row:
 
-The paged, verify and int8 variants (K5–K9) are off the rollout path and
-not ported yet.
+- `decode_attention` (K4, Pallas `_decode_kernel`): cache [B, KV, T, hd];
+- `paged_decode_attention` (K7, `_paged_decode_kernel`): pools
+  [N, KV, P, hd] shared by all rows, logical block j of row b at page
+  table[b, j]; a sentinel entry (>= N) clamps to page N - 1, as in JAX;
+- `decode_attention_q8` (K5, `_decode_q8_kernel`) and
+  `paged_decode_attention_q8` (K8, `_paged_decode_q8_kernel`): int8 values
+  with one bf16 scale per (kv head, slot), scales [B, KV, T] / [N, KV, P].
+
+The plain versions are JAX's XLA oracles: a masked softmax over the whole
+(gathered, dequantized) cache. The TPU's Gp = max(8, G) query padding, its
+128-multiple T padding and its [.., 8, T] sublane-expanded scale layout
+are not copied: the port's scale tensors carry no 8-wide axis.
+
+The verify variants (K6, K9) belong to speculative decode and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +37,22 @@ from nanorlhf_tpu_torch._build import KERNELS, cuda_stream, ptr
 NEG_INF = -1e30
 
 _DECODE = KERNELS["decode_attention"]
-_DECODE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PAGED = KERNELS["paged_decode_attention"]
+_Q8 = KERNELS["decode_attention_q8"]
+_PAGED_Q8 = KERNELS["paged_decode_attention_q8"]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DECODE_ARGS = [_P] * 6 + [_I] * 5 + [_P]
+_PAGED_ARGS = [_P] * 7 + [_I] * 7 + [_P]
+_Q8_ARGS = [_P] * 8 + [_I] * 5 + [_P]
+_PAGED_Q8_ARGS = [_P] * 9 + [_I] * 7 + [_P]
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_GROUP = 8
+_KERNEL_MAX_BLOCKS = 1024  # block-table entries per row the kernel keeps
 
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def reference_decode_attention(q, k_cache, v_cache, start, filled):
     """Masked softmax over the cache. q: [B, H, hd]; k/v: [B, KV, T, hd];
@@ -46,41 +71,213 @@ def reference_decode_attention(q, k_cache, v_cache, start, filled):
     return out.reshape(B, H, hd)
 
 
+def _gather_pool(pool, table):
+    """Pool [N, KV, P, ...] + table [B, nb] → the row-contiguous view
+    [B, KV, nb·P, ...] (values [.., hd] or scales). Sentinel entries clamp
+    to page N - 1, as JAX's `_gather_pool` does; callers mask those slots."""
+    N = pool.shape[0]
+    g = pool[table.long().clamp(max=N - 1)]        # [B, nb, KV, P, ...]
+    B, nb, KV, P = g.shape[:4]
+    return g.transpose(1, 2).reshape(B, KV, nb * P, *g.shape[4:])
+
+
+def dequantize_kv(values, scales, dtype):
+    """int8 [.., T, hd] × bf16 scales [.., T] → `dtype` (in f32, then
+    rounded once)."""
+    return (values.float() * scales[..., None].float()).to(dtype)
+
+
+def reference_decode_attention_q8(q, k_q, k_s, v_q, v_s, start, filled):
+    """The int8 oracle: dequantize to q's dtype, then the exact reference.
+    k_q/v_q: [B, KV, T, hd] int8; k_s/v_s: [B, KV, T]."""
+    return reference_decode_attention(
+        q, dequantize_kv(k_q, k_s, q.dtype), dequantize_kv(v_q, v_s, q.dtype),
+        start, filled)
+
+
+def reference_paged_decode_attention(q, k_pool, v_pool, table, start, filled):
+    """Gather the pages to a row-contiguous view, then the exact reference.
+    pools: [N, KV, P, hd]; table: [B, nb]."""
+    return reference_decode_attention(
+        q, _gather_pool(k_pool, table), _gather_pool(v_pool, table),
+        start, filled)
+
+
+def reference_paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool,
+                                        table, start, filled):
+    """Gather the int8 and scale pools ([N, KV, P]), dequantize, then the
+    exact reference."""
+    return reference_decode_attention_q8(
+        q, _gather_pool(kq_pool, table), _gather_pool(ks_pool, table),
+        _gather_pool(vq_pool, table), _gather_pool(vs_pool, table),
+        start, filled)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_query(q, KV: int):
+    B, H, hd = q.shape
+    if H % KV or H // KV > _KERNEL_MAX_GROUP:
+        raise ValueError(f"decode kernel needs H % KV == 0 and H/KV <= "
+                         f"{_KERNEL_MAX_GROUP}, got H={H}, KV={KV}")
+    if hd not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"decode kernel head_dim {hd} not in {_KERNEL_HEAD_DIMS}")
+    return B, H, hd
+
+
+def _check_tensor(name, t, q, dtype, align=16):
+    """The kernel reads K rows as 16-byte (bf16) or 8-byte (int8) vectors
+    and scales one by one."""
+    if t.dtype != dtype:
+        raise TypeError(f"decode kernel takes {dtype} {name}, got {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"decode kernel needs contiguous, {align}-byte "
+                         f"aligned {name}")
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _bounds(q, B, start, filled):
+    start = start.to(device=q.device, dtype=torch.int32).contiguous()
+    filled = filled.to(device=q.device, dtype=torch.int32).contiguous()
+    if start.shape != (B,) or filled.shape != (B,):
+        raise ValueError("start/filled must be [B]")
+    return start, filled
+
+
+def _check_cache(what, values, scales, q, B, hd, quantized):
+    """Values [B|N, KV, T|P, hd]; scales [B|N, KV, T|P] when quantized."""
+    if values.dim() != 4 or values.shape[3] != hd:
+        raise ValueError(f"{what} shape {tuple(values.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if quantized:
+        _check_tensor(what, values, q, torch.int8, align=8)
+        if scales.shape != values.shape[:3]:
+            raise ValueError(f"{what} scales {tuple(scales.shape)} must be "
+                             f"{tuple(values.shape[:3])}")
+        _check_tensor(f"{what} scales", scales, q, torch.bfloat16, align=2)
+    else:
+        _check_tensor(what, values, q, torch.bfloat16)
+
+
+def _check_table(table, q, B, N):
+    if table.dim() != 2 or table.shape[0] != B:
+        raise ValueError(f"block table {tuple(table.shape)} must be [B={B}, nb]")
+    if table.shape[1] > _KERNEL_MAX_BLOCKS:
+        raise ValueError(f"paged decode kernel keeps at most "
+                         f"{_KERNEL_MAX_BLOCKS} blocks per row, got {table.shape[1]}")
+    if N < 1:
+        raise ValueError("empty page pool")
+    return table.to(device=q.device, dtype=torch.int32).contiguous()
+
+
 def decode_attention(q, k_cache, v_cache, start, filled):
-    """Prefix-bounded decode attention over the contiguous cache: [B, H, hd].
+    """K4: prefix-bounded decode attention over the contiguous cache
+    [B, KV, T, hd]. Returns [B, H, hd].
 
     CUDA: the Hopper kernel (bf16, head_dim 64/128, at most 8 query heads
     per kv head); a row with no valid slot returns zeros, as the Pallas
     kernel does. CPU: `reference_decode_attention`."""
     if not q.is_cuda:
         return reference_decode_attention(q, k_cache, v_cache, start, filled)
-    B, H, hd = q.shape
-    if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[3] != hd:
-        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match "
-                         f"q {tuple(q.shape)}")
+    KV = k_cache.shape[1]
+    B, H, hd = _check_query(q, KV)
+    _check_tensor("q", q, q, torch.bfloat16)
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _check_cache(name, c, None, q, B, hd, False)
+        if c.shape[0] != B:
+            raise ValueError(f"{name} has {c.shape[0]} rows, q {B}")
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v cache shapes differ")
-    KV, T = k_cache.shape[1], k_cache.shape[2]
-    if H % KV or H // KV > _KERNEL_MAX_GROUP:
-        raise ValueError(f"decode kernel needs H % KV == 0 and H/KV <= "
-                         f"{_KERNEL_MAX_GROUP}, got H={H}, KV={KV}")
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"decode kernel head_dim {hd} not in {_KERNEL_HEAD_DIMS}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode kernel takes bf16, got {name}.dtype={t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode kernel needs contiguous, 16-byte aligned {name}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    start = start.to(device=q.device, dtype=torch.int32).contiguous()
-    filled = filled.to(device=q.device, dtype=torch.int32).contiguous()
-    if start.shape != (B,) or filled.shape != (B,):
-        raise ValueError("start/filled must be [B]")
+    start, filled = _bounds(q, B, start, filled)
     out = torch.empty_like(q)
     _DECODE.launch(
         "decode_attention_bf16", _DECODE_ARGS,
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(start), ptr(filled), ptr(out),
-        B, H, KV, T, hd, cuda_stream(q.device),
+        B, H, KV, k_cache.shape[2], hd, cuda_stream(q.device),
+    )
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, start, filled):
+    """K7: decode attention over the paged cache. q [B, H, hd]; pools
+    [N, KV, P, hd] bf16; table [B, nb] int (sentinel N: unallocated);
+    start/filled [B] logical slots. Returns [B, H, hd].
+
+    CUDA: the Hopper kernel (any page size, at most 1024 blocks per row);
+    CPU: `reference_paged_decode_attention`."""
+    if not q.is_cuda:
+        return reference_paged_decode_attention(q, k_pool, v_pool, table,
+                                                start, filled)
+    N, KV, P = k_pool.shape[:3]
+    B, H, hd = _check_query(q, KV)
+    _check_tensor("q", q, q, torch.bfloat16)
+    _check_cache("k_pool", k_pool, None, q, B, hd, False)
+    _check_cache("v_pool", v_pool, None, q, B, hd, False)
+    if v_pool.shape != k_pool.shape:
+        raise ValueError("k/v pool shapes differ")
+    table = _check_table(table, q, B, N)
+    start, filled = _bounds(q, B, start, filled)
+    out = torch.empty_like(q)
+    _PAGED.launch(
+        "paged_decode_attention_bf16", _PAGED_ARGS,
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(start), ptr(filled),
+        ptr(out), B, H, KV, N, P, table.shape[1], hd, cuda_stream(q.device),
+    )
+    return out
+
+
+def decode_attention_q8(q, k_q, k_s, v_q, v_s, start, filled):
+    """K5: decode attention over the int8 contiguous cache. k_q/v_q
+    [B, KV, T, hd] int8, k_s/v_s [B, KV, T] bf16. Returns [B, H, hd].
+
+    CUDA: the Hopper kernel; CPU: `reference_decode_attention_q8`."""
+    if not q.is_cuda:
+        return reference_decode_attention_q8(q, k_q, k_s, v_q, v_s, start, filled)
+    KV = k_q.shape[1]
+    B, H, hd = _check_query(q, KV)
+    _check_tensor("q", q, q, torch.bfloat16)
+    _check_cache("k_q", k_q, k_s, q, B, hd, True)
+    _check_cache("v_q", v_q, v_s, q, B, hd, True)
+    if v_q.shape != k_q.shape or k_q.shape[0] != B:
+        raise ValueError(f"int8 caches {tuple(k_q.shape)}/{tuple(v_q.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    start, filled = _bounds(q, B, start, filled)
+    out = torch.empty_like(q)
+    _Q8.launch(
+        "decode_attention_q8", _Q8_ARGS,
+        ptr(q), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(start), ptr(filled),
+        ptr(out), B, H, KV, k_q.shape[2], hd, cuda_stream(q.device),
+    )
+    return out
+
+
+def paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool, table,
+                              start, filled):
+    """K8: decode attention over the int8 paged cache. int8 pools
+    [N, KV, P, hd], scale pools [N, KV, P] bf16, table [B, nb]. Returns
+    [B, H, hd].
+
+    CUDA: the Hopper kernel; CPU: `reference_paged_decode_attention_q8`."""
+    if not q.is_cuda:
+        return reference_paged_decode_attention_q8(
+            q, kq_pool, ks_pool, vq_pool, vs_pool, table, start, filled)
+    N, KV, P = kq_pool.shape[:3]
+    B, H, hd = _check_query(q, KV)
+    _check_tensor("q", q, q, torch.bfloat16)
+    _check_cache("kq_pool", kq_pool, ks_pool, q, B, hd, True)
+    _check_cache("vq_pool", vq_pool, vs_pool, q, B, hd, True)
+    if vq_pool.shape != kq_pool.shape:
+        raise ValueError("k/v pool shapes differ")
+    table = _check_table(table, q, B, N)
+    start, filled = _bounds(q, B, start, filled)
+    out = torch.empty_like(q)
+    _PAGED_Q8.launch(
+        "paged_decode_attention_q8", _PAGED_Q8_ARGS,
+        ptr(q), ptr(kq_pool), ptr(ks_pool), ptr(vq_pool), ptr(vs_pool),
+        ptr(table), ptr(start), ptr(filled), ptr(out),
+        B, H, KV, N, P, table.shape[1], hd, cuda_stream(q.device),
     )
     return out

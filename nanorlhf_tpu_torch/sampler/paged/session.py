@@ -1,0 +1,270 @@
+"""The decode session — the port of `nanorlhf_tpu/sampler/paged/session.py`
+in its rollout mode: one resident decode batch over a recycled page pool.
+
+`DecodeSession` owns the carry of `rows` resident rows (`it, out, lp_out,
+caches, key_mask, done, cur_tok, n_gen, prompt_len`), the page allocator
+(host numpy, `pages.py`; the block table is uploaded to the device when an
+admission or a release changes it) and the admission generators. The
+scheduler (`scheduler.py`) drives it: `bootstrap` the first `rows` prompts
+in one batched prefill, then `step`, `release` finished rows and `admit`
+queued prompts into the freed rows, until the queue drains.
+
+Choices where eager PyTorch differs from JAX's jitted chunk:
+
+  * **The iteration counter.** JAX's `while_loop` stops inside a chunk
+    once every row is done, and its counter counts only iterations that ran
+    with a live row. `step` checks `done.all()` on the host before every
+    iteration (one sync per decode step, as the port's monolithic loop
+    does), so the same iterations run, `iterations()` means what it means
+    in JAX, and every kernel launch belongs to an executed step.
+  * **PRNG streams.** Decode draws come from the session's generator, one
+    draw per iteration; the first token of queue entry q comes from its own
+    generator, `stream_generator(seed, ADMIT_STREAM, q)` with `seed` the
+    session generator's seed — the counterpart of JAX's
+    `fold_in(key, _ADMIT_BASE + q)`: a row's first token does not depend on
+    which resident row it landed in. Sampled streams match JAX in
+    distribution only (Philox vs threefry); greedy streams match exactly.
+  * **Dropped writes.** A done row keeps stepping (its token is masked and
+    its output write dropped); once released, its table row is sentinel and
+    its K/V writes land on the pool's scratch page (`core/model.py`).
+
+The serving mode (`per_row`), speculative decode, the radix prefix cache
+and chunked prefill are not ported: asking for them raises
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+
+import numpy as np
+import torch
+
+from nanorlhf_tpu_torch.core.model import decode_step, prefill
+from nanorlhf_tpu_torch.sampler.paged.pages import (
+    PageState,
+    alloc_row,
+    blocks_per_row,
+    full_table,
+    release_row,
+)
+from nanorlhf_tpu_torch.sampler.sampler import (
+    _prefill_state,
+    _sample_token,
+    _token_logprob,
+    stream_generator,
+)
+
+# the admission stream, far from any other stream constant of the port (the
+# counterpart of JAX's `_ADMIT_BASE` fold offset)
+ADMIT_STREAM = 10_000_000
+
+
+class DecodeSession:
+    """One resident decode batch (rollout mode). See the module docstring."""
+
+    def __init__(self, params, config, *, rows, prompt_len, max_tokens,
+                 page_size, eos_token_id, pad_token_id, generator,
+                 temperature=1.0, top_p=0.95, greedy=False, top_k=64,
+                 approx_top_k=True, capture_logprobs=False, lora_scale=1.0,
+                 per_row=False, spec_k=0, prefix_cache=None, prefill_chunk=0,
+                 sync_every=8):
+        unported = {"per_row (serving mode)": per_row,
+                    "spec_k > 0 (speculative decode)": spec_k > 0,
+                    "prefix_cache (radix prefix cache)": prefix_cache is not None,
+                    "prefill_chunk > 0 (chunked prefill)": prefill_chunk > 0}
+        on = [what for what, flag in unported.items() if flag]
+        if on:
+            raise NotImplementedError(
+                f"DecodeSession: {', '.join(on)} not ported to "
+                "nanorlhf_tpu_torch yet (rollout mode only)")
+        self.params, self.config = params, config
+        self.rows = int(rows)
+        self.Tp = int(prompt_len)
+        self.max_tokens = int(max_tokens)
+        self.page_size = int(page_size)
+        self.eos_token_id = int(eos_token_id)
+        self.pad_token_id = int(pad_token_id)
+        self.sync_every = int(sync_every)
+        self.lora_scale = lora_scale
+        self.capture_logprobs = bool(capture_logprobs)
+        self.generator = generator
+        self.device = params["embed_tokens"].device
+        self._sample_kw = dict(temperature=temperature, top_p=top_p,
+                               greedy=greedy, top_k=top_k,
+                               approx_top_k=approx_top_k)
+        self.T_max = self.Tp + self.max_tokens
+        self.nb = blocks_per_row(self.T_max, self.page_size)
+        self.num_pages = self.rows * self.nb
+        # the free stack starts EMPTY: bootstrap() claims the whole pool
+        # through the identity table, churn begins at the first release
+        self._pstate = PageState(np.arange(self.num_pages, dtype=np.int32), 0,
+                                 full_table(self.rows, self.nb))
+        self._upload_table()
+        self.state: dict = {}
+        self.launches = 0          # admission prefills (incl. the bootstrap)
+        self.dispatch_tokens = 0   # prompt tokens prefilled
+
+    def _upload_table(self) -> None:
+        self.table = torch.as_tensor(self._pstate.table, device=self.device)
+
+    # ------------------------------------------------------------- #
+    # admission
+    # ------------------------------------------------------------- #
+
+    def bootstrap(self, prompt_ids, prompt_mask) -> None:
+        """Batched initial admission: one prefill of the first `rows`
+        prompts over the whole pool through the identity table (the
+        monolithic paged prefill), first tokens drawn from the session
+        generator."""
+        R = self.rows
+        st = _prefill_state(
+            self.params, self.config, prompt_ids[:R], prompt_mask[:R],
+            self.generator, max_tokens=self.max_tokens,
+            eos_token_id=self.eos_token_id, pad_token_id=self.pad_token_id,
+            lora_scale=self.lora_scale, capture_logprobs=self.capture_logprobs,
+            page_size=self.page_size, **self._sample_kw)
+        self.launches += 1
+        self.dispatch_tokens += R * self.Tp
+        self.state = {
+            "it": 1, "out": st["out"], "lp_out": st["lp_out"],
+            "caches": st["caches"], "key_mask": st["key_mask"],
+            "done": st["done"], "cur_tok": st["cur_tok"],
+            "n_gen": torch.ones((R,), dtype=torch.int64, device=self.device),
+            "prompt_len": st["prompt_len"],
+        }
+
+    def admit(self, r: int, toks_np, mask_np, admit_index: int) -> None:
+        """Admit one prompt ([Tp] ids and mask, left-padded) into resident
+        row `r`: claim its pages, prefill the full row (pads included)
+        through its table row into the shared pool, draw its first token
+        from the admission generator of `admit_index` (the queue index),
+        and re-initialise the row's carry."""
+        self._pstate, ok = alloc_row(self._pstate, r, self.nb)
+        if not ok:
+            raise RuntimeError("allocator underflow: full-budget rows recycle "
+                               "uniformly, a release must precede each admit")
+        self._upload_table()
+        ids = torch.as_tensor(np.asarray(toks_np)[None, :], dtype=torch.int64,
+                              device=self.device)
+        mask = torch.as_tensor(np.asarray(mask_np, bool)[None, :],
+                               device=self.device)
+        logits, _ = prefill(
+            self.params, self.config, ids, mask, self.state["caches"],
+            lora_scale=self.lora_scale, page_table=self.table[r:r + 1],
+            page_size=self.page_size, logical_len=self.T_max)
+        tok0 = _sample_token(self.admission_generator(admit_index), logits,
+                             **self._sample_kw)
+        lp0 = _token_logprob(logits, tok0, self._sample_kw["temperature"])
+        self.launches += 1
+        self.dispatch_tokens += self.Tp
+        self._install_row(r, tok0[0], lp0[0], mask[0], mask[0].sum())
+
+    def admission_generator(self, admit_index: int) -> torch.Generator:
+        """The generator of queue entry `admit_index`'s first token: keyed
+        on (the session generator's seed, ADMIT_STREAM, admit_index)."""
+        return stream_generator(self.generator.initial_seed(), ADMIT_STREAM,
+                                admit_index, device=self.device)
+
+    def _install_row(self, r, tok0, lp0, pmask_row, plen) -> None:
+        s = self.state
+        s["out"][r] = self.pad_token_id
+        s["out"][r, 0] = tok0
+        s["lp_out"][r] = 0.0
+        s["lp_out"][r, 0] = lp0
+        s["key_mask"][r] = False
+        s["key_mask"][r, :self.Tp] = pmask_row
+        s["done"][r] = tok0 == self.eos_token_id
+        s["cur_tok"][r] = tok0
+        s["n_gen"][r] = 1
+        s["prompt_len"][r] = plen
+
+    # ------------------------------------------------------------- #
+    # stepping
+    # ------------------------------------------------------------- #
+
+    def _decode_body(self) -> None:
+        """One decode iteration over every resident row — the monolithic
+        `_decode_body` with per-row depths: row r's current token sits at
+        slot Tp + n_gen[r] - 1; done rows write nothing to the output, and
+        a row is done at EOS or at `max_tokens` generated tokens."""
+        s = self.state
+        n_gen, done = s["n_gen"], s["done"]
+        R = n_gen.shape[0]
+        rows = torch.arange(R, device=self.device)
+        slot = self.Tp + n_gen - 1
+        s["key_mask"][rows, slot] = True
+        position = s["prompt_len"] + n_gen - 1
+        logits, _ = decode_step(
+            self.params, self.config, s["cur_tok"], position, slot,
+            s["key_mask"], s["caches"], lora_scale=self.lora_scale,
+            page_table=self.table, page_size=self.page_size)
+        tok = _sample_token(self.generator, logits, **self._sample_kw)
+        tok = torch.where(done, torch.full_like(tok, self.pad_token_id), tok)
+        live = ~done
+        write = live & (n_gen < self.max_tokens)  # JAX drops the rest
+        col = n_gen.clamp(max=self.max_tokens - 1)
+        s["out"][rows, col] = torch.where(write, tok, s["out"][rows, col])
+        if self.capture_logprobs:
+            lp = _token_logprob(logits, tok, self._sample_kw["temperature"])
+            s["lp_out"][rows, col] = torch.where(write, lp, s["lp_out"][rows, col])
+        s["cur_tok"] = torch.where(live, tok, s["cur_tok"])
+        s["n_gen"] = n_gen + live.to(n_gen.dtype)
+        s["done"] = done | (tok == self.eos_token_id) | (s["n_gen"] >= self.max_tokens)
+
+    def step(self) -> np.ndarray:
+        """Up to `sync_every` decode iterations, stopping as soon as every
+        resident row is done. Returns the host done flags [rows]."""
+        for _ in range(self.sync_every):
+            if bool(self.state["done"].all()):
+                break
+            self._decode_body()
+            self.state["it"] += 1
+        return self.state["done"].cpu().numpy()
+
+    # ------------------------------------------------------------- #
+    # release / introspection
+    # ------------------------------------------------------------- #
+
+    def release(self, r: int) -> int:
+        """Hand row `r`'s pages back to the free stack; its table row
+        becomes sentinel. Returns the pages freed (0 on a second release)."""
+        self._pstate, m = release_row(self._pstate, r)
+        self._upload_table()
+        return m
+
+    def iterations(self) -> int:
+        """Decode iterations run so far."""
+        return self.state["it"] - 1
+
+    def dispatch_events(self) -> int:
+        """Model-forward launches: admission prefills plus decode
+        iterations."""
+        return self.launches + self.iterations()
+
+    def utilization(self) -> float:
+        """Allocated / total pages right now."""
+        return 1.0 - self._pstate.top / self.num_pages
+
+    def status(self) -> dict:
+        """The JAX session's status record (rollout mode): resident rows,
+        the (empty) chunked-prefill backlog, per-row flags and counters."""
+        done_h = self.state["done"].cpu().numpy()
+        return {
+            "rows": self.rows,
+            "live_rows": int((~done_h).sum()),
+            "mode": "rollout",
+            "features": {"spec_k": 0, "prefix_cache": False, "prefill_chunk": 0,
+                         "per_row_sampling": False, "drafter_seed_window": 0},
+            "pending_prefill": {"rows": [], "backlog_tokens": 0},
+            "row_flags": [{"live": bool(not d), "chunk_pending": False,
+                           "seeded_draft_len": 0} for d in done_h],
+            "counters": {
+                "launches": self.launches,
+                "decode_iterations": self.iterations(),
+                "dispatch_events": self.dispatch_events(),
+                "dispatch_tokens": self.dispatch_tokens,
+                "prefix_hit_tokens": 0,
+                "chunked_admissions": 0,
+                "prefill_backlog_peak": 0,
+            },
+        }

@@ -1,5 +1,6 @@
 """Autoregressive sampler — the port of `nanorlhf_tpu/sampler/sampler.py`
-(the monolithic contiguous-cache path).
+(the monolithic loop over the contiguous or the paged cache, and the
+dispatch to the continuous-batching scheduler, `sampler/paged/`).
 
 Output contract as in JAX (vllm_generate): `[B*N, max_tokens]` int,
 N consecutive samples per prompt, each row the generated tokens including
@@ -14,9 +15,14 @@ sampled streams match JAX in distribution, not bit for bit (greedy streams
 match exactly). `approx_top_k` is exact here (`torch.topk`): the JAX
 docstring notes ApproxTopK is exact off-TPU too.
 
-Knobs that select paths not ported yet (paged cache, speculative decode,
-compaction, chunked prefill, the radix prefix cache, the int8 cache) raise
-NotImplementedError instead of being ignored.
+`page_size > 0` runs the same loop over the paged layout (a pool of
+exactly rows × blocks-per-row pages with the dense identity table: a pure
+re-layout of the contiguous cache, bit-identical to it on the CPU); with
+`0 < decode_rows < rows` as well, `generate` hands the queue to the
+continuous-batching scheduler (`sampler/paged/scheduler.py`). The int8 KV
+cache is the model config's `kv_cache_quant`. Knobs that select paths not
+ported yet (speculative decode, compaction, chunked prefill, the radix
+prefix cache) raise NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -24,11 +30,18 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
-from nanorlhf_tpu_torch.core.model import decode_step, init_kv_cache, prefill
+from nanorlhf_tpu_torch.core.model import (
+    decode_step,
+    init_kv_cache,
+    init_paged_kv_cache,
+    prefill,
+)
 from nanorlhf_tpu_torch.ops.masking import guard_temperature
+from nanorlhf_tpu_torch.sampler.paged.pages import blocks_per_row, full_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,17 +79,25 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
         raise ValueError("prefill_chunk > 0 requires continuous batching "
                          "(page_size > 0 and decode_rows > 0)")
     unported = {
-        "page_size > 0 (paged KV cache)": sampling.page_size > 0,
-        "decode_rows > 0 (continuous batching)": sampling.decode_rows > 0,
         "spec_k > 0 (speculative decode)": sampling.spec_k > 0,
         "compaction_segments > 0 (compacting decode)": sampling.compaction_segments > 0,
         "prefix_cache (radix prefix cache)": prefix_cache,
+        "prefill_chunk > 0 (chunked prefill)": sampling.prefill_chunk > 0,
     }
     for what, on in unported.items():
         if on:
             raise NotImplementedError(
-                f"{what} is not ported to nanorlhf_tpu_torch yet: only the "
-                "monolithic contiguous-cache sampler is")
+                f"{what} is not ported to nanorlhf_tpu_torch yet: the "
+                "monolithic sampler (contiguous or paged) and the queued "
+                "paged scheduler are")
+
+
+def stream_generator(seed: int, stream: int, *index: int,
+                     device="cpu") -> torch.Generator:
+    """A generator seeded from (seed, stream, *index): the counterpart of
+    JAX's `fold_in` chains. Equal arguments give equal draws."""
+    state = np.random.SeedSequence([int(seed), int(stream), *map(int, index)])
+    return torch.Generator(device=device).manual_seed(int(state.generate_state(1)[0]))
 
 
 def top_p_filter_bisect(logits: torch.Tensor, top_p: float,
@@ -166,26 +187,57 @@ def _token_logprob(logits, tok, temperature):
     return torch.gather(scaled, -1, tok[:, None].long())[:, 0] - lse
 
 
+def _fan_out_pages(pool, rows: int, nb: int, fanout: int):
+    """Fan a stacked pool [L, rows·nb + 1, ...] out ×`fanout` by whole page
+    groups: row r of the fanned identity table lands on a copy of row
+    r // fanout's pages (page-major, as JAX does), then a fresh scratch
+    page."""
+    live = pool[:, :rows * nb]
+    fanned = live.reshape(pool.shape[0], rows, nb, *pool.shape[2:]).repeat_interleave(
+        fanout, dim=1).reshape(pool.shape[0], rows * fanout * nb, *pool.shape[2:])
+    return torch.cat([fanned, pool[:, -1:]], dim=1)
+
+
 def _prefill_state(params, config, prompt_ids, prompt_mask, generator, *,
                    max_tokens, eos_token_id, pad_token_id, temperature, top_p,
                    greedy, lora_scale, top_k, capture_logprobs, approx_top_k,
-                   prompt_fanout=1):
+                   prompt_fanout=1, page_size=0):
     """Prefill + first sampled token → the decode-loop state dict. With
     `prompt_fanout` N the [B] prompts are prefilled once and the first
-    logits, prompt KV and row metadata fan out ×N (prompt-major)."""
+    logits, prompt KV and row metadata fan out ×N (prompt-major).
+
+    `page_size` > 0 allocates the paged layout instead of a contiguous
+    slab: a pool of exactly rows·ceil(T_max/page_size) pages (plus the
+    scratch page) with the dense identity table — a pure re-layout of the
+    contiguous cache, no recycling. The state then carries `table`."""
     B, Tp = prompt_ids.shape
     T_max = Tp + max_tokens
     prompt_mask = prompt_mask.bool()
     dtype = params["embed_tokens"].dtype
     device = prompt_ids.device
-    caches = init_kv_cache(config, B, T_max, dtype, device)
-    first_logits, caches = prefill(params, config, prompt_ids, prompt_mask,
-                                   caches, lora_scale=lora_scale)
+    table = None
+    if page_size > 0:
+        nb = blocks_per_row(T_max, page_size)
+        caches = init_paged_kv_cache(config, B * nb, page_size, dtype, device)
+        first_logits, caches = prefill(
+            params, config, prompt_ids, prompt_mask, caches,
+            lora_scale=lora_scale,
+            page_table=torch.as_tensor(full_table(B, nb), device=device),
+            page_size=page_size, logical_len=T_max)
+    else:
+        caches = init_kv_cache(config, B, T_max, dtype, device)
+        first_logits, caches = prefill(params, config, prompt_ids, prompt_mask,
+                                       caches, lora_scale=lora_scale)
     if prompt_fanout > 1:
         first_logits = first_logits.repeat_interleave(prompt_fanout, dim=0)
-        caches = tuple(c.repeat_interleave(prompt_fanout, dim=1) for c in caches)
+        if page_size > 0:
+            caches = tuple(_fan_out_pages(c, B, nb, prompt_fanout) for c in caches)
+        else:
+            caches = tuple(c.repeat_interleave(prompt_fanout, dim=1) for c in caches)
         prompt_mask = prompt_mask.repeat_interleave(prompt_fanout, dim=0)
         B = B * prompt_fanout
+    if page_size > 0:
+        table = torch.as_tensor(full_table(B, nb), device=device)
 
     prompt_len = prompt_mask.sum(dim=1).to(torch.int64)
     key_mask = torch.zeros((B, T_max), dtype=torch.bool, device=device)
@@ -199,7 +251,7 @@ def _prefill_state(params, config, prompt_ids, prompt_mask, generator, *,
         lp_out[:, 0] = _token_logprob(first_logits, tok, temperature)
     return {"step": 1, "out": out, "lp_out": lp_out, "caches": caches,
             "key_mask": key_mask, "done": tok == eos_token_id, "cur_tok": tok,
-            "prompt_len": prompt_len}
+            "prompt_len": prompt_len, "table": table, "page_size": page_size}
 
 
 def _decode_body(params, config, state, *, Tp, max_tokens, eos_token_id,
@@ -214,7 +266,8 @@ def _decode_body(params, config, state, *, Tp, max_tokens, eos_token_id,
     position = state["prompt_len"] + step - 1
     logits, _ = decode_step(params, config, state["cur_tok"], position,
                             cache_slot, state["key_mask"], state["caches"],
-                            lora_scale=lora_scale)
+                            lora_scale=lora_scale, page_table=state["table"],
+                            page_size=state["page_size"])
     tok = _sample_token(generator, logits, temperature, top_p, greedy, top_k,
                         approx_top_k)
     tok = torch.where(done, torch.full_like(tok, pad_token_id), tok)
@@ -236,9 +289,10 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
                     greedy: bool = False, lora_scale: float = 1.0,
                     top_k: int = 64, capture_logprobs: bool = False,
                     approx_top_k: bool = True, prompt_fanout: int = 1,
-                    timings: dict | None = None):
+                    page_size: int = 0, timings: dict | None = None):
     """Core loop: prefill, then decode until `max_tokens` or every row has
     emitted EOS. Returns [B*fanout, max_tokens] (+ logprobs f32).
+    `page_size` > 0 runs it over the paged layout (identity table).
     `timings`, when given, receives `prefill_s`, `decode_s` (wall seconds,
     device-synchronized) and `decode_steps`."""
     Tp = prompt_ids.shape[1]
@@ -248,7 +302,7 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
               capture_logprobs=capture_logprobs, approx_top_k=approx_top_k)
     t0 = time.perf_counter()
     state = _prefill_state(params, config, prompt_ids, prompt_mask, generator,
-                           prompt_fanout=prompt_fanout, **kw)
+                           prompt_fanout=prompt_fanout, page_size=page_size, **kw)
     if timings is not None:
         sync_device(prompt_ids.device)
         timings["prefill_s"] = time.perf_counter() - t0
@@ -266,24 +320,68 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
 def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              generator: torch.Generator, sampling: SamplingParams,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
-             timings: dict | None = None):
+             timings: dict | None = None, paged_stats_out: list | None = None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
-    see `generate_tokens`."""
+    see `generate_tokens`.
+
+    `page_size > 0 and 0 < decode_rows < B*N` runs the continuous-batching
+    scheduler: each prompt repeated N times becomes its own queue entry
+    (no shared-prompt fan-out there, as in JAX). `paged_stats_out` (paged
+    paths only) receives one stats dict per call: page_utilization,
+    pages_recycled, admitted_midloop (+ the scheduler's session counters).
+    `decode_rows > 0` with `page_size == 0` is ignored, as in JAX."""
     compose_check(sampling)
+    total_rows = prompt_ids.shape[0] * sampling.n
+    queued = (sampling.page_size > 0 and sampling.decode_rows > 0
+              and sampling.decode_rows < total_rows)
     fanout = 1
     if sampling.n > 1:
-        if sampling.shared_prompt_prefill:
+        if sampling.shared_prompt_prefill and not queued:
             fanout = sampling.n  # prefill once, fan the prompt KV out
         else:
             prompt_ids = prompt_ids.repeat_interleave(sampling.n, dim=0)
             prompt_mask = prompt_mask.repeat_interleave(sampling.n, dim=0)
-    return generate_tokens(
-        params, config, prompt_ids, prompt_mask, generator,
-        max_tokens=sampling.max_tokens, eos_token_id=eos_token_id,
-        pad_token_id=pad_token_id, temperature=sampling.temperature,
-        top_p=sampling.top_p, greedy=sampling.greedy, lora_scale=lora_scale,
-        top_k=sampling.top_k, capture_logprobs=sampling.capture_logprobs,
-        approx_top_k=sampling.approx_top_k, prompt_fanout=fanout,
-        timings=timings,
-    )
+    kw = dict(max_tokens=sampling.max_tokens, eos_token_id=eos_token_id,
+              pad_token_id=pad_token_id, temperature=sampling.temperature,
+              top_p=sampling.top_p, greedy=sampling.greedy,
+              lora_scale=lora_scale, top_k=sampling.top_k,
+              capture_logprobs=sampling.capture_logprobs,
+              approx_top_k=sampling.approx_top_k, timings=timings)
+    if queued:
+        from nanorlhf_tpu_torch.sampler.paged.scheduler import generate_tokens_queued
+
+        return generate_tokens_queued(
+            params, config, prompt_ids, prompt_mask, generator,
+            page_size=sampling.page_size, decode_rows=sampling.decode_rows,
+            paged_stats_out=paged_stats_out, **kw)
+    result = generate_tokens(params, config, prompt_ids, prompt_mask, generator,
+                             prompt_fanout=fanout, page_size=sampling.page_size,
+                             **kw)
+    _monolithic_paged_stats(result, sampling, prompt_mask, fanout,
+                            pad_token_id, paged_stats_out)
+    return result
+
+
+def _monolithic_paged_stats(result, sampling, prompt_mask, fanout,
+                            pad_token_id, paged_stats_out):
+    """`paged_stats_out` of the monolithic paged path: no recycling, no
+    admissions — utilization is the final cache occupancy over the fully
+    provisioned pool."""
+    if paged_stats_out is None or sampling.page_size <= 0:
+        return
+    toks = result[0] if sampling.capture_logprobs else result
+    rows, Tp = toks.shape[0], prompt_mask.shape[1]
+    P = sampling.page_size
+    nb = blocks_per_row(Tp + sampling.max_tokens, P)
+    used = float(prompt_mask.sum()) * fanout + float((toks != pad_token_id).sum())
+    paged_stats_out.append({
+        "page_utilization": used / (rows * nb * P),
+        "pages_recycled": 0,
+        "admitted_midloop": 0,
+        "decode_iterations": None,
+        "rows": rows,
+        "num_pages": rows * nb,
+        "page_size": P,
+        "admissions": [],
+    })

@@ -1,6 +1,7 @@
 """One GRPO update's rollout-and-score half — the port of the trainer's
-`rollout_body` (`nanorlhf_tpu/trainer/trainer.py:1727-1819`, the
-monolithic contiguous path) followed by its reward, group-advantage,
+`rollout_body` (`nanorlhf_tpu/trainer/trainer.py:1727-1819`: the
+monolithic loop over the contiguous or paged cache, or the queued
+continuous-batching scheduler, exact or with the int8 KV cache) followed by its reward, group-advantage,
 keep-1-of-N and scoring steps (:2029-2189), then the response
 post-processing (:2191-2221) and the GRPO branch of `_assemble_batch`
 (:2987-3016), as plain functions:
@@ -16,11 +17,13 @@ pass: only `batch_size` rows are scored.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from nanorlhf_tpu_torch._build import launch_counts
 from nanorlhf_tpu_torch.algos.advantages import (
     discounted_returns,
     grpo_group_advantage,
@@ -34,7 +37,11 @@ from nanorlhf_tpu_torch.ops.masking import (
     response_padding_masks,
     truncate_response,
 )
-from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+from nanorlhf_tpu_torch.sampler.sampler import (  # noqa: F401 (re-export)
+    SamplingParams,
+    generate,
+    stream_generator,
+)
 from nanorlhf_tpu_torch.trainer.bucketing import depad_queries
 from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
 from nanorlhf_tpu_torch.trainer.scoring import (
@@ -54,9 +61,13 @@ PERM_STREAM = 0x9E77
 def check_supported(cfg: RLConfig) -> None:
     """Raise NotImplementedError for every trainer knob that selects a path
     this port has not ported, instead of ignoring it. The sampler knobs
-    (paged cache, speculative decode, compaction, chunked prefill) reach
+    (speculative decode, compaction, chunked prefill) reach
     `sampler.compose_check` through `sampling_params(cfg)`, which raises
-    for them."""
+    for them; the paged cache and continuous batching
+    (`rollout_page_size`, `rollout_decode_rows`) and the int8 KV cache
+    (`kv_cache_quant`) are ported."""
+    if cfg.kv_cache_quant not in ("none", "int8"):
+        raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     unported = {
         "algo != GRPO": cfg.algo != AlgoName.GRPO,
         "rollout_orchestrator": cfg.rollout_orchestrator,
@@ -66,7 +77,6 @@ def check_supported(cfg: RLConfig) -> None:
         "env multi-turn (env_max_turns > 1)": bool(cfg.env_name) and cfg.env_max_turns > 1,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
         "rollout_prefix_cache": cfg.rollout_prefix_cache,
-        "kv_cache_quant='int8'": cfg.kv_cache_quant != "none",
         "rollout_quant='int8'": cfg.rollout_quant != "none",
         "sampler_logprob_capture": cfg.sampler_logprob_capture,
     }
@@ -76,19 +86,20 @@ def check_supported(cfg: RLConfig) -> None:
             f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
 
 
-def stream_generator(seed: int, stream: int, *index: int,
-                     device="cpu") -> torch.Generator:
-    """A generator seeded from (seed, stream, *index): the counterpart of
-    JAX's `fold_in` chains. Equal arguments give equal draws."""
-    state = np.random.SeedSequence([int(seed), int(stream), *map(int, index)])
-    return torch.Generator(device=device).manual_seed(int(state.generate_state(1)[0]))
-
-
 def rollout_generator(seed: int, rollout_index: int, device) -> torch.Generator:
     """The generation stream of rollout `rollout_index`, the torch
     counterpart of the trainer's `fold_in(fold_in(PRNGKey(seed), 0x5E11),
     index)`."""
     return stream_generator(seed, _ROLLOUT_STREAM, rollout_index, device=device)
+
+
+def rollout_model_config(mcfg, cfg: RLConfig):
+    """The generation-side model config: the int8 KV cache is a rollout-only
+    variant (`kv_cache_quant`); scoring and the update keep the exact
+    config (they never build a cache), as in JAX."""
+    if cfg.kv_cache_quant != mcfg.kv_cache_quant:
+        return dataclasses.replace(mcfg, kv_cache_quant=cfg.kv_cache_quant)
+    return mcfg
 
 
 def sampling_params(cfg: RLConfig) -> SamplingParams:
@@ -113,7 +124,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       keep_generator: torch.Generator,
                       ctx_menu: list[int] | None = None,
                       timings: dict | None = None,
-                      sampling: SamplingParams | None = None) -> dict:
+                      sampling: SamplingParams | None = None,
+                      launches: dict | None = None) -> dict:
     """Roll out `queries` ([B, T] left-padded prompt ids), keep one sample
     per prompt and score the kept rows. Returns numpy arrays: `queries`
     (de-padded, [B, Tq]), `scores` [B·N] (every sample's raw score),
@@ -124,7 +136,10 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     logprobs then equal the policy's. `timings`, when given, receives the
     wall seconds of each phase (device-synchronized) and the number of
     decode steps. `sampling` overrides the trainer's SamplingParams (e.g.
-    greedy, for parity tests)."""
+    greedy, for parity tests). On a paged rollout the result also carries
+    `paged_stats` (the sampler's stats dict). `launches`, when given,
+    receives the kernel launches of the generation (`generate`) and of the
+    scoring pass (`score`)."""
     check_supported(cfg)
     device = params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
@@ -136,12 +151,16 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         queries = depad_queries(queries, pad_id, ctx_menu)
     queries_t = torch.as_tensor(queries, dtype=torch.int64, device=device)
     prompt_mask = queries_t != pad_id
-    responses = generate(params, mcfg, queries_t, prompt_mask, generator,
-                         sampling or sampling_params(cfg), eos_token_id=eos_id,
-                         pad_token_id=pad_id, lora_scale=lora_scale,
-                         timings=t)
+    paged_stats: list = []
+    counts0 = launch_counts()
+    responses = generate(params, rollout_model_config(mcfg, cfg), queries_t,
+                         prompt_mask, generator, sampling or sampling_params(cfg),
+                         eos_token_id=eos_id, pad_token_id=pad_id,
+                         lora_scale=lora_scale, timings=t,
+                         paged_stats_out=paged_stats)
     responses_np = responses.cpu().numpy()
     t["generate_s"] = time.perf_counter() - t_start
+    counts1 = launch_counts()
 
     # ---- reward (host-side, user callable) ----
     t0 = time.perf_counter()
@@ -181,12 +200,19 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits for the device
     t["score_s"] = time.perf_counter() - t0
     t["total_s"] = time.perf_counter() - t_start
-    return {
+    if launches is not None:
+        counts2 = launch_counts()
+        launches["generate"] = {k: counts1[k] - counts0[k] for k in counts0}
+        launches["score"] = {k: counts2[k] - counts1[k] for k in counts0}
+    out = {
         "queries": queries, "responses": responses_np, "scores": scores,
         "keep": keep, "advantages": advantages,
         "logprobs": np.concatenate(lps), "ref_logprobs": np.concatenate(rlps),
         "context_length": context_length,
     }
+    if paged_stats:
+        out["paged_stats"] = paged_stats[0]
+    return out
 
 
 def postprocess_responses(responses: np.ndarray, stop_id: int | None, pad_id: int):

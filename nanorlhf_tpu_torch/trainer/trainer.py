@@ -155,13 +155,17 @@ class RLTrainer:
                                       config.greater_is_better)
         self.logger = MetricsLogger(config.output_dir, config.report_to)
         self.state = {"episode": 0, "global_step": 0, "opt_steps": 0, "rollouts": 0}
-        # the latest update's kernel launches per half, phase timings (wall
-        # s, device-synchronized) and per-minibatch stats; and the wall
+        # the latest update's kernel launches per half (and the rollout
+        # half split into generate / score), phase timings (wall s,
+        # device-synchronized) and per-minibatch stats; and the wall
         # seconds of the latest checkpoint write
         self.last_launches: dict = {}
         self.last_timings: dict = {}
         self.last_stats: list = []
         self.last_save_s = None
+        # the latest paged rollout's pool snapshot and session status
+        self.pages_status: dict | None = None
+        self.session_status: dict | None = None
         self._iter = dataset.loader(config.batch_size, config.seed)
         self.ctx_menu = shape_menu(dataset.input_ids.shape[1], min_value=16)
 
@@ -202,12 +206,14 @@ class RLTrainer:
             self.state["rollouts"] += 1
             self.state["episode"] += cfg.batch_size
             t: dict = {}
+            ro_launches: dict = {}
             counts0 = launch_counts()
             ro = rollout_and_score(
                 self.params, self.ref_params, self.mcfg, cfg, tok, queries,
                 self.reward_func, rollout_generator(cfg.seed, index, self.device),
                 self.lora_scale, stream_generator(cfg.seed, KEEP_STREAM, index),
-                ctx_menu=self.ctx_menu, timings=t)
+                ctx_menu=self.ctx_menu, timings=t, launches=ro_launches)
+            self._snapshot_pages(ro.get("paged_stats"))
             if self.ref_params is None:
                 ro["ref_logprobs"] = ro["logprobs"].copy()
             batch, post = assemble_grpo_batch(ro, cfg, stop_id, pad_id, eos_id)
@@ -221,6 +227,7 @@ class RLTrainer:
             counts2 = launch_counts()
             self.last_launches = {
                 "rollout_and_score": {k: counts1[k] - counts0[k] for k in counts0},
+                **ro_launches,
                 "update": {k: counts2[k] - counts1[k] for k in counts0}}
             self.last_timings, self.last_stats = t, all_stats
             agg = {k: float(np.mean([s[k] for s in all_stats]))
@@ -294,7 +301,49 @@ class RLTrainer:
             "time/update_s": t["update_s"],
             "perf/tokens_per_sec_update": train_tokens / max(t["update_s"], 1e-9),
         }
+        metrics.update(self._paged_metrics(ro.get("paged_stats")))
         return metrics
+
+    @staticmethod
+    def _paged_metrics(paged_stats) -> dict:
+        """rollout/page_utilization, pages_recycled, admitted_midloop from a
+        paged rollout's stats (the monolithic paged path reports utilization
+        with no recycling or admissions), plus the decode session's
+        counters on the continuous-batching path: session/dispatch_events
+        (admission prefills + decode iterations), chunked_admissions and
+        prefill_backlog (0: chunked prefill is not ported). {} when the
+        rollout is not paged."""
+        if paged_stats is None:
+            return {}
+        out = {
+            "rollout/page_utilization": float(paged_stats["page_utilization"]),
+            "rollout/pages_recycled": float(paged_stats["pages_recycled"]),
+            "rollout/admitted_midloop": float(paged_stats["admitted_midloop"]),
+        }
+        if "dispatch_events" in paged_stats:
+            out["session/dispatch_events"] = float(paged_stats["dispatch_events"])
+            out["session/chunked_admissions"] = float(
+                paged_stats["chunked_admissions"])
+            out["session/prefill_backlog"] = float(
+                paged_stats["prefill_backlog_peak"])
+        return out
+
+    def _snapshot_pages(self, pstats) -> None:
+        """Keep the latest paged rollout's pool snapshot (`pages_status`:
+        utilization, recycling, admissions, decode iterations, shape) and
+        the decode session's end-of-call status (`session_status`) — what
+        the JAX trainer serves on /statusz; the port keeps them on the
+        trainer and serves nothing."""
+        if pstats is None:
+            return
+        self.pages_status = {
+            k: (None if pstats[k] is None else float(pstats[k]))
+            for k in ("page_utilization", "pages_recycled",
+                      "admitted_midloop", "decode_iterations")}
+        self.pages_status.update(rows=pstats["rows"],
+                                 num_pages=pstats["num_pages"],
+                                 page_size=pstats["page_size"])
+        self.session_status = pstats.get("session")
 
     # ------------------------------------------------------------------ #
     # checkpoints

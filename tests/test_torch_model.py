@@ -149,8 +149,21 @@ def test_unported_paths_raise():
     cfg = port_config(jcfg)
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        tm.init_kv_cache(dataclasses.replace(cfg, kv_cache_quant="int8"), 1, 4,
+    # the int8 KV cache, ported by the paged / int8 slice: JAX's layout minus
+    # the [.., 8, T] sublane expansion of the scales, which the port drops
+    from nanorlhf_tpu.core.model import init_kv_cache as jax_init_kv_cache
+
+    q8 = tm.init_kv_cache(dataclasses.replace(cfg, kv_cache_quant="int8"), 1, 4,
+                          torch.float32, "cpu")
+    want = jax_init_kv_cache(dataclasses.replace(jcfg, kv_cache_quant="int8"), 1, 4)
+    assert [t.dtype for t in q8] == [torch.int8, torch.bfloat16] * 2
+    for got, ref in zip(q8, want):
+        ref = np.asarray(ref, np.float32)
+        if ref.ndim == 5 and got.dim() == 4:  # scales: [L, B, KV, 8, T]
+            ref = ref[:, :, :, 0, :]
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+    with pytest.raises(ValueError):
+        tm.init_kv_cache(dataclasses.replace(cfg, kv_cache_quant="int4"), 1, 4,
                          torch.float32, "cpu")
     _, tparams = make_params(jcfg, lora=False)
     tparams["layers"]["q_proj"]["kernel_q"] = tparams["layers"]["q_proj"]["kernel"]

@@ -114,9 +114,19 @@ def test_sampled_distribution_by_enumeration(top_p, top_k, rng):
 def test_unported_sampling_knobs_raise(tiny):
     jcfg, jparams, cfg, tparams = tiny
     ids = torch.as_tensor(_prompts((3,), 3)).long()
-    for knobs in ({"page_size": 16}, {"spec_k": 2}, {"compaction_segments": 2}):
+    for knobs in ({"spec_k": 2}, {"compaction_segments": 2}):
         with pytest.raises(NotImplementedError):
             ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator(),
                         ts.SamplingParams(**knobs), eos_token_id=1, pad_token_id=PAD)
+    # page_size, ported by the paged slice: the same sampled stream as the
+    # contiguous cache (the paged layout is a pure re-layout)
+    sp = dict(max_tokens=6, n=2, temperature=0.9)
+    paged = ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator().manual_seed(3),
+                        ts.SamplingParams(page_size=16, **sp), eos_token_id=1,
+                        pad_token_id=PAD, lora_scale=LORA.scale)
+    contiguous = ts.generate(tparams, cfg, ids, ids != PAD,
+                             torch.Generator().manual_seed(3), ts.SamplingParams(**sp),
+                             eos_token_id=1, pad_token_id=PAD, lora_scale=LORA.scale)
+    assert torch.equal(paged, contiguous)
     with pytest.raises(ValueError):  # the JAX legality matrix comes first
         ts.compose_check(ts.SamplingParams(spec_k=2, compaction_segments=2))

@@ -32,6 +32,7 @@ from nanorlhf_tpu_torch.entrypoints import common
 from nanorlhf_tpu_torch.entrypoints.grpo import build_config
 from nanorlhf_tpu_torch.sampler.sampler import SamplingParams
 from nanorlhf_tpu_torch.trainer import bucketing
+from nanorlhf_tpu_torch.trainer import rollout as trollout
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM, check_supported, rollout_and_score, rollout_generator, stream_generator)
 
@@ -180,24 +181,66 @@ UNPORTED_SAMPLER = [
     dict(rollout_page_size=128), dict(rollout_decode_rows=8), dict(rollout_spec_k=4),
     dict(rollout_compaction_segments=2),
 ]
+# knobs that raised until the paged / int8 slice ported them: their cases now
+# hold the rollout through the knob against the contiguous exact rollout
+PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows")
+
+
+def _greedy_rollout(monkeypatch, knobs):
+    """run_rollout on the CPU (tiny model, 2 prompts, 6 tokens) with greedy
+    sampling and `knobs` set."""
+    cfg = build_config()
+    cfg.sft_model_path = "tiny-demo"
+    cfg.response_length = 6
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    greedy = dataclasses.replace(trollout.sampling_params(cfg), greedy=True)
+    real = trollout.rollout_and_score
+    monkeypatch.setattr(common, "rollout_and_score",
+                        lambda *a, **kw: real(*a, sampling=greedy, **kw))
+    return common.run_rollout(cfg, device="cpu", num_prompts=2)
+
+
+def _assert_ported_knob_matches(monkeypatch, knobs):
+    got = _greedy_rollout(monkeypatch, knobs)
+    want = _greedy_rollout(monkeypatch, {})
+    if "kv_cache_quant" in knobs:
+        # the int8 cache changes the rollout's numbers, not its contract:
+        # the same shapes, finite logprobs, the int8 cache on the paged route
+        # gives the same rows as on the contiguous one
+        assert got["responses"].shape == want["responses"].shape
+        assert np.isfinite(got["logprobs"]).all()
+        paged = _greedy_rollout(monkeypatch, dict(knobs, rollout_page_size=4))
+        np.testing.assert_array_equal(paged["responses"], got["responses"])
+        np.testing.assert_array_equal(paged["logprobs"], got["logprobs"])
+    else:
+        np.testing.assert_array_equal(got["responses"], want["responses"])
+        np.testing.assert_array_equal(got["logprobs"], want["logprobs"])
 
 
 @pytest.mark.parametrize("knobs", UNPORTED, ids=lambda d: next(iter(d)))
-def test_unported_knobs_raise(knobs):
+def test_unported_knobs_raise(knobs, monkeypatch):
     cfg = build_config()
     for k, v in knobs.items():
         setattr(cfg, k, v)
+    if next(iter(knobs)) in PORTED_KNOBS:
+        check_supported(cfg)
+        _assert_ported_knob_matches(monkeypatch, knobs)
+        return
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
 
 
 @pytest.mark.parametrize("knobs", UNPORTED_SAMPLER, ids=lambda d: next(iter(d)))
-def test_unported_sampler_knobs_raise_from_the_rollout(knobs):
+def test_unported_sampler_knobs_raise_from_the_rollout(knobs, monkeypatch):
     cfg = build_config()
     cfg.sft_model_path = "tiny-demo"
     for k, v in knobs.items():
         setattr(cfg, k, v)
     check_supported(cfg)  # a sampler knob: caught where the sampler is built
+    if next(iter(knobs)) in PORTED_KNOBS:
+        _assert_ported_knob_matches(monkeypatch, knobs)
+        return
     with pytest.raises(NotImplementedError):
         common.run_rollout(cfg, device="cpu", num_prompts=1)
 
