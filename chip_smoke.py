@@ -13,9 +13,15 @@ Phases (any failure exits non-zero):
   2. kernel checks — each kernel against its plain PyTorch version on the
      card, in bf16 (int8 for the int8 cache), at the shapes the rollout and
      the update give it, with the stated tolerance; the paged kernels (K7,
-     K8) on pages scattered through a pool with spare pages and a sentinel
-     block, each equal bit for bit to its contiguous twin (K4, K5) on the
-     same logical cache; then the kernel's time, its plain version's time,
+     K8, K9) on pages scattered through a pool with spare pages and a
+     sentinel block, each equal bit for bit to its contiguous twin (K4, K5,
+     K6) on the same logical cache; the verify kernels (K6, K9) at the
+     shapes phase 7 gives them (Tq = 5 candidates; K6 at B = 64 rows, K9 at
+     32), held per element within one bf16 ulp of the f32 result, with
+     candidate blocks straddling tiles and pages, K6 at Tq = 1 against K4,
+     and off those shapes (64 rows per block, one, head_dim 64, the key
+     range in one split and in three); then the kernel's time, its plain
+     version's time,
      one library call's time as a yardstick (for the paged and int8 cache,
      where no single call exists: SDPA over a pre-gathered / pre-dequantized
      view, "not one call"), and the bound (the least time the card could
@@ -44,10 +50,10 @@ Phases (any failure exits non-zero):
      script stays within half its time limit;
   5. one GRPO update over continuous batching — the same, with
      rollout_page_size=128 and rollout_decode_rows=32 (32 of the 64 rows
-     resident, the rest admitted mid-loop into recycled pages), at the full
-     response length: K7 launched once per layer and executed decode step,
-     K4 never, one flash forward per layer for the bootstrap prefill and
-     each admission; the pool statistics and metrics rows; then, at full
+     resident, the rest admitted mid-loop into recycled pages), at most
+     512 tokens (a cut, printed): K7 launched once per layer and executed
+     decode step, K4 never, one flash forward per layer for the bootstrap
+     prefill and each admission; the pool statistics and metrics rows; then, at full
      width on the 2-layer model, a queue whose rows stop at staggered
      lengths: the queued greedy rows against the contiguous ones, in fewer
      decode iterations than the fixed-batch schedule;
@@ -55,7 +61,20 @@ Phases (any failure exits non-zero):
      contiguous (K5) and paged + queued (K8), 4 prompts × 4 samples of at
      most 512 tokens (a cut), with their launch counts, decode ms per step
      and cache bytes per row; on the 2-layer input, the int8 routes' decode
-     logits against the exact route in f32 beside the exact bf16 route's.
+     logits against the exact route in f32 beside the exact bf16 route's;
+  7. speculative decode (rollout_spec_k=4) — (a) one GRPO update over the
+     contiguous cache at the full response length (K6 once per layer and
+     verify step, K4 never; the rollout/* speculative rows; ms per verify
+     step and emitted tokens/s); (b) a queued paged rollout, page size 128,
+     32 resident rows, 16 prompts × 4 samples of at most 512 tokens (K9 once
+     per layer and iteration, K7 never); (c) on a 2-layer full-width model
+     built to repeat a 4-token cycle, speculative greedy streams (K6 and
+     K9) equal to the monolithic ones in at most half the forwards, with
+     acceptance above one half, and on the random 2-layer model the first
+     difference of any speculative greedy row from its monolithic row with
+     the top-2 logit margin there; (d) a short int8 + speculative rollout.
+     The verify shapes (a) and (b) gave the kernels are recorded and must
+     be those phase 2 held and timed.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -65,6 +84,8 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -511,6 +532,254 @@ def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
     }
 
 
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values (8 significant bits) at |x|."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+ULP_FLOOR = 1e-5  # f32 summation order and __expf: ~1e-6 on outputs of |v| ~ 1
+
+
+def hold_ulp(torch, what: str, pairs) -> float:
+    """As `hold`, with a bound per element instead of one absolute
+    tolerance: one bf16 ulp of |f32 result| + ULP_FLOOR. A kernel that
+    computes in f32 and rounds its bf16 output once is within half an ulp
+    of it, so a dropped or doubled tile, or a mis-weighted split, shows on
+    the long windows' small outputs (|out| ~ 0.05) as well as on the short
+    windows' large ones. Returns the largest kernel error."""
+    worst, bad = 0.0, False
+    parts = []
+    for label, got, want, bf16, rows in pairs:
+        if not torch.isfinite(got.float()).all():
+            fail(f"{what}: non-finite {label}")
+        lim = bf16_ulp(torch, want) + ULP_FLOOR
+        d = (got.float() - want.float()).abs()
+        db = (bf16.float() - want.float()).abs()
+        if rows is not None:
+            d, db, lim = d[rows], db[rows], lim[rows]
+        err, share = float(d.max()), float((d / lim).max())
+        parts.append(f"{label} {err:.3e}, {share:.3f} of its bound (plain bf16 "
+                     f"{float(db.max()):.3e}, {float((db / lim).max()):.3f})")
+        worst, bad = max(worst, err), bad or share > 1.0
+    log(f"  {what}: max|kernel - plain f32|, and its largest share of the bound "
+        f"1 bf16 ulp of |plain f32| + {ULP_FLOOR}: {', '.join(parts)}")
+    if bad:
+        fail(f"{what}: kernel disagrees with its plain version")
+    return worst
+
+
+def _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max, P=None, copies=1):
+    """Inputs of one verify check over T logical slots: q [B, H, Tq, hd] and
+    `copies` distinct K/V caches [B, KV, T, hd] (bf16); start/fill [B] with
+    random prefixes and fills, then edges where B allows — candidates
+    straddling a 32-key tile and a page, the last slot taken, a candidate
+    block past the end (clamped to T), and on the last row a prefix that
+    starts after the first candidates (their windows are empty: zeros).
+    With a page size P (T = nb·P): a scattered table whose row 0 ends in a
+    sentinel block (row 0's candidates kept below it) and the caches laid
+    out through it. `empty` [B, Tq] marks the empty windows."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(B, H, Tq, hd)
+    caches = [(randn(B, KV, T, hd), randn(B, KV, T, hd)) for _ in range(copies)]
+    start = torch.randint(0, max(1, pad_max), (B,), generator=gen, device="cuda")
+    fill = torch.randint(pad_max, T - Tq + 1, (B,), generator=gen, device="cuda")
+    page = P or 128
+    edges = [(0, T - Tq), (3, 62), (5, page - 2), (7, 2 * page - 3), (0, T - 2), (9, 31)]
+    for i, (s, f) in enumerate(edges[:max(0, B - 2)]):
+        start[1 + i], fill[1 + i] = s, min(f, T - 1)
+    start[B - 1] = fill[B - 1] + 2
+    c = dict(q=q, caches=caches, B=B, H=H, KV=KV, Tq=Tq, hd=hd, T=T, P=P)
+    if P is not None:
+        nb = T // P
+        table, N = _scattered_table(torch, gen, B, nb)
+        if nb > 1:
+            fill[0] = min(int(fill[0]), (nb - 1) * P - Tq)
+            start[0] = min(int(start[0]), int(fill[0]))
+        c.update(table=table, N=N, nb=nb, pools=[
+            (_scatter(torch, k, table, N, P), _scatter(torch, v, table, N, P))
+            for k, v in caches])
+    qi = torch.arange(Tq, device="cuda")[None, :]
+    c.update(start=start.int(), fill=fill.int(), empty=fill[:, None] + qi + 1 <= start[:, None])
+    return c
+
+
+def _hold_verify(torch, label: str, c) -> tuple[float, float]:
+    """K6 (and with pages K9) on case `c` against the plain versions in f32
+    (`hold_ulp`), empty windows zeros, K9 == K6 bit for bit on the same
+    logical cache, and K6 at Tq = 1 against K4 within one bf16 ulp of K4's
+    output + ULP_FLOOR (two kernels that each round an f32 result once
+    differ by at most that). Returns (K6 error, K9 error or 0)."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    q, (k, v), start, fill, empty = c["q"], c["caches"][0], c["start"], c["fill"], c["empty"]
+    H, Tq = c["H"], c["Tq"]
+    S = da.verify_split_count(c["B"], c["KV"], 0)
+    label = f"{label} S={S}"
+    rows = ~empty[:, None, :].expand(-1, H, -1)
+
+    def held(what, got, plain, kk, vv):
+        err = hold_ulp(torch, what, [(
+            "out", got, plain(*_f32(q, kk, vv), start, fill), plain(q, kk, vv, start, fill),
+            rows)])
+        if bool(empty.any()) and got[~rows].float().abs().max() != 0:
+            fail(f"{what}: a candidate with an empty window must return zeros")
+        return err
+
+    k6 = da.decode_verify_attention(q, k, v, start, fill)
+    e6 = held(f"decode_verify_attention {label}", k6, da.reference_decode_verify_attention,
+              k, v)
+    e9 = 0.0
+    if c["P"] is not None:
+        kp, vp = c["pools"][0]
+        table = c["table"]
+        k9 = da.paged_decode_verify_attention(q, kp, vp, table, start, fill)
+        e9 = held(f"paged_decode_verify_attention {label} P={c['P']} nb={c['nb']}", k9,
+                  lambda qq, kk, vv, s, f: da.reference_paged_decode_verify_attention(
+                      qq, kk, vv, table, s, f), kp, vp)
+        d96 = float((k9.float() - k6.float()).abs().max())
+        log(f"  K9 against K6 on the same logical cache ({label}): max|diff| {d96:.3e}")
+        if not torch.equal(k9, k6):
+            fail(f"K9 differs from K6 on the same logical cache ({label})")
+    k6_1 = k6 if Tq == 1 else da.decode_verify_attention(q[:, :, :1].contiguous(), k, v,
+                                                         start, fill)
+    k4 = da.decode_attention(q[:, :, 0].contiguous(), k, v, start, fill + 1)
+    live = ~empty[:, 0]
+    d = (k6_1[:, :, 0].float() - k4.float()).abs()[live]
+    share = float((d / (bf16_ulp(torch, k4[live]) + ULP_FLOOR)).max())
+    log(f"  K6 at Tq=1 against K4 on the same cache ({label}): max|diff| "
+        f"{float(d.max()):.3e}, {share:.3f} of its bound (1 bf16 ulp of |K4| + {ULP_FLOOR})")
+    if share > 1.0:
+        fail(f"K6 at Tq=1 disagrees with K4 ({label})")
+    return e6, e9
+
+
+def check_verify(torch, F, pad_max: int, k6_shape, k9_shape) -> dict:
+    """K6 and K9 at the shapes the speculative path gives them — K6
+    (B, H, Tq, hd, KV, T) over the contiguous cache, K9 (B, H, Tq, hd, KV,
+    P, nb) over pages scattered through a pool with spare pages and a
+    sentinel block on row 0 — each held by `_hold_verify`; then the times
+    (4 distinct caches, > L2 as 28 layers are), the yardsticks (K6: SDPA
+    with a boolean mask over the contiguous cache, query length Tq; K9: not
+    one call — SDPA over the pre-gathered view, the gather timed beside it)
+    and the bounds. Returns the two kernels-line entries."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def mask(c):
+        pos = torch.arange(c["T"], device="cuda")[None, None, :]
+        qi = torch.arange(c["Tq"], device="cuda")[None, :, None]
+        return ((pos >= c["start"][:, None, None])
+                & (pos < c["fill"][:, None, None] + qi + 1))[:, None]
+
+    def bound(c, table_bytes=0):
+        B, H, Tq, hd, KV, T = (c[n] for n in ("B", "H", "Tq", "hd", "KV", "T"))
+        start, fill = c["start"], c["fill"]
+        qi = torch.arange(Tq, device="cuda")[None, :]
+        hi = torch.clamp(fill[:, None] + qi + 1, max=T)
+        pairs = float((hi - start[:, None]).clamp(min=0).sum())   # (row, query) x key
+        keys = float((torch.clamp(fill + Tq, max=T) - start).clamp(min=0).sum())
+        nbytes = 2 * (2 * keys * KV * hd) + 2 * 2 * B * H * Tq * hd + 8 * B + table_bytes
+        return bound_ms(nbytes, 4.0 * pairs * H * hd)
+
+    B, H, Tq, hd, KV, T = k6_shape
+    c = _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max, copies=4)
+    shape = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}"
+    e6, _ = _hold_verify(torch, shape, c)
+    q, (k, v), start, fill = c["q"], c["caches"][0], c["start"], c["fill"]
+    it = iter(range(10**9))
+    ms = time_ms(torch, lambda: (lambda kv: da.decode_verify_attention(
+        q, kv[0], kv[1], start, fill))(c["caches"][next(it) % 4]), 40)
+    plain = time_ms(torch, lambda: da.reference_decode_verify_attention(
+        q, k, v, start, fill), 10)
+    m = mask(c)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=True), 20)
+    b = bound(c)
+    k6_row = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        max_abs_err=e6, shape=f"{shape} S={da.verify_split_count(B, KV, 0)}")
+    B, H, Tq, hd, KV, P, nb = k9_shape
+    c = _verify_case(torch, gen, B, H, KV, Tq, hd, nb * P, pad_max, P=P, copies=4)
+    shape = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd}"
+    _, e9 = _hold_verify(torch, shape, c)
+    q, start, fill, table = c["q"], c["start"], c["fill"], c["table"]
+    kp, vp = c["pools"][0]
+    it = iter(range(10**9))
+    ms = time_ms(torch, lambda: (lambda kv: da.paged_decode_verify_attention(
+        q, kv[0], kv[1], table, start, fill))(c["pools"][next(it) % 4]), 40)
+    ms6 = time_ms(torch, lambda: (lambda kv: da.decode_verify_attention(
+        q, kv[0], kv[1], start, fill))(c["caches"][next(it) % 4]), 40)
+    plain = time_ms(torch, lambda: da.reference_paged_decode_verify_attention(
+        q, kp, vp, table, start, fill), 10)
+    kg, vg = da._gather_pool(kp, table), da._gather_pool(vp, table)
+    m = mask(c)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=m, enable_gqa=True), 20)
+    gather_ms = time_ms(torch, lambda: (da._gather_pool(kp, table),
+                                        da._gather_pool(vp, table)), 10)
+    b = bound(c, 4 * table.numel())
+    log(f"  K6 on the same logical caches laid out contiguously ({shape}): "
+        f"{ms6:.4f} ms; K9 through the pages {ms:.4f} ms; yardstick (not one call): "
+        f"SDPA over the pre-gathered view {lib:.4f} ms + gather {gather_ms:.4f} ms")
+    return {"decode_verify_attention": k6_row, "paged_decode_verify_attention": dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        max_abs_err=e9, shape=f"{shape} P={P} nb={nb}, pool of {c['N']} pages, "
+                              f"S={da.verify_split_count(B, KV, 0)}")}
+
+
+@contextlib.contextmanager
+def recording_verify_shapes(seen):
+    """Count, by shape, the model's calls of the verify wrappers (the
+    wrappers, and their launch counts, run unchanged)."""
+    from nanorlhf_tpu_torch.core import model
+
+    k6, k9 = model.decode_verify_attention, model.paged_decode_verify_attention
+
+    def rec6(q, k, v, start, fill):
+        seen[("decode_verify_attention", *q.shape, k.shape[1], k.shape[2])] += 1
+        return k6(q, k, v, start, fill)
+
+    def rec9(q, kp, vp, table, start, fill):
+        seen[("paged_decode_verify_attention", *q.shape, kp.shape[1], kp.shape[2],
+              table.shape[1])] += 1
+        return k9(q, kp, vp, table, start, fill)
+
+    model.decode_verify_attention, model.paged_decode_verify_attention = rec6, rec9
+    try:
+        yield
+    finally:
+        model.decode_verify_attention, model.paged_decode_verify_attention = k6, k9
+
+
+def check_verify_edges(torch, pad_max: int) -> None:
+    """K6 and K9 off the rollout's shapes, each case paged (so K9 == K6 is
+    held too): R = G·Tq = 64 rows per block (G 8 × Tq 8) at head_dim 128
+    and 64, one row per block (G 1, Tq 1), G 7 × Tq 3 at head_dim 64 with
+    pages of 48, and the key-range splits S = 1 and S = 3 (B from the SM
+    count; the split count is asserted)."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    #         B                H   KV Tq hd  T_need P    S wanted
+    cases = [(4,               16, 2, 8, 128, 300, 128, None),
+             (3,               2,  2, 1, 128, 200, 16,  None),
+             (5,               14, 2, 3, 64,  257, 48,  None),
+             (sm + 1,          64, 8, 8, 64,  160, 48,  1),
+             (8 * sm // 6,     12, 2, 5, 128, 400, 128, 3)]
+    for B, H, KV, Tq, hd, T_need, P, want_S in cases:
+        S = da.verify_split_count(B, KV, 0)
+        if want_S is not None and S != want_S:
+            fail(f"verify edge B={B} KV={KV}: split count {S}, meant to cover {want_S}")
+        T = -(-T_need // P) * P
+        c = _verify_case(torch, gen, B, H, KV, Tq, hd, T, min(pad_max, T // 4), P=P)
+        _hold_verify(torch, f"edge B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}", c)
+
+
 def check_fused(torch, resp: int) -> dict:
     from nanorlhf_tpu_torch.ops.fused_logprob import (
         fused_chunk_rows, fused_logprob_chunked, fused_logprob_kernel)
@@ -887,9 +1156,10 @@ def train_update(torch, max_tokens: int) -> dict:
         if upd[name] != want:
             fail(f"update half: kernel {name} launched {upd[name]} times, expected {want}")
     # the contiguous exact cache: every kernel but the paged and int8
-    # decode kernels (phases 5 and 6 run those)
+    # decode kernels and the verify kernels (phases 5, 6 and 7 run those)
     other_paths = ("paged_decode_attention", "decode_attention_q8",
-                   "paged_decode_attention_q8")
+                   "paged_decode_attention_q8", "decode_verify_attention",
+                   "paged_decode_verify_attention")
     for name in _build.KERNELS:
         if name in other_paths:
             if counts[name] != 0:
@@ -1004,7 +1274,8 @@ def paged_update(torch, max_tokens: int) -> dict:
     log(f"  pages: {pages}; session counters {trainer.session_status['counters']}")
     gen_expected = {"paged_decode_attention": L * iters, "decode_attention": 0,
                     "flash_fwd": L * (1 + admitted), "decode_attention_q8": 0,
-                    "paged_decode_attention_q8": 0}
+                    "paged_decode_attention_q8": 0, "decode_verify_attention": 0,
+                    "paged_decode_verify_attention": 0}
     n_micro = state["opt_steps"] * cfg.gradient_accumulation_steps
     upd_expected = {"flash_fwd": 2 * L * n_micro, "flash_bwd_dq": L * n_micro,
                     "flash_bwd_dkv": L * n_micro, "fused_logprob": n_micro}
@@ -1320,6 +1591,258 @@ def int8_small_reference(torch, mcfg, queries, pad_id: int) -> None:
         fail("int8 route error beyond 8x the exact bf16 route's")
 
 
+# --------------------------------------------------------------------------
+# phase 7: speculative decode
+# --------------------------------------------------------------------------
+
+def spec_update(torch, max_tokens: int) -> dict:
+    """(a) `one_card_cut(build_config(rollout_spec_k=4))` through
+    `build_trainer`/`train(1)` over the contiguous cache: the generation
+    half launches K6 once per layer and verify step, K4 never, and the
+    flash forward once per layer (the one shared-prompt prefill); the three
+    rollout/* speculative rows are logged; the update and the checkpoint
+    hold as in phase 4."""
+    import os
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    cfg = one_card_cut(build_config(rollout_spec_k=4))
+    if max_tokens != cfg.response_length:
+        log(f"CUT: response_length {cfg.response_length} -> {max_tokens}")
+        cfg.response_length = max_tokens
+    cfg.output_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "output", "chip_smoke_spec")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    trainer = build_trainer(cfg, device="cuda")
+    log(f"  {cfg.batch_size} prompts x {cfg.sample_n} samples, spec_k "
+        f"{cfg.rollout_spec_k}, spec_ngram {cfg.rollout_spec_ngram}, contiguous cache")
+    trained = set(flatten(trainer.trainable))
+    before = {p: t.detach().clone() for p, t in flatten(trainer.params).items()
+              if p in trained}
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.train(num_updates=1)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches, t = trainer.last_launches, trainer.last_timings
+    metrics = trainer.logger.latest()
+    L = trainer.mcfg.num_hidden_layers
+    steps = t["decode_steps"]
+    log(f"  launches: whole update {counts}; generate {launches['generate']}")
+    rows = {k: metrics[k] for k in ("rollout/draft_acceptance", "rollout/accepted_per_step",
+                                    "rollout/spec_verify_steps")}
+    log(f"  metrics rows: {rows}")
+    if rows["rollout/spec_verify_steps"] != steps or not all(
+            math.isfinite(v) for v in rows.values()):
+        fail(f"spec update: metrics rows {rows} disagree with {steps} verify steps")
+    gen_expected = {"decode_verify_attention": L * steps, "decode_attention": 0,
+                    "flash_fwd": L, "paged_decode_verify_attention": 0,
+                    "paged_decode_attention": 0, "decode_attention_q8": 0,
+                    "paged_decode_attention_q8": 0}
+    for name, want in gen_expected.items():
+        if launches["generate"][name] != want:
+            fail(f"spec update, generate: kernel {name} launched "
+                 f"{launches['generate'][name]} times, expected {want}")
+    loss, gnorm = metrics["loss/policy_avg_new"], metrics["policy/grad_norm_new"]
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or gnorm <= 0:
+        fail("spec update: loss / grad norm not finite, or a zero gradient")
+    after = flatten(trainer.params)
+    moved_b = [p for p in before if p[-1] == "b" and not torch.equal(after[p].detach(),
+                                                                      before[p])]
+    if not moved_b or trainer.ckpt.latest_step() != state["global_step"]:
+        fail(f"spec update: {len(moved_b)} LoRA B leaves moved, checkpoint "
+             f"{trainer.ckpt.latest_step()}")
+    n_steps = state["opt_steps"]
+    log(f"  rollout_s={t['generate_s']:.3f} (prefill {t['prefill_s'] * 1e3:.3f} ms; "
+        f"{steps} verify steps in {t['decode_s']:.3f} s, "
+        f"{t['decode_s'] / max(steps, 1) * 1e3:.3f} ms per verify step, "
+        f"{t['emitted_tokens']} tokens emitted, "
+        f"{t['emitted_tokens'] / t['decode_s']:.2f} emitted tokens/s) "
+        f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
+        f"({t['update_s'] / n_steps:.3f} s/step, "
+        f"{metrics['perf/tokens_per_sec_update']:.2f} update tokens/s) "
+        f"checkpoint_write_s={trainer.last_save_s:.3f} peak_mem_gb={peak / 1e9:.2f}; "
+        f"loss {loss:.6e}, grad_norm {gnorm:.6e}, {len(moved_b)} LoRA B leaves moved")
+    trainer.close()
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    return counts
+
+
+def spec_queued_rollout(torch, max_tokens: int) -> dict:
+    """(b) `run_rollout` with rollout_spec_k=4 through the continuous-batching
+    scheduler (page size 128, 32 resident rows, 16 prompts x 4 samples):
+    K9 launched once per layer and decode (draft + verify) iteration, K7,
+    K6 and K4 never."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    cfg = build_config(rollout_spec_k=4)
+    cfg.rollout_page_size, cfg.rollout_decode_rows = 128, 32
+    cfg.response_length = max_tokens
+    log(f"CUT: 16 prompts x {cfg.sample_n} samples of {max_tokens} tokens")
+    timings: dict = {}
+    _build.reset_launch_counts()
+    out = run_rollout(cfg, device="cuda", num_prompts=16, timings=timings)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    L = out["mcfg"].num_hidden_layers
+    pages, st = out["paged_stats"], out["spec_stats"]
+    iters = int(pages["decode_iterations"])
+    stats = {k: (v if isinstance(v, int) else int(v)) for k, v in st.items()
+             if k != "accepted_rows"}
+    log(f"  queued spec rollout: {iters} iterations ({timings['decode_s']:.3f} s, "
+        f"{timings['decode_s'] / max(iters, 1) * 1e3:.3f} ms per iteration, "
+        f"{stats['emitted'] / timings['decode_s']:.2f} emitted tokens/s), "
+        f"admitted_midloop {pages['admitted_midloop']}, page utilization "
+        f"{pages['page_utilization']:.4f}; spec stats {stats}; launches {counts}")
+    want = {"paged_decode_verify_attention": L * iters, "paged_decode_attention": 0,
+            "decode_verify_attention": 0, "decode_attention": 0}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"queued spec rollout: kernel {name} launched {counts[name]} times, "
+                 f"expected {n}")
+    import numpy as np
+
+    if stats["verify_steps"] != iters or pages["admitted_midloop"] != 64 - 32 \
+            or not np.isfinite(out["logprobs"]).all():
+        fail(f"queued spec rollout: stats {stats} / {pages} inconsistent or "
+             "logprobs not finite")
+    return counts
+
+
+def _cycle_model(torch, mcfg, cycle, peak: float = 12.0):
+    """A 2-layer model at the full width whose greedy stream repeats `cycle`
+    (the idea of the JAX package's "cycle model"): embedding row t is the
+    unit vector e_t (t < D), lm_head maps e_t to peak·onehot(sigma(t)) with
+    sigma the cycle on its tokens and the identity elsewhere, and the
+    projections are random but small (N(0, 0.01/fan_in)), so the attention
+    and the kernels run on real numbers while the argmax follows sigma."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core import model as tm
+
+    cfg = dataclasses.replace(mcfg, num_hidden_layers=2, tie_word_embeddings=False,
+                              attention_impl="auto")
+    params = tm.init_params(cfg, seed=5, device="cuda")
+    for entry in params["layers"].values():
+        if isinstance(entry, dict):
+            entry["kernel"].mul_(0.1 * math.sqrt(2 / entry["kernel"].shape[-1]))
+    D, V = cfg.hidden_size, cfg.vocab_size
+    sigma = torch.arange(D, device="cuda")
+    sigma[torch.tensor(cycle, device="cuda")] = torch.tensor(cycle[1:] + cycle[:1],
+                                                             device="cuda")
+    params["embed_tokens"] = torch.zeros((V, D), dtype=torch.bfloat16, device="cuda")
+    params["embed_tokens"][torch.arange(D), torch.arange(D)] = 1.0
+    params["lm_head"] = torch.zeros((V, D), dtype=torch.bfloat16, device="cuda")
+    params["lm_head"][sigma, torch.arange(D, device="cuda")] = peak / math.sqrt(D)
+    return cfg, params
+
+
+def spec_cycle(torch, mcfg, queries, pad_id: int) -> None:
+    """(c) Multi-token acceptance on the card: on the 2-layer full-width
+    cycle model, 16 rows whose prompts hold one turn of a 4-token cycle,
+    greedy, 128 tokens, spec_k 4: the speculative streams (contiguous, K6;
+    monolithic paged, K9) must equal the monolithic greedy stream token for
+    token, in at most max_tokens / 2 verify steps, with draft acceptance
+    above 0.5. Then the random well-scaled 2-layer model: greedy spec rows
+    against greedy monolithic rows; where a row differs (the verify GEMM
+    runs 5 rows per sequence, the decode GEMM 1, so bf16 rounds
+    differently), the first difference and the monolithic route's top-2
+    logit margin there are printed."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    M, k, B = 128, 4, 16
+    cycle = [100, 101, 102, 103]
+    cfg, params = _cycle_model(torch, mcfg, cycle)
+    eos = cfg.vocab_size - 1                     # never emitted
+    q = torch.tensor([[300 + i, 400 + i] + cycle[i % 4:] + cycle[:i % 4] + [cycle[i % 4]]
+                      for i in range(B)], device="cuda")
+
+    def run(model, ids, **sp):
+        stats = []
+        out = generate(model[1], model[0], ids, ids != pad_id,
+                       torch.Generator(device="cuda").manual_seed(0),
+                       SamplingParams(greedy=True, max_tokens=M, **sp),
+                       eos_token_id=eos, pad_token_id=pad_id, spec_stats_out=stats)
+        torch.cuda.synchronize()
+        return out, (stats[0] if stats else None)
+
+    mono, _ = run((cfg, params), q)
+    for label, kernel, sp in (("contiguous", "decode_verify_attention", {}),
+                              ("paged P=16", "paged_decode_verify_attention",
+                               dict(page_size=16))):
+        _build.reset_launch_counts()
+        spec, st = run((cfg, params), q, spec_k=k, **sp)
+        counts = _build.launch_counts()
+        steps = st["verify_steps"]
+        acc = int(st["accepted"]) / max(int(st["drafted"]), 1)
+        log(f"  cycle model ({label}, {B} rows x {M} tokens, spec_k {k}): {steps} verify "
+            f"steps, draft acceptance {acc:.4f}, accepted per step "
+            f"{int(st['emitted']) / max(int(st['row_steps']), 1):.3f}, {kernel} launches "
+            f"{counts[kernel]}; equal to the monolithic greedy rows: "
+            f"{int((spec == mono).all(dim=1).sum())}/{B}")
+        if not torch.equal(spec, mono):
+            fail(f"cycle model ({label}): speculative greedy tokens differ from the "
+                 "monolithic ones")
+        if steps * 2 > M or not acc > 0.5:
+            fail(f"cycle model ({label}): {steps} verify steps, acceptance {acc:.3f}")
+        if counts[kernel] != cfg.num_hidden_layers * steps or counts["decode_attention"]:
+            fail(f"cycle model ({label}): launch counts {counts}")
+
+    small, sparams = _small_model(torch, mcfg, seed=13)
+    rq = torch.as_tensor(queries, device="cuda").long()
+    mono, _ = run((small, sparams), rq)
+    spec, st = run((small, sparams), rq, spec_k=k)
+    same = (spec == mono).all(dim=1)
+    log(f"  random 2-layer model, greedy, {rq.shape[0]} rows x {M} tokens: spec rows "
+        f"equal to the monolithic rows {int(same.sum())}/{rq.shape[0]} "
+        f"({st['verify_steps']} verify steps)")
+    for r in (~same).nonzero()[:, 0].tolist():
+        pos = int((spec[r] != mono[r]).nonzero()[0])
+        seq = torch.cat([rq[r], mono[r, :pos]])[None]
+        logits = tm.padded_forward_logits(sparams, small, seq, pad_id)[0, -1].float()
+        top2 = logits.topk(2).values
+        log(f"    row {r}: first difference at token {pos}, monolithic top-2 logit "
+            f"margin there {float(top2[0] - top2[1]):.4e}")
+
+
+def spec_int8_rollout(torch) -> None:
+    """(d) A short rollout with the int8 KV cache and spec_k=4, contiguous:
+    the verify dequantizes (no K6, as JAX has no q8 k-query kernel), end to
+    end with finite logprobs."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    cfg = build_config(rollout_spec_k=4)
+    cfg.kv_cache_quant = "int8"
+    cfg.response_length = 64
+    timings: dict = {}
+    _build.reset_launch_counts()
+    out = run_rollout(cfg, device="cuda", num_prompts=4, timings=timings)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    import numpy as np
+
+    log(f"  int8 + spec rollout (4 prompts x {cfg.sample_n} x 64 tokens): "
+        f"{timings['decode_steps']} verify steps, "
+        f"{timings['decode_s'] / max(timings['decode_steps'], 1) * 1e3:.3f} ms per step; "
+        f"launches {counts}")
+    if counts["decode_verify_attention"] or counts["decode_attention_q8"] \
+            or counts["decode_attention"] or not np.isfinite(out["logprobs"]).all() \
+            or "spec_stats" not in out:
+        fail("int8 + spec rollout: a verify kernel ran on the int8 cache, or the "
+             "rollout is not finite")
+
+
 def small_grad_reference(torch, trainer) -> None:
     """The LoRA gradients of one microbatch loss on a small input — 2 layers
     at the full Qwen2.5-1.5B width, projections N(0, 1/fan_in), LoRA B
@@ -1443,23 +1966,34 @@ def main() -> None:
                           shape_menu(ds.input_ids.shape[1], 16))
     prompt_width = first.shape[1]
     resp = args.max_tokens
+    # phases 3, 4, 5, 6 and 7b run shorter responses than the launcher's 1500
+    # so the whole script stays within half its time limit: phase 7a, this
+    # slice's main path, keeps the full length
+    short = min(resp, 512)
+    # the verify shapes phase 7 gives K6 (7a: the one-card update's 16
+    # prompts x 4 samples, cache of prompt + response + spec_k slots) and K9
+    # (7b: 32 resident rows, pages of 128); phase 7 records the shapes it
+    # gave and fails unless they are these
+    spec_k, P7 = 4, 128
+    k6_shape = (64, 12, spec_k + 1, 128, 2, prompt_width + resp + spec_k)
+    k9_shape = (32, 12, spec_k + 1, 128, 2, P7, -(-(prompt_width + short) // P7))
     results = {
         "flash_fwd": check_flash(torch, F, prompt_width, resp),
         "decode_attention": check_decode(torch, F, prompt_width, resp),
         "fused_logprob": check_fused(torch, resp),
         **check_flash_bwd(torch, F, prompt_width, resp),
         **check_paged(torch, F, prompt_width, resp),
+        **check_verify(torch, F, prompt_width, k6_shape, k9_shape),
     }
+    checked = {("decode_verify_attention",) + k6_shape,
+               ("paged_decode_verify_attention",) + k9_shape}
+    check_verify_edges(torch, prompt_width)
     check_edges(torch)
     for name, r in results.items():
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    # phases 3, 4 and 6 run shorter responses than the launcher's 1500 so the
-    # whole script stays within half its time limit: phase 5 (this slice's
-    # main path) keeps the full length
-    short = min(resp, 512)
     log("phase 3: GRPO rollout-and-score, Qwen2.5-1.5B width")
     end_to_end(torch, short)
 
@@ -1469,7 +2003,7 @@ def main() -> None:
 
     log("phase 5: one GRPO update over continuous batching (paged KV cache, "
         "page size 128, 32 resident rows), Qwen2.5-1.5B width")
-    counts5 = paged_update(torch, resp)
+    counts5 = paged_update(torch, short)
     staggered_queue(torch, _demo_config(),
                     depad_queries(next(ds.loader(16, 2)), tok.pad_token_id,
                                   shape_menu(ds.input_ids.shape[1], 16)),
@@ -1479,13 +2013,33 @@ def main() -> None:
         "then paged + queued), Qwen2.5-1.5B width")
     counts6 = int8_rollouts(torch, short)
 
+    log("phase 7: speculative decode (n-gram drafts, k-token verify), "
+        "Qwen2.5-1.5B width")
+    seen: collections.Counter = collections.Counter()
+    with recording_verify_shapes(seen):
+        counts7 = spec_update(torch, resp)
+        counts7b = spec_queued_rollout(torch, short)
+    log(f"  verify shapes phase 7a/7b gave the kernels (name, B, H, Tq, hd, KV, "
+        f"T | P, nb): calls {dict(seen)}")
+    if set(seen) != checked:
+        fail(f"phase 7 gave the verify kernels {set(seen)}; phase 2 held and timed "
+             f"them at {checked}")
+    spec_cycle(torch, _demo_config(),
+               depad_queries(next(ds.loader(16, 3)), tok.pad_token_id,
+                             shape_menu(ds.input_ids.shape[1], 16)),
+               tok.pad_token_id)
+    spec_int8_rollout(torch)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
-    # paged update (phase 5), the int8 rollouts (phase 6)
+    # paged update (phase 5), the int8 rollouts (phase 6), the speculative
+    # update and the queued speculative rollout (phase 7)
     launches = dict(counts4)
     launches["paged_decode_attention"] = counts5["paged_decode_attention"]
     launches["decode_attention_q8"] = counts6["contiguous"]["decode_attention_q8"]
     launches["paged_decode_attention_q8"] = counts6["paged+queued"]["paged_decode_attention_q8"]
+    launches["decode_verify_attention"] = counts7["decode_verify_attention"]
+    launches["paged_decode_verify_attention"] = counts7b["paged_decode_verify_attention"]
     kernels = []
     for name, k in _build.KERNELS.items():
         r = results[name]

@@ -11,8 +11,8 @@ import time: the CPU tests import every module of the port.
 its successful launches (`launches`), which is how `chip_smoke.py` shows
 that the main path really ran on the kernels. Several kernels may share
 one source (the flash backward's `dq` and `dkv` live in `flash_bwd.cu`,
-the four decode kernels in `decode_attention.cu`): each keeps its own
-counter, the source is built once.
+the four decode and two verify kernels in `decode_attention.cu`): each
+keeps its own counter, the source is built once.
 """
 
 from __future__ import annotations
@@ -139,6 +139,14 @@ KERNELS = {
     "paged_decode_attention_q8": Kernel(
         "paged_decode_attention_q8",
         "nanorlhf_tpu/ops/decode_attention.py:546 _paged_decode_q8_kernel",
+        source="decode_attention"),
+    "decode_verify_attention": Kernel(
+        "decode_verify_attention",
+        "nanorlhf_tpu/ops/decode_attention.py:280 _verify_kernel",
+        source="decode_attention"),
+    "paged_decode_verify_attention": Kernel(
+        "paged_decode_verify_attention",
+        "nanorlhf_tpu/ops/decode_attention.py:555 _paged_verify_kernel",
         source="decode_attention"),
     "fused_logprob": Kernel(
         "fused_logprob", "nanorlhf_tpu/ops/fused_logprob.py:228 _fused_kernel"),

@@ -1,6 +1,6 @@
 """Qwen2-family decoder over a stacked-layer parameter dict — the port of
 `nanorlhf_tpu/core/model.py` (contiguous and paged KV caches, exact or
-int8; no speculative verify and no int8 weights yet).
+int8, and the k-token speculative verify; no int8 weights yet).
 
 Parameters keep the JAX tree's names and its stacked `[L, ...]` layout, in
 torch's nn.Linear orientation: every projection `kernel` is `[L, out, in]`
@@ -11,14 +11,17 @@ JAX.
 
 Attention routing (`ModelConfig.attention_impl`): "xla" is the plain
 masked einsum path everywhere; "pallas" sends prefill/scoring to the flash
-kernel and single-token decode to the decode kernel of the cache's layout
+kernel, single-token decode to the decode kernel of the cache's layout
 (K4 contiguous, K7 paged, K5 int8, K8 int8 paged — never K4 over a gathered
-or dequantized copy); "auto" does the same for CUDA tensors and takes the
-plain path for CPU tensors.
+or dequantized copy) and the speculative verify of an exact cache to K6
+(contiguous) or K9 (paged); "auto" does the same for CUDA tensors and takes
+the plain path for CPU tensors. The verify over the int8 cache dequantizes
+and runs the plain masked contraction on every route, as JAX does (it has
+no q8 k-query kernel).
 
-Unlike JAX's functional cache, `prefill`/`decode_step` write the KV cache
-IN PLACE (saving a [L, B, KV, T_max, hd] copy per step) and return the same
-tensors.
+Unlike JAX's functional cache, `prefill`/`decode_step`/`decode_verify`
+write the KV cache IN PLACE (saving a [L, B, KV, T_max, hd] copy per
+step) and return the same tensors.
 
 Caches (`init_kv_cache`, `init_paged_kv_cache`): exact `(k, v)` or, with
 `kv_cache_quant="int8"`, `(k_q, k_s, v_q, v_s)` — int8 values and one
@@ -50,9 +53,11 @@ from nanorlhf_tpu_torch.ops.decode_attention import (
     _gather_pool,
     decode_attention,
     decode_attention_q8,
+    decode_verify_attention,
     dequantize_kv,
     paged_decode_attention,
     paged_decode_attention_q8,
+    paged_decode_verify_attention,
 )
 
 NEG_INF = -2.0**30  # large-but-finite mask value, as in JAX
@@ -313,6 +318,17 @@ def _decode_kernel_attention(q, kv_cache, paged, decode_bounds):
     return out[:, :, None, :]
 
 
+def _verify_kernel_attention(q, kv_cache, paged, verify_bounds):
+    """The k-query verify through the kernel of the exact cache's layout:
+    K6 (contiguous) or K9 (paged)."""
+    start, fill = verify_bounds
+    q = q.contiguous()
+    if paged is not None:
+        pools = tuple(live_pages(c) for c in kv_cache)
+        return paged_decode_verify_attention(q, *pools, paged[0], start, fill)
+    return decode_verify_attention(q, *kv_cache, start, fill)
+
+
 def _cache_views(kv_cache, paged, width: int, dtype):
     """(k, v) row-contiguous, dequantized views of the cache for the plain
     masked attention."""
@@ -328,7 +344,7 @@ def _cache_views(kv_cache, paged, width: int, dtype):
 
 def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
                 cache_index, lora_layer=None, lora_scale=1.0,
-                decode_bounds=None, paged=None):
+                decode_bounds=None, paged=None, verify_bounds=None):
     """One decoder layer. kv_cache: the layer's cache tuple — exact (k, v)
     or int8 (k_q, k_s, v_q, v_s), contiguous [B, KV, T_max, ...] or paged
     pools [N + 1, KV, P, ...] with `paged=(table [B, nb], page_size,
@@ -340,7 +356,11 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     masked anyway) and writes the (quantized) K/V; decode (T == 1) reads the
     cache through its layout's kernel, or, on the plain route, through a
     gathered, dequantized view under the same mask as the contiguous cache
-    (the CPU tests pin paged == contiguous bit for bit)."""
+    (the CPU tests pin paged == contiguous bit for bit). `verify_bounds =
+    (start, fill)` marks the speculative verify (T = Tq candidates written at
+    per-row slots [fill, fill + Tq)): K6/K9 over an exact cache on the
+    kernel route; otherwise — the plain route, and the int8 cache on every
+    route, as in JAX — the masked contraction over the cache views."""
     hd = config.actual_head_dim
     H, KV = config.num_attention_heads, config.num_key_value_heads
     B, T, _ = x.shape
@@ -359,7 +379,13 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     if kv_cache is not None:
         _write_kv(kv_cache, k, v, cache_index, paged)
         quantized = len(kv_cache) == 4
-        if T > 1 and use_kernel(impl, q):
+        if verify_bounds is not None:
+            if use_kernel(impl, q) and not quantized:
+                out = _verify_kernel_attention(q, kv_cache, paged, verify_bounds)
+            else:
+                kd, vd = _cache_views(kv_cache, paged, mask.shape[-1], q.dtype)
+                out = gqa_attention(q, kd, vd, mask)
+        elif T > 1 and use_kernel(impl, q):
             # prefill: slots beyond T are masked anyway, so attend over the
             # local K/V through the flash kernel
             out = gqa_attention(q, k, v, mask[..., :T], impl="pallas",
@@ -389,7 +415,7 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
 
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
                 cache_index=0, lora_scale=1.0, decode_bounds=None,
-                remat: bool = False, paged=None):
+                remat: bool = False, paged=None, verify_bounds=None):
     """Run the stacked layers in order. kv_caches: the stacked cache tuple
     ((k, v) or (k_q, k_s, v_q, v_s), each [L, ...], updated in place) or
     None; `paged=(table, page_size)` when it is a page pool.
@@ -426,7 +452,7 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
         else:
             x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
                             lora_layer, lora_scale, decode_bounds=decode_bounds,
-                            paged=paged)
+                            paged=paged, verify_bounds=verify_bounds)
     return x
 
 
@@ -616,3 +642,37 @@ def decode_step(params, config, token, position, cache_index, key_mask,
                     decode_bounds=(start, filled), paged=paged)
     logits = _logits(config, params, x)[:, 0, :]
     return logits, kv_caches
+
+
+def decode_verify(params, config, tokens, positions, fill, key_mask, kv_caches,
+                  lora_scale: float = 1.0, page_table=None, page_size: int = 0,
+                  want_logits: bool = True):
+    """Batched k-token verification for speculative decode
+    (`sampler/speculative.py`): one causal forward over Tq = k + 1
+    candidates per row — tokens [B, Tq] at positions [B, Tq] — against the
+    cache. The candidates' K/V are written in place at the per-row slots
+    [fill, fill + Tq); query i attends to `key_mask` [B, T_max] (the valid
+    slots BEFORE this call) plus candidates 0..i. Rejected candidates leave
+    K/V in slots the caller never marks valid; the next verify overwrites
+    them. On the paged layout a write past the row's table lands on the
+    scratch page (JAX drops it). Returns (logits [B, Tq, V], caches):
+    logits[:, i] is the next-token distribution after candidates 0..i, or
+    None with `want_logits=False` (the writes only)."""
+    B, Tq = tokens.shape
+    T_max = key_mask.shape[1]
+    paged = (page_table, page_size) if page_table is not None else None
+    key_mask = key_mask.bool()
+    x = params["embed_tokens"][tokens]
+    cos, sin = rope_tables(positions, config.actual_head_dim, config.rope_theta)
+    fill = torch.as_tensor(fill, device=x.device).to(torch.int64)
+    slot = torch.arange(T_max, device=x.device)[None, None, :]
+    qi = torch.arange(Tq, device=x.device)[None, :, None]
+    cand = (slot >= fill[:, None, None]) & (slot <= fill[:, None, None] + qi)
+    mask = (key_mask[:, None, :] | cand)[:, None, :, :]    # [B, 1, Tq, T_max]
+    start = key_mask.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    x = _run_layers(config, params, x, cos, sin, mask, kv_caches=kv_caches,
+                    cache_index=fill, lora_scale=lora_scale,
+                    verify_bounds=(start, fill.to(torch.int32)), paged=paged)
+    if not want_logits:
+        return None, kv_caches
+    return _logits(config, params, x), kv_caches

@@ -50,6 +50,38 @@
 // Known limit, left for later work: B*KV blocks (64 at the rollout's 32
 // resident rows) occupy half of the 132 SMs or less; splitting the prefix
 // over more blocks with an LSE merge (flash-decoding) is the fix.
+//
+// The k-query speculative verify (second kernel body, below the decode one):
+//   K6 `_verify_kernel` (:280)        -> decode_verify_attention_bf16
+//   K9 `_paged_verify_kernel` (:555)  -> paged_decode_verify_attention_bf16
+// q [B, H, Tq, HD] holds Tq = spec_k + 1 candidate queries per head. Row r
+// of kv head kvh is query head kvh * G + r / Tq at candidate qi = r % Tq
+// (JAX's row order); it attends to logical slots start <= t < fill + qi + 1
+// (the candidates' K/V are already written at [fill, fill + Tq)). A block
+// holds R = G * Tq rows (30 at G = 6, spec_k = 4): the decode body's
+// per-lane registers for every row and its cross-warp merge buffer
+// ([WARPS][R][HD] floats) do not stretch that far, so the verify body works
+// the other way round. Each 32-key K/V tile is copied into shared memory
+// once per block (cp.async, double-buffered: tile i + 1 loads while tile i
+// is used; keys past the block's range are zero-filled, so the key loops
+// unroll fully); each warp owns R / 8 rows over the block's whole key range,
+// so every row's online softmax runs in one warp. In a tile lane j scores
+// key j against the warp's rows (K rows padded by 16 bytes in shared
+// memory, so the lanes' 16-byte reads do not collide), then each lane
+// accumulates HD / 32 output dims of every row from the V tile. Each row is
+// masked at its own bound. Such a block is latency-bound (a few warps, long
+// dependent chains): one block per (row, kv head) took 0.68 ms at the
+// rollout's B = 16 on an H100, 32 blocks on 132 SMs. So each row's key range
+// is split into S ranges of whole tiles over a third grid axis (S chosen by
+// the wrapper from the SM count and B * KV), each block writes its partial
+// (acc, m, l) to f32 scratch, and a second kernel merges them (the
+// flash-decoding split that K4 still lacks). Still bytes-bound in
+// principle: ~2 * R flops per cache byte against the ~295 at which the
+// tensor cores would limit, so no wgmma. K9 is the same body with K7's
+// slot address and the same S: on the same logical cache it returns K6's
+// bits. Its key range is clamped to the table (nb * P): a row one token
+// short of its page budget has candidates past the table, whose writes the
+// model drops and whose outputs the sampler discards.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -272,6 +304,275 @@ int launch(Args a, int B, int HD, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// K6 / K9: the k-query verify (see the header)
+// --------------------------------------------------------------------------
+
+constexpr int VTILE = 32;             // keys per shared-memory tile: one per lane
+constexpr int MAXR = 64;              // query rows G * Tq per block
+constexpr int MAXRW = MAXR / WARPS;   // query rows per warp
+constexpr int MAXTQ = 8;              // candidates per head (spec_k <= 7)
+constexpr int KPAD = 8;               // bf16 padding of a K tile row
+constexpr int MAXS = 16;              // key-range splits per (row, kv head)
+
+struct VerifyArgs {
+  const bf16* q;      // [B, H, Tq, HD]
+  const bf16* k;      // contiguous [B, KV, T, HD] or pool [N+, KV, P, HD]
+  const bf16* v;
+  const int* table;   // paged only: [B, nb]
+  const int* start;   // [B]
+  const int* fill;    // [B]: the slot of candidate 0
+  bf16* out;          // [B, H, Tq, HD]
+  float* part;        // partial states [B, KV, S, R, HD + 2] (acc, m, l)
+  int H, KV, T, N, P, nb, Tq, S;
+  float scale;
+};
+
+// 16 bytes global -> shared, or 16 zero bytes when `full` is false
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// dynamic shared memory: K tiles [2][VTILE][HD + KPAD] and V tiles
+// [2][VTILE][HD] bf16, the block's queries [R][HD] f32, the table row [nb]
+// N = 2 or 4 consecutive bf16 (4 or 8 bytes) as floats
+template <int N>
+__device__ __forceinline__ void load_row_part(const bf16* p, float* f) {
+  if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __bfloat162float(h[e]);
+  } else {
+    const unsigned u = *reinterpret_cast<const unsigned*>(p);
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+    f[0] = __bfloat162float(h[0]);
+    f[1] = __bfloat162float(h[1]);
+  }
+}
+
+template <int HD>
+size_t verify_smem_bytes(int R, int nb) {
+  return (size_t)2 * VTILE * (HD + KPAD) * 2 + (size_t)2 * VTILE * HD * 2 +
+         (size_t)R * HD * 4 + (size_t)nb * 4;
+}
+
+template <int HD, bool PAGED>
+__global__ void __launch_bounds__(THREADS) verify_kernel(VerifyArgs a) {
+  constexpr int PER = HD / 32;      // output dims per lane
+  constexpr int KROW = HD + KPAD;   // 16-byte aligned: HD * 2 + 16 bytes
+  constexpr int CH = HD / 8;        // 16-byte chunks per K/V row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kt = reinterpret_cast<bf16*>(smem);
+  bf16* vt = kt + 2 * VTILE * KROW;
+  float* qs = reinterpret_cast<float*>(vt + 2 * VTILE * HD);
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int H = a.H, KV = a.KV, Tq = a.Tq;
+  const int G = H / KV;
+  const int R = G * Tq;
+  int* tbl = reinterpret_cast<int*>(qs + R * HD);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // rows r = g * Tq + qi of this kv head are contiguous in q and out
+  const size_t row0 = ((size_t)b * H + (size_t)kvh * G) * Tq;
+  for (int i = tid; i < R * HD; i += THREADS)
+    qs[i] = __bfloat162float(a.q[row0 * HD + i]);
+  if constexpr (PAGED) {
+    for (int i = tid; i < a.nb; i += THREADS)
+      tbl[i] = min(max(a.table[(size_t)b * a.nb + i], 0), a.N - 1);
+  }
+  __syncthreads();
+
+  auto slot_index = [&](int t) -> size_t {
+    if constexpr (PAGED) {
+      const int page = tbl[t / a.P];
+      return ((size_t)page * KV + kvh) * a.P + (t % a.P);
+    } else {
+      return ((size_t)b * KV + kvh) * a.T + t;
+    }
+  };
+
+  const int t_max = PAGED ? a.nb * a.P : a.T;
+  const int fill = a.fill[b];
+  // the row's keys [start, min(fill + Tq, t_max)) are split into S ranges of
+  // whole tiles; this block takes range blockIdx.z
+  const int r0 = max(a.start[b], 0);
+  const int r1 = max(min(fill + Tq, t_max), r0);
+  const int chunk = ((r1 - r0 + a.S - 1) / a.S + VTILE - 1) / VTILE * VTILE;
+  const int s0 = min(r0 + (int)blockIdx.z * chunk, r1);
+  const int s1 = min(s0 + chunk, r1);  // one past the last key of this block
+  const int nrw = warp < R ? (R - warp + WARPS - 1) / WARPS : 0;  // warp-uniform
+
+  float m[MAXRW], l[MAXRW], acc[MAXRW][PER];
+  int hi[MAXRW];
+#pragma unroll
+  for (int j = 0; j < MAXRW; ++j) {
+    const int r = warp + j * WARPS;
+    hi[j] = min(fill + r % Tq + 1, s1);
+    m[j] = NEG_INF;
+    l[j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < PER; ++d) acc[j][d] = 0.f;
+  }
+
+  // keys past s1 are zero-filled: their scores are masked and their zero
+  // V rows add nothing, so every tile runs the full, unrolled 32-key loops
+  // (K rows padded by 16 bytes: the lanes' 16-byte reads do not collide)
+  auto load_tile = [&](int buf, int t0) {
+    for (int i = tid; i < VTILE * CH; i += THREADS) {
+      const int kk = i / CH, c = (i % CH) * 8;
+      const bool in = t0 + kk < s1;
+      const size_t si = in ? slot_index(t0 + kk) * HD + c : 0;
+      cp_async16(kt + ((size_t)buf * VTILE + kk) * KROW + c, a.k + si, in);
+      cp_async16(vt + ((size_t)buf * VTILE + kk) * HD + c, a.v + si, in);
+    }
+    cp_async_commit();
+  };
+
+  int buf = 0;
+  if (s0 < s1) load_tile(0, s0);
+  for (int t0 = s0; t0 < s1; t0 += VTILE) {
+    if (t0 + VTILE < s1)
+      load_tile(buf ^ 1, t0 + VTILE);
+    else
+      cp_async_commit();  // an empty group keeps "all but the newest" right
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* kb = kt + (size_t)buf * VTILE * KROW;
+    const bf16* vb = vt + (size_t)buf * VTILE * HD;
+    const int key = t0 + lane;
+
+    float s[MAXRW];
+#pragma unroll
+    for (int j = 0; j < MAXRW; ++j) s[j] = 0.f;
+    {
+      const bf16* krow = kb + lane * KROW;
+#pragma unroll
+      for (int c = 0; c < HD; c += 8) {
+        float kf[8];
+        load8(krow + c, kf);
+#pragma unroll
+        for (int j = 0; j < MAXRW; ++j) {
+          if (j < nrw) {
+            const float* qr = qs + (warp + j * WARPS) * HD + c;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) s[j] += qr[e] * kf[e];
+          }
+        }
+      }
+    }
+    float p[MAXRW];
+#pragma unroll
+    for (int j = 0; j < MAXRW; ++j) {
+      p[j] = 0.f;
+      if (j < nrw) {
+        const bool ok = key < hi[j];  // key >= s0 holds for every tile
+        const float sg = ok ? s[j] * a.scale : NEG_INF;
+        const float m_new = fmaxf(m[j], warp_max(sg));
+        const float alpha = __expf(m[j] - m_new);
+        p[j] = ok ? __expf(sg - m_new) : 0.f;
+        l[j] = alpha * l[j] + warp_sum(p[j]);
+        m[j] = m_new;
+#pragma unroll
+        for (int d = 0; d < PER; ++d) acc[j][d] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < VTILE; ++jj) {
+      float vf[PER];
+      load_row_part<PER>(vb + jj * HD + lane * PER, vf);
+#pragma unroll
+      for (int j = 0; j < MAXRW; ++j) {
+        if (j < nrw) {
+          const float pj = __shfl_sync(0xffffffffu, p[j], jj);
+#pragma unroll
+          for (int d = 0; d < PER; ++d) acc[j][d] += pj * vf[d];
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int j = 0; j < MAXRW; ++j) {
+    if (j < nrw) {
+      const int r = warp + j * WARPS;
+      float* e = a.part + ((((size_t)b * KV + kvh) * a.S + blockIdx.z) * R + r) * (HD + 2);
+#pragma unroll
+      for (int d = 0; d < PER; ++d) e[lane * PER + d] = acc[j][d];
+      if (lane == 0) {
+        e[HD] = m[j];
+        e[HD + 1] = l[j];
+      }
+    }
+  }
+}
+
+// the S partial softmax states of row r -> its output: one block of HD
+// threads per (row, kv head, batch row), one output dim per thread
+template <int HD>
+__global__ void __launch_bounds__(HD) verify_merge_kernel(VerifyArgs a) {
+  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int d = threadIdx.x;
+  const int G = a.H / a.KV;
+  const int R = G * a.Tq;
+  const size_t row0 = ((size_t)b * a.H + (size_t)kvh * G) * a.Tq;
+  const float* pb = a.part + (((size_t)b * a.KV + kvh) * a.S * R + r) * (HD + 2);
+  const size_t stride = (size_t)R * (HD + 2);  // from one split to the next
+  float mx = NEG_INF;
+  for (int s = 0; s < a.S; ++s) mx = fmaxf(mx, pb[s * stride + HD]);
+  float lsum = 0.f, o = 0.f;
+  for (int s = 0; s < a.S; ++s) {
+    const float f = __expf(pb[s * stride + HD] - mx);
+    lsum += pb[s * stride + HD + 1] * f;
+    o += pb[s * stride + d] * f;
+  }
+  a.out[(row0 + r) * HD + d] = __float2bfloat16(o / fmaxf(lsum, 1e-30f));
+}
+
+template <int HD, bool PAGED>
+int launch_verify_hd(const VerifyArgs& a, int B, cudaStream_t s) {
+  const size_t bytes = verify_smem_bytes<HD>(a.H / a.KV * a.Tq, PAGED ? a.nb : 0);
+  const cudaError_t e = cudaFuncSetAttribute(
+      verify_kernel<HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  verify_kernel<HD, PAGED><<<dim3(a.KV, B, a.S), THREADS, bytes, s>>>(a);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return (int)e1;
+  verify_merge_kernel<HD><<<dim3(a.H / a.KV * a.Tq, a.KV, B), HD, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool PAGED>
+int launch_verify(VerifyArgs a, int B, int HD, void* stream) {
+  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG ||
+      a.Tq < 1 || a.Tq > MAXTQ || (a.H / a.KV) * a.Tq > MAXR || a.S < 1 ||
+      a.S > MAXS || a.part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (PAGED && (a.P <= 0 || a.N <= 0 || a.nb <= 0 || a.nb > MAX_NB))
+    return (int)cudaErrorInvalidValue;
+  a.scale = (float)(1.0 / sqrt((double)HD));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (HD == 128) return launch_verify_hd<128, PAGED>(a, B, s);
+  if (HD == 64) return launch_verify_hd<64, PAGED>(a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Each entry returns the CUDA error code of the launch (0 = launched).
@@ -343,4 +644,47 @@ extern "C" int paged_decode_attention_q8(const void* q, const void* kq,
   a.out = static_cast<bf16*>(out);
   a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb;
   return launch<true, true>(a, B, HD, stream);
+}
+
+// K6. q [B, H, Tq, HD], k/v cache [B, KV, T, HD] bf16, start/fill [B] int32
+// (candidate qi attends to [start, fill + qi + 1)); out [B, H, Tq, HD] bf16.
+// Tq <= 8 and (H / KV) * Tq <= 64. Each row's keys are split over S <= 16
+// blocks; `part` is f32 scratch of B * KV * S * R * (HD + 2) floats
+// (R = H / KV * Tq) and a second kernel merges the partial states (at S = 1
+// the merge divides by the one split's sum, as a direct write would).
+extern "C" int decode_verify_attention_bf16(const void* q, const void* kc,
+                                            const void* vc, const void* start,
+                                            const void* fill, void* out,
+                                            void* part, int B, int H, int KV,
+                                            int T, int Tq, int S, int HD,
+                                            void* stream) {
+  VerifyArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(kc);
+  a.v = static_cast<const bf16*>(vc);
+  a.start = static_cast<const int*>(start);
+  a.fill = static_cast<const int*>(fill);
+  a.out = static_cast<bf16*>(out);
+  a.part = static_cast<float*>(part);
+  a.H = H; a.KV = KV; a.T = T; a.Tq = Tq; a.S = S;
+  return launch_verify<false>(a, B, HD, stream);
+}
+
+// K9. k/v pools [>= N, KV, P, HD] bf16, table [B, nb] int32; logical slots
+// [0, nb * P).
+extern "C" int paged_decode_verify_attention_bf16(
+    const void* q, const void* kp, const void* vp, const void* table,
+    const void* start, const void* fill, void* out, void* part, int B, int H,
+    int KV, int N, int P, int nb, int Tq, int S, int HD, void* stream) {
+  VerifyArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(kp);
+  a.v = static_cast<const bf16*>(vp);
+  a.table = static_cast<const int*>(table);
+  a.start = static_cast<const int*>(start);
+  a.fill = static_cast<const int*>(fill);
+  a.out = static_cast<bf16*>(out);
+  a.part = static_cast<float*>(part);
+  a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb; a.Tq = Tq; a.S = S;
+  return launch_verify<true>(a, B, HD, stream);
 }

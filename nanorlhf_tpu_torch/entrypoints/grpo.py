@@ -2,17 +2,19 @@
 
 `build_config` is the JAX launcher's config literal, field for field. The
 knobs that select paths not ported yet (sequence parallelism, the
-orchestrator and fleet, disaggregated rollouts, speculative decode,
-multi-turn environments) are accepted for parity and make `run` raise
-NotImplementedError.
+orchestrator and fleet, disaggregated rollouts, multi-turn environments)
+are accepted for parity and make `run` raise NotImplementedError.
 
 Run (one GRPO update on the card, with the batch cut of `one_card_cut`):
     python -m nanorlhf_tpu_torch.entrypoints.grpo [--device cpu]
         [--page-size 128 --decode-rows 32] [--kv-cache-quant int8]
+        [--spec-k 4]
 `--page-size` rolls out over the paged KV cache, `--decode-rows` (with a
 page size) through the continuous-batching scheduler with that many
-resident rows, `--kv-cache-quant int8` with the int8 KV cache. The
-defaults are the JAX launcher's: contiguous, exact.
+resident rows, `--kv-cache-quant int8` with the int8 KV cache, `--spec-k`
+with speculative decode (n-gram drafts of that many tokens, one verify
+forward per iteration). The defaults are the JAX launcher's: contiguous,
+exact, no speculative decode.
 """
 
 from nanorlhf_tpu_torch.entrypoints.common import run
@@ -122,8 +124,10 @@ if __name__ == "__main__":
                          "batching (needs --page-size)")
     ap.add_argument("--kv-cache-quant", default="none", choices=("none", "int8"),
                     help="kv_cache_quant: the rollout's KV cache in int8")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="rollout_spec_k: > 0 rolls out with speculative decode")
     args = ap.parse_args()
-    cfg = one_card_cut(build_config())
+    cfg = one_card_cut(build_config(rollout_spec_k=args.spec_k))
     cfg.rollout_page_size = args.page_size
     cfg.rollout_decode_rows = args.decode_rows
     cfg.kv_cache_quant = args.kv_cache_quant

@@ -1,12 +1,13 @@
 """Prefix-bounded decode attention — the port of
 `nanorlhf_tpu/ops/decode_attention.py`: the single-token decode over the
-contiguous cache, the paged cache, and their int8 twins.
+contiguous cache, the paged cache, and their int8 twins, and the k-query
+speculative verify over the contiguous and the paged cache.
 
-Each wrapper launches its Hopper kernel (`csrc/decode_attention.cu`, one
-body with four ways to address a cache slot) for CUDA tensors, and runs its
-plain version for CPU tensors; on a CUDA tensor it launches or raises, it
-never falls back. The kernels read only the logical slots [start, filled)
-of each row:
+Each wrapper launches its Hopper kernel (`csrc/decode_attention.cu`: one
+decode body with four ways to address a cache slot, one verify body with
+two) for CUDA tensors, and runs its plain version for CPU tensors; on a
+CUDA tensor it launches or raises, it never falls back. The decode kernels
+read only the logical slots [start, filled) of each row:
 
 - `decode_attention` (K4, Pallas `_decode_kernel`): cache [B, KV, T, hd];
 - `paged_decode_attention` (K7, `_paged_decode_kernel`): pools
@@ -21,13 +22,23 @@ The plain versions are JAX's XLA oracles: a masked softmax over the whole
 128-multiple T padding and its [.., 8, T] sublane-expanded scale layout
 are not copied: the port's scale tensors carry no 8-wide axis.
 
-The verify variants (K6, K9) belong to speculative decode and are not
-ported yet.
+The verify kernels take Tq = spec_k + 1 candidate queries per head
+([B, H, Tq, hd]); candidate qi reads the slots [start, fill + qi + 1) (the
+candidates' K/V already written at [fill, fill + Tq)):
+
+- `decode_verify_attention` (K6, `_verify_kernel`): cache [B, KV, T, hd];
+- `paged_decode_verify_attention` (K9, `_paged_verify_kernel`): pools and
+  table as K7; the key range is clamped to the table (nb·P), as the
+  gathered view of the plain version is.
+
+The int8 cache has no verify kernel, in JAX as here: the model dequantizes
+and runs the plain masked contraction (`core/model.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -40,14 +51,20 @@ _DECODE = KERNELS["decode_attention"]
 _PAGED = KERNELS["paged_decode_attention"]
 _Q8 = KERNELS["decode_attention_q8"]
 _PAGED_Q8 = KERNELS["paged_decode_attention_q8"]
+_VERIFY = KERNELS["decode_verify_attention"]
+_PAGED_VERIFY = KERNELS["paged_decode_verify_attention"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DECODE_ARGS = [_P] * 6 + [_I] * 5 + [_P]
 _PAGED_ARGS = [_P] * 7 + [_I] * 7 + [_P]
 _Q8_ARGS = [_P] * 8 + [_I] * 5 + [_P]
 _PAGED_Q8_ARGS = [_P] * 9 + [_I] * 7 + [_P]
+_VERIFY_ARGS = [_P] * 7 + [_I] * 7 + [_P]
+_PAGED_VERIFY_ARGS = [_P] * 8 + [_I] * 9 + [_P]
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_GROUP = 8
 _KERNEL_MAX_BLOCKS = 1024  # block-table entries per row the kernel keeps
+_KERNEL_MAX_TQ = 8         # verify candidates per head (spec_k <= 7)
+_KERNEL_MAX_SPLITS = 16    # verify key-range splits per (row, kv head)
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +86,25 @@ def reference_decode_attention(q, k_cache, v_cache, start, filled):
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,bkth->bkgh", p, v_cache)
     return out.reshape(B, H, hd)
+
+
+def reference_decode_verify_attention(q, k_cache, v_cache, start, fill):
+    """The k-query (speculative verify) oracle: query i of a row attends
+    over the slots [start, fill + i + 1). q: [B, H, Tq, hd]; k/v:
+    [B, KV, T, hd]; start/fill: [B] int. Returns [B, H, Tq, hd]."""
+    B, H, Tq, hd = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Tq, hd)
+    s = torch.einsum("bkgqh,bkth->bkgqt", qg, k_cache).float()
+    s = s / math.sqrt(hd)
+    pos = torch.arange(T, device=q.device)[None, None, :]
+    qi = torch.arange(Tq, device=q.device)[None, :, None]
+    valid = (pos >= start[:, None, None]) & (pos < fill[:, None, None] + qi + 1)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgqt,bkth->bkgqh", p, v_cache)
+    return out.reshape(B, H, Tq, hd)
 
 
 def _gather_pool(pool, table):
@@ -101,6 +137,15 @@ def reference_paged_decode_attention(q, k_pool, v_pool, table, start, filled):
     return reference_decode_attention(
         q, _gather_pool(k_pool, table), _gather_pool(v_pool, table),
         start, filled)
+
+
+def reference_paged_decode_verify_attention(q, k_pool, v_pool, table, start,
+                                            fill):
+    """The k-query oracle over pages: gather to the row-contiguous view
+    [B, KV, nb·P, hd], then `reference_decode_verify_attention`."""
+    return reference_decode_verify_attention(
+        q, _gather_pool(k_pool, table), _gather_pool(v_pool, table),
+        start, fill)
 
 
 def reference_paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool,
@@ -279,5 +324,96 @@ def paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool, table,
         ptr(q), ptr(kq_pool), ptr(ks_pool), ptr(vq_pool), ptr(vs_pool),
         ptr(table), ptr(start), ptr(filled), ptr(out),
         B, H, KV, N, P, table.shape[1], hd, cuda_stream(q.device),
+    )
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def verify_split_count(B: int, KV: int, device_index: int) -> int:
+    """The S blocks each row's key range is split over, so that the B·KV·S
+    blocks make about four waves of two blocks per SM (S depends on the
+    shape only, so K6 and K9 split alike)."""
+    return max(1, min(_KERNEL_MAX_SPLITS, 8 * _sm_count(device_index) // (B * KV)))
+
+
+def _verify_splits(q, B: int, KV: int) -> tuple[int, torch.Tensor]:
+    """(S, scratch): the split count and the f32 scratch for the partial
+    softmax states [B, KV, S, R, hd + 2], merged by a second kernel."""
+    _, H, Tq, hd = q.shape
+    S = verify_split_count(B, KV, q.device.index)
+    return S, q.new_empty((B, KV, S, H // KV * Tq, hd + 2), dtype=torch.float32)
+
+
+def _check_verify_query(q, KV: int):
+    if q.dim() != 4:
+        raise ValueError(f"verify kernel takes q [B, H, Tq, hd], got {tuple(q.shape)}")
+    B, H, Tq, hd = q.shape
+    _check_query(q[:, :, 0], KV)
+    if not 1 <= Tq <= _KERNEL_MAX_TQ:
+        raise ValueError(f"verify kernel takes 1 <= Tq <= {_KERNEL_MAX_TQ} "
+                         f"candidates (spec_k <= {_KERNEL_MAX_TQ - 1}), got {Tq}")
+    _check_tensor("q", q, q, torch.bfloat16)
+    return B, H, Tq, hd
+
+
+def decode_verify_attention(q, k_cache, v_cache, start, fill):
+    """K6: k-query verify attention over the contiguous cache. q
+    [B, H, Tq, hd] (candidate i of each head reads [start, fill + i + 1)),
+    k/v [B, KV, T, hd], start/fill [B]. Returns [B, H, Tq, hd].
+
+    CUDA: the Hopper kernel (bf16, head_dim 64/128, H/KV <= 8, Tq <= 8); a
+    candidate with no valid slot returns zeros, as the Pallas kernel does.
+    CPU: `reference_decode_verify_attention`."""
+    if not q.is_cuda:
+        return reference_decode_verify_attention(q, k_cache, v_cache, start, fill)
+    KV = k_cache.shape[1]
+    B, H, Tq, hd = _check_verify_query(q, KV)
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _check_cache(name, c, None, q, B, hd, False)
+        if c.shape[0] != B:
+            raise ValueError(f"{name} has {c.shape[0]} rows, q {B}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("k/v cache shapes differ")
+    start, fill = _bounds(q, B, start, fill)
+    out = torch.empty_like(q)
+    S, part = _verify_splits(q, B, KV)
+    _VERIFY.launch(
+        "decode_verify_attention_bf16", _VERIFY_ARGS,
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(start), ptr(fill), ptr(out),
+        ptr(part), B, H, KV, k_cache.shape[2], Tq, S, hd, cuda_stream(q.device),
+    )
+    return out
+
+
+def paged_decode_verify_attention(q, k_pool, v_pool, table, start, fill):
+    """K9: k-query verify attention over the paged cache. q [B, H, Tq, hd];
+    pools [N, KV, P, hd] bf16; table [B, nb] (sentinel N); start/fill [B]
+    logical slots. Keys past the table (nb·P) are not read. Returns
+    [B, H, Tq, hd].
+
+    CUDA: the Hopper kernel (K6's body through the table); CPU:
+    `reference_paged_decode_verify_attention`."""
+    if not q.is_cuda:
+        return reference_paged_decode_verify_attention(q, k_pool, v_pool, table,
+                                                       start, fill)
+    N, KV, P = k_pool.shape[:3]
+    B, H, Tq, hd = _check_verify_query(q, KV)
+    _check_cache("k_pool", k_pool, None, q, B, hd, False)
+    _check_cache("v_pool", v_pool, None, q, B, hd, False)
+    if v_pool.shape != k_pool.shape:
+        raise ValueError("k/v pool shapes differ")
+    table = _check_table(table, q, B, N)
+    start, fill = _bounds(q, B, start, fill)
+    out = torch.empty_like(q)
+    S, part = _verify_splits(q, B, KV)
+    _PAGED_VERIFY.launch(
+        "paged_decode_verify_attention_bf16", _PAGED_VERIFY_ARGS,
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(start), ptr(fill),
+        ptr(out), ptr(part), B, H, KV, N, P, table.shape[1], Tq, S, hd,
+        cuda_stream(q.device),
     )
     return out

@@ -1,6 +1,6 @@
 """Continuous batching over the paged KV cache — the port of
-`nanorlhf_tpu/sampler/paged/scheduler.py` (`generate_tokens_queued`,
-without speculative decode, the radix prefix cache, chunked prefill or
+`nanorlhf_tpu/sampler/paged/scheduler.py` (`generate_tokens_queued`, with
+speculative decode; without the radix prefix cache, chunked prefill or
 in-flight weight swaps).
 
 `decode_rows` rows are resident in a `DecodeSession` over a pool sized for
@@ -8,7 +8,9 @@ exactly those rows. The session runs in chunks of `sync_every` iterations;
 at each host sync, rows that emitted EOS (or reached `max_tokens`) are
 flushed to the output in queue order, their pages go back to the free
 stack, and the next queued prompts are admitted into the freed rows
-mid-loop. The batch and pool shapes never change.
+mid-loop. The batch and pool shapes never change. With `spec_k > 0` each
+iteration is a draft + verify (`sampler/speculative.py`) through the live
+table, and the accepted drafts of each row are collected per queue index.
 
 Greedy queued rows equal the monolithic greedy rows (the carry is exact
 and a row's computation does not depend on its neighbours); sampled rows
@@ -24,17 +26,20 @@ import torch
 
 from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
 from nanorlhf_tpu_torch.sampler.sampler import sync_device
+from nanorlhf_tpu_torch.sampler.speculative import spec_stats
 
 
 def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                            generator: torch.Generator, *, max_tokens: int,
                            eos_token_id: int, pad_token_id: int,
                            page_size: int, decode_rows: int,
+                           spec_k: int = 0, spec_ngram: int = 3,
                            temperature: float = 1.0, top_p: float = 0.95,
                            greedy: bool = False, lora_scale: float = 1.0,
                            top_k: int = 64, capture_logprobs: bool = False,
                            approx_top_k: bool = True, sync_every: int = 8,
                            paged_stats_out: list | None = None,
+                           spec_stats_out: list | None = None,
                            timings: dict | None = None):
     """The `generate_tokens` contract over the whole queue ([Q, Tp]
     left-padded prompts → [Q, max_tokens] in queue order, or (tokens,
@@ -46,6 +51,9 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
     index, iteration of each mid-loop admission), prefill_token_dispatch,
     dispatch_events, chunked_admissions and prefill_backlog_peak (0: no
     chunked prefill), and the session's end-of-call `status()`.
+    `spec_stats_out` (spec_k > 0) receives the speculative stats dict:
+    verify_steps (the decode iterations), drafted, accepted, emitted,
+    row_steps, and accepted_rows [Q] in queue order.
 
     `timings`, when given, receives `prefill_s` (the batched bootstrap and
     every admission prefill), `decode_s` (the decode chunks, each ending in
@@ -60,12 +68,14 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
         pad_token_id=pad_token_id, generator=generator,
         temperature=temperature, top_p=top_p, greedy=greedy, top_k=top_k,
         approx_top_k=approx_top_k, capture_logprobs=capture_logprobs,
-        lora_scale=lora_scale, sync_every=sync_every)
+        lora_scale=lora_scale, spec_k=spec_k, spec_ngram=spec_ngram,
+        sync_every=sync_every)
     prompt_np = prompt_ids.cpu().numpy()
     pmask_np = prompt_mask.bool().cpu().numpy()
 
     out_all = np.full((Q, max_tokens), pad_token_id, np.int64)
     lp_all = np.zeros((Q, max_tokens), np.float32)
+    acc_all = np.zeros((Q,), np.int64)   # spec: accepted drafts per queue index
     t_prefill = t_decode = 0.0
     t0 = time.perf_counter()
     sess.bootstrap(prompt_ids, prompt_mask)
@@ -86,12 +96,15 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
         if finished:
             out_h = sess.state["out"].cpu().numpy()
             lp_h = sess.state["lp_out"].cpu().numpy() if capture_logprobs else None
+            acc_h = sess.state["row_acc"].cpu().numpy() if spec_k else None
         t0 = time.perf_counter()
         for r in finished:
             q = owner[r]
             out_all[q] = out_h[r]
             if capture_logprobs:
                 lp_all[q] = lp_h[r]
+            if spec_k:
+                acc_all[q] = acc_h[r]
             owner[r] = -1
             recycled += sess.release(r)
         for r in finished:
@@ -130,6 +143,10 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
             "prefill_backlog_peak": 0,
             "session": sess.status(),
         })
+    if spec_k and spec_stats_out is not None:
+        spec_stats_out.append({
+            **spec_stats(sess.state, n_iter),
+            "accepted_rows": torch.as_tensor(acc_all, device=device)})
     toks = torch.as_tensor(out_all, device=device)
     if capture_logprobs:
         return toks, torch.as_tensor(lp_all, device=device)

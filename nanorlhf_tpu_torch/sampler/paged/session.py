@@ -2,7 +2,10 @@
 in its rollout mode: one resident decode batch over a recycled page pool.
 
 `DecodeSession` owns the carry of `rows` resident rows (`it, out, lp_out,
-caches, key_mask, done, cur_tok, n_gen, prompt_len`), the page allocator
+caches, key_mask, done, cur_tok, n_gen, prompt_len` and the acceptance
+counters and per-row `row_acc` of `sampler/speculative.py`, which stay 0
+without speculative decode), the resident prompts the drafter reads, the
+page allocator
 (host numpy, `pages.py`; the block table is uploaded to the device when an
 admission or a release changes it) and the admission generators. The
 scheduler (`scheduler.py`) drives it: `bootstrap` the first `rows` prompts
@@ -27,10 +30,15 @@ Choices where eager PyTorch differs from JAX's jitted chunk:
   * **Dropped writes.** A done row keeps stepping (its token is masked and
     its output write dropped); once released, its table row is sentinel and
     its K/V writes land on the pool's scratch page (`core/model.py`).
+  * **Speculative decode.** With `spec_k > 0` an iteration is one draft +
+    verify (`speculative._draft_fn` / `_verify_fn`) through the live table;
+    the pool has no slack slots, so a candidate write past a row's pages
+    lands on the scratch page, past `max_tokens`, where the emission clamp
+    cuts it.
 
-The serving mode (`per_row`), speculative decode, the radix prefix cache
-and chunked prefill are not ported: asking for them raises
-NotImplementedError.
+The serving mode (`per_row`), the radix prefix cache (and with it the
+drafter's seed window) and chunked prefill are not ported: asking for them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +61,11 @@ from nanorlhf_tpu_torch.sampler.sampler import (
     _token_logprob,
     stream_generator,
 )
+from nanorlhf_tpu_torch.sampler.speculative import (
+    _draft_fn,
+    _spec_state,
+    _verify_fn,
+)
 
 # the admission stream, far from any other stream constant of the port (the
 # counterpart of JAX's `_ADMIT_BASE` fold offset)
@@ -66,17 +79,17 @@ class DecodeSession:
                  page_size, eos_token_id, pad_token_id, generator,
                  temperature=1.0, top_p=0.95, greedy=False, top_k=64,
                  approx_top_k=True, capture_logprobs=False, lora_scale=1.0,
-                 per_row=False, spec_k=0, prefix_cache=None, prefill_chunk=0,
-                 sync_every=8):
+                 per_row=False, spec_k=0, spec_ngram=3, prefix_cache=None,
+                 prefill_chunk=0, sync_every=8):
         unported = {"per_row (serving mode)": per_row,
-                    "spec_k > 0 (speculative decode)": spec_k > 0,
                     "prefix_cache (radix prefix cache)": prefix_cache is not None,
                     "prefill_chunk > 0 (chunked prefill)": prefill_chunk > 0}
         on = [what for what, flag in unported.items() if flag]
         if on:
             raise NotImplementedError(
                 f"DecodeSession: {', '.join(on)} not ported to "
-                "nanorlhf_tpu_torch yet (rollout mode only)")
+                "nanorlhf_tpu_torch yet (rollout mode only, with or without "
+                "speculative decode)")
         self.params, self.config = params, config
         self.rows = int(rows)
         self.Tp = int(prompt_len)
@@ -85,6 +98,8 @@ class DecodeSession:
         self.eos_token_id = int(eos_token_id)
         self.pad_token_id = int(pad_token_id)
         self.sync_every = int(sync_every)
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
         self.lora_scale = lora_scale
         self.capture_logprobs = bool(capture_logprobs)
         self.generator = generator
@@ -125,13 +140,9 @@ class DecodeSession:
             page_size=self.page_size, **self._sample_kw)
         self.launches += 1
         self.dispatch_tokens += R * self.Tp
-        self.state = {
-            "it": 1, "out": st["out"], "lp_out": st["lp_out"],
-            "caches": st["caches"], "key_mask": st["key_mask"],
-            "done": st["done"], "cur_tok": st["cur_tok"],
-            "n_gen": torch.ones((R,), dtype=torch.int64, device=self.device),
-            "prompt_len": st["prompt_len"],
-        }
+        self.state = _spec_state(st)
+        # the resident prompts, the drafter's lookup buffer
+        self.prompt_res = prompt_ids[:R].clone()
 
     def admit(self, r: int, toks_np, mask_np, admit_index: int) -> None:
         """Admit one prompt ([Tp] ids and mask, left-padded) into resident
@@ -157,6 +168,7 @@ class DecodeSession:
         lp0 = _token_logprob(logits, tok0, self._sample_kw["temperature"])
         self.launches += 1
         self.dispatch_tokens += self.Tp
+        self.prompt_res[r] = ids[0]
         self._install_row(r, tok0[0], lp0[0], mask[0], mask[0].sum())
 
     def admission_generator(self, admit_index: int) -> torch.Generator:
@@ -177,6 +189,7 @@ class DecodeSession:
         s["cur_tok"][r] = tok0
         s["n_gen"][r] = 1
         s["prompt_len"][r] = plen
+        s["row_acc"][r] = 0
 
     # ------------------------------------------------------------- #
     # stepping
@@ -211,14 +224,31 @@ class DecodeSession:
         s["n_gen"] = n_gen + live.to(n_gen.dtype)
         s["done"] = done | (tok == self.eos_token_id) | (s["n_gen"] >= self.max_tokens)
 
+    def _spec_body(self) -> None:
+        """One draft + verify iteration over every resident row, through the
+        live table (JAX `_spec_loop`'s body); advances `it`."""
+        drafts = _draft_fn(self.prompt_res, self.state, Tp=self.Tp,
+                           spec_k=self.spec_k, spec_ngram=self.spec_ngram,
+                           pad_token_id=self.pad_token_id)
+        _verify_fn(self.params, self.config, self.state, drafts, Tp=self.Tp,
+                   max_tokens=self.max_tokens, eos_token_id=self.eos_token_id,
+                   spec_k=self.spec_k, lora_scale=self.lora_scale,
+                   capture_logprobs=self.capture_logprobs,
+                   generator=self.generator, page_table=self.table,
+                   page_size=self.page_size, **self._sample_kw)
+
     def step(self) -> np.ndarray:
-        """Up to `sync_every` decode iterations, stopping as soon as every
-        resident row is done. Returns the host done flags [rows]."""
+        """Up to `sync_every` decode (or draft + verify) iterations, stopping
+        as soon as every resident row is done. Returns the host done flags
+        [rows]."""
         for _ in range(self.sync_every):
             if bool(self.state["done"].all()):
                 break
-            self._decode_body()
-            self.state["it"] += 1
+            if self.spec_k:
+                self._spec_body()
+            else:
+                self._decode_body()
+                self.state["it"] += 1
         return self.state["done"].cpu().numpy()
 
     # ------------------------------------------------------------- #
@@ -253,7 +283,7 @@ class DecodeSession:
             "rows": self.rows,
             "live_rows": int((~done_h).sum()),
             "mode": "rollout",
-            "features": {"spec_k": 0, "prefix_cache": False, "prefill_chunk": 0,
+            "features": {"spec_k": self.spec_k, "prefix_cache": False, "prefill_chunk": 0,
                          "per_row_sampling": False, "drafter_seed_window": 0},
             "pending_prefill": {"rows": [], "backlog_tokens": 0},
             "row_flags": [{"live": bool(not d), "chunk_pending": False,

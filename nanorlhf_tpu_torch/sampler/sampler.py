@@ -1,6 +1,7 @@
 """Autoregressive sampler — the port of `nanorlhf_tpu/sampler/sampler.py`
 (the monolithic loop over the contiguous or the paged cache, and the
-dispatch to the continuous-batching scheduler, `sampler/paged/`).
+dispatch to speculative decode, `sampler/speculative.py`, and to the
+continuous-batching scheduler, `sampler/paged/`).
 
 Output contract as in JAX (vllm_generate): `[B*N, max_tokens]` int,
 N consecutive samples per prompt, each row the generated tokens including
@@ -19,10 +20,11 @@ docstring notes ApproxTopK is exact off-TPU too.
 exactly rows × blocks-per-row pages with the dense identity table: a pure
 re-layout of the contiguous cache, bit-identical to it on the CPU); with
 `0 < decode_rows < rows` as well, `generate` hands the queue to the
-continuous-batching scheduler (`sampler/paged/scheduler.py`). The int8 KV
-cache is the model config's `kv_cache_quant`. Knobs that select paths not
-ported yet (speculative decode, compaction, chunked prefill, the radix
-prefix cache) raise NotImplementedError instead of being ignored.
+continuous-batching scheduler (`sampler/paged/scheduler.py`). `spec_k > 0`
+runs speculative decode on either layout and on the queued path. The int8
+KV cache is the model config's `kv_cache_quant`. Knobs that select paths
+not ported yet (compaction, chunked prefill, the radix prefix cache) raise
+NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -79,7 +81,6 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
         raise ValueError("prefill_chunk > 0 requires continuous batching "
                          "(page_size > 0 and decode_rows > 0)")
     unported = {
-        "spec_k > 0 (speculative decode)": sampling.spec_k > 0,
         "compaction_segments > 0 (compacting decode)": sampling.compaction_segments > 0,
         "prefix_cache (radix prefix cache)": prefix_cache,
         "prefill_chunk > 0 (chunked prefill)": sampling.prefill_chunk > 0,
@@ -88,8 +89,8 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to nanorlhf_tpu_torch yet: the "
-                "monolithic sampler (contiguous or paged) and the queued "
-                "paged scheduler are")
+                "monolithic sampler (contiguous or paged), speculative "
+                "decode and the queued paged scheduler are")
 
 
 def stream_generator(seed: int, stream: int, *index: int,
@@ -201,17 +202,26 @@ def _fan_out_pages(pool, rows: int, nb: int, fanout: int):
 def _prefill_state(params, config, prompt_ids, prompt_mask, generator, *,
                    max_tokens, eos_token_id, pad_token_id, temperature, top_p,
                    greedy, lora_scale, top_k, capture_logprobs, approx_top_k,
-                   prompt_fanout=1, page_size=0):
+                   prompt_fanout=1, cache_extra=0, page_size=0):
     """Prefill + first sampled token → the decode-loop state dict. With
     `prompt_fanout` N the [B] prompts are prefilled once and the first
     logits, prompt KV and row metadata fan out ×N (prompt-major).
+
+    `cache_extra` widens the contiguous cache and key_mask past
+    Tp + max_tokens: speculative decode's spec_k slack, room for a full
+    k + 1 candidate write by a row one token short of its budget. On the
+    paged layout it is 0: a candidate write past a row's pages lands on
+    the scratch page, and those candidates lie past `max_tokens`, where
+    the emission clamp cuts them anyway.
 
     `page_size` > 0 allocates the paged layout instead of a contiguous
     slab: a pool of exactly rows·ceil(T_max/page_size) pages (plus the
     scratch page) with the dense identity table — a pure re-layout of the
     contiguous cache, no recycling. The state then carries `table`."""
     B, Tp = prompt_ids.shape
-    T_max = Tp + max_tokens
+    if page_size > 0:
+        cache_extra = 0
+    T_max = Tp + max_tokens + cache_extra
     prompt_mask = prompt_mask.bool()
     dtype = params["embed_tokens"].dtype
     device = prompt_ids.device
@@ -320,10 +330,16 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
 def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              generator: torch.Generator, sampling: SamplingParams,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
-             timings: dict | None = None, paged_stats_out: list | None = None):
+             timings: dict | None = None, paged_stats_out: list | None = None,
+             spec_stats_out: list | None = None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
     see `generate_tokens`.
+
+    `sampling.spec_k > 0` runs speculative decode (`sampler/speculative.py`)
+    on the monolithic paths, or inside the queued scheduler;
+    `spec_stats_out` then receives one stats dict per call (verify_steps,
+    drafted, accepted, emitted, row_steps, accepted_rows).
 
     `page_size > 0 and 0 < decode_rows < B*N` runs the continuous-batching
     scheduler: each prompt repeated N times becomes its own queue entry
@@ -354,7 +370,19 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
         return generate_tokens_queued(
             params, config, prompt_ids, prompt_mask, generator,
             page_size=sampling.page_size, decode_rows=sampling.decode_rows,
-            paged_stats_out=paged_stats_out, **kw)
+            spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
+            paged_stats_out=paged_stats_out, spec_stats_out=spec_stats_out, **kw)
+    if sampling.spec_k > 0:
+        from nanorlhf_tpu_torch.sampler.speculative import generate_spec
+
+        result = generate_spec(
+            params, config, prompt_ids, prompt_mask, generator,
+            spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
+            prompt_fanout=fanout, page_size=sampling.page_size,
+            spec_stats_out=spec_stats_out, **kw)
+        _monolithic_paged_stats(result, sampling, prompt_mask, fanout,
+                                pad_token_id, paged_stats_out)
+        return result
     result = generate_tokens(params, config, prompt_ids, prompt_mask, generator,
                              prompt_fanout=fanout, page_size=sampling.page_size,
                              **kw)

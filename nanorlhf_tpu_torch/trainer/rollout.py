@@ -1,7 +1,8 @@
 """One GRPO update's rollout-and-score half — the port of the trainer's
 `rollout_body` (`nanorlhf_tpu/trainer/trainer.py:1727-1819`: the
 monolithic loop over the contiguous or paged cache, or the queued
-continuous-batching scheduler, exact or with the int8 KV cache) followed by its reward, group-advantage,
+continuous-batching scheduler, exact or with the int8 KV cache, with or
+without speculative decode) followed by its reward, group-advantage,
 keep-1-of-N and scoring steps (:2029-2189), then the response
 post-processing (:2191-2221) and the GRPO branch of `_assemble_batch`
 (:2987-3016), as plain functions:
@@ -61,11 +62,11 @@ PERM_STREAM = 0x9E77
 def check_supported(cfg: RLConfig) -> None:
     """Raise NotImplementedError for every trainer knob that selects a path
     this port has not ported, instead of ignoring it. The sampler knobs
-    (speculative decode, compaction, chunked prefill) reach
-    `sampler.compose_check` through `sampling_params(cfg)`, which raises
-    for them; the paged cache and continuous batching
-    (`rollout_page_size`, `rollout_decode_rows`) and the int8 KV cache
-    (`kv_cache_quant`) are ported."""
+    (compaction, chunked prefill) reach `sampler.compose_check` through
+    `sampling_params(cfg)`, which raises for them; the paged cache and
+    continuous batching (`rollout_page_size`, `rollout_decode_rows`), the
+    int8 KV cache (`kv_cache_quant`) and speculative decode
+    (`rollout_spec_k`, `rollout_spec_ngram`) are ported."""
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     unported = {
@@ -137,7 +138,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     wall seconds of each phase (device-synchronized) and the number of
     decode steps. `sampling` overrides the trainer's SamplingParams (e.g.
     greedy, for parity tests). On a paged rollout the result also carries
-    `paged_stats` (the sampler's stats dict). `launches`, when given,
+    `paged_stats`, on a speculative one `spec_stats` (the sampler's stats
+    dicts). `launches`, when given,
     receives the kernel launches of the generation (`generate`) and of the
     scoring pass (`score`)."""
     check_supported(cfg)
@@ -152,12 +154,13 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     queries_t = torch.as_tensor(queries, dtype=torch.int64, device=device)
     prompt_mask = queries_t != pad_id
     paged_stats: list = []
+    spec_stats: list = []
     counts0 = launch_counts()
     responses = generate(params, rollout_model_config(mcfg, cfg), queries_t,
                          prompt_mask, generator, sampling or sampling_params(cfg),
                          eos_token_id=eos_id, pad_token_id=pad_id,
                          lora_scale=lora_scale, timings=t,
-                         paged_stats_out=paged_stats)
+                         paged_stats_out=paged_stats, spec_stats_out=spec_stats)
     responses_np = responses.cpu().numpy()
     t["generate_s"] = time.perf_counter() - t_start
     counts1 = launch_counts()
@@ -212,6 +215,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     }
     if paged_stats:
         out["paged_stats"] = paged_stats[0]
+    if spec_stats:
+        out["spec_stats"] = spec_stats[0]
     return out
 
 

@@ -302,7 +302,26 @@ class RLTrainer:
             "perf/tokens_per_sec_update": train_tokens / max(t["update_s"], 1e-9),
         }
         metrics.update(self._paged_metrics(ro.get("paged_stats")))
+        metrics.update(self._spec_decode_metrics(ro.get("spec_stats")))
         return metrics
+
+    @staticmethod
+    def _spec_decode_metrics(spec_stats) -> dict:
+        """rollout/draft_acceptance (accepted / drafted tokens),
+        rollout/accepted_per_step (tokens emitted per live row per verify
+        forward; identically 1 without speculative decode) and
+        rollout/spec_verify_steps (the verify forwards) from a speculative
+        rollout's stats — the one definition of these rows. {} when the
+        rollout is not speculative."""
+        if spec_stats is None:
+            return {}
+        return {
+            "rollout/draft_acceptance": (float(spec_stats["accepted"])
+                                         / max(float(spec_stats["drafted"]), 1.0)),
+            "rollout/accepted_per_step": (float(spec_stats["emitted"])
+                                          / max(float(spec_stats["row_steps"]), 1.0)),
+            "rollout/spec_verify_steps": float(spec_stats["verify_steps"]),
+        }
 
     @staticmethod
     def _paged_metrics(paged_stats) -> dict:

@@ -181,9 +181,11 @@ UNPORTED_SAMPLER = [
     dict(rollout_page_size=128), dict(rollout_decode_rows=8), dict(rollout_spec_k=4),
     dict(rollout_compaction_segments=2),
 ]
-# knobs that raised until the paged / int8 slice ported them: their cases now
-# hold the rollout through the knob against the contiguous exact rollout
-PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows")
+# knobs that raised until the paged / int8 and speculative slices ported
+# them: their cases now hold the rollout through the knob against the
+# contiguous exact rollout
+PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows",
+                "rollout_spec_k")
 
 
 def _greedy_rollout(monkeypatch, knobs):
