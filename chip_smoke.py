@@ -20,7 +20,13 @@ Phases (any failure exits non-zero):
      32), held per element within one bf16 ulp of the f32 result, with
      candidate blocks straddling tiles and pages, K6 at Tq = 1 against K4,
      and off those shapes (64 rows per block, one, head_dim 64, the key
-     range in one split and in three); then the kernel's time, its plain
+     range in one split and in three); the flash backward (K2, K3) at the
+     shapes phases 4 and 7a give it (B=4, T = prompt + 512 and prompt +
+     1500), held at 1e-2 · max|g| and per 64-row tile relative to the
+     tile's norm, two launches equal bit for bit, and off those shapes (head_dim
+     64, G 4 and 7, non-causal, ragged T, T under one tile, B=1 at the
+     largest dK/dV split, key tiles cut into several parts, held against
+     the split's plain version too); then the kernel's time, its plain
      version's time,
      one library call's time as a yardstick (for the paged and int8 cache,
      where no single call exists: SDPA over a pre-gathered / pre-dequantized
@@ -73,7 +79,8 @@ Phases (any failure exits non-zero):
      acceptance above one half, and on the random 2-layer model the first
      difference of any speculative greedy row from its monolithic row with
      the top-2 logit margin there; (d) a short int8 + speculative rollout.
-     The verify shapes (a) and (b) gave the kernels are recorded and must
+     The verify shapes (a) and (b) gave the kernels, and the flash
+     backward shapes of phase 4's and (a)'s updates, are recorded and must
      be those phase 2 held and timed.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
@@ -86,8 +93,10 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import heapq
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -125,6 +134,23 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, match: str) -> dict[str, float]:
+    """Device time per call of `fn`'s kernels whose name holds `match`, by
+    kernel (torch.profiler over `iters` calls after a warm-up): the card's
+    own time, without the host's launch and wrapper overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.device_type == cuda and match in e.key}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -166,6 +192,49 @@ def hold(torch, what: str, pairs, tol: float) -> float:
     log(f"  {what}: max|kernel - plain f32|: {', '.join(parts)}; tol {tol}")
     if worst > tol:
         fail(f"{what}: kernel disagrees with its plain version")
+    return worst
+
+
+# The flash backward per 64-row tile (a dK/dV key tile, the unit the split
+# cuts into parts; a dQ query tile): ||kernel − plain f32|| / ||plain f32||
+# over the tile. Sound tiles read 2.2e-3 to 3.2e-3 on an H100 (the bf16
+# rounding of the outputs, and of P and dS for their products: medians
+# 2.3e-3 at every shape and edge); dropping one (g, query tile) step of a
+# part or one part in the reduce, or scaling half a tile's rows by
+# 1 + 1/128, takes its tile past TILE_TOL (PERF.md §6).
+TILE_TOL = 5e-3
+
+
+def tile_errors(torch, got, want, rows: int = 64):
+    """[B, heads, n_tiles] relative errors of [B, heads, T, d] tensors over
+    tiles of `rows` along T; a tile whose plain value is all zeros must
+    come out all zeros."""
+    B, heads, T, _ = want.shape
+    n = -(-T // rows)
+
+    def sq(x):
+        x = x.float().pow(2).sum(-1)
+        return torch.nn.functional.pad(x, (0, n * rows - T)).reshape(B, heads, n, rows).sum(-1)
+
+    return (sq(got.float() - want.float()) / sq(want).clamp(min=1e-30)).sqrt()
+
+
+def hold_tiles(torch, what: str, pairs, tol: float = TILE_TOL) -> float:
+    """pairs: (label, kernel out, plain-f32 out, plain-bf16 out). Fails
+    unless every 64-row tile of every kernel output is within `tol` of the
+    plain f32 tile, relative to that tile's norm; returns the largest."""
+    worst, parts = 0.0, []
+    for label, got, want, bf16 in pairs:
+        e, eb = tile_errors(torch, got, want), tile_errors(torch, bf16, want)
+        at = [int(i) for i in divmod(int(e.argmax()), e.shape[-1])]
+        parts.append(f"{label} max {float(e.max()):.3e} (at head row {at[0]}, tile "
+                     f"{at[1]}), median {float(e.median()):.3e} (plain bf16 max "
+                     f"{float(eb.max()):.3e})")
+        worst = max(worst, float(e.max()))
+    log(f"  {what}: per 64-row tile, ||kernel - plain f32|| / ||plain f32||: "
+        f"{', '.join(parts)}; tol {tol}")
+    if worst > tol:
+        fail(f"{what}: a tile of the kernel's output disagrees with its plain version")
     return worst
 
 
@@ -218,74 +287,156 @@ def check_flash(torch, F, prompt_width: int, resp: int) -> dict:
     return result
 
 
-def check_flash_bwd(torch, F, prompt_width: int, resp: int) -> dict:
-    """K2/K3 at the update's shape (B=4 microbatch rows, T = prompt width +
-    response), causal, left-padded; held against the plain backward in f32
+def _makespan(blocks, slots: int) -> int:
+    """Steps of the busiest of `slots` resident blocks when the schedule's
+    blocks are handed out in order, each to the least loaded slot."""
+    load = [0] * slots
+    for r in blocks:
+        heapq.heapreplace(load, load[0] + r[4] - r[3])
+    return max(load)
+
+
+def check_flash_bwd(torch, F, shapes) -> dict:
+    """K2/K3 at each backward shape the update paths give them (phases 4
+    and 7a record theirs: B=4 microbatch rows, T = prompt width +
+    response, causal, left-padded); held against the plain backward in f32
     on the same bf16 inputs and residuals (out, lse from the forward
-    kernel). Tolerance relative to each gradient's scale: 1e-2 · max|g|
-    (dS and P round to bf16 for their products, the outputs to bf16). The
-    plain bf16 route (autograd through `reference_attention` in bf16) is
-    printed beside it."""
+    kernel): each gradient within 1e-2 · max|g| (dS and P round to bf16 for
+    their products, the outputs to bf16), and each 64-row tile within
+    TILE_TOL of its own norm (`hold_tiles`). The plain bf16 route (autograd
+    through `reference_attention` in bf16) is printed beside it. Two
+    launches on the same inputs must give the same bits. Each kernel is
+    timed over 20 launches beside the plain backward and the SDPA backward
+    of the same call. Returns the kernels' results by T."""
     from nanorlhf_tpu_torch.ops.attention import (
+        DKV_MAX_SPLITS, blocks_per_sm, dkv_balance, dkv_schedule, dkv_split,
         flash_attention_backward_reference, flash_attention_forward,
         flash_bwd_dkv, flash_bwd_dq, reference_attention)
 
-    H, KV, hd, B = 12, 2, 128, 4
-    T = prompt_width + resp
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q = torch.randn((B, H, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    pad = torch.randint(0, max(1, prompt_width // 2), (B,), generator=gen, device="cuda")
-    pad[0] = 0
-    valid = torch.arange(T, device="cuda")[None, :] >= pad[:, None]
-    out, lse = flash_attention_forward(q, k, v, valid, causal=True)
-    # left-pad query rows carry no cotangent on the training path
-    do = (torch.randn((B, H, T, hd), generator=gen, device="cuda")
-          * valid[:, None, :, None]).to(torch.bfloat16)
-    dq, delta = flash_bwd_dq(q, k, v, valid, out, lse, do)
-    dk, dv = flash_bwd_dkv(q, k, v, valid, lse, delta, do)
-    want = flash_attention_backward_reference(*_f32(q, k, v), valid, out.float(), lse,
-                                              do.float())
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    plain = torch.autograd.grad(reference_attention(*leaves, valid), leaves, do)
-    worst = {}
-    for label, got, w, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want, plain):
-        scale = float(w.abs().max())
-        worst[label] = hold(torch, f"flash_bwd {label} B={B} H={H} KV={KV} T={T} "
-                            f"hd={hd} causal (scale {scale:.3e})",
-                            [(label, got, w, b, None)], 1e-2 * scale)
-    ms_dq = time_ms(torch, lambda: flash_bwd_dq(q, k, v, valid, out, lse, do), 10)
-    ms_dkv = time_ms(torch, lambda: flash_bwd_dkv(q, k, v, valid, lse, delta, do), 10)
-    plain_ms = time_ms(torch, lambda: flash_attention_backward_reference(
-        q, k, v, valid, out, lse, do), 3)
-    mask = valid[:, None, None, :] & torch.ones((T, T), dtype=torch.bool,
-                                                device="cuda").tril()
-    sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
-    s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
-    lib = time_ms(torch, lambda: torch.autograd.grad(s_out, (sq, sk, sv), do,
-                                                     retain_graph=True), 5)
-    fwd_flops = 4.0 * B * H * hd * T * (T + 1) / 2  # causal pairs only
-    e = 2  # bf16 bytes
-    qb, kb, rb = e * q.numel(), e * k.numel(), 4 * lse.numel()
-    # dq: S, dP, dQ products (1.5x the forward); reads q k v o dO lse, writes
-    # dq and delta. dkv: S, dP, dV, dK (2x); reads q k v dO lse delta,
-    # writes dk dv. The backward as a whole: 2.5x the forward, q k v o dO
-    # lse in, dq dk dv out.
-    b_dq = bound_ms(qb * 3 + kb * 2 + rb * 2 + qb, 1.5 * fwd_flops)
-    b_dkv = bound_ms(qb * 2 + kb * 2 + rb * 2 + kb * 2, 2.0 * fwd_flops)
-    b_all = bound_ms(qb * 3 + kb * 2 + rb + qb + kb * 2, 2.5 * fwd_flops)
-    log(f"  flash backward as a whole: kernels {ms_dq + ms_dkv:.4f} ms, bound "
-        f"{b_all[0]:.4f} ms ({b_all[1]}: 2.5 x causal forward flops)")
-    shape = f"B={B} H={H} KV={KV} T={T} hd={hd}, causal"
-    return {
-        "flash_bwd_dq": dict(ms=ms_dq, plain_ms=plain_ms, library_ms=lib,
-                             bound_ms=b_dq[0], bound_by=b_dq[1],
-                             max_abs_err=worst["dq"], shape=shape),
-        "flash_bwd_dkv": dict(ms=ms_dkv, plain_ms=plain_ms, library_ms=lib,
-                              bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                              max_abs_err=max(worst["dk"], worst["dv"]), shape=shape),
-    }
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for B, H, KV, T, hd in sorted(shapes, key=lambda s: s[3]):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q = torch.randn((B, H, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        pad = torch.randint(0, 5, (B,), generator=gen, device="cuda")
+        pad[0] = 0
+        valid = torch.arange(T, device="cuda")[None, :] >= pad[:, None]
+        out, lse = flash_attention_forward(q, k, v, valid, causal=True)
+        # left-pad query rows carry no cotangent on the training path
+        do = (torch.randn((B, H, T, hd), generator=gen, device="cuda")
+              * valid[:, None, :, None]).to(torch.bfloat16)
+        dq, delta = flash_bwd_dq(q, k, v, valid, out, lse, do)
+        dk, dv = flash_bwd_dkv(q, k, v, valid, lse, delta, do)
+        want = flash_attention_backward_reference(*_f32(q, k, v), valid, out.float(),
+                                                  lse, do.float())
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        plain = torch.autograd.grad(reference_attention(*leaves, valid), leaves, do)
+        hold_tiles(torch, f"flash_bwd B={B} H={H} KV={KV} T={T} hd={hd} causal",
+                   list(zip(("dq", "dk", "dv"), (dq, dk, dv), want, plain)))
+        worst = {}
+        for label, got, w, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want, plain):
+            scale = float(w.abs().max())
+            worst[label] = hold(torch, f"flash_bwd {label} B={B} H={H} KV={KV} T={T} "
+                                f"hd={hd} causal (scale {scale:.3e})",
+                                [(label, got, w, b, None)], 1e-2 * scale)
+        dq2, delta2 = flash_bwd_dq(q, k, v, valid, out, lse, do)
+        dk2, dv2 = flash_bwd_dkv(q, k, v, valid, lse, delta2, do)
+        if not all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2),
+                                                  (dk, dk2), (dv, dv2))):
+            fail(f"flash backward T={T}: two launches on the same inputs differ")
+        ms_dq = time_ms(torch, lambda: flash_bwd_dq(q, k, v, valid, out, lse, do), 20)
+        ms_dkv = time_ms(torch, lambda: flash_bwd_dkv(q, k, v, valid, lse, delta, do), 20)
+        plain_ms = time_ms(torch, lambda: flash_attention_backward_reference(
+            q, k, v, valid, out, lse, do), 3)
+        mask = valid[:, None, None, :] & torch.ones((T, T), dtype=torch.bool,
+                                                    device="cuda").tril()
+        sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
+        s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
+        lib = time_ms(torch, lambda: torch.autograd.grad(s_out, (sq, sk, sv), do,
+                                                         retain_graph=True), 20)
+        fwd_flops = 4.0 * B * H * hd * T * (T + 1) / 2  # causal pairs only
+        e = 2  # bf16 bytes
+        qb, kb, rb = e * q.numel(), e * k.numel(), 4 * lse.numel()
+        # dq: S, dP, dQ products (1.5x the forward); reads q k v o dO lse, writes
+        # dq and delta. dkv: S, dP, dV, dK (2x); reads q k v dO lse delta,
+        # writes dk dv. The backward as a whole: 2.5x the forward, q k v o dO
+        # lse in, dq dk dv out.
+        b_dq = bound_ms(qb * 3 + kb * 2 + rb * 2 + qb, 1.5 * fwd_flops)
+        b_dkv = bound_ms(qb * 2 + kb * 2 + rb * 2 + kb * 2, 2.0 * fwd_flops)
+        b_all = bound_ms(qb * 3 + kb * 2 + rb + qb + kb * 2, 2.5 * fwd_flops)
+        on_card = {}
+        for name, fn in (("dq", lambda: flash_bwd_dq(q, k, v, valid, out, lse, do)),
+                         ("dkv", lambda: flash_bwd_dkv(q, k, v, valid, lse, delta, do))):
+            parts = device_ms(torch, fn, 10, "flash_bwd")
+            on_card[name] = sum(parts.values())
+            log(f"  flash backward B={B} T={T}: {name} entry, device time per call by "
+                f"kernel (profiler): " + ", ".join(
+                    f"{re.search(r'flash_bwd_[a-z_]+', key).group(0)} {ms:.4f} ms"
+                    for key, ms in parts.items()))
+        S = dkv_split(q, KV, True)
+        blocks = dkv_schedule(B, KV, H // KV, T, True, S)[0]
+        n_blocks, mean, most = dkv_balance(blocks)
+        per_wave = {n: sm * blocks_per_sm(n, hd) for n in ("dq", "dkv")}
+        dq_blocks = -(-T // 64) * B * H
+        # every split against waves of resident blocks (a model: steps only)
+        sweep = []
+        for s in range(1, DKV_MAX_SPLITS + 1):
+            sched, _, n_slots = dkv_schedule(B, KV, H // KV, T, True, s)
+            sweep.append(f"{s}{'*' * (s == S)}: {len(sched) / per_wave['dkv']:.2f} / "
+                         f"{_makespan(sched, per_wave['dkv'])} / {n_slots}")
+        log(f"  flash backward B={B} T={T}: dkv split S (* chosen): waves of "
+            f"{per_wave['dkv']} resident blocks / steps of the busiest slot, blocks "
+            f"handed out heaviest first (an even share: "
+            f"{sum(r[4] - r[3] for r in blocks) / per_wave['dkv']:.2f}) / f32 partial "
+            f"tiles: {'; '.join(sweep)}")
+        log(f"  flash backward B={B} T={T}: dq {ms_dq:.4f} ms "
+            f"({1.5 * fwd_flops / ms_dq / 1e9:.1f} TFLOP/s, bound {b_dq[0]:.4f} ms "
+            f"{b_dq[1]}, {dq_blocks} blocks, {per_wave['dq']} per wave); dkv "
+            f"{ms_dkv:.4f} ms ({2.0 * fwd_flops / ms_dkv / 1e9:.1f} TFLOP/s, bound "
+            f"{b_dkv[0]:.4f} ms {b_dkv[1]}, S={S}: {n_blocks} blocks, {per_wave['dkv']} "
+            f"per wave, steps mean {mean:.2f} max {most}); together "
+            f"{ms_dq + ms_dkv:.4f} ms ({2.5 * fwd_flops / (ms_dq + ms_dkv) / 1e9:.1f} "
+            f"TFLOP/s, bound {b_all[0]:.4f} ms {b_all[1]}); plain {plain_ms:.4f} ms; "
+            f"SDPA backward {lib:.4f} ms (kernels / SDPA {(ms_dq + ms_dkv) / lib:.3f}); "
+            f"device time (profiler) dq {on_card['dq']:.4f} dkv {on_card['dkv']:.4f} ms; "
+            f"two launches equal bit for bit")
+        shape = f"B={B} H={H} KV={KV} T={T} hd={hd}, causal"
+        results[T] = {
+            "flash_bwd_dq": dict(ms=ms_dq, plain_ms=plain_ms, library_ms=lib,
+                                 bound_ms=b_dq[0], bound_by=b_dq[1],
+                                 max_abs_err=worst["dq"], shape=shape),
+            "flash_bwd_dkv": dict(ms=ms_dkv, plain_ms=plain_ms, library_ms=lib,
+                                  bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                                  max_abs_err=max(worst["dk"], worst["dv"]),
+                                  shape=f"{shape}, S={S}"),
+        }
+    return results
+
+
+@contextlib.contextmanager
+def recording_backward_shapes(seen):
+    """Count, by shape, the calls of the flash backward wrappers inside the
+    model's backward (the wrappers, and their launch counts, run
+    unchanged)."""
+    from nanorlhf_tpu_torch.ops import attention
+
+    dq_fn, dkv_fn = attention.flash_bwd_dq, attention.flash_bwd_dkv
+
+    def rec_dq(q, k, v, key_valid, out, lse, do, causal=True):
+        seen[("flash_bwd_dq", *q.shape[:2], k.shape[1], *q.shape[2:], bool(causal))] += 1
+        return dq_fn(q, k, v, key_valid, out, lse, do, causal)
+
+    def rec_dkv(q, k, v, key_valid, lse, delta, do, causal=True):
+        seen[("flash_bwd_dkv", *q.shape[:2], k.shape[1], *q.shape[2:], bool(causal))] += 1
+        return dkv_fn(q, k, v, key_valid, lse, delta, do, causal)
+
+    attention.flash_bwd_dq, attention.flash_bwd_dkv = rec_dq, rec_dkv
+    try:
+        yield
+    finally:
+        attention.flash_bwd_dq, attention.flash_bwd_dkv = dq_fn, dkv_fn
 
 
 def check_decode(torch, F, prompt_width: int, resp: int) -> dict:
@@ -841,10 +992,15 @@ def check_edges(torch) -> None:
     """The kernels off the main shapes: head_dim 64, GQA groups of 4 and 7
     (Llama-3.2-1B and Qwen2-0.5B geometry), ragged T / rows / vocab, the
     non-causal flash path (forward and backward), fully masked left-pad
-    rows in the backward, an empty decode row (zeros, reading nothing)."""
+    rows in the backward, an empty decode row (zeros, reading nothing).
+    The backward also at T under one tile, at B=1 with the largest split
+    S, and with key tiles cut into several parts, its dK/dV held against
+    the plain version of the split (`flash_bwd_dkv_split_reference`) too."""
     from nanorlhf_tpu_torch.ops.attention import (
+        DKV_MAX_SPLITS, dkv_key_tile_steps, dkv_schedule, dkv_split,
         flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_forward, flash_attention_reference, reference_attention)
+        flash_attention_forward, flash_attention_reference,
+        flash_bwd_dkv_split_reference, reference_attention)
     from nanorlhf_tpu_torch.ops.decode_attention import (
         decode_attention, reference_decode_attention)
     from nanorlhf_tpu_torch.ops.fused_logprob import (
@@ -855,8 +1011,10 @@ def check_edges(torch) -> None:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
+    cut_tiles = 0
     for B, H, KV, T, hd, causal in ((2, 32, 8, 77, 64, True), (2, 14, 2, 130, 64, False),
-                                    (1, 12, 2, 65, 128, False)):
+                                    (1, 12, 2, 65, 128, False), (2, 12, 2, 40, 128, True),
+                                    (1, 12, 2, 200, 128, True)):
         q, k, v = randn(B, H, T, hd), randn(B, KV, T, hd), randn(B, KV, T, hd)
         valid = torch.arange(T, device="cuda")[None, :] >= torch.tensor(
             [[0], [9]][:B], device="cuda")
@@ -875,9 +1033,29 @@ def check_edges(torch) -> None:
                                                   lse, do.float(), causal)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         plain = torch.autograd.grad(reference_attention(*leaves, valid, causal), leaves, do)
+        hold_tiles(torch, f"edge flash_bwd B={B} H={H} KV={KV} T={T} hd={hd} "
+                   f"causal={causal}", list(zip(("dq", "dk", "dv"), got, want, plain)))
         for label, g, w, b in zip(("dq", "dk", "dv"), got, want, plain):
             hold(torch, f"edge flash_bwd {label} B={B} H={H} KV={KV} T={T} hd={hd} "
                  f"causal={causal}", [(label, g, w, b, None)],
+                 1e-2 * float(w.abs().max()))
+        S = dkv_split(q, KV, causal)
+        _, reduce, _ = dkv_schedule(B, KV, H // KV, T, causal, S)
+        parts = max((r[4] for r in reduce), default=1)
+        cut_tiles += parts > 1
+        top = min(DKV_MAX_SPLITS,
+                  H // KV * max(n for _, n in dkv_key_tile_steps(T, causal)))
+        if B == 1 and T == 200 and S != top:
+            fail(f"edge B=1 T=200: split S={S}, meant to be the largest, {top}")
+        delta = (do.float() * out.float()).sum(-1)
+        split = flash_bwd_dkv_split_reference(*_f32(q, k, v), valid, lse, delta,
+                                              do.float(), causal, S)
+        what = (f"edge flash_bwd vs the split's plain version, S={S} (at most {parts} "
+                f"parts a key tile) B={B} T={T} hd={hd} causal={causal}")
+        hold_tiles(torch, what, [("dk", got[1], split[0], split[0]),
+                                 ("dv", got[2], split[1], split[1])])
+        for label, g, w in zip(("dk", "dv"), got[1:], split):
+            hold(torch, f"{what}: {label}", [(label, g, w, w, None)],
                  1e-2 * float(w.abs().max()))
         if causal:
             # a fully masked row with a NON-zero cotangent: finite, not NaN
@@ -885,6 +1063,8 @@ def check_edges(torch) -> None:
                                              randn(B, H, T, hd), causal)
             if not all(bool(torch.isfinite(g.float()).all()) for g in g_any):
                 fail("flash backward: a fully masked row gave a non-finite gradient")
+    if not cut_tiles:
+        fail("no backward edge case cut a key tile into several parts")
     for H, KV, T, hd in ((32, 8, 300, 64), (14, 2, 257, 64)):
         B = 4
         q, k, v = randn(B, H, hd), randn(B, KV, T, hd), randn(B, KV, T, hd)
@@ -1107,7 +1287,7 @@ def small_reference(torch, mcfg, cfg, queries, pad_id: int) -> None:
 # phase 4: one GRPO update
 # --------------------------------------------------------------------------
 
-def train_update(torch, max_tokens: int) -> dict:
+def train_update(torch, max_tokens: int, bwd_seen) -> dict:
     import os
     import shutil
 
@@ -1136,7 +1316,8 @@ def train_update(torch, max_tokens: int) -> dict:
 
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    state = trainer.train(num_updates=1)
+    with recording_backward_shapes(bwd_seen):
+        state = trainer.train(num_updates=1)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     upd = trainer.last_launches["update"]
@@ -1595,7 +1776,7 @@ def int8_small_reference(torch, mcfg, queries, pad_id: int) -> None:
 # phase 7: speculative decode
 # --------------------------------------------------------------------------
 
-def spec_update(torch, max_tokens: int) -> dict:
+def spec_update(torch, max_tokens: int, bwd_seen) -> dict:
     """(a) `one_card_cut(build_config(rollout_spec_k=4))` through
     `build_trainer`/`train(1)` over the contiguous cache: the generation
     half launches K6 once per layer and verify step, K4 never, and the
@@ -1625,7 +1806,8 @@ def spec_update(torch, max_tokens: int) -> dict:
               if p in trained}
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    state = trainer.train(num_updates=1)
+    with recording_backward_shapes(bwd_seen):
+        state = trainer.train(num_updates=1)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1658,6 +1840,11 @@ def spec_update(torch, max_tokens: int) -> dict:
         fail(f"spec update: {len(moved_b)} LoRA B leaves moved, checkpoint "
              f"{trainer.ckpt.latest_step()}")
     n_steps = state["opt_steps"]
+    n_micro = n_steps * cfg.gradient_accumulation_steps
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if launches["update"][name] != L * n_micro:
+            fail(f"spec update, update half: kernel {name} launched "
+                 f"{launches['update'][name]} times, expected {L * n_micro}")
     log(f"  rollout_s={t['generate_s']:.3f} (prefill {t['prefill_s'] * 1e3:.3f} ms; "
         f"{steps} verify steps in {t['decode_s']:.3f} s, "
         f"{t['decode_s'] / max(steps, 1) * 1e3:.3f} ms per verify step, "
@@ -1977,11 +2164,18 @@ def main() -> None:
     spec_k, P7 = 4, 128
     k6_shape = (64, 12, spec_k + 1, 128, 2, prompt_width + resp + spec_k)
     k9_shape = (32, 12, spec_k + 1, 128, 2, P7, -(-(prompt_width + short) // P7))
+    # the flash backward shapes of the updates: phase 4 (B=4 microbatch
+    # rows, prompt + short responses) and phase 7a (prompt + full
+    # responses); phases 4 and 7a record what they gave and fail unless
+    # they are these
+    bwd_shapes = {(4, 12, 2, prompt_width + t, 128) for t in (short, resp)}
+    bwd = check_flash_bwd(torch, F, bwd_shapes)
     results = {
         "flash_fwd": check_flash(torch, F, prompt_width, resp),
         "decode_attention": check_decode(torch, F, prompt_width, resp),
         "fused_logprob": check_fused(torch, resp),
-        **check_flash_bwd(torch, F, prompt_width, resp),
+        # the kernels line gives K2/K3 at phase 4's shape, whose launches it counts
+        **bwd[prompt_width + short],
         **check_paged(torch, F, prompt_width, resp),
         **check_verify(torch, F, prompt_width, k6_shape, k9_shape),
     }
@@ -1999,7 +2193,8 @@ def main() -> None:
 
     log("phase 4: one GRPO update (rollout, score, loss, backward, AdamW, "
         "checkpoint), Qwen2.5-1.5B width, contiguous KV cache")
-    counts4 = train_update(torch, short)
+    bwd_seen: collections.Counter = collections.Counter()
+    counts4 = train_update(torch, short, bwd_seen)
 
     log("phase 5: one GRPO update over continuous batching (paged KV cache, "
         "page size 128, 32 resident rows), Qwen2.5-1.5B width")
@@ -2017,13 +2212,29 @@ def main() -> None:
         "Qwen2.5-1.5B width")
     seen: collections.Counter = collections.Counter()
     with recording_verify_shapes(seen):
-        counts7 = spec_update(torch, resp)
+        counts7 = spec_update(torch, resp, bwd_seen)
         counts7b = spec_queued_rollout(torch, short)
     log(f"  verify shapes phase 7a/7b gave the kernels (name, B, H, Tq, hd, KV, "
         f"T | P, nb): calls {dict(seen)}")
     if set(seen) != checked:
         fail(f"phase 7 gave the verify kernels {set(seen)}; phase 2 held and timed "
              f"them at {checked}")
+    log(f"  flash backward shapes phases 4 and 7a gave the kernels (name, B, H, KV, "
+        f"T, hd, causal): calls {dict(bwd_seen)}")
+    bwd_checked = {(name, B, H, KV, T, hd, True) for name in ("flash_bwd_dq", "flash_bwd_dkv")
+                   for B, H, KV, T, hd in bwd_shapes}
+    if set(bwd_seen) != bwd_checked:
+        fail(f"phases 4 and 7a gave the flash backward {set(bwd_seen)}; phase 2 held "
+             f"and timed it at {bwd_checked}")
+    # every launch of the backward kernels in phases 4 and 7a went through a
+    # recorded call at that phase's shape
+    bwd_want: collections.Counter = collections.Counter()
+    for counts, t in ((counts4, short), (counts7, resp)):
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            bwd_want[(name, 4, 12, 2, prompt_width + t, 128, True)] += counts[name]
+    if bwd_seen != bwd_want:
+        fail(f"flash backward calls by shape {dict(bwd_seen)}, launches by phase "
+             f"{dict(bwd_want)}")
     spec_cycle(torch, _demo_config(),
                depad_queries(next(ds.loader(16, 3)), tok.pad_token_id,
                              shape_menu(ds.input_ids.shape[1], 16)),
