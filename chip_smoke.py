@@ -6,13 +6,21 @@ toolkit:
 
     python3 chip_smoke.py                 # the whole contract
     python3 chip_smoke.py --max-tokens 64 # a shorter end-to-end rollout
+    python3 chip_smoke.py --holds K1      # build one source, run only K1's
+                                          # (or K4's) phase-2 holds
+    python3 chip_smoke.py --plant-faults  # each fault of FAULTS in a copy of
+                                          # the port must fail its hold
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
      nvcc per source, all at once) and load them;
   2. kernel checks — each kernel against its plain PyTorch version on the
      card, in bf16 (int8 for the int8 cache), at the shapes the rollout and
-     the update give it, with the stated tolerance; the paged kernels (K7,
+     the update give it, with the stated tolerance; the flash forward (K1)
+     at the scoring shape of the full response and the shapes phase 4 gives
+     it, also per 64-row query tile; the decode kernel (K4) at 16 and 64 rows
+     and T_max = prompt + 1500 and + 512, per element within one bf16 ulp,
+     its split count equal to `decode_split_count`; the paged kernels (K7,
      K8, K9) on pages scattered through a pool with spare pages and a
      sentinel block, each equal bit for bit to its contiguous twin (K4, K5,
      K6) on the same logical cache; the verify kernels (K6, K9) at the
@@ -79,9 +87,9 @@ Phases (any failure exits non-zero):
      acceptance above one half, and on the random 2-layer model the first
      difference of any speculative greedy row from its monolithic row with
      the top-2 logit margin there; (d) a short int8 + speculative rollout.
-     The verify shapes (a) and (b) gave the kernels, and the flash
-     backward shapes of phase 4's and (a)'s updates, are recorded and must
-     be those phase 2 held and timed.
+     The verify shapes (a) and (b) gave the kernels, the flash backward
+     shapes of phase 4's and (a)'s updates and the flash forward shapes of
+     phase 4 are recorded and must be those phase 2 held and timed.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -136,21 +144,39 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, match: str) -> dict[str, float]:
+def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict[str, float]:
     """Device time per call of `fn`'s kernels whose name holds `match`, by
     kernel (torch.profiler over `iters` calls after a warm-up): the card's
-    own time, without the host's launch and wrapper overhead."""
+    own time, without the host's launch and wrapper overhead. The profiler
+    can come back without the kernels' device records; a session that does
+    is run again, up to `tries` sessions, and {} means not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-            if e.device_type == cuda and match in e.key}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+               if e.device_type == cuda and match in e.key and e.self_device_time_total > 0}
+        if got:
+            return got
+        log(f"  a profiler session recorded no device time for {match!r}")
+    log(f"  the profiler recorded no device time for {match!r} in {tries} sessions: "
+        f"device time not measured")
+    return {}
+
+
+def dev_total(parts: dict[str, float]) -> float | None:
+    """The sum of `device_ms`'s kernels, None where it measured nothing."""
+    return sum(parts.values()) if parts else None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -242,49 +268,89 @@ def _f32(*ts):
     return tuple(t.float() for t in ts)
 
 
-def check_flash(torch, F, prompt_width: int, resp: int) -> dict:
+def check_flash(torch, F, shapes) -> dict:
+    """K1 at each shape in `shapes` (B, H, KV, T, hd): the scoring shape of
+    the full response (B=16, T = prompt + 1500, the kernels line) and the
+    shapes phase 4 gives it (the prefill at the prompt width, the scoring
+    and the update batches at prompt + 512), causal and left-padded. Held
+    against the plain version in f32: out within 2e-2 (the kernel rounds P
+    to bf16 for P·V and writes bf16, ≤ ~1 bf16 ulp of |out| < 4), lse
+    within 1e-3 (f32 throughout), and out per 64-row query tile within
+    TILE_TOL of the tile's norm (`hold_tiles`; a padding query row, all
+    keys masked, is free and left out); two launches equal bit for bit.
+    Timed (events over 10 launches, the wrapper included), device time
+    (profiler), the plain version and SDPA with a boolean mask. Returns
+    {shape: result}."""
     from nanorlhf_tpu_torch.ops.attention import (
         flash_attention_forward, flash_attention_reference)
 
-    # out: the kernel rounds P to bf16 for P·V and writes bf16 (≤ ~1 bf16 ulp
-    # of |out| < 4); lse stays f32 throughout
     tol_out, tol_lse = 2e-2, 1e-3
-    H, KV, hd = 12, 2, 128
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
-    result = {}
-    for label, B, T in (("prefill", 4, prompt_width), ("scoring", 16, prompt_width + resp)):
+    results = {}
+    for B, H, KV, T, hd in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(1)
         q = torch.randn((B, H, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
         # left padding as the rollout has it, one row unpadded
-        pad = torch.randint(0, max(1, prompt_width // 2), (B,), generator=gen,
-                            device="cuda")
+        pad = torch.randint(0, max(1, min(T, 10) // 2), (B,), generator=gen, device="cuda")
         pad[0] = 0
         valid = torch.arange(T, device="cuda")[None, :] >= pad[:, None]
         out, lse = flash_attention_forward(q, k, v, valid, causal=True)
         ref_out, ref_lse = flash_attention_reference(*_f32(q, k, v), valid, causal=True)
         b_out, b_lse = flash_attention_reference(q, k, v, valid, causal=True)
         rows = valid[:, None, :].expand(B, H, T)  # padding query rows are free
-        what = f"flash_fwd {label} B={B} T={T}"
-        worst = max(worst,
-                    hold(torch, what, [("out", out, ref_out, b_out, rows)], tol_out),
+        what = f"flash_fwd B={B} H={H} KV={KV} T={T} hd={hd} causal"
+        keep = rows[..., None]
+        hold_tiles(torch, what, [("out", torch.where(keep, out, ref_out.to(out.dtype)), ref_out,
+                                  torch.where(keep, b_out, ref_out.to(b_out.dtype)))])
+        worst = max(hold(torch, what, [("out", out, ref_out, b_out, rows)], tol_out),
                     hold(torch, what, [("lse", lse, ref_lse, b_lse, rows)], tol_lse))
-        if label == "scoring":
-            ms = time_ms(torch, lambda: flash_attention_forward(q, k, v, valid), 10)
-            plain = time_ms(torch, lambda: flash_attention_reference(q, k, v, valid), 3)
-            mask = (valid[:, None, None, :]
-                    & torch.ones((T, T), dtype=torch.bool, device="cuda").tril())
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True), 5)
-            nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + valid.numel()
-                      + 2 * q.numel() + 4 * lse.numel())
-            flops = 4.0 * B * H * hd * T * (T + 1) / 2  # causal pairs only
-            bms, by = bound_ms(nbytes, flops)
-            result = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                          bound_by=by, shape=f"B={B} H={H} KV={KV} T={T} hd={hd}")
-    result["max_abs_err"] = worst
-    return result
+        out2, lse2 = flash_attention_forward(q, k, v, valid, causal=True)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            fail(f"{what}: two launches on the same inputs differ")
+        ms = time_ms(torch, lambda: flash_attention_forward(q, k, v, valid), 10)
+        on_card = dev_total(device_ms(
+            torch, lambda: flash_attention_forward(q, k, v, valid), 10, "flash_fwd"))
+        plain = time_ms(torch, lambda: flash_attention_reference(q, k, v, valid), 3)
+        mask = (valid[:, None, None, :]
+                & torch.ones((T, T), dtype=torch.bool, device="cuda").tril())
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 5)
+        nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + valid.numel()
+                  + 2 * q.numel() + 4 * lse.numel())
+        flops = 4.0 * B * H * hd * T * (T + 1) / 2  # causal pairs only
+        bms, by = bound_ms(nbytes, flops)
+        # the rate and the share of the bound from device time, from events
+        # where the profiler measured none
+        t, of = (on_card, "device time") if on_card else (ms, "events")
+        log(f"  {what}: kernel {ms:.4f} ms, device time (profiler) {fmt_ms(on_card)} "
+            f"({flops / t / 1e9:.1f} TFLOP/s, {bms / t:.3f} of the bound {bms:.4f} ms "
+            f"{by}, by {of}); plain {plain:.4f} ms; SDPA {lib:.4f} ms (kernel / SDPA "
+            f"{ms / lib:.3f}); two launches equal bit for bit")
+        results[(B, H, KV, T, hd)] = dict(
+            ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=bms,
+            bound_by=by, max_abs_err=worst, shape=f"B={B} H={H} KV={KV} T={T} hd={hd}")
+    return results
+
+
+@contextlib.contextmanager
+def recording_forward_shapes(seen):
+    """Count, by shape, the calls of the flash forward wrapper (the autograd
+    function's forward and the model's no-grad passes go through it; the
+    wrapper, and its launch count, run unchanged)."""
+    from nanorlhf_tpu_torch.ops import attention
+
+    fwd = attention.flash_attention_forward
+
+    def rec(q, k, v, key_valid, causal=True):
+        seen[(*q.shape[:2], k.shape[1], *q.shape[2:])] += 1
+        return fwd(q, k, v, key_valid, causal)
+
+    attention.flash_attention_forward = rec
+    try:
+        yield
+    finally:
+        attention.flash_attention_forward = fwd
 
 
 def _makespan(blocks, slots: int) -> int:
@@ -370,7 +436,7 @@ def check_flash_bwd(torch, F, shapes) -> dict:
         for name, fn in (("dq", lambda: flash_bwd_dq(q, k, v, valid, out, lse, do)),
                          ("dkv", lambda: flash_bwd_dkv(q, k, v, valid, lse, delta, do))):
             parts = device_ms(torch, fn, 10, "flash_bwd")
-            on_card[name] = sum(parts.values())
+            on_card[name] = dev_total(parts)
             log(f"  flash backward B={B} T={T}: {name} entry, device time per call by "
                 f"kernel (profiler): " + ", ".join(
                     f"{re.search(r'flash_bwd_[a-z_]+', key).group(0)} {ms:.4f} ms"
@@ -400,7 +466,8 @@ def check_flash_bwd(torch, F, shapes) -> dict:
             f"{ms_dq + ms_dkv:.4f} ms ({2.5 * fwd_flops / (ms_dq + ms_dkv) / 1e9:.1f} "
             f"TFLOP/s, bound {b_all[0]:.4f} ms {b_all[1]}); plain {plain_ms:.4f} ms; "
             f"SDPA backward {lib:.4f} ms (kernels / SDPA {(ms_dq + ms_dkv) / lib:.3f}); "
-            f"device time (profiler) dq {on_card['dq']:.4f} dkv {on_card['dkv']:.4f} ms; "
+            f"device time (profiler) dq {fmt_ms(on_card['dq'])}, dkv "
+            f"{fmt_ms(on_card['dkv'])}; "
             f"two launches equal bit for bit")
         shape = f"B={B} H={H} KV={KV} T={T} hd={hd}, causal"
         results[T] = {
@@ -439,50 +506,76 @@ def recording_backward_shapes(seen):
         attention.flash_bwd_dq, attention.flash_bwd_dkv = dq_fn, dkv_fn
 
 
-def check_decode(torch, F, prompt_width: int, resp: int) -> dict:
-    from nanorlhf_tpu_torch.ops.decode_attention import (
-        decode_attention, reference_decode_attention)
+def check_decode(torch, F, prompt_width: int, shapes) -> dict:
+    """K4 at each (B, T_max) in `shapes` (H=12, KV=2, hd=128): the rollout's
+    decode rows — phase 3's 16 and phase 4's 64 — at T_max = prompt + 1500
+    (B=16: the kernels line) and prompt + 512 (the length phases 3–6 run).
+    Held per element within one bf16 ulp of the plain version's f32 result
+    + ULP_FLOOR (`hold_ulp`: a dropped tile, range or split shows on the
+    long windows' small outputs), with bounds straddling and sitting on
+    32-key tile edges, a full row, one key, and an empty window, which must
+    come out zeros; the split count the C entry uses must be
+    `decode_split_count`'s. Timed over 4 distinct caches (> L2, as 28
+    layers are): events (the wrapper included), device time (profiler), the
+    plain version and SDPA (query length 1, boolean mask). Returns
+    {(B, T_max): result}."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
 
-    tol = 2e-2  # f32 inside; the bf16 output rounds by up to one ulp of |out| < 4
-    B, H, KV, hd = 16, 12, 2, 128
-    T = prompt_width + resp
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    start = torch.randint(0, max(1, prompt_width - 1), (B,), generator=gen, device="cuda")
-    filled = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
-    filled = torch.maximum(filled, start + 1)
-    # bounds straddling and sitting on 32-key tile edges, a full row, one key
-    filled[:6] = torch.tensor([T, 64, 65, 1024, 31, 33], device="cuda")
-    start[:6] = torch.tensor([0, 0, 63, 5, 30, 32], device="cuda")
-    filled[6] = start[6] + 1
-    start, filled = start.int(), filled.int()
-    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    caches = [(torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16),
-               torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16))
-              for _ in range(4)]  # 4 distinct caches > L2, as 28 layers are
-    k, v = caches[0]
-    err = hold(torch, f"decode_attention B={B} T_max={T}", [(
-        "out", decode_attention(q, k, v, start, filled),
-        reference_decode_attention(*_f32(q, k, v), start, filled),
-        reference_decode_attention(q, k, v, start, filled), None)], tol)
-    it = iter(range(10**9))
+    H, KV, hd = 12, 2, 128
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for B, T in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        S, S_rule = da.decode_split_count_on_card(B, KV), da.decode_split_count(B, KV, sm)
+        if S != S_rule:
+            fail(f"decode_attention B={B}: the C entry splits {S} ways, decode_split_count "
+                 f"says {S_rule}")
+        start = torch.randint(0, max(1, prompt_width - 1), (B,), generator=gen, device="cuda")
+        filled = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+        filled = torch.maximum(filled, start + 1)
+        # bounds straddling and sitting on 32-key tile edges, a full row, one
+        # key, and (last row) an empty window
+        filled[:7] = torch.tensor([T, 64, 65, min(1024, T), 31, 33, 2], device="cuda")
+        start[:7] = torch.tensor([0, 0, 63, 5, 30, 32, 1], device="cuda")
+        filled[B - 1] = start[B - 1]
+        start, filled = start.int(), filled.int()
+        live = torch.arange(B, device="cuda") != B - 1
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        caches = [(torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16),
+                   torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16))
+                  for _ in range(4)]  # 4 distinct caches > L2, as 28 layers are
+        k, v = caches[0]
+        got = da.decode_attention(q, k, v, start, filled)
+        what = f"decode_attention B={B} T_max={T} S={S}"
+        err = hold_ulp(torch, what, [(
+            "out", got, da.reference_decode_attention(*_f32(q, k, v), start, filled),
+            da.reference_decode_attention(q, k, v, start, filled), live)])
+        if got[B - 1].float().abs().max() != 0:
+            fail(f"{what}: a row with an empty window must return zeros")
+        it = iter(range(10**9))
 
-    def kern():
-        kk, vv = caches[next(it) % 4]
-        decode_attention(q, kk, vv, start, filled)
+        def kern():
+            kk, vv = caches[next(it) % 4]
+            da.decode_attention(q, kk, vv, start, filled)
 
-    ms = time_ms(torch, kern, 40)
-    plain = time_ms(torch, lambda: reference_decode_attention(q, k, v, start, filled), 10)
-    pos = torch.arange(T, device="cuda")[None, :]
-    mask = ((pos >= start[:, None]) & (pos < filled[:, None]))[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k, v, attn_mask=mask, enable_gqa=True), 20)
-    n_valid = float((filled - start).sum())
-    nbytes = 2 * (2 * n_valid * KV * hd) + 2 * 2 * q.numel() + 8 * B
-    flops = 4.0 * n_valid * H * hd
-    bms, by = bound_ms(nbytes, flops)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                max_abs_err=err, shape=f"B={B} H={H} KV={KV} T_max={T} hd={hd}")
+        ms = time_ms(torch, kern, 40)
+        on_card = dev_total(device_ms(torch, kern, 20, "decode_kernel"))
+        plain = time_ms(torch, lambda: da.reference_decode_attention(q, k, v, start, filled), 10)
+        pos = torch.arange(T, device="cuda")[None, :]
+        mask = ((pos >= start[:, None]) & (pos < filled[:, None]))[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True), 20)
+        n_valid = float((filled - start).clamp(min=0).sum())
+        nbytes = 2 * (2 * n_valid * KV * hd) + 2 * 2 * q.numel() + 8 * B
+        bms, by = bound_ms(nbytes, 4.0 * n_valid * H * hd)
+        log(f"  {what}: kernel {ms:.4f} ms, device time (profiler) {fmt_ms(on_card)}; plain "
+            f"{plain:.4f} ms; SDPA (q len 1) {lib:.4f} ms (kernel / SDPA {ms / lib:.3f}); bound "
+            f"{bms:.4f} ms ({by})")
+        results[(B, T)] = dict(ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib,
+                               bound_ms=bms, bound_by=by, max_abs_err=err,
+                               shape=f"B={B} H={H} KV={KV} T_max={T} hd={hd}, S={S}")
+    return results
 
 
 def _scattered_table(torch, gen, B: int, nb: int, spare: int = 7):
@@ -619,16 +712,22 @@ def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
     def rot():
         return sets[next(it) % 4]
 
-    ms7 = time_ms(torch, lambda: (lambda s: da.paged_decode_attention(
-        q, s["kp"], s["vp"], table, start, filled))(rot()), 40)
-    ms4 = time_ms(torch, lambda: (lambda s: da.decode_attention(
-        q, s["k"], s["v"], start, filled))(rot()), 40)
-    log(f"  K4 on the same logical caches laid out contiguously (B={B}): "
-        f"{ms4:.4f} ms; K7 through the pages {ms7:.4f} ms")
-    ms5 = time_ms(torch, lambda: (lambda s: da.decode_attention_q8(
-        q, s["kq"], s["ks"], s["vq"], s["vs"], start, filled))(rot()), 40)
-    ms8 = time_ms(torch, lambda: (lambda s: da.paged_decode_attention_q8(
-        q, *s["q8_pools"], table, start, filled))(rot()), 40)
+    calls = {
+        "K7": lambda: (lambda s: da.paged_decode_attention(
+            q, s["kp"], s["vp"], table, start, filled))(rot()),
+        "K4": lambda: (lambda s: da.decode_attention(
+            q, s["k"], s["v"], start, filled))(rot()),
+        "K5": lambda: (lambda s: da.decode_attention_q8(
+            q, s["kq"], s["ks"], s["vq"], s["vs"], start, filled))(rot()),
+        "K8": lambda: (lambda s: da.paged_decode_attention_q8(
+            q, *s["q8_pools"], table, start, filled))(rot()),
+    }
+    ms = {name: time_ms(torch, fn, 40) for name, fn in calls.items()}
+    dev = {name: dev_total(device_ms(torch, fn, 20, "decode_kernel"))
+           for name, fn in calls.items()}
+    log(f"  the decode family on the same logical caches (B={B}), events / device time "
+        f"(profiler): " + ", ".join(f"{n} {ms[n]:.4f} ms / {fmt_ms(dev[n])}" for n in calls))
+    ms7, ms5, ms8 = ms["K7"], ms["K5"], ms["K8"]
     plain7 = time_ms(torch, lambda: da.reference_paged_decode_attention(
         q, c["kp"], c["vp"], table, start, filled), 10)
     plain5 = time_ms(torch, lambda: da.reference_decode_attention_q8(
@@ -672,14 +771,14 @@ def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
     shape = f"B={B} H={H} KV={KV} T_max={T_need} hd={hd}"
     return {
         "paged_decode_attention": dict(
-            ms=ms7, plain_ms=plain7, library_ms=lib7, bound_ms=b7[0], bound_by=b7[1],
-            max_abs_err=e7, shape=f"{shape} P={P}, pool of {c['N']} pages"),
+            ms=ms7, device_ms=dev["K7"], plain_ms=plain7, library_ms=lib7, bound_ms=b7[0],
+            bound_by=b7[1], max_abs_err=e7, shape=f"{shape} P={P}, pool of {c['N']} pages"),
         "decode_attention_q8": dict(
-            ms=ms5, plain_ms=plain5, library_ms=lib5, bound_ms=b5[0], bound_by=b5[1],
-            max_abs_err=e5, shape=f"{shape}, int8 + bf16 scales"),
+            ms=ms5, device_ms=dev["K5"], plain_ms=plain5, library_ms=lib5, bound_ms=b5[0],
+            bound_by=b5[1], max_abs_err=e5, shape=f"{shape}, int8 + bf16 scales"),
         "paged_decode_attention_q8": dict(
-            ms=ms8, plain_ms=plain8, library_ms=lib5, bound_ms=b8[0], bound_by=b8[1],
-            max_abs_err=e8, shape=f"{shape} P={P}, int8 pools"),
+            ms=ms8, device_ms=dev["K8"], plain_ms=plain8, library_ms=lib5, bound_ms=b8[0],
+            bound_by=b8[1], max_abs_err=e8, shape=f"{shape} P={P}, int8 pools"),
     }
 
 
@@ -993,7 +1092,10 @@ def check_edges(torch) -> None:
     (Llama-3.2-1B and Qwen2-0.5B geometry), ragged T / rows / vocab, the
     non-causal flash path (forward and backward), fully masked left-pad
     rows in the backward, an empty decode row (zeros, reading nothing).
-    The backward also at T under one tile, at B=1 with the largest split
+    The forward also per 64-row tile; the decode kernel per element within
+    one bf16 ulp, with a range shorter than its S tiles, one key and a
+    window past the cache. The backward also at T under one tile, at B=1
+    with the largest split
     S, and with key tiles cut into several parts, its dK/dV held against
     the plain version of the split (`flash_bwd_dkv_split_reference`) too."""
     from nanorlhf_tpu_torch.ops.attention import (
@@ -1002,7 +1104,7 @@ def check_edges(torch) -> None:
         flash_attention_forward, flash_attention_reference,
         flash_bwd_dkv_split_reference, reference_attention)
     from nanorlhf_tpu_torch.ops.decode_attention import (
-        decode_attention, reference_decode_attention)
+        decode_attention, decode_split_count_on_card, reference_decode_attention)
     from nanorlhf_tpu_torch.ops.fused_logprob import (
         fused_logprob_chunked, fused_logprob_kernel)
 
@@ -1025,6 +1127,9 @@ def check_edges(torch) -> None:
         what = f"edge flash_fwd B={B} H={H} KV={KV} T={T} hd={hd} causal={causal}"
         hold(torch, what, [("out", out, ref, b_out, rows)], 2e-2)
         hold(torch, what, [("lse", lse, ref_lse, b_lse, rows)], 1e-3)
+        keep = rows[..., None]
+        hold_tiles(torch, what, [("out", torch.where(keep, out, ref.to(out.dtype)), ref,
+                                  torch.where(keep, b_out, ref.to(b_out.dtype)))])
         # backward: left-pad rows (all keys masked when causal) get dO = 0
         # as on the training path, and must come out finite
         do = randn(B, H, T, hd) * rows[..., None].to(torch.bfloat16)
@@ -1065,15 +1170,22 @@ def check_edges(torch) -> None:
                 fail("flash backward: a fully masked row gave a non-finite gradient")
     if not cut_tiles:
         fail("no backward edge case cut a key tile into several parts")
-    for H, KV, T, hd in ((32, 8, 300, 64), (14, 2, 257, 64)):
-        B = 4
+    # K4 off the rollout's shape, each held per element within one bf16 ulp:
+    # head_dim 64 at G 4 and 7, head_dim 128 at G 6; rows: a full window, a
+    # range shorter than S tiles (197 keys over S = 8 splits of whole
+    # tiles), one key, an empty window (zeros) and one past the cache
+    # (filled > T_max: clamped)
+    for H, KV, T, hd in ((32, 8, 300, 64), (14, 2, 257, 64), (12, 2, 130, 128)):
+        B = 5
         q, k, v = randn(B, H, hd), randn(B, KV, T, hd), randn(B, KV, T, hd)
-        start = torch.tensor([0, 3, 31, 100], device="cuda", dtype=torch.int32)
-        filled = torch.tensor([T, 200, 32, 0], device="cuda", dtype=torch.int32)
+        start = torch.tensor([0, 3, 31, 100, 7], device="cuda", dtype=torch.int32)
+        filled = torch.tensor([T, min(200, T), 32, 0, T + 40], device="cuda", dtype=torch.int32)
+        S = decode_split_count_on_card(B, KV)
         out = decode_attention(q, k, v, start, filled)
-        hold(torch, f"edge decode_attention H={H} KV={KV} T={T} hd={hd}", [(
-            "out", out[:3], reference_decode_attention(*_f32(q, k, v), start, filled)[:3],
-            reference_decode_attention(q, k, v, start, filled)[:3], None)], 2e-2)
+        live = torch.arange(B, device="cuda") != 3
+        hold_ulp(torch, f"edge decode_attention H={H} KV={KV} T={T} hd={hd} S={S}", [(
+            "out", out, reference_decode_attention(*_f32(q, k, v), start, filled),
+            reference_decode_attention(q, k, v, start, filled), live)])
         if out[3].float().abs().max() != 0:
             fail("decode_attention: a row with no valid slot must return zeros")
     for transposed in (True, False):
@@ -1208,6 +1320,11 @@ def decode_profile(torch, out, cfg, rows: int, steps: int = 3) -> None:
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        log(f"  decode-step profile ({rows} rows, cache {fill}/{T}, {steps} steps): wall "
+            f"{wall_us / steps / 1e3:.3f} ms/step; the profiler recorded no device "
+            f"time: busy time, idle share and K4's time per step not measured")
+        return
     log(f"  decode-step profile ({rows} rows, cache {fill}/{T}, {steps} steps, "
         f"profiler on): wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
         f"{busy_us / steps / 1e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f}, "
@@ -1215,6 +1332,10 @@ def decode_profile(torch, out, cfg, rows: int, steps: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} "
             f"{e.key[:90]}")
+    k4 = [e for e in kernels if "decode_kernel" in e.key]
+    log(f"  K4 (decode_attention) device time per decode step: "
+        f"{sum(e.self_device_time_total for e in k4) / steps / 1e3:.4f} ms over "
+        f"{sum(e.count for e in k4) // steps} launches")
 
 
 def small_reference(torch, mcfg, cfg, queries, pad_id: int) -> None:
@@ -1287,7 +1408,7 @@ def small_reference(torch, mcfg, cfg, queries, pad_id: int) -> None:
 # phase 4: one GRPO update
 # --------------------------------------------------------------------------
 
-def train_update(torch, max_tokens: int, bwd_seen) -> dict:
+def train_update(torch, max_tokens: int, bwd_seen, fwd_seen) -> dict:
     import os
     import shutil
 
@@ -1316,7 +1437,7 @@ def train_update(torch, max_tokens: int, bwd_seen) -> dict:
 
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with recording_backward_shapes(bwd_seen):
+    with recording_backward_shapes(bwd_seen), recording_forward_shapes(fwd_seen):
         state = trainer.train(num_updates=1)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
@@ -2096,6 +2217,70 @@ def small_grad_reference(torch, trainer) -> None:
         fail("kernel route LoRA gradients less accurate than the plain route")
 
 
+# --holds: the kernel source each hold set builds
+HOLDS = {"K1": "flash_fwd", "K4": "decode_attention"}
+
+# Faults that the phase-2 holds must catch, each planted in its own copy of
+# the port (a text edit of one kernel source): (what, holds, source, text,
+# planted text). Split 1 and rank 1 exist at the held shapes (S = 8 at B=16);
+# the heaviest query tiles are the grid's first B·H blocks.
+FAULTS = (
+    ("K4: one split's last tile dropped", "K4", "decode_attention.cu",
+     "for (int t0 = lo + warp * 32; t0 < hi; t0 += DECODE_WARPS * 32) {",
+     "for (int t0 = lo + warp * 32; t0 + (split == 1 ? 32 : 0) < hi; t0 += DECODE_WARPS * 32) {"),
+    ("K4: one cluster rank's partial left out of the merge", "K4", "decode_attention.cu",
+     "if (r < a.S)", "if (r < a.S && r != 1)"),
+    ("K1: the heaviest query tile missing its last key tile", "K1", "flash_fwd.cu",
+     "const int n_steps = causal ? min(n_kt, (q0 + BQ - 1) / BK + 1) : n_kt;",
+     "const int n_steps = (causal ? min(n_kt, (q0 + BQ - 1) / BK + 1) : n_kt)"
+     " - (blockIdx.x < B * H);"),
+    ("K1: the alpha rescale of O skipped on key tile 1", "K1", "flash_fwd.cu",
+     "      for (int jn = 0; jn < HD / 8; ++jn) {\n        o[4 * jn] *= alpha0;",
+     "      for (int jn = 0; jn < HD / 8 && j != 1; ++jn) {\n        o[4 * jn] *= alpha0;"),
+)
+
+
+def plant_faults() -> None:
+    """Plant each of FAULTS in a copy of the port under output/faults/ (the
+    checkout's own git-ignored directory; the copies are removed after) and
+    run that copy's `chip_smoke.py --holds`: each must fail. Prints the hold
+    lines that caught it."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, "output", "faults")
+    shutil.rmtree(base, ignore_errors=True)
+    missed = []
+    for i, (what, holds, source, text, planted) in enumerate(FAULTS):
+        tree = os.path.join(base, str(i))
+        shutil.copytree(os.path.join(root, "nanorlhf_tpu_torch"),
+                        os.path.join(tree, "nanorlhf_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy(os.path.abspath(__file__), tree)
+        path = os.path.join(tree, "nanorlhf_tpu_torch", "csrc", source)
+        with open(path) as f:
+            code = f.read()
+        if text not in code:
+            fail(f"fault {what!r}: its text is not in {source}")
+        with open(path, "w") as f:
+            f.write(code.replace(text, planted))
+        run = subprocess.run([sys.executable, "chip_smoke.py", "--holds", holds], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        caught = run.returncode != 0 and "FAILED" in run.stderr
+        log(f"  planted fault {what} ({source}): {'caught' if caught else 'NOT CAUGHT'}")
+        for line in run.stdout.splitlines():
+            if "max|kernel" in line or "per 64-row tile" in line:
+                log(f"    {line.strip()}")
+        log(f"    {(run.stderr.strip().splitlines() or [''])[-1]}")
+        if not caught:
+            missed.append(what)
+    shutil.rmtree(base, ignore_errors=True)
+    if missed:
+        fail(f"planted faults passed their holds: {missed}")
+    log(f"every planted fault failed its hold ({len(FAULTS)})")
+
+
 def _demo_config():
     """The launcher's model geometry (Qwen2.5-1.5B), as `resolve_model`
     builds it."""
@@ -2114,6 +2299,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--max-tokens", type=int, default=1500,
                     help="response length of the end-to-end rollout")
+    ap.add_argument("--holds", choices=sorted(HOLDS),
+                    help="build one kernel source and run only its phase-2 holds "
+                         "(what --plant-faults runs in each copy)")
+    ap.add_argument("--plant-faults", action="store_true",
+                    help="plant each of FAULTS in its own copy of the port under "
+                         "output/faults/ and check that its hold fails")
     args = ap.parse_args()
 
     import torch
@@ -2135,14 +2326,21 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
+    if args.plant_faults:
+        plant_faults()
+        log(f"card: {card}")
+        return
     log("phase 1: build")
-    secs = _build.build_all()
-    log(f"  built {len(_build.KERNELS)} kernels from "
-        f"{len({k.source for k in _build.KERNELS.values()})} sources in {secs:.2f} s")
-    for k in {k.source_name: k for k in _build.KERNELS.values()}.values():
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{k.source_name}] {line.strip()}")
+    if args.holds:
+        _build.KERNELS[HOLDS[args.holds]].load()
+    else:
+        secs = _build.build_all()
+        log(f"  built {len(_build.KERNELS)} kernels from "
+            f"{len({k.source for k in _build.KERNELS.values()})} sources in {secs:.2f} s")
+        for k in {k.source_name: k for k in _build.KERNELS.values()}.values():
+            for line in k.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  [{k.source_name}] {line.strip()}")
 
     log("phase 2: kernels against their plain versions (bf16)")
     # the prompt width the rollout path uses: the first synthetic batch,
@@ -2169,10 +2367,31 @@ def main() -> None:
     # responses); phases 4 and 7a record what they gave and fail unless
     # they are these
     bwd_shapes = {(4, 12, 2, prompt_width + t, 128) for t in (short, resp)}
+    # the flash forward at the scoring shape of the full response (the
+    # kernels line) and at the shapes phase 4 gives it: the prefill of its 16
+    # prompts at the prompt width, the scoring batch and the update's
+    # microbatch at prompt + short responses; phase 4 records what it gave
+    # and fails unless they are these
+    fwd_long = (16, 12, 2, prompt_width + resp, 128)
+    fwd_shapes = {(16, 12, 2, prompt_width, 128), (16, 12, 2, prompt_width + short, 128),
+                  (4, 12, 2, prompt_width + short, 128)}
+    # the decode rows of phase 3 (4 prompts x 4 samples) and phase 4 (16 x 4)
+    # at the full and the short response length, the full length first
+    decode_shapes = sorted({(B, prompt_width + t) for B in (16, 64) for t in (resp, short)},
+                           key=lambda s: (-s[1], s[0]))
+    if args.holds == "K1":
+        check_flash(torch, F, [fwd_long, *sorted(fwd_shapes - {fwd_long})])
+    if args.holds == "K4":
+        check_decode(torch, F, prompt_width, decode_shapes)
+    if args.holds:
+        log(f"{args.holds}: every hold passed")
+        return
     bwd = check_flash_bwd(torch, F, bwd_shapes)
+    flash = check_flash(torch, F, [fwd_long, *sorted(fwd_shapes - {fwd_long})])
+    decode = check_decode(torch, F, prompt_width, decode_shapes)
     results = {
-        "flash_fwd": check_flash(torch, F, prompt_width, resp),
-        "decode_attention": check_decode(torch, F, prompt_width, resp),
+        "flash_fwd": flash[fwd_long],
+        "decode_attention": decode[(16, prompt_width + resp)],
         "fused_logprob": check_fused(torch, resp),
         # the kernels line gives K2/K3 at phase 4's shape, whose launches it counts
         **bwd[prompt_width + short],
@@ -2184,7 +2403,8 @@ def main() -> None:
     check_verify_edges(torch, prompt_width)
     check_edges(torch)
     for name, r in results.items():
-        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+        on_card = f", device {fmt_ms(r['device_ms'])}" if "device_ms" in r else ""
+        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms{on_card}, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
@@ -2194,7 +2414,16 @@ def main() -> None:
     log("phase 4: one GRPO update (rollout, score, loss, backward, AdamW, "
         "checkpoint), Qwen2.5-1.5B width, contiguous KV cache")
     bwd_seen: collections.Counter = collections.Counter()
-    counts4 = train_update(torch, short, bwd_seen)
+    fwd_seen: collections.Counter = collections.Counter()
+    counts4 = train_update(torch, short, bwd_seen, fwd_seen)
+    log(f"  flash forward shapes phase 4 gave the kernel (B, H, KV, T, hd): calls "
+        f"{dict(fwd_seen)}")
+    if set(fwd_seen) != fwd_shapes:
+        fail(f"phase 4 gave the flash forward {set(fwd_seen)}; phase 2 held and timed it "
+             f"at {fwd_shapes}")
+    if sum(fwd_seen.values()) != counts4["flash_fwd"]:
+        fail(f"phase 4 launched flash_fwd {counts4['flash_fwd']} times, "
+             f"{sum(fwd_seen.values())} through recorded calls")
 
     log("phase 5: one GRPO update over continuous batching (paged KV cache, "
         "page size 128, 32 resident rows), Qwen2.5-1.5B width")

@@ -6,11 +6,16 @@ function layouts here mirror it (`core/model.py`, `ops/attention.py`, ...,
 parity tests compare like with like. This package imports neither `jax` nor
 `nanorlhf_tpu`; it keeps its own copies of the jax-free pieces it needs.
 
-Ported so far: the GRPO rollout-and-score path (prefill, sampled decode,
-host reward, group advantage, fused policy/ref scoring) with three
-hand-written Hopper kernels under `csrc/` (flash-attention forward, prefix-
-bounded decode attention, fused hidden→logprob). Entry points run on
-`cuda` unless the caller passes `device="cpu"`.
+Ported so far: the default GRPO run end to end — rollout-and-score
+(prefill, sampled decode, host reward, group advantage, fused policy/ref
+scoring), the update (loss, flash backward, AdamW on LoRA) and the
+checkpoint — and the rollout variants: the paged KV cache with continuous
+batching, the int8 KV cache and speculative decode. All ten Pallas kernels
+of the JAX package have a hand-written Hopper counterpart under `csrc/`:
+the flash-attention forward and backward (dQ, dK/dV), the decode attention
+over the contiguous, paged and int8 caches, the k-query verify over the
+contiguous and paged caches, and the fused hidden→logprob. Entry points run
+on `cuda` unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

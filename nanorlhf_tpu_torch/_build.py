@@ -2,10 +2,12 @@
 
 Each source under `csrc/` is compiled on its own into a shared library with
 a plain C interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`),
-named by a hash of the source so an edited kernel never loads a stale
-build. The libraries go to `_build/` beside this file (git-ignored) at first
-use; `build_all()` starts one nvcc per source at once. Nothing here runs at
-import time: the CPU tests import every module of the port.
+named by a hash of the source and of every `csrc/` header it includes
+(`hopper_ptx.cuh`, shared by the flash kernels), so an edited kernel or
+header never loads a stale build. The libraries go to `_build/` beside this
+file (git-ignored) at first use; `build_all()` starts one nvcc per source at
+once. Nothing here runs at import time: the CPU tests import every module of
+the port.
 
 `KERNELS` is the registry the wrappers launch through. Each `Kernel` counts
 its successful launches (`launches`), which is how `chip_smoke.py` shows
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +32,26 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_closure(source: Path) -> list[Path]:
+    """`source` and every header beside it that it includes, directly or
+    through another such header, in the order first reached."""
+    order: list[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        if path in order:
+            continue
+        order.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / name.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return order
 
 
 def nvcc_path() -> str:
@@ -66,8 +89,10 @@ class Kernel:
         return f"nanorlhf_tpu_torch/csrc/{self.source_name}.cu"
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.source_name}-{digest}.so"
+        h = hashlib.sha1()
+        for path in source_closure(self.source):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+        return BUILD_DIR / f"lib{self.source_name}-{h.hexdigest()[:12]}.so"
 
     def compile_command(self, out: Path) -> list[str]:
         return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3",

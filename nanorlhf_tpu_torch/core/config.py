@@ -35,8 +35,8 @@ class ModelConfig:
     attention_bias: bool = True
     # HF family slug ("qwen2" | "llama"); None for random-init configs
     model_type: Optional[str] = None
-    # "int8" selects the quantized KV cache, which this port does not have
-    # yet: the sampler raises NotImplementedError for it
+    # "int8" selects the quantized KV cache: int8 values with one bf16
+    # scale per (kv head, slot), read by the int8 decode kernels
     kv_cache_quant: str = "none"  # none | int8
     attention_impl: str = "auto"  # xla | pallas | auto (see module docstring)
     remat_policy: str = "full"  # full | dots (training slice)

@@ -36,20 +36,50 @@
 // What bounds it on this card: bytes. Each call reads the valid K/V prefix
 // once (bf16: 2 * KV * n_valid * hd * 2 B per row; int8: half that plus 2 *
 // 2 B of scales per (kv head, slot)) and does only ~2 * G flops per byte, far
-// below the ~295 flop/byte at which the tensor cores would be the limit. The
-// design therefore spends nothing on the tensor cores and everything on
-// reading the prefix once, coalesced:
-//   * one block of 8 warps per (kv head, row); the G query vectors sit in
-//     shared memory and every K/V row is read once for all G heads;
-//   * warps take 32-key tiles round-robin; in a tile each lane scores one
-//     key against all G heads (its K row as 16-byte bf16 or 8-byte int8
-//     vectors), the warp runs the online-softmax update with shuffles, and
-//     the V rows are read coalesced, each lane accumulating hd/32 output
-//     dims for every head;
-//   * the 8 warps' partial (m, l, acc) are merged through shared memory.
-// Known limit, left for later work: B*KV blocks (64 at the rollout's 32
-// resident rows) occupy half of the 132 SMs or less; splitting the prefix
-// over more blocks with an LSE merge (flash-decoding) is the fix.
+// below the ~295 flop/byte at which the tensor cores would be the limit. At
+// the rollout's shapes the prefix is small (B=16, T_max=1510: ~12 MB, 3.6 us
+// at 3.35 TB/s), so what a call costs is the longest dependent chain of one
+// block, not bandwidth: one block per (kv head, row), walking its tiles in
+// series with one V load in flight per lane, took 0.169 ms at B=16 and the
+// same at B=32. The design therefore spends nothing on the tensor cores and
+// everything on many short, parallel chains:
+//   * the split: each row's window [start, filled) is cut into S contiguous
+//     ranges of whole 32-key tiles (counted from start), one block each, on
+//     a grid of (S, KV, B). S depends on the shape alone (B, KV and the SM
+//     count: `decode_split_count`, the same rule as ops/decode_attention.py
+//     `decode_split_count`), never on T_max, nb * P or a row's length, so
+//     the four instances split alike and K7 returns K4's bits;
+//   * the merge: the S blocks of one (row, kv head) are a thread-block
+//     cluster (S <= 8, the portable cluster size), launched with
+//     cudaLaunchKernelEx and a cluster attribute. Each block merges its
+//     warps' partial states (m, l, acc) in shared memory; after
+//     cluster.sync() the rank-0 block reads its peers' partials through
+//     distributed shared memory (map_shared_rank) and merges them in f32, in
+//     split order, and writes the output. No second kernel, no f32 scratch
+//     in device memory, no atomics; a second cluster.sync() keeps each
+//     peer's shared memory alive until rank 0 has read it;
+//   * loads in flight: in a 32-key tile each lane scores one key, its K
+//     row read as HD / 8 vectors issued together (16 bytes bf16, 8 int8),
+//     and then issues the loads of its HD / 32 dims of all 32 V rows at
+//     once (the loop is unrolled; a row past the range reads nothing and
+//     holds zeros), so their latency runs under the softmax;
+//   * short dependent chains: a tile's work is a few thousand instructions
+//     a warp, and with a handful of warps on an SM what limits it is how
+//     long each waits on the one before (a first version, with a branch on
+//     G around each head, kept most of its time with its K/V loads taken
+//     out: kernel_ab.py --ablate). So the G heads are
+//     padded to 8 (zero query rows), no loop branches on G, and the eight
+//     heads' chains interleave: the queries sit transposed in shared memory
+//     (a dim's eight heads are two 16-byte reads), the warp's max and sum
+//     reductions run for the eight heads side by side, and P goes through
+//     shared memory by key (key j's eight weights are two broadcast reads)
+//     instead of 32 x G shuffles. At G = 6 a third of the FFMAs are padding;
+//     the chains, not the FFMA rate, set the time;
+//   * 4 warps a block, taking the block's tiles round-robin: with the split
+//     a block holds 1–6 tiles at the rollout's shapes (B=16: S=8, 192 keys
+//     of a 1510-slot row; B=64: S=3), so more warps would idle, and 4 warps
+//     keep three blocks on an SM (at most 168 registers a thread): the rule
+//     fills 3 blocks x SMs.
 //
 // The k-query speculative verify (second kernel body, below the decode one):
 //   K6 `_verify_kernel` (:280)        -> decode_verify_attention_bf16
@@ -75,7 +105,7 @@
 // is split into S ranges of whole tiles over a third grid axis (S chosen by
 // the wrapper from the SM count and B * KV), each block writes its partial
 // (acc, m, l) to f32 scratch, and a second kernel merges them (the
-// flash-decoding split that K4 still lacks). Still bytes-bound in
+// flash-decoding split). Still bytes-bound in
 // principle: ~2 * R flops per cache byte against the ~295 at which the
 // tensor cores would limit, so no wgmma. K9 is the same body with K7's
 // slot address and the same S: on the same logical cache it returns K6's
@@ -83,19 +113,26 @@
 // short of its page budget has candidates past the table, whose writes the
 // model drops and whose outputs the sampler discards.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;                    // verify body
 constexpr int THREADS = WARPS * 32;
+constexpr int DECODE_WARPS = 4;             // decode body (see the note above)
+constexpr int DECODE_THREADS = DECODE_WARPS * 32;
+constexpr int DECODE_BLOCKS_PER_SM = 3;     // what the split rule fills
+constexpr int MAX_SPLITS = 8;               // decode splits: the portable cluster size
 constexpr int MAXG = 8;     // query heads per kv head handled by one block
 constexpr int MAX_NB = 1024;  // block-table entries per row (paged)
 constexpr float NEG_INF = -1e30f;
@@ -111,6 +148,7 @@ struct Args {
   const int* filled;    // [B]
   bf16* out;            // [B, H, HD]
   int H, KV, T, N, P, nb;
+  int S;                // key-range splits per (row, kv head): the cluster size
   float scale;
 };
 
@@ -129,7 +167,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
-// 8 consecutive elements of a K row as floats (16 bytes of bf16, 8 of int8)
+// 8 consecutive bf16 of a K row (16 bytes) as floats
 __device__ __forceinline__ void load8(const bf16* p, float* f) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const bf16* h = reinterpret_cast<const bf16*>(&u);
@@ -137,37 +175,65 @@ __device__ __forceinline__ void load8(const bf16* p, float* f) {
   for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(h[e]);
 }
 
-__device__ __forceinline__ void load8(const int8_t* p, float* f) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = (float)c[e];
+// an aligned vector of N bytes, read in one load
+template <int N> struct Vec;
+template <> struct Vec<16> { typedef uint4 T; };
+template <> struct Vec<8> { typedef uint2 T; };
+template <> struct Vec<4> { typedef uint32_t T; };
+template <> struct Vec<2> { typedef uint16_t T; };
+
+// element e of a vector of E as a float
+template <typename E, typename R>
+__device__ __forceinline__ float elem(const R& r, int e) {
+  return to_f(reinterpret_cast<const E*>(&r)[e]);
 }
 
+// One block per (split, kv head, row): the split-th range of whole 32-key
+// tiles of the row's window, merged across the cluster of the row's S
+// blocks (see the note above).
 template <int HD, bool PAGED, bool Q8>
-__global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
+__global__ void __launch_bounds__(DECODE_THREADS, DECODE_BLOCKS_PER_SM)
+decode_kernel(Args a) {
   typedef typename std::conditional<Q8, int8_t, bf16>::type E;
   constexpr int PER = HD / 32;  // output dims per lane
-  __shared__ float qs[MAXG][HD];
-  __shared__ float part_m[WARPS][MAXG];
-  __shared__ float part_l[WARPS][MAXG];
-  __shared__ float part_acc[WARPS][MAXG][HD];
+  typedef typename Vec<8 * sizeof(E)>::T KVec;    // 8 elements of a K row
+  typedef typename Vec<PER * sizeof(E)>::T VVec;  // a lane's dims of a V row
+  static_assert(DECODE_THREADS % HD == 0, "rank 0's merge covers HD dims a pass");
+  // the queries transposed, [dim][head], heads G..7 zero: one dim's eight
+  // heads are two 16-byte reads, and no loop below branches on G
+  __shared__ __align__(16) float qt[HD][MAXG];
+  __shared__ __align__(16) float p_tile[DECODE_WARPS][32][MAXG];  // a tile's P, by key
+  __shared__ float part_m[DECODE_WARPS][MAXG];
+  __shared__ float part_l[DECODE_WARPS][MAXG];
+  __shared__ float part_acc[DECODE_WARPS][MAXG][HD];
+  // the block's partial state, which the cluster's rank 0 reads
+  __shared__ float blk_m[MAXG], blk_l[MAXG];
+  __shared__ float blk_acc[MAXG][HD];
+  __shared__ float split_w[MAX_SPLITS][MAXG];  // rank 0's merge weights
+  __shared__ float merged_l[MAXG];
   __shared__ int tbl[PAGED ? MAX_NB : 1];
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();  // == blockIdx.x
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int H = a.H, KV = a.KV;
   const int G = H / KV;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  for (int i = tid; i < G * HD; i += THREADS) {
-    const int g = i / HD, d = i % HD;
-    qs[g][d] = __bfloat162float(a.q[((size_t)b * H + kvh * G + g) * HD + d]);
+  // the G query rows are contiguous in q: one 16-byte load per thread
+  for (int i = tid; i < MAXG * HD / 8; i += DECODE_THREADS) {
+    const int g = i / (HD / 8), d0 = (i % (HD / 8)) * 8;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (g < G) u = *reinterpret_cast<const uint4*>(a.q + ((size_t)b * H + kvh * G + g) * HD + d0);
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qt[d0 + e][g] = __bfloat162float(h[e]);
   }
   if constexpr (PAGED) {
-    for (int i = tid; i < a.nb; i += THREADS)
+    for (int i = tid; i < a.nb; i += DECODE_THREADS)
       tbl[i] = min(max(a.table[(size_t)b * a.nb + i], 0), a.N - 1);
   }
   __syncthreads();
@@ -183,9 +249,13 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     }
   };
 
+  // the row's window [s0, s1) in S ranges of whole 32-key tiles
   const int t_max = PAGED ? a.nb * a.P : a.T;
   const int s0 = max(a.start[b], 0);
-  const int s1 = min(a.filled[b], t_max);
+  const int s1 = max(min(a.filled[b], t_max), s0);
+  const int chunk = ((s1 - s0 + a.S - 1) / a.S + 31) / 32 * 32;
+  const int lo = min(s0 + split * chunk, s1);
+  const int hi = min(lo + chunk, s1);
   const E* kc = static_cast<const E*>(a.k);
   const E* vc = static_cast<const E*>(a.v);
 
@@ -198,92 +268,242 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     for (int d = 0; d < PER; ++d) acc[g][d] = 0.f;
   }
 
-  for (int t0 = s0 + warp * 32; t0 < s1; t0 += WARPS * 32) {
+  for (int t0 = lo + warp * 32; t0 < hi; t0 += DECODE_WARPS * 32) {
+    // lane j scores key t0 + j against the eight heads; a key past the
+    // range re-reads the last valid slot and weighs 0
     const int key = t0 + lane;
-    const bool ok = key < s1;
+    const bool ok = key < hi;
+    const size_t si = slot_index(min(key, hi - 1));
+    KVec kv[HD / 8];
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) kv[c] = reinterpret_cast<const KVec*>(kc + si * HD)[c];
+    float kscale = 1.f, vscale = 1.f;
+    if constexpr (Q8) {
+      kscale = __bfloat162float(a.ks[si]);
+      vscale = __bfloat162float(a.vs[si]);
+    }
     float s[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-    float kscale = 1.f, vscale = 1.f;
-    if (ok) {
-      const size_t si = slot_index(key);
-      const E* krow = kc + si * HD;
-      if constexpr (Q8) {
-        kscale = __bfloat162float(a.ks[si]);
-        vscale = __bfloat162float(a.vs[si]);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float kf = elem<E>(kv[c], e);
+        const float4 q0 = *reinterpret_cast<const float4*>(&qt[8 * c + e][0]);
+        const float4 q1 = *reinterpret_cast<const float4*>(&qt[8 * c + e][4]);
+        s[0] += q0.x * kf; s[1] += q0.y * kf; s[2] += q0.z * kf; s[3] += q0.w * kf;
+        s[4] += q1.x * kf; s[5] += q1.y * kf; s[6] += q1.z * kf; s[7] += q1.w * kf;
       }
-#pragma unroll 4
-      for (int c = 0; c < HD; c += 8) {
-        float kf[8];
-        load8(krow + c, kf);
+    }
+    // the 32 V rows: issued now, so their latency runs under the softmax;
+    // rows past the range read nothing and hold zeros (their P is 0)
+    VVec vv[32];
+    const int last = hi - 1 - t0;  // keys t0 .. t0 + last are in the range
+    if constexpr (PAGED) {
+      int page_j = t0 / a.P, off_j = t0 % a.P;
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) s[g] += qs[g][c + e] * kf[e];
+      for (int j = 0; j < 32; ++j) {
+        vv[j] = VVec{};
+        if (j <= last) {
+          vv[j] = *reinterpret_cast<const VVec*>(
+              vc + (((size_t)tbl[page_j] * KV + kvh) * a.P + off_j) * HD + lane * PER);
+          if (++off_j == a.P) {
+            off_j = 0;
+            ++page_j;
           }
         }
       }
+    } else {
+      // one base pointer: row j is an immediate offset from it
+      const E* vrow = vc + (((size_t)b * KV + kvh) * a.T + t0) * HD + lane * PER;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        vv[j] = j <= last ? *reinterpret_cast<const VVec*>(vrow + j * HD) : VVec{};
     }
-    float p[MAXG];
+    // the online-softmax update, the eight heads' warp reductions
+    // interleaved; the scores become the probabilities in place and the
+    // maxima's registers carry the sums
+    float red[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float sg = NEG_INF;
-        if (ok) sg = Q8 ? s[g] * a.scale * kscale : s[g] * a.scale;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float alpha = __expf(m[g] - m_new);
-        p[g] = ok ? __expf(sg - m_new) : 0.f;
-        l[g] = alpha * l[g] + warp_sum(p[g]);
-        m[g] = m_new;
-        if (Q8) p[g] *= vscale;  // the V scale folds into the probability
-#pragma unroll
-        for (int d = 0; d < PER; ++d) acc[g][d] *= alpha;
-      }
+      s[g] = ok ? (Q8 ? s[g] * a.scale * kscale : s[g] * a.scale) : NEG_INF;
+      red[g] = s[g];
     }
-    const int nk = min(32, s1 - t0);
-    for (int j = 0; j < nk; ++j) {
-      const E* vrow = vc + slot_index(t0 + j) * HD + lane * PER;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) red[g] = fmaxf(red[g], __shfl_xor_sync(0xffffffffu, red[g], o));
+    }
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      const float m_new = fmaxf(m[g], red[g]);
+      const float alpha = __expf(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int d = 0; d < PER; ++d) acc[g][d] *= alpha;
+      s[g] = ok ? __expf(s[g] - m_new) : 0.f;
+      red[g] = s[g];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) red[g] += __shfl_xor_sync(0xffffffffu, red[g], o);
+    }
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      l[g] += red[g];
+      if (Q8) s[g] *= vscale;  // the V scale folds into the probability
+    }
+    // P by key through shared memory: key j's eight weights are two
+    // broadcast reads
+    float4* pw = reinterpret_cast<float4*>(&p_tile[warp][lane][0]);
+    pw[0] = make_float4(s[0], s[1], s[2], s[3]);
+    pw[1] = make_float4(s[4], s[5], s[6], s[7]);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
       float vf[PER];
 #pragma unroll
-      for (int d = 0; d < PER; ++d) vf[d] = to_f(vrow[d]);
+      for (int d = 0; d < PER; ++d) vf[d] = elem<E>(vv[j], d);
+      const float4 p0 = *reinterpret_cast<const float4*>(&p_tile[warp][j][0]);
+      const float4 p1 = *reinterpret_cast<const float4*>(&p_tile[warp][j][4]);
+      const float pj[MAXG] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float pj = __shfl_sync(0xffffffffu, p[g], j);
 #pragma unroll
-          for (int d = 0; d < PER; ++d) acc[g][d] += pj * vf[d];
-        }
+        for (int d = 0; d < PER; ++d) acc[g][d] += pj[g] * vf[d];
       }
     }
+    __syncwarp();  // the warp is done with p_tile before the next tile's
   }
 
-  // merge the warps' partial softmax states
+  // the block's state: its warps' partial softmax states merged
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        part_m[warp][g] = m[g];
-        part_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int d = 0; d < PER; ++d) part_acc[warp][g][lane * PER + d] = acc[g][d];
+    if (lane == 0) {
+      part_m[warp][g] = m[g];
+      part_l[warp][g] = l[g];
     }
+#pragma unroll
+    for (int d = 0; d < PER; ++d) part_acc[warp][g][lane * PER + d] = acc[g][d];
   }
   __syncthreads();
-  for (int i = tid; i < G * HD; i += THREADS) {
+  for (int i = tid; i < G * HD; i += DECODE_THREADS) {
     const int g = i / HD, d = i % HD;
     float mx = NEG_INF;
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, part_m[w][g]);
+#pragma unroll
+    for (int w = 0; w < DECODE_WARPS; ++w) mx = fmaxf(mx, part_m[w][g]);
     float lsum = 0.f, acc_d = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
+#pragma unroll
+    for (int w = 0; w < DECODE_WARPS; ++w) {
       const float f = __expf(part_m[w][g] - mx);
       lsum += part_l[w][g] * f;
       acc_d += part_acc[w][g][d] * f;
     }
-    a.out[((size_t)b * H + kvh * G + g) * HD + d] =
-        __float2bfloat16(acc_d / fmaxf(lsum, 1e-30f));
+    blk_acc[g][d] = acc_d;
+    if (d == 0) {
+      blk_m[g] = mx;
+      blk_l[g] = lsum;
+    }
   }
+
+  // the cluster's S states, merged by rank 0 in split order through
+  // distributed shared memory. Every peer read is issued up front: each
+  // thread's output dims of all heads, then the heads' (m, l), from which
+  // the split weights exp(m_r - m) and the merged sum l come
+  cluster.sync();
+  if (split == 0) {
+    constexpr int ROWS = DECODE_THREADS / HD;  // heads a pass covers
+    constexpr int PASSES = MAXG / ROWS;
+    const int d = tid % HD;
+    float ar[PASSES][MAX_SPLITS];
+#pragma unroll
+    for (int pz = 0; pz < PASSES; ++pz) {
+      const int g = pz * ROWS + tid / HD;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r) {
+        ar[pz][r] = 0.f;
+        if (r < a.S && g < G) ar[pz][r] = *cluster.map_shared_rank(&blk_acc[g][d], r);
+      }
+    }
+    if (tid < G) {
+      const int g = tid;
+      float mr[MAX_SPLITS], lr[MAX_SPLITS];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r) {
+        if (r < a.S) {
+          mr[r] = *cluster.map_shared_rank(&blk_m[g], r);
+          lr[r] = *cluster.map_shared_rank(&blk_l[g], r);
+          mx = fmaxf(mx, mr[r]);
+        }
+      }
+      float lsum = 0.f;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r) {
+        if (r < a.S) {
+          const float f = __expf(mr[r] - mx);
+          split_w[r][g] = f;
+          lsum += lr[r] * f;
+        }
+      }
+      merged_l[g] = fmaxf(lsum, 1e-30f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int pz = 0; pz < PASSES; ++pz) {
+      const int g = pz * ROWS + tid / HD;
+      if (g < G) {
+        float o = 0.f;
+#pragma unroll
+        for (int r = 0; r < MAX_SPLITS; ++r) {
+          if (r < a.S) o += ar[pz][r] * split_w[r][g];
+        }
+        a.out[((size_t)b * H + kvh * G + g) * HD + d] = __float2bfloat16(o / merged_l[g]);
+      }
+    }
+  }
+  cluster.sync();  // every peer's shared memory stays alive until rank 0 has read it
+}
+
+// the SMs of the current device (cached per device)
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms[dev];
+}
+
+// S, the key-range splits of each (row, kv head): the fewest that give
+// one wave of DECODE_BLOCKS_PER_SM blocks on every SM, at most MAX_SPLITS;
+// a function of (B, KV, SMs) only (ops/decode_attention.py
+// `decode_split_count` is the same rule)
+int split_count(int B, int KV, int sms) {
+  return std::max(1, std::min(MAX_SPLITS, DECODE_BLOCKS_PER_SM * sms / (B * KV)));
+}
+
+template <int HD, bool PAGED, bool Q8>
+int launch_decode(const Args& a, int B, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.S, a.KV, B);
+  cfg.blockDim = dim3(DECODE_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_kernel<HD, PAGED, Q8>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <bool PAGED, bool Q8>
@@ -292,16 +512,14 @@ int launch(Args a, int B, int HD, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (PAGED && (a.P <= 0 || a.N <= 0 || a.nb <= 0 || a.nb > MAX_NB))
     return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  a.S = split_count(B, a.KV, sms);
   a.scale = (float)(1.0 / sqrt((double)HD));
-  dim3 grid(a.KV, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (HD == 128)
-    decode_kernel<128, PAGED, Q8><<<grid, THREADS, 0, s>>>(a);
-  else if (HD == 64)
-    decode_kernel<64, PAGED, Q8><<<grid, THREADS, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (HD == 128) return launch_decode<128, PAGED, Q8>(a, B, s);
+  if (HD == 64) return launch_decode<64, PAGED, Q8>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // --------------------------------------------------------------------------
@@ -644,6 +862,14 @@ extern "C" int paged_decode_attention_q8(const void* q, const void* kq,
   a.out = static_cast<bf16*>(out);
   a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb;
   return launch<true, true>(a, B, HD, stream);
+}
+
+// S, the key-range splits (cluster size) the four decode entries use for
+// a batch of B rows of KV kv heads on the current device; < 0 on error.
+extern "C" int decode_split_count(int B, int KV) {
+  const int sms = sm_count();
+  if (B <= 0 || KV <= 0 || sms <= 0) return -1;
+  return split_count(B, KV, sms);
 }
 
 // K6. q [B, H, Tq, HD], k/v cache [B, KV, T, HD] bf16, start/fill [B] int32

@@ -1,0 +1,292 @@
+// PTX and host helpers shared by the Hopper (sm_90a) flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads of 3-D and 1-D tensor
+// maps, wgmma shared-memory descriptors (128-byte swizzle) and the m64nNk16
+// bf16 products with f32 register accumulators, and the host-side encoding
+// of the tensor maps. Each includer compiles its own copy (an anonymous
+// namespace): the kernels are built one library per source.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+// a [64, HD] bf16 tile in shared memory: HD / 64 column chunks, each 64
+// rows of 128 bytes in TMA's 128-byte swizzle (1024-byte aligned)
+template <int HD>
+struct Tile {
+  static constexpr int CHUNK = 64 * 128;
+  static constexpr int BYTES = HD / 64 * CHUNK;
+};
+
+// ---------------------------------------------------------------- PTX --
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// the producer's arrival, announcing the bytes its TMA loads will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: a box of a 3-D map (d, row, head) / of a 1-D map into shared memory,
+// completing on `bar`'s transaction count
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0) : "memory");
+}
+
+// a [64, HD] tile (HD / 64 boxes of 64 x 64)
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int head) {
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c) tma_3d(dst + c * Tile<HD>::CHUNK, map, bar, c * 64, row, head);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands
+// (each row runs along the contraction dim): LBO unused, SBO = 1024 (8
+// rows of 128 B);
+// the k16 slice kk starts kk·32 bytes into the swizzle row. MN-major
+// operands (the contraction dim runs down the rows): LBO = the stride of
+// the 64-column chunks, SBO = 1024; slice kk starts 16 rows (2048 B) on.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>(lbo >> 4) << 16)
+       | (static_cast<uint64_t>(sbo >> 4) << 32)
+       | (1ull << 62);
+}
+
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile, int kk) {
+  return desc(tile + (kk / 4) * Tile<HD>::CHUNK + (kk % 4) * 32, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int kk) {
+  return desc(tile + kk * 2048, 64 * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving register reads / writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[0..31] (+)= A·B, m64n64k16: A and B both K-major in shared memory
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..31] (+)= A·B, m64n64k16: A in registers (bf16x2), B MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[0..63] (+)= A·B, m64n128k16: A in registers (bf16x2), B MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A·B for the m64 x HD x 16 slice: A from registers, B MN-major
+template <int HD>
+__device__ __forceinline__ void mma_rs(float (&d)[HD / 2], const uint32_t* a,
+                                       uint64_t db, int accumulate) {
+  if constexpr (HD == 128) {
+    mma_rs_n128(d, a, db, accumulate);
+  } else {
+    mma_rs_n64(d, a, db, accumulate);
+  }
+}
+
+// S = A·Bᵀ over the HD contraction, both [64, HD] tiles K-major
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&d)[32], const unsigned char* a,
+                                        const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    mma_ss_n64(d, desc_kmajor<HD>(a, kk), desc_kmajor<HD>(b, kk), kk > 0);
+  }
+}
+
+// d += A·B over 64 rows of B: A the bf16 fragments of a 64 x 64 register
+// tile (4 per k16 slice), B a [64, HD] tile read MN-major
+template <int HD>
+__device__ __forceinline__ void mma_ab(float (&d)[HD / 2], const uint32_t (&a)[16],
+                                       const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs<HD>(d, a + 4 * kk, desc_mnmajor(b, kk), 1);
+}
+
+// The accumulator layout of m64nN: thread t of the warpgroup holds rows
+// r = 16·(t/32) + (t%32)/4 and r + 8, and for each 8-column block j the
+// columns 8j + 2·(t%4) + {0, 1}: d[4j + e] in row r, d[4j + 2 + e] in
+// row r + 8. The k16 slice kk of a 64-column tile, as wgmma's register A
+// operand, is then {d[8kk..8kk+1], d[8kk+2..+3], d[8kk+4..+5], d[8kk+6..+7]}
+// packed in pairs.
+
+// the first 1024-byte boundary at or above p (a 128-byte-swizzled TMA tile
+// and its wgmma descriptor need one)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// ---------------------------------------------------------------- host --
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// [heads, T, HD] bf16 in boxes of 64 rows x 64 columns, 128-byte swizzle;
+// a box past T is zero-filled
+bool map_rows(CUtensorMap* m, const void* base, int heads, int T, int HD) {
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)T, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)T * HD * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                   strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a flat array of n elements in boxes of `box`
+bool map_flat(CUtensorMap* m, const void* base, CUtensorMapDataType type, size_t n,
+              int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t step[1] = {1};
+  return encoder()(m, type, 1, const_cast<void*>(base), dims, strides, boxes, step,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+float softmax_scale(int HD) { return (float)(1.0 / sqrt((double)HD)); }
+
+}  // namespace

@@ -285,7 +285,7 @@ def flash_attention_forward(q, k, v, key_valid, causal: bool = True):
         return flash_attention_reference(q, k, v, key_valid, causal)
     _check_cuda_inputs(q, k, v, key_valid)
     B, H, T, d = q.shape
-    valid = key_valid.to(device=q.device, dtype=torch.uint8).contiguous()
+    valid = _key_flags(key_valid, q)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _FLASH.launch(

@@ -17,10 +17,16 @@ read only the logical slots [start, filled) of each row:
   `paged_decode_attention_q8` (K8, `_paged_decode_q8_kernel`): int8 values
   with one bf16 scale per (kv head, slot), scales [B, KV, T] / [N, KV, P].
 
-The plain versions are JAX's XLA oracles: a masked softmax over the whole
-(gathered, dequantized) cache. The TPU's Gp = max(8, G) query padding, its
-128-multiple T padding and its [.., 8, T] sublane-expanded scale layout
-are not copied: the port's scale tensors carry no 8-wide axis.
+The four decode kernels are one body: each row's window is cut into S
+ranges of whole 32-key tiles, one block each, and the S blocks of a
+(row, kv head) merge their partial softmax states through a thread-block
+cluster. S depends on (B, KV, SMs) only (`decode_split_count`), so the four
+split alike; `decode_attention_split_reference` is the split's plain
+version. The plain versions are JAX's XLA oracles: a masked softmax over
+the whole (gathered, dequantized) cache. The TPU's Gp = max(8, G) query
+padding, its 128-multiple T padding and its [.., 8, T] sublane-expanded
+scale layout are not copied: the port's scale tensors carry no 8-wide
+axis.
 
 The verify kernels take Tq = spec_k + 1 candidate queries per head
 ([B, H, Tq, hd]); candidate qi reads the slots [start, fill + qi + 1) (the
@@ -65,6 +71,12 @@ _KERNEL_MAX_GROUP = 8
 _KERNEL_MAX_BLOCKS = 1024  # block-table entries per row the kernel keeps
 _KERNEL_MAX_TQ = 8         # verify candidates per head (spec_k <= 7)
 _KERNEL_MAX_SPLITS = 16    # verify key-range splits per (row, kv head)
+# the decode kernels' split (csrc/decode_attention.cu MAX_SPLITS,
+# DECODE_BLOCKS_PER_SM): at most the portable cluster size, and enough
+# blocks for one wave of three a SM
+DECODE_MAX_SPLITS = 8
+DECODE_BLOCKS_PER_SM = 3
+DECODE_TILE = 32           # keys of a tile; a split range is whole tiles
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +117,61 @@ def reference_decode_verify_attention(q, k_cache, v_cache, start, fill):
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgqt,bkth->bkgqh", p, v_cache)
     return out.reshape(B, H, Tq, hd)
+
+
+def decode_split_count(B: int, KV: int, sms: int) -> int:
+    """S, the key-range splits of each (row, kv head) in the decode kernels
+    (K4, K5, K7, K8): the fewest that give one wave of DECODE_BLOCKS_PER_SM
+    blocks on each of `sms` SMs, within [1, DECODE_MAX_SPLITS]. It depends
+    on the shape alone — never on T_max, nb·P or a row's length — so the
+    four instances split alike (`csrc/decode_attention.cu` `split_count`)."""
+    return max(1, min(DECODE_MAX_SPLITS, DECODE_BLOCKS_PER_SM * sms // (B * KV)))
+
+
+def decode_split_bounds(start, filled, t_max: int, S: int):
+    """The decode kernels' ranges: row b's window [max(start, 0),
+    min(filled, t_max)) cut into S ranges of whole DECODE_TILE-key tiles
+    counted from its start, range z = [s0 + z·c, s0 + (z+1)·c) ∩ window
+    with c = the tile-rounded ceil(n / S). Returns (lo, hi), [S, B] int64."""
+    s0 = start.long().clamp(min=0)
+    s1 = torch.maximum(filled.long().clamp(max=t_max), s0)
+    chunk = (s1 - s0 + S - 1) // S
+    chunk = (chunk + DECODE_TILE - 1) // DECODE_TILE * DECODE_TILE
+    z = torch.arange(S, device=s0.device)[:, None]
+    lo = torch.minimum(s0 + z * chunk, s1)
+    return lo, torch.minimum(lo + chunk, s1)
+
+
+def decode_attention_split_reference(q, k_cache, v_cache, start, filled, S: int):
+    """Plain version of the decode kernels' split (`decode_split_bounds`):
+    one partial softmax state (m, l, acc) per range, in f32, merged in split
+    order as the cluster's rank-0 block merges them. An empty window
+    returns zeros, as the kernels do (the XLA oracle averages instead).
+    q: [B, H, hd]; k/v: [B, KV, T, hd]; the paged and int8 caches go
+    through `_gather_pool` / `dequantize_kv` first. Returns [B, H, hd] in
+    q's dtype."""
+    B, H, hd = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, hd)
+    vf = v_cache.float()
+    s = torch.einsum("bkgh,bkth->bkgt", qf, k_cache.float()) / math.sqrt(hd)
+    pos = torch.arange(T, device=q.device)
+    parts = []
+    for lo, hi in zip(*decode_split_bounds(start, filled, T, S)):
+        inside = ((pos >= lo[:, None]) & (pos < hi[:, None]))[:, None, None, :]
+        m = torch.where(inside, s, torch.full_like(s, NEG_INF)).amax(-1)
+        p = torch.where(inside, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        parts.append((m, p.sum(-1), torch.einsum("bkgt,bkth->bkgh", p, vf)))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lz, az in parts:
+        f = torch.exp(m - mx)
+        l = l + lz * f
+        acc = acc + az * f[..., None]
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
 
 
 def _gather_pool(pool, table):
@@ -331,6 +398,16 @@ def paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool, table,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_split_count_on_card(B: int, KV: int) -> int:
+    """The S the decode kernels' C entries compute for B rows of KV kv
+    heads on the current CUDA device (their own copy of
+    `decode_split_count`'s rule; `chip_smoke.py` holds the two equal)."""
+    S = _DECODE.function("decode_split_count", [_I, _I])(B, KV)
+    if S < 1:
+        raise RuntimeError(f"decode_split_count({B}, {KV}) failed: {S}")
+    return S
 
 
 def verify_split_count(B: int, KV: int, device_index: int) -> int:

@@ -3,10 +3,12 @@
 
 Same field names and defaults as the JAX `RLConfig`/`AlgoName` (a test pins
 them), so a launcher literal reads the same in both packages. The comments
-on each knob live in the JAX module; the knobs that select paths this port
-has not ported yet (paged cache, speculative decode, compaction, int8,
-orchestrator, env multi-turn, sequence parallelism) are carried for parity
-and make the port's sampler/trainer raise NotImplementedError when set.
+on each knob live in the JAX module. The paged cache with continuous
+batching, speculative decode and the int8 KV cache are ported; the knobs
+that select paths this port has not ported yet (compaction, the
+orchestrator, env multi-turn, sequence parallelism, ...) are carried for
+parity and make the port's sampler/trainer raise NotImplementedError when
+set.
 
 `MeshConfig` is a copy too: on one GPU its only use is `finalize`'s
 world-size arithmetic.
