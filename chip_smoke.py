@@ -7,7 +7,7 @@ toolkit:
     python3 chip_smoke.py                 # the whole contract
     python3 chip_smoke.py --max-tokens 64 # a shorter end-to-end rollout
     python3 chip_smoke.py --holds K1      # build one source, run only K1's
-                                          # (or K4's) phase-2 holds
+                                          # (or K4's, K6's, K10's) phase-2 holds
     python3 chip_smoke.py --plant-faults  # each fault of FAULTS in a copy of
                                           # the port must fail its hold
 
@@ -27,8 +27,14 @@ Phases (any failure exits non-zero):
      shapes phase 7 gives them (Tq = 5 candidates; K6 at B = 64 rows, K9 at
      32), held per element within one bf16 ulp of the f32 result, with
      candidate blocks straddling tiles and pages, K6 at Tq = 1 against K4,
-     and off those shapes (64 rows per block, one, head_dim 64, the key
-     range in one split and in three); the flash backward (K2, K3) at the
+     their split count equal to `verify_split_count`, and off those shapes
+     (64 rows in two row groups, one row, head_dim 64, the key range in one
+     split, in three and in eight); the fused hidden→logprob kernel (K10)
+     per row within FUSED_TOL of its f32 plain version at the shapes
+     phases 4 and 7a give it (D = 1536, V = 151936, tied weight: the
+     scoring pass at R = 16 × response, the update's microbatch with
+     entropy at R = 4 × response), the [D, V] layout and a ragged edge,
+     its split count equal to `fused_logprob_split_count`; the flash backward (K2, K3) at the
      shapes phases 4 and 7a give it (B=4, T = prompt + 512 and prompt +
      1500), held at 1e-2 · max|g| and per 64-row tile relative to the
      tile's norm, two launches equal bit for bit, and off those shapes (head_dim
@@ -38,8 +44,10 @@ Phases (any failure exits non-zero):
      version's time,
      one library call's time as a yardstick (for the paged and int8 cache,
      where no single call exists: SDPA over a pre-gathered / pre-dequantized
-     view, "not one call"), and the bound (the least time the card could
-     take: bytes / 3.35 TB/s or flops / 989 TFLOP/s);
+     view, "not one call"; for K10 matmul + logsumexp + gather, + Σ
+     softmax·z for the update's entropy variant, timed too), and the bound
+     (the least time the card could take: bytes / 3.35 TB/s or flops / 989
+     TFLOP/s);
   3. rollout and score — the rollout-and-score half of one GRPO update
      through the launcher's own config (`entrypoints/grpo.build_config`) at
      the full Qwen2.5-1.5B width (random weights from the seed), 4 synthetic
@@ -59,7 +67,9 @@ Phases (any failure exits non-zero):
      (new vs old logprobs from the same kernels) small, the checkpoint
      written and reloading to the same tensors; and, on a small input, the
      LoRA gradients through the kernels no less accurate than the plain
-     bf16 route against the plain route in f32. Phases 3 and 4 run
+     bf16 route against the plain route in f32; K10's device time in the
+     update (each shape it was given, timed on the profiler, times its
+     calls). Phases 3 and 4 run
      responses of at most 512 tokens (a cut, printed), so that the whole
      script stays within half its time limit;
   5. one GRPO update over continuous batching — the same, with
@@ -148,8 +158,12 @@ def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict[str, fl
     """Device time per call of `fn`'s kernels whose name holds `match`, by
     kernel (torch.profiler over `iters` calls after a warm-up): the card's
     own time, without the host's launch and wrapper overhead. The profiler
-    can come back without the kernels' device records; a session that does
-    is run again, up to `tries` sessions, and {} means not measured."""
+    can come back without some of the kernels' device records. Where each
+    kernel was recorded fewer times than `fn` ran (after the GRPO update the
+    profiler keeps one or two launches of three), the time per call is the mean of
+    the launches it kept: every caller's kernels launch once a call. A
+    session with no record, or a count it cannot read so, is run again, up
+    to `tries` sessions, and {} means not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -160,13 +174,18 @@ def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict[str, fl
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        got = {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-               if e.device_type == cuda and match in e.key and e.self_device_time_total > 0}
-        if got:
-            return got
-        log(f"  a profiler session recorded no device time for {match!r}")
-    log(f"  the profiler recorded no device time for {match!r} in {tries} sessions: "
-        f"device time not measured")
+        found = [e for e in prof.key_averages()
+                 if e.device_type == cuda and match in e.key and e.self_device_time_total > 0]
+        if found and all(e.count % iters == 0 for e in found):
+            return {e.key: e.self_device_time_total / iters / 1e3 for e in found}
+        if found and all(e.count < iters for e in found):
+            log(f"  the profiler kept {[e.count for e in found]} of {iters} launches of "
+                f"{match!r}: device time from the launches it kept")
+            return {e.key: e.self_device_time_total / e.count / 1e3 for e in found}
+        log(f"  a profiler session recorded {[(e.key, e.count) for e in found]} for "
+            f"{match!r} over {iters} calls")
+    log(f"  the profiler recorded no device time it could read for {match!r} in {tries} "
+        f"sessions: device time not measured")
     return {}
 
 
@@ -866,7 +885,11 @@ def _hold_verify(torch, label: str, c) -> tuple[float, float]:
 
     q, (k, v), start, fill, empty = c["q"], c["caches"][0], c["start"], c["fill"], c["empty"]
     H, Tq = c["H"], c["Tq"]
-    S = da.verify_split_count(c["B"], c["KV"], 0)
+    S = da.verify_split_count_on_card(c["B"], c["KV"])
+    rule = da.verify_split_count(c["B"], c["KV"], torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    if S != rule:
+        fail(f"verify {label}: the C entry splits {S} ways, verify_split_count says {rule}")
     label = f"{label} S={S}"
     rows = ~empty[:, None, :].expand(-1, H, -1)
 
@@ -906,15 +929,16 @@ def _hold_verify(torch, label: str, c) -> tuple[float, float]:
     return e6, e9
 
 
-def check_verify(torch, F, pad_max: int, k6_shape, k9_shape) -> dict:
+def check_verify(torch, F, pad_max: int, k6_shape, k9_shape, timed: bool = True) -> dict:
     """K6 and K9 at the shapes the speculative path gives them — K6
     (B, H, Tq, hd, KV, T) over the contiguous cache, K9 (B, H, Tq, hd, KV,
     P, nb) over pages scattered through a pool with spare pages and a
-    sentinel block on row 0 — each held by `_hold_verify`; then the times
-    (4 distinct caches, > L2 as 28 layers are), the yardsticks (K6: SDPA
-    with a boolean mask over the contiguous cache, query length Tq; K9: not
-    one call — SDPA over the pre-gathered view, the gather timed beside it)
-    and the bounds. Returns the two kernels-line entries."""
+    sentinel block on row 0 — each held by `_hold_verify` (its split count
+    equal to `verify_split_count`'s); then (`timed`) the times (4 distinct
+    caches, > L2 as 28 layers are; events and device time), the yardsticks
+    (K6: SDPA with a boolean mask over the contiguous cache, query length
+    Tq; K9: not one call — SDPA over the pre-gathered view, the gather timed
+    beside it) and the bounds. Returns the two kernels-line entries."""
     from nanorlhf_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -936,49 +960,73 @@ def check_verify(torch, F, pad_max: int, k6_shape, k9_shape) -> dict:
         return bound_ms(nbytes, 4.0 * pairs * H * hd)
 
     B, H, Tq, hd, KV, T = k6_shape
-    c = _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max, copies=4)
-    shape = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}"
-    e6, _ = _hold_verify(torch, shape, c)
-    q, (k, v), start, fill = c["q"], c["caches"][0], c["start"], c["fill"]
+    c6 = _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max, copies=4)
+    shape6 = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}"
+    e6, _ = _hold_verify(torch, shape6, c6)
+    B9, H, Tq, hd, KV, P, nb = k9_shape
+    c9 = _verify_case(torch, gen, B9, H, KV, Tq, hd, nb * P, pad_max, P=P, copies=4)
+    shape9 = f"B={B9} H={H} KV={KV} Tq={Tq} hd={hd}"
+    _, e9 = _hold_verify(torch, shape9, c9)
+    if not timed:
+        return {}
+
+    q, (k, v), start, fill = c6["q"], c6["caches"][0], c6["start"], c6["fill"]
     it = iter(range(10**9))
-    ms = time_ms(torch, lambda: (lambda kv: da.decode_verify_attention(
-        q, kv[0], kv[1], start, fill))(c["caches"][next(it) % 4]), 40)
+
+    def k6():
+        kk, vv = c6["caches"][next(it) % 4]
+        da.decode_verify_attention(q, kk, vv, start, fill)
+
+    ms = time_ms(torch, k6, 40)
+    on_card = dev_total(device_ms(torch, k6, 20, "verify_kernel"))
     plain = time_ms(torch, lambda: da.reference_decode_verify_attention(
         q, k, v, start, fill), 10)
-    m = mask(c)
+    m = mask(c6)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m, enable_gqa=True), 20)
-    b = bound(c)
+    b = bound(c6)
+    t_dev = on_card if on_card is not None else ms
+    log(f"  decode_verify_attention {shape6}: kernel {ms:.4f} ms, device time (profiler) "
+        f"{fmt_ms(on_card)}; plain {plain:.4f} ms; SDPA (boolean mask, q len {Tq}) "
+        f"{lib:.4f} ms (device / SDPA {t_dev / lib:.3f}); bound {b[0]:.4f} ms ({b[1]}, "
+        f"{100 * b[0] / t_dev:.1f}% of it)")
     k6_row = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
-        max_abs_err=e6, shape=f"{shape} S={da.verify_split_count(B, KV, 0)}")
-    B, H, Tq, hd, KV, P, nb = k9_shape
-    c = _verify_case(torch, gen, B, H, KV, Tq, hd, nb * P, pad_max, P=P, copies=4)
-    shape = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd}"
-    _, e9 = _hold_verify(torch, shape, c)
-    q, start, fill, table = c["q"], c["start"], c["fill"], c["table"]
-    kp, vp = c["pools"][0]
-    it = iter(range(10**9))
-    ms = time_ms(torch, lambda: (lambda kv: da.paged_decode_verify_attention(
-        q, kv[0], kv[1], table, start, fill))(c["pools"][next(it) % 4]), 40)
-    ms6 = time_ms(torch, lambda: (lambda kv: da.decode_verify_attention(
-        q, kv[0], kv[1], start, fill))(c["caches"][next(it) % 4]), 40)
+        ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+        bound_by=b[1], max_abs_err=e6,
+        shape=f"{shape6} S={da.verify_split_count_on_card(B, KV)}")
+
+    q, start, fill, table = c9["q"], c9["start"], c9["fill"], c9["table"]
+    kp, vp = c9["pools"][0]
+
+    def k9():
+        kk, vv = c9["pools"][next(it) % 4]
+        da.paged_decode_verify_attention(q, kk, vv, table, start, fill)
+
+    def k6_same():
+        kk, vv = c9["caches"][next(it) % 4]
+        da.decode_verify_attention(q, kk, vv, start, fill)
+
+    ms = time_ms(torch, k9, 40)
+    on_card = dev_total(device_ms(torch, k9, 20, "verify_kernel"))
+    ms6 = time_ms(torch, k6_same, 40)
     plain = time_ms(torch, lambda: da.reference_paged_decode_verify_attention(
         q, kp, vp, table, start, fill), 10)
     kg, vg = da._gather_pool(kp, table), da._gather_pool(vp, table)
-    m = mask(c)
+    m = mask(c9)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, kg, vg, attn_mask=m, enable_gqa=True), 20)
     gather_ms = time_ms(torch, lambda: (da._gather_pool(kp, table),
                                         da._gather_pool(vp, table)), 10)
-    b = bound(c, 4 * table.numel())
-    log(f"  K6 on the same logical caches laid out contiguously ({shape}): "
-        f"{ms6:.4f} ms; K9 through the pages {ms:.4f} ms; yardstick (not one call): "
-        f"SDPA over the pre-gathered view {lib:.4f} ms + gather {gather_ms:.4f} ms")
+    b = bound(c9, 4 * table.numel())
+    log(f"  K6 on the same logical caches laid out contiguously ({shape9}): "
+        f"{ms6:.4f} ms; K9 through the pages {ms:.4f} ms, device time (profiler) "
+        f"{fmt_ms(on_card)}; yardstick (not one call): SDPA over the pre-gathered view "
+        f"{lib:.4f} ms + gather {gather_ms:.4f} ms")
     return {"decode_verify_attention": k6_row, "paged_decode_verify_attention": dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
-        max_abs_err=e9, shape=f"{shape} P={P} nb={nb}, pool of {c['N']} pages, "
-                              f"S={da.verify_split_count(B, KV, 0)}")}
+        ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+        bound_by=b[1], max_abs_err=e9,
+        shape=f"{shape9} P={P} nb={nb}, pool of {c9['N']} pages, "
+              f"S={da.verify_split_count_on_card(B9, KV)}")}
 
 
 @contextlib.contextmanager
@@ -1007,10 +1055,11 @@ def recording_verify_shapes(seen):
 
 def check_verify_edges(torch, pad_max: int) -> None:
     """K6 and K9 off the rollout's shapes, each case paged (so K9 == K6 is
-    held too): R = G·Tq = 64 rows per block (G 8 × Tq 8) at head_dim 128
-    and 64, one row per block (G 1, Tq 1), G 7 × Tq 3 at head_dim 64 with
-    pages of 48, and the key-range splits S = 1 and S = 3 (B from the SM
-    count; the split count is asserted)."""
+    held too): R = G·Tq = 64 rows (G 8 × Tq 8: two row groups of 32) at
+    head_dim 128 and 64, one row per block (G 1, Tq 1; S = 8, the largest
+    split), G 7 × Tq 3 at head_dim 64 with pages of 48, and the key-range
+    splits S = 1 and S = 3 (B from the SM count; the split count is
+    asserted)."""
     from nanorlhf_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1020,9 +1069,9 @@ def check_verify_edges(torch, pad_max: int) -> None:
              (3,               2,  2, 1, 128, 200, 16,  None),
              (5,               14, 2, 3, 64,  257, 48,  None),
              (sm + 1,          64, 8, 8, 64,  160, 48,  1),
-             (8 * sm // 6,     12, 2, 5, 128, 400, 128, 3)]
+             (sm // 6,         12, 2, 5, 128, 400, 128, 3)]
     for B, H, KV, Tq, hd, T_need, P, want_S in cases:
-        S = da.verify_split_count(B, KV, 0)
+        S = da.verify_split_count(B, KV, sm)
         if want_S is not None and S != want_S:
             fail(f"verify edge B={B} KV={KV}: split count {S}, meant to cover {want_S}")
         T = -(-T_need // P) * P
@@ -1030,66 +1079,187 @@ def check_verify_edges(torch, pad_max: int) -> None:
         _hold_verify(torch, f"edge B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}", c)
 
 
-def check_fused(torch, resp: int) -> dict:
-    from nanorlhf_tpu_torch.ops.fused_logprob import (
-        fused_chunk_rows, fused_logprob_chunked, fused_logprob_kernel)
+# K10 per row: |kernel - plain f32| of each row's logprob and entropy, the
+# plain version run in f32 on the same bf16 inputs. Dropping one 256-column
+# vocab tile from a row's sum moves its lse by ~256 / V of it (1.7e-3 at
+# V = 151936); FUSED_TOL sits an order under that and over the sound error
+# the kernel shows (PERF.md §6).
+FUSED_TOL = 1e-4
 
-    tol = 1e-3  # f32 accumulation and softmax; only the summation order differs
+
+def check_fused(torch, F, resp: int, shapes, timed: bool = True) -> dict:
+    """K10 held per row against its plain version in f32 (FUSED_TOL): at
+    each shape (R, D, V, with_entropy, transposed) in `shapes`, the ones the
+    main path gives it (the scoring pass, R = 16 x response, and the
+    update's microbatch with entropy, R = 4 x response, at the responses of
+    phases 4 and 7a); the [D, V] layout with and without entropy; off those
+    shapes (R = 300, D = 128, V = 1000: a ragged row tile and vocab tile,
+    both layouts, T = 0.7). The split count the C entry uses must be
+    `fused_logprob_split_count`'s at each. Then (`timed`) the times of both
+    variants at the full response — the scoring pass and the update's
+    microbatch: events, device time (profiler), the plain version, one
+    library call (matmul + logsumexp + gather, + Σ softmax·z with entropy)
+    and the bound. Returns the kernels-line entry."""
+    from nanorlhf_tpu_torch.ops.fused_logprob import (
+        fused_chunk_rows, fused_logprob_chunked, fused_logprob_kernel,
+        fused_logprob_split_count, fused_logprob_split_count_on_card)
+
     R, D, V, temp = 16 * resp, 1536, 151936, 0.9
+    r_up = 4 * resp
+    if not {(R, D, V, False, True), (r_up, D, V, True, True)} <= set(shapes):
+        fail(f"fused_logprob: the timed shapes R={R}, R={r_up} are not among {shapes}")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows, vocab in sorted({(s[0], s[2]) for s in shapes} | {(512, 4096), (300, 1000)}):
+        got, rule = (fused_logprob_split_count_on_card(rows, vocab),
+                     fused_logprob_split_count(rows, vocab, sm))
+        if got != rule:
+            fail(f"fused_logprob R={rows} V={vocab}: the C entry splits {got} ways, "
+                 f"fused_logprob_split_count says {rule}")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    h = torch.randn((R, D), generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
-    labels = torch.randint(0, V, (R,), generator=gen, device="cuda")
-    chunk = fused_chunk_rows(V, R)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    r_max = max(s[0] for s in shapes)
+    h = randn(r_max, D)
+    w = randn(V, D, scale=0.02)
+    labels = torch.randint(0, V, (r_max,), generator=gen, device="cuda")
     worst = 0.0
-    for ent in (False, True):
-        got = fused_logprob_kernel(h, w, labels, temp, with_entropy=ent, transposed=True)
-        want = fused_logprob_chunked(*_f32(h, w), labels, temp, chunk, with_entropy=ent,
-                                     transposed=True)
-        bf16 = fused_logprob_chunked(h, w, labels, temp, chunk, with_entropy=ent,
-                                     transposed=True)
+
+    def held(what, hh, ww, lab, t, transposed, ent):
+        rows, vocab = hh.shape[0], ww.numel() // hh.shape[1]
+        chunk = fused_chunk_rows(vocab, rows)
+        got = fused_logprob_kernel(hh, ww, lab, t, with_entropy=ent, transposed=transposed)
+        want = fused_logprob_chunked(*_f32(hh, ww), lab, t, chunk, with_entropy=ent,
+                                     transposed=transposed)
+        bf16 = fused_logprob_chunked(hh, ww, lab, t, chunk, with_entropy=ent,
+                                     transposed=transposed)
         pairs = [("logprob", got[0], want[0], bf16[0], None)]
         if ent:
             pairs.append(("entropy", got[1], want[1], bf16[1], None))
-        worst = max(worst, hold(torch, f"fused_logprob R={R} D={D} V={V} tied "
-                                f"with_entropy={ent}", pairs, tol))
-    # the [D, V] weight layout on a slice
-    wt = w[:4096].t().contiguous()
-    lab_s = labels[:512] % 4096
-    worst = max(worst, hold(torch, "fused_logprob [D, V] layout R=512 V=4096", [(
-        "logprob", fused_logprob_kernel(h[:512], wt, lab_s, temp)[0],
-        fused_logprob_chunked(*_f32(h[:512], wt), lab_s, temp, 512)[0],
-        fused_logprob_chunked(h[:512], wt, lab_s, temp, 512)[0], None)], tol))
-    ms = time_ms(torch, lambda: fused_logprob_kernel(h, w, labels, temp, transposed=True), 3)
-    plain = time_ms(torch, lambda: fused_logprob_chunked(h, w, labels, temp, chunk,
-                                                         transposed=True), 1)
-    # the update's variant: one microbatch of 4 rows, with entropy
-    r_up = 4 * resp
-    ms_ent = time_ms(torch, lambda: fused_logprob_kernel(
-        h[:r_up], w, labels[:r_up], temp, with_entropy=True, transposed=True), 3)
-    plain_ent = time_ms(torch, lambda: fused_logprob_chunked(
-        h[:r_up], w, labels[:r_up], temp, chunk, with_entropy=True, transposed=True), 1)
-    log(f"  fused_logprob with entropy [R={r_up} D={D} V={V}, the update's "
-        f"microbatch]: kernel {ms_ent:.4f} ms, plain {plain_ent:.4f} ms, bound "
-        f"{bound_ms(2 * r_up * D + 2 * w.numel() + 16 * r_up, 2.0 * r_up * D * V)[0]:.4f} ms")
+        splits = fused_logprob_split_count(rows, vocab, sm)
+        return hold(torch, f"{what} splits={splits} with_entropy={ent}", pairs, FUSED_TOL)
+
+    for rows, d, vocab, ent, transposed in sorted(shapes, reverse=True):
+        if (d, vocab, transposed) != (D, V, True):
+            fail(f"fused_logprob: no hold at D={d} V={vocab} transposed={transposed}")
+        worst = max(worst, held(f"fused_logprob R={rows} D={D} V={V} tied", h[:rows], w,
+                                labels[:rows], temp, True, ent))
+    for ent in (False, True):
+        # the [D, V] weight layout on a slice
+        worst = max(worst, held("fused_logprob [D, V] layout R=512 V=4096", h[:512],
+                                w[:4096].t().contiguous(), labels[:512] % 4096, temp,
+                                False, ent))
+    for transposed in (True, False):
+        Re, De, Ve = 300, 128, 1000
+        he = randn(Re, De)
+        we = randn(Ve, De, scale=0.1) if transposed else randn(De, Ve, scale=0.1)
+        le = torch.randint(0, Ve, (Re,), generator=gen, device="cuda")
+        worst = max(worst, held(f"edge fused_logprob R={Re} D={De} V={Ve} "
+                                f"transposed={transposed} T=0.7", he, we, le, 0.7,
+                                transposed, True))
+    if not timed:
+        return {}
 
     h_t = (h.float() / temp).to(torch.bfloat16)  # temperature folded in up front
+    results = {}
+    for ent, rows in ((False, R), (True, r_up)):
+        hh, lab = h[:rows], labels[:rows]
+        chunk = fused_chunk_rows(V, rows)
 
-    def library():
-        z = torch.matmul(h_t, w.t())  # the [R, V] logits the kernel never writes
-        return torch.gather(z, 1, labels[:, None])[:, 0] - torch.logsumexp(z, dim=-1)
+        def kern():
+            fused_logprob_kernel(hh, w, lab, temp, with_entropy=ent, transposed=True)
 
-    lib = time_ms(torch, library, 1)
-    nbytes = 2 * h.numel() + 2 * w.numel() + 8 * R + 4 * R
-    flops = 2.0 * R * D * V
-    bms, by = bound_ms(nbytes, flops)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                max_abs_err=worst, shape=f"R={R} D={D} V={V} tied, no entropy")
+        def library():
+            z = torch.matmul(h_t[:rows], w.t())  # the [R, V] logits the kernel never writes
+            lse = torch.logsumexp(z, dim=-1)
+            lp = torch.gather(z, 1, lab[:, None])[:, 0] - lse
+            if ent:
+                return lp, lse - (torch.softmax(z, dim=-1) * z).sum(-1)
+            return lp
+
+        ms = time_ms(torch, kern, 3)
+        on_card = dev_total(device_ms(torch, kern, 3, "fused_"))
+        plain = time_ms(torch, lambda: fused_logprob_chunked(
+            hh, w, lab, temp, chunk, with_entropy=ent, transposed=True), 1)
+        lib = time_ms(torch, library, 1)
+        nbytes = 2 * hh.numel() + 2 * w.numel() + 8 * rows + 4 * rows * (2 if ent else 1)
+        bms, by = bound_ms(nbytes, 2.0 * rows * D * V)
+        t_dev = on_card if on_card is not None else ms
+        what = "the scoring pass" if not ent else "the update's microbatch"
+        log(f"  fused_logprob [R={rows} D={D} V={V} tied, with_entropy={ent}: {what}]: "
+            f"kernel {ms:.4f} ms, device time (profiler) {fmt_ms(on_card)}, plain "
+            f"{plain:.4f} ms, library {lib:.4f} ms (matmul + logsumexp + gather"
+            f"{' + softmax·z' if ent else ''}; kernel / library {t_dev / lib:.3f}), "
+            f"bound {bms:.4f} ms ({by}, {100 * bms / t_dev:.1f}% of it)")
+        results[ent] = dict(ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib,
+                            bound_ms=bms, bound_by=by, max_abs_err=worst,
+                            shape=f"R={rows} D={D} V={V} tied, with_entropy={ent}")
+    return results[False]
+
+
+@contextlib.contextmanager
+def recording_fused_shapes(seen):
+    """Count, by (R, D, V, with_entropy, transposed), the calls of the K10
+    wrapper that `_FusedLogprob` makes (the wrapper, and its launch count,
+    run unchanged)."""
+    from nanorlhf_tpu_torch.ops import fused_logprob as fl
+
+    kernel = fl.fused_logprob_kernel
+
+    def rec(hidden, unembed, labels, temperature=1.0, with_entropy=False,
+            transposed=False):
+        V = unembed.shape[0] if transposed else unembed.shape[1]
+        seen[(*hidden.shape, V, bool(with_entropy), bool(transposed))] += 1
+        return kernel(hidden, unembed, labels, temperature, with_entropy=with_entropy,
+                      transposed=transposed)
+
+    fl.fused_logprob_kernel = rec
+    try:
+        yield
+    finally:
+        fl.fused_logprob_kernel = kernel
+
+
+def fused_device_per_update(torch, seen, launches: int) -> float | None:
+    """K10's device time in one update: each shape the update gave the
+    kernel (`recording_fused_shapes`) timed on the profiler with inputs of
+    that shape, times its calls; CUDA events and the bound beside it. Fails
+    unless the calls are the launches."""
+    from nanorlhf_tpu_torch.ops.fused_logprob import fused_logprob_kernel
+
+    if sum(seen.values()) != launches:
+        fail(f"fused_logprob launched {launches} times, {sum(seen.values())} through "
+             f"recorded calls")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    total, total_ev, total_bound, parts = 0.0, 0.0, 0.0, []
+    for (R, D, V, ent, transposed), calls in sorted(seen.items()):
+        h = torch.randn((R, D), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((V, D) if transposed else (D, V), generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+        labels = torch.randint(0, V, (R,), generator=gen, device="cuda")
+
+        def kern():
+            fused_logprob_kernel(h, w, labels, 0.9, with_entropy=ent, transposed=transposed)
+
+        ms = dev_total(device_ms(torch, kern, 3, "fused_"))
+        ev = time_ms(torch, kern, 3)
+        bms, _ = bound_ms(2 * h.numel() + 2 * w.numel() + 8 * R + 4 * R * (2 if ent else 1),
+                          2.0 * R * D * V)
+        total = None if ms is None or total is None else total + calls * ms
+        total_ev += calls * ev
+        total_bound += calls * bms
+        parts.append(f"{calls} x R={R} with_entropy={ent}: device {fmt_ms(ms)}, events "
+                     f"{ev:.4f} ms, bound {bms:.4f} ms")
+    log(f"  fused_logprob time per update (by recorded shape): device (profiler) "
+        f"{fmt_ms(total)}, events {total_ev:.4f} ms, bound {total_bound:.4f} ms "
+        f"({'; '.join(parts)})")
+    return total
 
 
 def check_edges(torch) -> None:
     """The kernels off the main shapes: head_dim 64, GQA groups of 4 and 7
-    (Llama-3.2-1B and Qwen2-0.5B geometry), ragged T / rows / vocab, the
+    (Llama-3.2-1B and Qwen2-0.5B geometry), ragged T, the
     non-causal flash path (forward and backward), fully masked left-pad
     rows in the backward, an empty decode row (zeros, reading nothing).
     The forward also per 64-row tile; the decode kernel per element within
@@ -1105,8 +1275,6 @@ def check_edges(torch) -> None:
         flash_bwd_dkv_split_reference, reference_attention)
     from nanorlhf_tpu_torch.ops.decode_attention import (
         decode_attention, decode_split_count_on_card, reference_decode_attention)
-    from nanorlhf_tpu_torch.ops.fused_logprob import (
-        fused_logprob_chunked, fused_logprob_kernel)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
 
@@ -1188,20 +1356,6 @@ def check_edges(torch) -> None:
             reference_decode_attention(q, k, v, start, filled), live)])
         if out[3].float().abs().max() != 0:
             fail("decode_attention: a row with no valid slot must return zeros")
-    for transposed in (True, False):
-        R, D, V = 300, 128, 1000
-        h = randn(R, D)
-        w = randn(V, D, scale=0.1) if transposed else randn(D, V, scale=0.1)
-        labels = torch.randint(0, V, (R,), generator=gen, device="cuda")
-        lp, ent = fused_logprob_kernel(h, w, labels, 0.7, with_entropy=True,
-                                       transposed=transposed)
-        want = fused_logprob_chunked(*_f32(h, w), labels, 0.7, 64, with_entropy=True,
-                                     transposed=transposed)
-        bf16 = fused_logprob_chunked(h, w, labels, 0.7, 64, with_entropy=True,
-                                     transposed=transposed)
-        hold(torch, f"edge fused_logprob R={R} D={D} V={V} transposed={transposed} T=0.7",
-             [("logprob", lp, want[0], bf16[0], None),
-              ("entropy", ent, want[1], bf16[1], None)], 1e-3)
 
 
 # --------------------------------------------------------------------------
@@ -1408,7 +1562,7 @@ def small_reference(torch, mcfg, cfg, queries, pad_id: int) -> None:
 # phase 4: one GRPO update
 # --------------------------------------------------------------------------
 
-def train_update(torch, max_tokens: int, bwd_seen, fwd_seen) -> dict:
+def train_update(torch, max_tokens: int, bwd_seen, fwd_seen, fused_seen) -> dict:
     import os
     import shutil
 
@@ -1437,7 +1591,8 @@ def train_update(torch, max_tokens: int, bwd_seen, fwd_seen) -> dict:
 
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with recording_backward_shapes(bwd_seen), recording_forward_shapes(fwd_seen):
+    with recording_backward_shapes(bwd_seen), recording_forward_shapes(fwd_seen), \
+            recording_fused_shapes(fused_seen):
         state = trainer.train(num_updates=1)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
@@ -1897,7 +2052,7 @@ def int8_small_reference(torch, mcfg, queries, pad_id: int) -> None:
 # phase 7: speculative decode
 # --------------------------------------------------------------------------
 
-def spec_update(torch, max_tokens: int, bwd_seen) -> dict:
+def spec_update(torch, max_tokens: int, bwd_seen, fused_seen) -> dict:
     """(a) `one_card_cut(build_config(rollout_spec_k=4))` through
     `build_trainer`/`train(1)` over the contiguous cache: the generation
     half launches K6 once per layer and verify step, K4 never, and the
@@ -1927,7 +2082,7 @@ def spec_update(torch, max_tokens: int, bwd_seen) -> dict:
               if p in trained}
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with recording_backward_shapes(bwd_seen):
+    with recording_backward_shapes(bwd_seen), recording_fused_shapes(fused_seen):
         state = trainer.train(num_updates=1)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
@@ -2218,12 +2373,15 @@ def small_grad_reference(torch, trainer) -> None:
 
 
 # --holds: the kernel source each hold set builds
-HOLDS = {"K1": "flash_fwd", "K4": "decode_attention"}
+HOLDS = {"K1": "flash_fwd", "K4": "decode_attention", "K6": "decode_attention",
+         "K10": "fused_logprob"}
 
 # Faults that the phase-2 holds must catch, each planted in its own copy of
 # the port (a text edit of one kernel source): (what, holds, source, text,
-# planted text). Split 1 and rank 1 exist at the held shapes (S = 8 at B=16);
-# the heaviest query tiles are the grid's first B·H blocks.
+# planted text). Split 1 and rank 1 exist at the held shapes (K4: S = 8 at
+# B=16; K6: S = 2 at K9's B=32, S = 8 and 3 at the edges; K10: 7 vocab
+# splits at R=24000); the heaviest
+# query tiles are the grid's first B·H blocks.
 FAULTS = (
     ("K4: one split's last tile dropped", "K4", "decode_attention.cu",
      "for (int t0 = lo + warp * 32; t0 < hi; t0 += DECODE_WARPS * 32) {",
@@ -2237,6 +2395,18 @@ FAULTS = (
     ("K1: the alpha rescale of O skipped on key tile 1", "K1", "flash_fwd.cu",
      "      for (int jn = 0; jn < HD / 8; ++jn) {\n        o[4 * jn] *= alpha0;",
      "      for (int jn = 0; jn < HD / 8 && j != 1; ++jn) {\n        o[4 * jn] *= alpha0;"),
+    ("K10: split 1's last vocab tile left out of l, the label still gathered", "K10",
+     "fused_logprob.cu", "l[h] = l[h] * alpha[h] + sum;",
+     "l[h] = l[h] * alpha[h] + (split == 1 && vt == vt_end - 1 ? 0.f : sum);"),
+    ("K10: the alpha rescale of l skipped on a split's second vocab tile", "K10",
+     "fused_logprob.cu", "l[h] = l[h] * alpha[h] + sum;",
+     "l[h] = (vt == vt_begin + 1 ? l[h] : l[h] * alpha[h]) + sum;"),
+    ("K6: split 1's last key tile dropped", "K6", "decode_attention.cu",
+     "const int n_tiles = (s1 - s0 + VT - 1) / VT;",
+     "const int n_tiles = (s1 - s0 + VT - 1) / VT - (split == 1 && s1 > s0);"),
+    ("K6: candidate 1's bound off by one (fill + qi, not fill + qi + 1)", "K6",
+     "decode_attention.cu", "hi[mt][h] = r < rows ? min(fill + qi + 1, s1) : -1;",
+     "hi[mt][h] = r < rows ? min(fill + qi + (qi != 1), s1) : -1;"),
 )
 
 
@@ -2375,6 +2545,14 @@ def main() -> None:
     fwd_long = (16, 12, 2, prompt_width + resp, 128)
     fwd_shapes = {(16, 12, 2, prompt_width, 128), (16, 12, 2, prompt_width + short, 128),
                   (4, 12, 2, prompt_width + short, 128)}
+    # the K10 shapes (R, D, V, with_entropy, transposed) of phase 4 (short
+    # responses) and phase 7a (full ones): the scoring pass of the 16 kept
+    # rows, and the update's microbatch of 4 rows with entropy, over the
+    # tied weight; phases 4 and 7a record what they gave and fail unless
+    # they are these
+    fused4, fused7 = ({(rows * t, 1536, 151936, rows == 4, True) for rows in (16, 4)}
+                      for t in (short, resp))
+    fused_shapes = fused4 | fused7
     # the decode rows of phase 3 (4 prompts x 4 samples) and phase 4 (16 x 4)
     # at the full and the short response length, the full length first
     decode_shapes = sorted({(B, prompt_width + t) for B in (16, 64) for t in (resp, short)},
@@ -2383,6 +2561,11 @@ def main() -> None:
         check_flash(torch, F, [fwd_long, *sorted(fwd_shapes - {fwd_long})])
     if args.holds == "K4":
         check_decode(torch, F, prompt_width, decode_shapes)
+    if args.holds == "K6":
+        check_verify(torch, F, prompt_width, k6_shape, k9_shape, timed=False)
+        check_verify_edges(torch, prompt_width)
+    if args.holds == "K10":
+        check_fused(torch, F, resp, fused_shapes, timed=False)
     if args.holds:
         log(f"{args.holds}: every hold passed")
         return
@@ -2392,7 +2575,7 @@ def main() -> None:
     results = {
         "flash_fwd": flash[fwd_long],
         "decode_attention": decode[(16, prompt_width + resp)],
-        "fused_logprob": check_fused(torch, resp),
+        "fused_logprob": check_fused(torch, F, resp, fused_shapes),
         # the kernels line gives K2/K3 at phase 4's shape, whose launches it counts
         **bwd[prompt_width + short],
         **check_paged(torch, F, prompt_width, resp),
@@ -2402,6 +2585,12 @@ def main() -> None:
                ("paged_decode_verify_attention",) + k9_shape}
     check_verify_edges(torch, prompt_width)
     check_edges(torch)
+    k4_64 = decode[(64, prompt_width + resp)]["device_ms"]
+    k6_dev = results["decode_verify_attention"]["device_ms"]
+    if k4_64 is not None and k6_dev is not None:
+        log(f"  K6 device time at B=64 Tq={spec_k + 1} T_max={k6_shape[-1]} against K4's at "
+            f"B=64 T_max={prompt_width + resp} in this run: {k6_dev:.4f} / {k4_64:.4f} ms "
+            f"= {k6_dev / k4_64:.3f}")
     for name, r in results.items():
         on_card = f", device {fmt_ms(r['device_ms'])}" if "device_ms" in r else ""
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms{on_card}, plain "
@@ -2415,7 +2604,11 @@ def main() -> None:
         "checkpoint), Qwen2.5-1.5B width, contiguous KV cache")
     bwd_seen: collections.Counter = collections.Counter()
     fwd_seen: collections.Counter = collections.Counter()
-    counts4 = train_update(torch, short, bwd_seen, fwd_seen)
+    fused_seen: collections.Counter = collections.Counter()
+    counts4 = train_update(torch, short, bwd_seen, fwd_seen, fused_seen)
+    fused_device_per_update(torch, fused_seen, counts4["fused_logprob"])
+    if set(fused_seen) != fused4:
+        fail(f"phase 4 gave fused_logprob {set(fused_seen)}; phase 2 held it at {fused4}")
     log(f"  flash forward shapes phase 4 gave the kernel (B, H, KV, T, hd): calls "
         f"{dict(fwd_seen)}")
     if set(fwd_seen) != fwd_shapes:
@@ -2440,9 +2633,18 @@ def main() -> None:
     log("phase 7: speculative decode (n-gram drafts, k-token verify), "
         "Qwen2.5-1.5B width")
     seen: collections.Counter = collections.Counter()
+    fused7_seen: collections.Counter = collections.Counter()
     with recording_verify_shapes(seen):
-        counts7 = spec_update(torch, resp, bwd_seen)
+        counts7 = spec_update(torch, resp, bwd_seen, fused7_seen)
         counts7b = spec_queued_rollout(torch, short)
+    log(f"  fused_logprob shapes phase 7a gave the kernel (R, D, V, with_entropy, "
+        f"transposed): calls {dict(fused7_seen)}")
+    if set(fused7_seen) != fused7:
+        fail(f"phase 7a gave fused_logprob {set(fused7_seen)}; phase 2 held and timed it "
+             f"at {fused7}")
+    if sum(fused7_seen.values()) != counts7["fused_logprob"]:
+        fail(f"phase 7a launched fused_logprob {counts7['fused_logprob']} times, "
+             f"{sum(fused7_seen.values())} through recorded calls")
     log(f"  verify shapes phase 7a/7b gave the kernels (name, B, H, Tq, hd, KV, "
         f"T | P, nb): calls {dict(seen)}")
     if set(seen) != checked:

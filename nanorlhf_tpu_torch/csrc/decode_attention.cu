@@ -88,30 +88,46 @@
 // of kv head kvh is query head kvh * G + r / Tq at candidate qi = r % Tq
 // (JAX's row order); it attends to logical slots start <= t < fill + qi + 1
 // (the candidates' K/V are already written at [fill, fill + Tq)). A block
-// holds R = G * Tq rows (30 at G = 6, spec_k = 4): the decode body's
-// per-lane registers for every row and its cross-warp merge buffer
-// ([WARPS][R][HD] floats) do not stretch that far, so the verify body works
-// the other way round. Each 32-key K/V tile is copied into shared memory
-// once per block (cp.async, double-buffered: tile i + 1 loads while tile i
-// is used; keys past the block's range are zero-filled, so the key loops
-// unroll fully); each warp owns R / 8 rows over the block's whole key range,
-// so every row's online softmax runs in one warp. In a tile lane j scores
-// key j against the warp's rows (K rows padded by 16 bytes in shared
-// memory, so the lanes' 16-byte reads do not collide), then each lane
-// accumulates HD / 32 output dims of every row from the V tile. Each row is
-// masked at its own bound. Such a block is latency-bound (a few warps, long
-// dependent chains): one block per (row, kv head) took 0.68 ms at the
-// rollout's B = 16 on an H100, 32 blocks on 132 SMs. So each row's key range
-// is split into S ranges of whole tiles over a third grid axis (S chosen by
-// the wrapper from the SM count and B * KV), each block writes its partial
-// (acc, m, l) to f32 scratch, and a second kernel merges them (the
-// flash-decoding split). Still bytes-bound in
-// principle: ~2 * R flops per cache byte against the ~295 at which the
-// tensor cores would limit, so no wgmma. K9 is the same body with K7's
-// slot address and the same S: on the same logical cache it returns K6's
-// bits. Its key range is clamped to the table (nb * P): a row one token
-// short of its page budget has candidates past the table, whose writes the
-// model drops and whose outputs the sampler discards.
+// holds up to 32 such rows (R = G * Tq = 30 at G = 6, spec_k = 4; a kv head
+// with more takes ceil(R / 32) row groups, one block each), and that many
+// rows make the products worth the tensor cores: mma.sync m16n8k16 (bf16
+// in, f32 sums) on two m16 row tiles, where wgmma's m64 would be more than
+// half padding. The design:
+//   * the queries load once into shared memory, read as m16k16 A
+//     fragments by ldmatrix (held in registers beside the O sums and the
+//     two-part P below they spilled at HD = 128). Per
+//     16-key tile, S = Q·Kᵀ (K read by ldmatrix), the online softmax on the
+//     S fragments (a row lives in one quad: two quad shuffles a row a tile;
+//     each thread keeps its share of the row sum l, as the flash kernels
+//     do), then O += P·V with the S fragments as P's A fragments, V read by
+//     ldmatrix.trans. P goes in as two bf16 parts, its rounding and what
+//     the rounding left out: one bf16 P is off by up to 2^-9 of each term,
+//     which at an output near cancellation is many bf16 ulps, and the
+//     kernel is held to one. The second product costs what the card has to
+//     spare: the work is bytes, not operations;
+//   * warps split the keys, not the rows: each of the 4 warps takes the
+//     block's 16-key tiles round-robin through its own 3-stage cp.async
+//     ring (keys past the range zero-filled), so each K/V byte is read once
+//     from device memory and once from shared memory, with two tiles a warp
+//     in flight behind the one in use;
+//   * each row is masked at its own bound; a row with an empty window
+//     returns zeros;
+//   * the split and the merge: each row's window is cut into S ranges of
+//     whole 16-key tiles, one block each, S from (B, KV, SMs) only
+//     (`verify_split_count`, at most 8, the portable cluster size). A
+//     block's warps merge their (m, l, O) in shared memory, and the S
+//     blocks of a (row, kv head, row group) form a cluster whose rank 0
+//     merges theirs through distributed shared memory, in split order, and
+//     writes the output: one launch, no f32 scratch in device memory;
+//   * two blocks fit an SM: 4 warps with 102 KB of rings at HD = 128, and
+//     at most 255 registers a thread (the O sums of 32 rows x HD take 128
+//     at HD = 128); the split rule fills one a SM, which measured faster.
+// Bytes-bound in principle (~2 * R flops per cache byte against the ~295 at
+// which the tensor cores would limit). K9 is the same body with K7's slot
+// address and the same S: on the same logical cache it returns K6's bits.
+// Its key range is clamped to the table (nb * P): a row one token short of
+// its page budget has candidates past the table, whose writes the model
+// drops and whose outputs the sampler discards.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -127,8 +143,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WARPS = 8;                    // verify body
-constexpr int THREADS = WARPS * 32;
 constexpr int DECODE_WARPS = 4;             // decode body (see the note above)
 constexpr int DECODE_THREADS = DECODE_WARPS * 32;
 constexpr int DECODE_BLOCKS_PER_SM = 3;     // what the split rule fills
@@ -136,6 +150,7 @@ constexpr int MAX_SPLITS = 8;               // decode splits: the portable clust
 constexpr int MAXG = 8;     // query heads per kv head handled by one block
 constexpr int MAX_NB = 1024;  // block-table entries per row (paged)
 constexpr float NEG_INF = -1e30f;
+constexpr float NEG_INF_L2 = NEG_INF * 1.4426950408889634f;  // NEG_INF in log2 units
 
 struct Args {
   const bf16* q;        // [B, H, HD]
@@ -152,28 +167,8 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-
-// 8 consecutive bf16 of a K row (16 bytes) as floats
-__device__ __forceinline__ void load8(const bf16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(h[e]);
-}
 
 // an aligned vector of N bytes, read in one load
 template <int N> struct Vec;
@@ -526,12 +521,15 @@ int launch(Args a, int B, int HD, void* stream) {
 // K6 / K9: the k-query verify (see the header)
 // --------------------------------------------------------------------------
 
-constexpr int VTILE = 32;             // keys per shared-memory tile: one per lane
-constexpr int MAXR = 64;              // query rows G * Tq per block
-constexpr int MAXRW = MAXR / WARPS;   // query rows per warp
-constexpr int MAXTQ = 8;              // candidates per head (spec_k <= 7)
-constexpr int KPAD = 8;               // bf16 padding of a K tile row
-constexpr int MAXS = 16;              // key-range splits per (row, kv head)
+constexpr int VWARPS = 4;               // warps of a verify block
+constexpr int VTHREADS = VWARPS * 32;
+constexpr int VBLOCKS_PER_SM = 2;       // resident blocks an SM the registers allow
+constexpr int VSPLIT_BLOCKS_PER_SM = 1; // what the split rule fills
+constexpr int VT = 16;                  // keys of a warp's step: one k16 slice of P·V
+constexpr int VSTAGES = 3;              // a warp's ring of K/V step tiles
+constexpr int VROWS = 32;               // query rows of a block: two m16 tiles
+constexpr int MAXTQ = 8;                // candidates per head (spec_k <= 7)
+constexpr int VMAX_SPLITS = 8;          // key-range splits: the portable cluster size
 
 struct VerifyArgs {
   const bf16* q;      // [B, H, Tq, HD]
@@ -541,9 +539,26 @@ struct VerifyArgs {
   const int* start;   // [B]
   const int* fill;    // [B]: the slot of candidate 0
   bf16* out;          // [B, H, Tq, HD]
-  float* part;        // partial states [B, KV, S, R, HD + 2] (acc, m, l)
   int H, KV, T, N, P, nb, Tq, S;
-  float scale;
+  int n_rg;           // row groups of VROWS rows per (row, kv head)
+  float scale_l2;     // 1 / sqrt(HD) in log2 units
+};
+
+// shared memory of a verify block: each warp's ring of K and V step tiles
+// [VSTAGES][VT][HD + 8] bf16 (16 bytes of padding a row: the eight rows an
+// ldmatrix reads fall on distinct banks), after the key loop the warps'
+// partial states over the same bytes (O [VWARPS][VROWS][HD], m and l
+// [VWARPS][VROWS] f32); then the block's queries [VROWS][HD + 8] bf16.
+// Two blocks fit an SM (2 x 110.5 KB at HD = 128)
+template <int HD>
+struct VerifySmem {
+  static constexpr int KROW = HD + 8;
+  static constexpr int TILE = VT * KROW;                      // bf16
+  static constexpr int WARP = 2 * VSTAGES * TILE * 2;         // bytes: K and V rings
+  static constexpr int RING = VWARPS * WARP;
+  static constexpr int MERGE = VWARPS * VROWS * (HD + 2) * 4;
+  static_assert(MERGE <= RING, "the partial states go over the rings");
+  static constexpr int BYTES = RING + VROWS * KROW * 2;
 };
 
 // 16 bytes global -> shared, or 16 zero bytes when `full` is false
@@ -557,234 +572,386 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// dynamic shared memory: K tiles [2][VTILE][HD + KPAD] and V tiles
-// [2][VTILE][HD] bf16, the block's queries [R][HD] f32, the table row [nb]
-// N = 2 or 4 consecutive bf16 (4 or 8 bytes) as floats
 template <int N>
-__device__ __forceinline__ void load_row_part(const bf16* p, float* f) {
-  if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[e] = __bfloat162float(h[e]);
-  } else {
-    const unsigned u = *reinterpret_cast<const unsigned*>(p);
-    const bf16* h = reinterpret_cast<const bf16*>(&u);
-    f[0] = __bfloat162float(h[0]);
-    f[1] = __bfloat162float(h[1]);
-  }
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int HD>
-size_t verify_smem_bytes(int R, int nb) {
-  return (size_t)2 * VTILE * (HD + KPAD) * 2 + (size_t)2 * VTILE * HD * 2 +
-         (size_t)R * HD * 4 + (size_t)nb * 4;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// d += A·B, m16n8k16, bf16 in, f32 sums (A row-major, B column-major)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float vexp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (lo, hi) f32 -> the bf16x2 of their rounding, and of what it left out
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big, uint32_t& small) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  const float2 bf = __bfloat1622float2(b);
+  const __nv_bfloat162 s = __floats2bfloat162_rn(lo - bf.x, hi - bf.y);
+  big = *reinterpret_cast<const uint32_t*>(&b);
+  small = *reinterpret_cast<const uint32_t*>(&s);
+}
+
+// One block per (split, kv head · row group, row), the S splits of a (row,
+// kv head, row group) one cluster (see the header).
 template <int HD, bool PAGED>
-__global__ void __launch_bounds__(THREADS) verify_kernel(VerifyArgs a) {
-  constexpr int PER = HD / 32;      // output dims per lane
-  constexpr int KROW = HD + KPAD;   // 16-byte aligned: HD * 2 + 16 bytes
-  constexpr int CH = HD / 8;        // 16-byte chunks per K/V row
+__global__ void __launch_bounds__(VTHREADS, VBLOCKS_PER_SM) verify_kernel(VerifyArgs a) {
+  constexpr int KS = HD / 16;  // k16 slices of a query or key row
+  constexpr int NT = HD / 8;   // n8 tiles of an output row
+  using L = VerifySmem<HD>;
+  constexpr int KROW = L::KROW;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kt = reinterpret_cast<bf16*>(smem);
-  bf16* vt = kt + 2 * VTILE * KROW;
-  float* qs = reinterpret_cast<float*>(vt + 2 * VTILE * HD);
+  __shared__ float blk_m[VROWS], blk_l[VROWS];
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int H = a.H, KV = a.KV, Tq = a.Tq;
-  const int G = H / KV;
-  const int R = G * Tq;
-  int* tbl = reinterpret_cast<int*>(qs + R * HD);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();  // == blockIdx.x
+  const int kvh = blockIdx.y / a.n_rg;
+  const int rg = blockIdx.y % a.n_rg;
+  const int b = blockIdx.z;
+  const int KV = a.KV, Tq = a.Tq;
+  const int G = a.H / KV;
+  const int rows = min(VROWS, G * Tq - rg * VROWS);  // this block's query rows
+  // rows r = g * Tq + qi of this kv head are contiguous in q and out
+  const size_t qrow0 = ((size_t)b * a.H + (size_t)kvh * G) * Tq + (size_t)rg * VROWS;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int c2 = 2 * (lane % 4);
 
-  // rows r = g * Tq + qi of this kv head are contiguous in q and out
-  const size_t row0 = ((size_t)b * H + (size_t)kvh * G) * Tq;
-  for (int i = tid; i < R * HD; i += THREADS)
-    qs[i] = __bfloat162float(a.q[row0 * HD + i]);
-  if constexpr (PAGED) {
-    for (int i = tid; i < a.nb; i += THREADS)
-      tbl[i] = min(max(a.table[(size_t)b * a.nb + i], 0), a.N - 1);
-  }
-  __syncthreads();
-
+  // a key's slot; the table is read where a key is (a sentinel entry
+  // clamped to N - 1, as in K7)
   auto slot_index = [&](int t) -> size_t {
     if constexpr (PAGED) {
-      const int page = tbl[t / a.P];
+      const int page = min(max(__ldg(a.table + (size_t)b * a.nb + t / a.P), 0), a.N - 1);
       return ((size_t)page * KV + kvh) * a.P + (t % a.P);
     } else {
       return ((size_t)b * KV + kvh) * a.T + t;
     }
   };
 
+  // the row's keys [start, min(fill + Tq, t_max)) are cut into S ranges of
+  // whole VT-key tiles; this block takes range `split`, its warps the
+  // range's tiles round-robin
   const int t_max = PAGED ? a.nb * a.P : a.T;
   const int fill = a.fill[b];
-  // the row's keys [start, min(fill + Tq, t_max)) are split into S ranges of
-  // whole tiles; this block takes range blockIdx.z
   const int r0 = max(a.start[b], 0);
   const int r1 = max(min(fill + Tq, t_max), r0);
-  const int chunk = ((r1 - r0 + a.S - 1) / a.S + VTILE - 1) / VTILE * VTILE;
-  const int s0 = min(r0 + (int)blockIdx.z * chunk, r1);
+  const int chunk = ((r1 - r0 + a.S - 1) / a.S + VT - 1) / VT * VT;
+  const int s0 = min(r0 + split * chunk, r1);
   const int s1 = min(s0 + chunk, r1);  // one past the last key of this block
-  const int nrw = warp < R ? (R - warp + WARPS - 1) / WARPS : 0;  // warp-uniform
+  const int n_tiles = (s1 - s0 + VT - 1) / VT;
+  const int steps = n_tiles > warp ? (n_tiles - warp + VWARPS - 1) / VWARPS : 0;
 
-  float m[MAXRW], l[MAXRW], acc[MAXRW][PER];
-  int hi[MAXRW];
-#pragma unroll
-  for (int j = 0; j < MAXRW; ++j) {
-    const int r = warp + j * WARPS;
-    hi[j] = min(fill + r % Tq + 1, s1);
-    m[j] = NEG_INF;
-    l[j] = 0.f;
-#pragma unroll
-    for (int d = 0; d < PER; ++d) acc[j][d] = 0.f;
+  // the block's queries, once into shared memory (rows past the block's
+  // are zeros), read as m16k16 A fragments by ldmatrix at each tile: with
+  // P in two parts, registers do not hold them beside the O sums (at HD =
+  // 128 the fragments held in registers took the kernel to 255 registers
+  // and a spill). Each row's key bound: candidate qi reads keys below
+  // fill + qi + 1 (rows past the block's read none). Thread rows: 16·mt +
+  // 8·h + quad
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::RING);
+  for (int i = tid; i < VROWS * (HD / 8); i += VTHREADS) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    *reinterpret_cast<uint4*>(qs + r * KROW + c) =
+        r < rows ? __ldg(reinterpret_cast<const uint4*>(a.q + (qrow0 + r) * HD + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
   }
-
-  // keys past s1 are zero-filled: their scores are masked and their zero
-  // V rows add nothing, so every tile runs the full, unrolled 32-key loops
-  // (K rows padded by 16 bytes: the lanes' 16-byte reads do not collide)
-  auto load_tile = [&](int buf, int t0) {
-    for (int i = tid; i < VTILE * CH; i += THREADS) {
-      const int kk = i / CH, c = (i % CH) * 8;
-      const bool in = t0 + kk < s1;
-      const size_t si = in ? slot_index(t0 + kk) * HD + c : 0;
-      cp_async16(kt + ((size_t)buf * VTILE + kk) * KROW + c, a.k + si, in);
-      cp_async16(vt + ((size_t)buf * VTILE + kk) * HD + c, a.v + si, in);
+  int hi[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + 8 * h + quad;
+      const int qi = (rg * VROWS + r) % Tq;
+      hi[mt][h] = r < rows ? min(fill + qi + 1, s1) : -1;
     }
-    cp_async_commit();
+  }
+  __syncthreads();
+
+  // this warp's ring: step i of the warp reads tile warp + i·VWARPS; keys
+  // past s1 are zero-filled (their scores are masked, their zero V rows
+  // add nothing)
+  bf16* kring = reinterpret_cast<bf16*>(smem + warp * L::WARP);
+  bf16* vring = kring + VSTAGES * L::TILE;
+  auto load_step = [&](int i) {
+    if (i < steps) {
+      const int t0 = s0 + (warp + i * VWARPS) * VT;
+      const int buf = i % VSTAGES;
+#pragma unroll
+      for (int c = lane; c < VT * (HD / 8); c += 32) {
+        const int kk = c / (HD / 8), off = (c % (HD / 8)) * 8;
+        const bool in = t0 + kk < s1;
+        const size_t si = in ? slot_index(t0 + kk) * HD + off : 0;
+        cp_async16(kring + (buf * VT + kk) * KROW + off, a.k + si, in);
+        cp_async16(vring + (buf * VT + kk) * KROW + off, a.v + si, in);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count of groups in flight right
   };
 
-  int buf = 0;
-  if (s0 < s1) load_tile(0, s0);
-  for (int t0 = s0; t0 < s1; t0 += VTILE) {
-    if (t0 + VTILE < s1)
-      load_tile(buf ^ 1, t0 + VTILE);
-    else
-      cp_async_commit();  // an empty group keeps "all but the newest" right
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* kb = kt + (size_t)buf * VTILE * KROW;
-    const bf16* vb = vt + (size_t)buf * VTILE * HD;
-    const int key = t0 + lane;
+  float o[2][NT][4];
+  float m[2][2], l[2][2];  // running max (log2 units, the same in the quad), l share
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = NEG_INF_L2;
+      l[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
+  }
 
-    float s[MAXRW];
 #pragma unroll
-    for (int j = 0; j < MAXRW; ++j) s[j] = 0.f;
-    {
-      const bf16* krow = kb + lane * KROW;
+  for (int i = 0; i < VSTAGES - 1; ++i) load_step(i);
+  for (int i = 0; i < steps; ++i) {
+    load_step(i + VSTAGES - 1);
+    cp_async_wait<VSTAGES - 1>();
+    __syncwarp();
+    const bf16* kb = kring + (i % VSTAGES) * L::TILE;
+    const bf16* vb = vring + (i % VSTAGES) * L::TILE;
+    const int t0 = s0 + (warp + i * VWARPS) * VT;
+
+    // S = Q·Kᵀ over the tile's 16 keys (two n8 tiles)
+    float s[2][2][4];
 #pragma unroll
-      for (int c = 0; c < HD; c += 8) {
-        float kf[8];
-        load8(krow + c, kf);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < MAXRW; ++j) {
-          if (j < nrw) {
-            const float* qr = qs + (warp + j * WARPS) * HD + c;
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-            for (int e = 0; e < 8; ++e) s[j] += qr[e] * kf[e];
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kf[4];  // keys 0-7 and 8-15, depth 16kk + {0..7, 8..15}
+      ldmatrix_x4(kf, kb + ((lane / 16) * 8 + lane % 8) * KROW + 16 * kk + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t qf[4];  // rows 16mt + {0..7, 8..15}, depth 16kk + {0..7, 8..15}
+        ldmatrix_x4(qf, qs + (16 * mt + ((lane / 8) % 2) * 8 + lane % 8) * KROW + 16 * kk +
+                            (lane / 16) * 8);
+        mma16816(s[mt][0], qf, kf[0], kf[1]);
+        mma16816(s[mt][1], qf, kf[2], kf[3]);
+      }
+    }
+
+    // the online softmax on the fragments, each row at its own bound;
+    // P = exp2(S − m) is fed to P·V as two bf16 parts (its rounding and
+    // what the rounding left out): one bf16 P is off by up to 2^-9 of each
+    // term, more than one bf16 ulp of an output near cancellation
+    uint32_t pb[2][4], ps[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[mt][h];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = t0 + 8 * nt + c2 + e < hi[mt][h];
+            float& x = s[mt][nt][2 * h + e];
+            x = ok ? x * a.scale_l2 : NEG_INF_L2;
+            mx = fmaxf(mx, x);
           }
         }
-      }
-    }
-    float p[MAXRW];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = vexp2(m[mt][h] - mx);
+        m[mt][h] = mx;
+        float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < MAXRW; ++j) {
-      p[j] = 0.f;
-      if (j < nrw) {
-        const bool ok = key < hi[j];  // key >= s0 holds for every tile
-        const float sg = ok ? s[j] * a.scale : NEG_INF;
-        const float m_new = fmaxf(m[j], warp_max(sg));
-        const float alpha = __expf(m[j] - m_new);
-        p[j] = ok ? __expf(sg - m_new) : 0.f;
-        l[j] = alpha * l[j] + warp_sum(p[j]);
-        m[j] = m_new;
+        for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
-        for (int d = 0; d < PER; ++d) acc[j][d] *= alpha;
-      }
-    }
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = t0 + 8 * nt + c2 + e < hi[mt][h];
+            float& x = s[mt][nt][2 * h + e];
+            x = ok ? vexp2(x - mx) : 0.f;
+            sum += x;
+          }
+        }
+        l[mt][h] = alpha * l[mt][h] + sum;
 #pragma unroll
-    for (int jj = 0; jj < VTILE; ++jj) {
-      float vf[PER];
-      load_row_part<PER>(vb + jj * HD + lane * PER, vf);
-#pragma unroll
-      for (int j = 0; j < MAXRW; ++j) {
-        if (j < nrw) {
-          const float pj = __shfl_sync(0xffffffffu, p[j], jj);
-#pragma unroll
-          for (int d = 0; d < PER; ++d) acc[j][d] += pj * vf[d];
+        for (int nt = 0; nt < NT; ++nt) {
+          o[mt][nt][2 * h] *= alpha;
+          o[mt][nt][2 * h + 1] *= alpha;
         }
       }
+      // the m16n8 sums of S are the m16k16 A fragments of P
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_bf16(s[mt][nt][2 * h], s[mt][nt][2 * h + 1], pb[mt][2 * nt + h],
+                     ps[mt][2 * nt + h]);
+      }
     }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-    buf ^= 1;
-  }
 
+    // O += P·V, V read transposed by ldmatrix (two n8 tiles of HD a load)
 #pragma unroll
-  for (int j = 0; j < MAXRW; ++j) {
-    if (j < nrw) {
-      const int r = warp + j * WARPS;
-      float* e = a.part + ((((size_t)b * KV + kvh) * a.S + blockIdx.z) * R + r) * (HD + 2);
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t vf[4];  // keys 0-7 and 8-15 of columns 16np + {0..7}, then + {8..15}
+      ldmatrix_x4_trans(vf, vb + (((lane / 8) % 2) * 8 + lane % 8) * KROW + 16 * np + (lane / 16) * 8);
 #pragma unroll
-      for (int d = 0; d < PER; ++d) e[lane * PER + d] = acc[j][d];
-      if (lane == 0) {
-        e[HD] = m[j];
-        e[HD + 1] = l[j];
+      for (int mt = 0; mt < 2; ++mt) {
+        mma16816(o[mt][2 * np], pb[mt], vf[0], vf[1]);
+        mma16816(o[mt][2 * np], ps[mt], vf[0], vf[1]);
+        mma16816(o[mt][2 * np + 1], pb[mt], vf[2], vf[3]);
+        mma16816(o[mt][2 * np + 1], ps[mt], vf[2], vf[3]);
+      }
+    }
+    __syncwarp();  // every lane is done with this slot before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // the block's merge: each warp's (m, l, O) into shared memory (over its
+  // ring: every warp must be done with its loads first), then per (row,
+  // dim) over the warps in order; the block's O goes over warp 0's (each
+  // element is read and written by one thread), its m and l to blk_*
+  __syncthreads();
+  float* wO = reinterpret_cast<float*>(smem);   // [VWARPS][VROWS][HD]
+  float* wm = wO + VWARPS * VROWS * HD;          // [VWARPS][VROWS]
+  float* wl = wm + VWARPS * VROWS;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + 8 * h + quad;
+      float lr = l[mt][h];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        *reinterpret_cast<float2*>(wO + (warp * VROWS + r) * HD + 8 * nt + c2) =
+            make_float2(o[mt][nt][2 * h], o[mt][nt][2 * h + 1]);
+      }
+      if (c2 == 0) {
+        wm[warp * VROWS + r] = m[mt][h];
+        wl[warp * VROWS + r] = lr;
       }
     }
   }
+  __syncthreads();
+  for (int i = tid; i < rows * HD; i += VTHREADS) {
+    const int r = i / HD;
+    float mx = NEG_INF_L2;
+#pragma unroll
+    for (int w = 0; w < VWARPS; ++w) mx = fmaxf(mx, wm[w * VROWS + r]);
+    float lsum = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < VWARPS; ++w) {
+      const float f = vexp2(wm[w * VROWS + r] - mx);
+      lsum += wl[w * VROWS + r] * f;
+      acc += wO[w * VROWS * HD + i] * f;
+    }
+    wO[i] = acc;
+    if (i % HD == 0) {
+      blk_m[r] = mx;
+      blk_l[r] = lsum;
+    }
+  }
+
+  // the cluster's S states, merged by rank 0 in split order through
+  // distributed shared memory; a second cluster.sync() keeps each peer's
+  // shared memory alive until rank 0 has read it
+  cluster.sync();
+  if (split == 0) {
+    for (int i = tid; i < rows * HD; i += VTHREADS) {
+      const int r = i / HD;
+      float mr[VMAX_SPLITS];
+      float mx = NEG_INF_L2;
+#pragma unroll
+      for (int z = 0; z < VMAX_SPLITS; ++z) {
+        if (z < a.S) {
+          mr[z] = *cluster.map_shared_rank(&blk_m[r], z);
+          mx = fmaxf(mx, mr[z]);
+        }
+      }
+      float lsum = 0.f, acc = 0.f;
+#pragma unroll
+      for (int z = 0; z < VMAX_SPLITS; ++z) {
+        if (z < a.S) {
+          const float f = vexp2(mr[z] - mx);
+          lsum += *cluster.map_shared_rank(&blk_l[r], z) * f;
+          acc += *cluster.map_shared_rank(wO + i, z) * f;
+        }
+      }
+      a.out[qrow0 * HD + i] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+    }
+  }
+  cluster.sync();
 }
 
-// the S partial softmax states of row r -> its output: one block of HD
-// threads per (row, kv head, batch row), one output dim per thread
-template <int HD>
-__global__ void __launch_bounds__(HD) verify_merge_kernel(VerifyArgs a) {
-  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int d = threadIdx.x;
-  const int G = a.H / a.KV;
-  const int R = G * a.Tq;
-  const size_t row0 = ((size_t)b * a.H + (size_t)kvh * G) * a.Tq;
-  const float* pb = a.part + (((size_t)b * a.KV + kvh) * a.S * R + r) * (HD + 2);
-  const size_t stride = (size_t)R * (HD + 2);  // from one split to the next
-  float mx = NEG_INF;
-  for (int s = 0; s < a.S; ++s) mx = fmaxf(mx, pb[s * stride + HD]);
-  float lsum = 0.f, o = 0.f;
-  for (int s = 0; s < a.S; ++s) {
-    const float f = __expf(pb[s * stride + HD] - mx);
-    lsum += pb[s * stride + HD + 1] * f;
-    o += pb[s * stride + d] * f;
-  }
-  a.out[(row0 + r) * HD + d] = __float2bfloat16(o / fmaxf(lsum, 1e-30f));
+// S, the key-range splits of each (row, kv head): the most that fit one
+// wave of VSPLIT_BLOCKS_PER_SM blocks on every SM, at most VMAX_SPLITS; a
+// function of (B, KV, SMs) only (ops/decode_attention.py
+// `verify_split_count` is the same rule), so K6 and K9 split alike. One
+// block an SM, not the two that fit: `kernel_ab.py --ablate K6` read it 5%
+// faster at B = 64 (S = 1), 32% at B = 32 and 43% at B = 16, and K9 38%
+// faster at B = 32 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+int verify_split_count(int B, int KV, int sms) {
+  return std::max(1, std::min(VMAX_SPLITS, VSPLIT_BLOCKS_PER_SM * sms / (B * KV)));
 }
 
 template <int HD, bool PAGED>
 int launch_verify_hd(const VerifyArgs& a, int B, cudaStream_t s) {
-  const size_t bytes = verify_smem_bytes<HD>(a.H / a.KV * a.Tq, PAGED ? a.nb : 0);
+  const int bytes = VerifySmem<HD>::BYTES;
   const cudaError_t e = cudaFuncSetAttribute(
-      verify_kernel<HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      verify_kernel<HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  verify_kernel<HD, PAGED><<<dim3(a.KV, B, a.S), THREADS, bytes, s>>>(a);
-  const cudaError_t e1 = cudaGetLastError();
-  if (e1 != cudaSuccess) return (int)e1;
-  verify_merge_kernel<HD><<<dim3(a.H / a.KV * a.Tq, a.KV, B), HD, 0, s>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.S, a.KV * a.n_rg, B);
+  cfg.blockDim = dim3(VTHREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, verify_kernel<HD, PAGED>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <bool PAGED>
 int launch_verify(VerifyArgs a, int B, int HD, void* stream) {
-  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG ||
-      a.Tq < 1 || a.Tq > MAXTQ || (a.H / a.KV) * a.Tq > MAXR || a.S < 1 ||
-      a.S > MAXS || a.part == nullptr)
+  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG || a.Tq < 1 ||
+      a.Tq > MAXTQ)
     return (int)cudaErrorInvalidValue;
   if (PAGED && (a.P <= 0 || a.N <= 0 || a.nb <= 0 || a.nb > MAX_NB))
     return (int)cudaErrorInvalidValue;
-  a.scale = (float)(1.0 / sqrt((double)HD));
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  a.S = verify_split_count(B, a.KV, sms);
+  a.n_rg = (a.H / a.KV * a.Tq + VROWS - 1) / VROWS;
+  a.scale_l2 = (float)(1.4426950408889634 / sqrt((double)HD));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (HD == 128) return launch_verify_hd<128, PAGED>(a, B, s);
   if (HD == 64) return launch_verify_hd<64, PAGED>(a, B, s);
@@ -872,17 +1039,22 @@ extern "C" int decode_split_count(int B, int KV) {
   return split_count(B, KV, sms);
 }
 
+// S, the key-range splits (cluster size) the two verify entries use for a
+// batch of B rows of KV kv heads on the current device; < 0 on error.
+extern "C" int decode_verify_split_count(int B, int KV) {
+  const int sms = sm_count();
+  if (B <= 0 || KV <= 0 || sms <= 0) return -1;
+  return verify_split_count(B, KV, sms);
+}
+
 // K6. q [B, H, Tq, HD], k/v cache [B, KV, T, HD] bf16, start/fill [B] int32
 // (candidate qi attends to [start, fill + qi + 1)); out [B, H, Tq, HD] bf16.
-// Tq <= 8 and (H / KV) * Tq <= 64. Each row's keys are split over S <= 16
-// blocks; `part` is f32 scratch of B * KV * S * R * (HD + 2) floats
-// (R = H / KV * Tq) and a second kernel merges the partial states (at S = 1
-// the merge divides by the one split's sum, as a direct write would).
+// Tq <= 8, H / KV <= 8. Each row's keys are split over the S blocks of a
+// cluster (S = decode_verify_split_count(B, KV)), merged by its rank 0.
 extern "C" int decode_verify_attention_bf16(const void* q, const void* kc,
                                             const void* vc, const void* start,
-                                            const void* fill, void* out,
-                                            void* part, int B, int H, int KV,
-                                            int T, int Tq, int S, int HD,
+                                            const void* fill, void* out, int B,
+                                            int H, int KV, int T, int Tq, int HD,
                                             void* stream) {
   VerifyArgs a{};
   a.q = static_cast<const bf16*>(q);
@@ -891,8 +1063,7 @@ extern "C" int decode_verify_attention_bf16(const void* q, const void* kc,
   a.start = static_cast<const int*>(start);
   a.fill = static_cast<const int*>(fill);
   a.out = static_cast<bf16*>(out);
-  a.part = static_cast<float*>(part);
-  a.H = H; a.KV = KV; a.T = T; a.Tq = Tq; a.S = S;
+  a.H = H; a.KV = KV; a.T = T; a.Tq = Tq;
   return launch_verify<false>(a, B, HD, stream);
 }
 
@@ -900,8 +1071,8 @@ extern "C" int decode_verify_attention_bf16(const void* q, const void* kc,
 // [0, nb * P).
 extern "C" int paged_decode_verify_attention_bf16(
     const void* q, const void* kp, const void* vp, const void* table,
-    const void* start, const void* fill, void* out, void* part, int B, int H,
-    int KV, int N, int P, int nb, int Tq, int S, int HD, void* stream) {
+    const void* start, const void* fill, void* out, int B, int H, int KV, int N,
+    int P, int nb, int Tq, int HD, void* stream) {
   VerifyArgs a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(kp);
@@ -910,7 +1081,6 @@ extern "C" int paged_decode_verify_attention_bf16(
   a.start = static_cast<const int*>(start);
   a.fill = static_cast<const int*>(fill);
   a.out = static_cast<bf16*>(out);
-  a.part = static_cast<float*>(part);
-  a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb; a.Tq = Tq; a.S = S;
+  a.H = H; a.KV = KV; a.N = N; a.P = P; a.nb = nb; a.Tq = Tq;
   return launch_verify<true>(a, B, HD, stream);
 }

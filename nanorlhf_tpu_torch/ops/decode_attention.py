@@ -37,6 +37,14 @@ candidates' K/V already written at [fill, fill + Tq)):
   table as K7; the key range is clamped to the table (nb·P), as the
   gathered view of the plain version is.
 
+The two verify kernels are one body on the tensor cores: each row's key
+range is cut into S ranges of whole VERIFY_TILE-key tiles (`verify_split_
+bounds`), one block each, whose VERIFY_WARPS warps take the range's tiles
+round-robin; the warps' and then the S blocks' partial softmax states merge
+in one launch (a thread-block cluster). S depends on (B, KV, SMs) only
+(`verify_split_count`), so K6 and K9 split alike;
+`decode_verify_split_reference` is the decomposition's plain version.
+
 The int8 cache has no verify kernel, in JAX as here: the model dequantizes
 and runs the plain masked contraction (`core/model.py`).
 """
@@ -44,7 +52,6 @@ and runs the plain masked contraction (`core/model.py`).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -64,19 +71,26 @@ _DECODE_ARGS = [_P] * 6 + [_I] * 5 + [_P]
 _PAGED_ARGS = [_P] * 7 + [_I] * 7 + [_P]
 _Q8_ARGS = [_P] * 8 + [_I] * 5 + [_P]
 _PAGED_Q8_ARGS = [_P] * 9 + [_I] * 7 + [_P]
-_VERIFY_ARGS = [_P] * 7 + [_I] * 7 + [_P]
-_PAGED_VERIFY_ARGS = [_P] * 8 + [_I] * 9 + [_P]
+_VERIFY_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_PAGED_VERIFY_ARGS = [_P] * 7 + [_I] * 8 + [_P]
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_GROUP = 8
 _KERNEL_MAX_BLOCKS = 1024  # block-table entries per row the kernel keeps
 _KERNEL_MAX_TQ = 8         # verify candidates per head (spec_k <= 7)
-_KERNEL_MAX_SPLITS = 16    # verify key-range splits per (row, kv head)
 # the decode kernels' split (csrc/decode_attention.cu MAX_SPLITS,
 # DECODE_BLOCKS_PER_SM): at most the portable cluster size, and enough
 # blocks for one wave of three a SM
 DECODE_MAX_SPLITS = 8
 DECODE_BLOCKS_PER_SM = 3
 DECODE_TILE = 32           # keys of a tile; a split range is whole tiles
+# the verify kernels' split (csrc/decode_attention.cu VMAX_SPLITS,
+# VSPLIT_BLOCKS_PER_SM, VT, VWARPS): at most the portable cluster size, and
+# at most one wave of one block a SM; ranges of whole 16-key tiles, which the
+# block's 4 warps take round-robin
+VERIFY_MAX_SPLITS = 8
+VERIFY_BLOCKS_PER_SM = 1
+VERIFY_TILE = 16
+VERIFY_WARPS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +186,84 @@ def decode_attention_split_reference(q, k_cache, v_cache, start, filled, S: int)
         acc = acc + az * f[..., None]
     out = acc / l.clamp(min=1e-30)[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def verify_split_count(B: int, KV: int, sms: int) -> int:
+    """S, the key-range splits of each (row, kv head) in the verify kernels
+    (K6, K9): the most that fit one wave of VERIFY_BLOCKS_PER_SM blocks on
+    each of `sms` SMs, within [1, VERIFY_MAX_SPLITS]. It depends on the
+    shape alone, so K6 and K9 split alike (`csrc/decode_attention.cu`
+    `verify_split_count`)."""
+    return max(1, min(VERIFY_MAX_SPLITS, VERIFY_BLOCKS_PER_SM * sms // (B * KV)))
+
+
+def verify_split_bounds(start, fill, Tq: int, t_max: int, S: int):
+    """The verify kernels' ranges: row b's keys [max(start, 0),
+    min(fill + Tq, t_max)) cut into S ranges of whole VERIFY_TILE-key tiles
+    counted from its start. Returns (lo, hi), [S, B] int64."""
+    s0 = start.long().clamp(min=0)
+    s1 = torch.maximum((fill.long() + Tq).clamp(max=t_max), s0)
+    chunk = (s1 - s0 + S - 1) // S
+    chunk = (chunk + VERIFY_TILE - 1) // VERIFY_TILE * VERIFY_TILE
+    z = torch.arange(S, device=s0.device)[:, None]
+    lo = torch.minimum(s0 + z * chunk, s1)
+    return lo, torch.minimum(lo + chunk, s1)
+
+
+def decode_verify_split_reference(q, k_cache, v_cache, start, fill, S: int):
+    """Plain version of the verify kernels' decomposition: each row's keys
+    cut into S ranges (`verify_split_bounds`), a range's VERIFY_TILE-key
+    tiles dealt round-robin to VERIFY_WARPS warps; one partial softmax state
+    (m, l, acc) per (range, warp) in f32, each query row masked at its own
+    bound fill + qi + 1; the warps' states merged in warp order into the
+    range's, the ranges' in split order, as the kernels' blocks and their
+    cluster merge them. An empty window returns zeros, as the kernels do
+    (the XLA oracle averages instead). q: [B, H, Tq, hd]; k/v: [B, KV, T,
+    hd]; the paged cache goes through `_gather_pool` first
+    (`paged_decode_verify_split_reference`). Returns [B, H, Tq, hd] in q's
+    dtype."""
+    B, H, Tq, hd = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, Tq, hd)
+    vf = v_cache.float()
+    s = torch.einsum("bkgqh,bkth->bkgqt", qf, k_cache.float()) / math.sqrt(hd)
+    pos = torch.arange(T, device=q.device)
+    qi = torch.arange(Tq, device=q.device)
+    below = pos[None, None, :] < fill.long()[:, None, None] + qi[None, :, None] + 1
+    below = below[:, None, None]                                   # [B, 1, 1, Tq, T]
+
+    def state(inside):                                             # inside: [B, T]
+        keep = inside[:, None, None, None, :] & below
+        m = torch.where(keep, s, torch.full_like(s, NEG_INF)).amax(-1)
+        p = torch.where(keep, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        return m, p.sum(-1), torch.einsum("bkgqt,bkth->bkgqh", p, vf)
+
+    def merge(parts):
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        l, acc = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+        for m, lz, az in parts:
+            f = torch.exp(m - mx)
+            l, acc = l + lz * f, acc + az * f[..., None]
+        return mx, l, acc
+
+    splits = []
+    for lo, hi in zip(*verify_split_bounds(start, fill, Tq, T, S)):
+        in_range = (pos >= lo[:, None]) & (pos < hi[:, None])
+        warp = (pos[None, :] - lo[:, None]) // VERIFY_TILE % VERIFY_WARPS
+        splits.append(merge([state(in_range & (warp == w)) for w in range(VERIFY_WARPS)]))
+    _, l, acc = merge(splits)
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, Tq, hd).to(q.dtype)
+
+
+def paged_decode_verify_split_reference(q, k_pool, v_pool, table, start, fill,
+                                        S: int):
+    """`decode_verify_split_reference` over pages: gather to the
+    row-contiguous view [B, KV, nb·P, hd] (the kernel's key range is
+    clamped to the table, as that view ends at nb·P)."""
+    return decode_verify_split_reference(
+        q, _gather_pool(k_pool, table), _gather_pool(v_pool, table), start, fill, S)
 
 
 def _gather_pool(pool, table):
@@ -395,11 +487,6 @@ def paged_decode_attention_q8(q, kq_pool, ks_pool, vq_pool, vs_pool, table,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def decode_split_count_on_card(B: int, KV: int) -> int:
     """The S the decode kernels' C entries compute for B rows of KV kv
     heads on the current CUDA device (their own copy of
@@ -410,19 +497,14 @@ def decode_split_count_on_card(B: int, KV: int) -> int:
     return S
 
 
-def verify_split_count(B: int, KV: int, device_index: int) -> int:
-    """The S blocks each row's key range is split over, so that the B·KV·S
-    blocks make about four waves of two blocks per SM (S depends on the
-    shape only, so K6 and K9 split alike)."""
-    return max(1, min(_KERNEL_MAX_SPLITS, 8 * _sm_count(device_index) // (B * KV)))
-
-
-def _verify_splits(q, B: int, KV: int) -> tuple[int, torch.Tensor]:
-    """(S, scratch): the split count and the f32 scratch for the partial
-    softmax states [B, KV, S, R, hd + 2], merged by a second kernel."""
-    _, H, Tq, hd = q.shape
-    S = verify_split_count(B, KV, q.device.index)
-    return S, q.new_empty((B, KV, S, H // KV * Tq, hd + 2), dtype=torch.float32)
+def verify_split_count_on_card(B: int, KV: int) -> int:
+    """The S the verify kernels' C entries compute for B rows of KV kv
+    heads on the current CUDA device (their own copy of
+    `verify_split_count`'s rule; `chip_smoke.py` holds the two equal)."""
+    S = _VERIFY.function("decode_verify_split_count", [_I, _I])(B, KV)
+    if S < 1:
+        raise RuntimeError(f"decode_verify_split_count({B}, {KV}) failed: {S}")
+    return S
 
 
 def _check_verify_query(q, KV: int):
@@ -457,11 +539,10 @@ def decode_verify_attention(q, k_cache, v_cache, start, fill):
         raise ValueError("k/v cache shapes differ")
     start, fill = _bounds(q, B, start, fill)
     out = torch.empty_like(q)
-    S, part = _verify_splits(q, B, KV)
     _VERIFY.launch(
         "decode_verify_attention_bf16", _VERIFY_ARGS,
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(start), ptr(fill), ptr(out),
-        ptr(part), B, H, KV, k_cache.shape[2], Tq, S, hd, cuda_stream(q.device),
+        B, H, KV, k_cache.shape[2], Tq, hd, cuda_stream(q.device),
     )
     return out
 
@@ -486,11 +567,9 @@ def paged_decode_verify_attention(q, k_pool, v_pool, table, start, fill):
     table = _check_table(table, q, B, N)
     start, fill = _bounds(q, B, start, fill)
     out = torch.empty_like(q)
-    S, part = _verify_splits(q, B, KV)
     _PAGED_VERIFY.launch(
         "paged_decode_verify_attention_bf16", _PAGED_VERIFY_ARGS,
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(start), ptr(fill),
-        ptr(out), ptr(part), B, H, KV, N, P, table.shape[1], Tq, S, hd,
-        cuda_stream(q.device),
+        ptr(out), B, H, KV, N, P, table.shape[1], Tq, hd, cuda_stream(q.device),
     )
     return out

@@ -10,6 +10,12 @@ Per-token `log softmax(hidden @ W / T)[labels]` (+ entropy) without the
 - `fused_logprob_chunked` is its plain PyTorch version, the JAX lax path:
   row chunks of `fused_chunk_rows` each recompute a [chunk, V] logits block
   and reduce it with the same helpers as the naive path.
+- `fused_logprob_split_reference` is the plain version of the kernel's
+  decomposition: per vocab split, the online (m, l, g, u) state over whole
+  vocab tiles, then the merge. `fused_logprob_split_count` is the plain
+  version of the split rule, a function of (R, V, SMs) only; the kernel's
+  C entry computes the splits itself (`fused_logprob_split_count_on_card`
+  reads them, and sizes the partial states the wrapper passes in).
 - `fused_logprob_reference` is the naive full-logits oracle.
 
 `fused_logprob(..., impl=)` routes: "auto" → the kernel for CUDA tensors and
@@ -31,6 +37,7 @@ dW += dzᵀ·h straight in the weight's own orientation ([V, D] when
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -49,10 +56,11 @@ NEG_INF = -1e30
 _FUSED_BYTES_BUDGET = 256 * 1024**2
 
 _FUSED = KERNELS["fused_logprob"]
-_FUSED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_FUSED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
                + [ctypes.c_void_p])
-_KERNEL_BLOCK_ROWS = 128
-_KERNEL_BLOCK_VOCAB = 128
+# the kernel's tile (csrc/fused_logprob.cu BM, BN, BK)
+KERNEL_BLOCK_ROWS = 128
+KERNEL_BLOCK_VOCAB = 256
 _KERNEL_DEPTH_STEP = 64
 
 
@@ -108,13 +116,80 @@ def fused_logprob_chunked(hidden, unembed, labels, temperature, chunk: int,
     return tuple(torch.cat(cols) for cols in zip(*outs))
 
 
-def _kernel_splits(R: int, V: int, device) -> int:
-    """Vocab splits per row tile: enough blocks for ~8 per SM, never more
-    splits than vocab tiles."""
-    n_rt = -(-R // _KERNEL_BLOCK_ROWS)
-    n_vt = -(-V // _KERNEL_BLOCK_VOCAB)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_vt, -(-8 * sms // n_rt)))
+@functools.lru_cache(maxsize=None)
+def fused_logprob_split_count(R: int, V: int, sms: int) -> int:
+    """The kernel's vocab splits for R rows over a vocab of V on a card of
+    `sms` SMs: each of the ceil(R / 128) row tiles walks the ceil(V / 256)
+    vocab tiles in `splits` ranges of whole tiles, one block of one SM
+    each. The count whose waves make the shortest schedule, in tile units
+    with a block's fixed cost taken as 1/8 of a tile; the fewest splits
+    among equals (so no split is left empty). A function of the shape and
+    the SM count only (`csrc/fused_logprob.cu` `split_count`)."""
+    n_rt = -(-R // KERNEL_BLOCK_ROWS)
+    n_vt = -(-V // KERNEL_BLOCK_VOCAB)
+    best, best_cost = 1, None
+    for s in range(1, n_vt + 1):
+        cost = -(-n_rt * s // sms) * (8 * -(-n_vt // s) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def fused_logprob_split_count_on_card(R: int, V: int) -> int:
+    """The splits the kernel's C entry computes for R rows over V on the
+    current CUDA device, which size its partial states (the C copy of
+    `fused_logprob_split_count`'s rule; `chip_smoke.py` holds the two
+    equal)."""
+    splits = _FUSED.function("fused_logprob_split_count", [ctypes.c_int] * 2)(R, V)
+    if splits < 1:
+        raise RuntimeError(f"fused_logprob_split_count({R}, {V}) failed: {splits}")
+    return splits
+
+
+def fused_logprob_split_reference(hidden, unembed, labels, temperature: float,
+                                  splits: int, block_v: int = KERNEL_BLOCK_VOCAB,
+                                  with_entropy: bool = False,
+                                  transposed: bool = False):
+    """Plain version of the kernel's decomposition over 2-D rows: the vocab
+    is cut into tiles of `block_v` columns and split s takes tiles
+    [s·c, (s+1)·c) with c = ceil(n_tiles / splits) (a split past the last
+    tile is empty). Each split folds its tiles in order into a per-row
+    online state (m, l, g, u): m the running max of z = h·W / T, l = Σ
+    exp(z − m), g the label's logit, u = Σ exp(z − m)·z; the states then
+    merge as the kernel's merge pass does (M = max m_s, L = Σ l_s·e^{m_s−M},
+    U likewise, G = Σ g_s). Returns `(lp [R] f32, ent [R] f32 | None)`."""
+    t = guard_temperature(temperature)
+    R = hidden.shape[0]
+    V = unembed.shape[0] if transposed else unembed.shape[1]
+    n_vt = -(-V // block_v)
+    per = -(-n_vt // splits)
+    lab = labels.long()
+    rows = torch.arange(R, device=hidden.device)
+    zeros = torch.zeros(R, dtype=torch.float32, device=hidden.device)
+    states = []
+    for s in range(splits):
+        m, l, g, u = torch.full_like(zeros, NEG_INF), zeros, zeros, zeros
+        for vt in range(s * per, min(n_vt, (s + 1) * per)):
+            v0, v1 = vt * block_v, min(V, (vt + 1) * block_v)
+            w = unembed[v0:v1].t() if transposed else unembed[:, v0:v1]
+            z = (hidden @ w).float() / t                     # [R, cols]
+            hit = (lab >= v0) & (lab < v1)
+            g = g + torch.where(hit, z[rows, (lab - v0).clamp(0, v1 - v0 - 1)], zeros)
+            m_new = torch.maximum(m, z.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(z - m_new[:, None])
+            l = l * alpha + p.sum(-1)
+            u = u * alpha + (p * z).sum(-1)
+            m = m_new
+        states.append((m, l, g, u))
+    M = torch.stack([st[0] for st in states]).amax(0)
+    L, G, U = zeros, zeros, zeros
+    for m, l, g, u in states:
+        f = torch.exp(m - M)
+        L, G, U = L + l * f, G + g, U + u * f
+    L = L.clamp(min=1e-30)
+    lse = M + torch.log(L)
+    return G - lse, (lse - U / L if with_entropy else None)
 
 
 def fused_logprob_kernel(hidden, unembed, labels, temperature: float = 1.0,
@@ -143,7 +218,7 @@ def fused_logprob_kernel(hidden, unembed, labels, temperature: float = 1.0,
         if t.device != hidden.device:
             raise ValueError(f"{name} is on {t.device}, hidden on {hidden.device}")
     labels = labels.to(device=hidden.device, dtype=torch.int32).contiguous()
-    splits = _kernel_splits(R, V, hidden.device)
+    splits = fused_logprob_split_count_on_card(R, V)
     part = torch.empty((splits, R, 4), dtype=torch.float32, device=hidden.device)
     lp = torch.empty((R,), dtype=torch.float32, device=hidden.device)
     ent = (torch.empty((R,), dtype=torch.float32, device=hidden.device)
@@ -152,7 +227,7 @@ def fused_logprob_kernel(hidden, unembed, labels, temperature: float = 1.0,
         "fused_logprob_bf16", _FUSED_ARGS,
         ptr(hidden), ptr(unembed), ptr(labels), ptr(part), ptr(lp),
         ctypes.c_void_p(ent.data_ptr() if ent is not None else None),
-        R, D, V, int(bool(transposed)), splits,
+        R, D, V, int(bool(transposed)),
         1.0 / guard_temperature(temperature), cuda_stream(hidden.device),
     )
     return lp, ent

@@ -26,7 +26,7 @@ def _paths():
 
 
 def test_flash_sources_include_the_shared_header():
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob"):
         closure = _build.source_closure(_build.KERNELS[name].source)
         assert [p.name for p in closure][1:] == ["hopper_ptx.cuh"], name
     assert [p.name for p in _build.source_closure(_build.KERNELS["decode_attention"].source)] \
@@ -38,7 +38,7 @@ def test_header_edit_changes_the_library_path(csrc_copy):
     header = csrc_copy / "hopper_ptx.cuh"
     header.write_text(header.read_text() + "\n// an edit\n")
     after = _paths()
-    includers = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    includers = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob"}
     for name in before:
         assert (after[name] != before[name]) == (name in includers), name
     # kernels of one source share one library
@@ -63,7 +63,7 @@ def test_nested_includes_are_hashed_and_foreign_headers_are_not(csrc_copy):
     src.write_text('#include "outer.cuh"\n#include <cuda_runtime.h>\n' + src.read_text())
     k = _build.Kernel("fused_logprob", "x")
     assert [p.name for p in _build.source_closure(k.source)] == [
-        "fused_logprob.cu", "outer.cuh", "inner.cuh"]
+        "fused_logprob.cu", "outer.cuh", "hopper_ptx.cuh", "inner.cuh"]
     first = k.library_path()
     (csrc_copy / "unused.cuh").write_text("#pragma once\n// changed\n")
     assert k.library_path() == first
