@@ -10,6 +10,8 @@ toolkit:
                                           # (or K4's, K6's, K10's) phase-2 holds
     python3 chip_smoke.py --plant-faults  # each fault of FAULTS in a copy of
                                           # the port must fail its hold
+    python3 chip_smoke.py --graph-loops   # build, then only phase 8 and the
+                                          # eager-vs-replay decode profile
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -56,8 +58,13 @@ Phases (any failure exits non-zero):
      logprobs of the expected shape, policy == ref at the zero-init LoRA,
      and — on a small input (2 layers at full width, teacher-forced
      prefill/decode, then scoring) — the kernel route no less accurate than
-     the plain route against the plain route in f32. Last, a profile of a
-     few decode steps (device busy vs wall);
+     the plain route against the plain route in f32. Last, a profile of one
+     chunk of the decode loop's body (device busy vs wall, launches a step),
+     run eagerly with a host check a step and as a CUDA-graph replay. Every
+     decode loop of phases 3–7 runs as the rollout does by default: CUDA-graph
+     replays of `sync_every` iterations after an eager first chunk, so a
+     decode kernel's launches are L × graph_steps_run (a chunk's
+     predicated-off tail included);
   4. one GRPO update — `entrypoints/common.build_trainer` +
      `RLTrainer.train(num_updates=1)` on the launcher's config with the
      one-card cut (`entrypoints/grpo.one_card_cut`: 16 prompts × 4 samples,
@@ -75,8 +82,8 @@ Phases (any failure exits non-zero):
   5. one GRPO update over continuous batching — the same, with
      rollout_page_size=128 and rollout_decode_rows=32 (32 of the 64 rows
      resident, the rest admitted mid-loop into recycled pages), at most
-     512 tokens (a cut, printed): K7 launched once per layer and executed
-     decode step, K4 never, one flash forward per layer for the bootstrap
+     512 tokens (a cut, printed): K7 launched once per layer and iteration
+     of the session's chunks, K4 never, one flash forward per layer for the bootstrap
      prefill and each admission; the pool statistics and metrics rows; then, at full
      width on the 2-layer model, a queue whose rows stop at staggered
      lengths: the queued greedy rows against the contiguous ones, in fewer
@@ -99,7 +106,13 @@ Phases (any failure exits non-zero):
      the top-2 logit margin there; (d) a short int8 + speculative rollout.
      The verify shapes (a) and (b) gave the kernels, the flash backward
      shapes of phase 4's and (a)'s updates and the flash forward shapes of
-     phase 4 are recorded and must be those phase 2 held and timed.
+     phase 4 are recorded and must be those phase 2 held and timed;
+  8. the compiled decode loop — each loop (contiguous, paged, int8, int8
+     paged, speculative on both layouts, queued and queued speculative) at
+     16 rows on the full-depth model, greedy, run by the per-step body and
+     by graph replay: tokens and counters equal row for row, the loop
+     kernel's launches L × graph_steps_run with L × sync_every × replays
+     from replays; sampled streams from one seed compared (printed).
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -1362,6 +1375,20 @@ def check_edges(torch) -> None:
 # phase 3: the rollout-and-score path
 # --------------------------------------------------------------------------
 
+def check_graph_steps(what: str, timings: dict, monolithic: bool = True) -> None:
+    """The decode loop ran as graph replays: at least one replay, and on a
+    monolithic call fewer than `sync_every` predicated-off iterations
+    (graph_steps_run - decode_steps)."""
+    from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY
+
+    run, steps = timings["graph_steps_run"], timings["decode_steps"]
+    if timings["graph_replays"] <= 0:
+        fail(f"{what}: the decode loop replayed no CUDA graph ({timings})")
+    if monolithic and not 0 <= run - steps < SYNC_EVERY:
+        fail(f"{what}: graph_steps_run {run} - decode_steps {steps} not in "
+             f"[0, {SYNC_EVERY})")
+
+
 def end_to_end(torch, max_tokens: int) -> tuple[dict, dict]:
     from nanorlhf_tpu_torch import _build
     from nanorlhf_tpu_torch.entrypoints.common import run_rollout
@@ -1392,7 +1419,11 @@ def end_to_end(torch, max_tokens: int) -> tuple[dict, dict]:
         f"KV={mcfg.num_key_value_heads} V={mcfg.vocab_size} "
         f"attention_impl={mcfg.attention_impl} LoRA r={cfg.lora_r} alpha={cfg.lora_alpha}")
     log(f"  prompt width {ctx}, sampled {decode_rows} x {resp}, kept and scored "
-        f"{rows}, decode steps {timings['decode_steps']}")
+        f"{rows}, decode steps {timings['decode_steps']}, graph steps run "
+        f"{timings['graph_steps_run']} ({timings['graph_replays']} replays, capture "
+        f"{timings['graph_capture_s'] * 1e3:.1f} ms, graph pool "
+        f"{timings['graph_pool_bytes'] / 1e9:.3f} GB)")
+    check_graph_steps("phase 3", timings)
     log(f"  launches: {counts}")
     log(f"  prefill_ms={timings['prefill_s'] * 1e3:.3f} "
         f"decode_tokens_per_s={decode_rows * timings['decode_steps'] / timings['decode_s']:.2f} "
@@ -1407,7 +1438,7 @@ def end_to_end(torch, max_tokens: int) -> tuple[dict, dict]:
     n_chunks = math.ceil(rows / min(rows, chunk_rows))
     expected = {
         "flash_fwd": L * (1 + 2 * n_chunks),        # prefill + policy/ref scoring
-        "decode_attention": L * timings["decode_steps"],
+        "decode_attention": L * timings["graph_steps_run"],
         "fused_logprob": 2 * n_chunks,              # policy + ref
     }
     for name, want in expected.items():
@@ -1437,59 +1468,110 @@ def end_to_end(torch, max_tokens: int) -> tuple[dict, dict]:
     # attention scores of std ~50, so two bf16 routes through its 28 layers
     # diverge chaotically; the routes are compared on a well-scaled input
     small_reference(torch, mcfg, cfg, out["queries"], out["tokenizer"].pad_token_id)
-    decode_profile(torch, out, cfg, decode_rows)
+    decode_profile(torch, mcfg, out["params"], out["lora_scale"],
+                   dict(temperature=cfg.temperature, top_p=cfg.top_p, greedy=False,
+                        top_k=cfg.rollout_top_k, approx_top_k=cfg.rollout_approx_top_k),
+                   decode_rows, ctx + resp)
     return counts, timings
 
 
-def decode_profile(torch, out, cfg, rows: int, steps: int = 3) -> None:
-    """Where a decode step's time goes: torch.profiler over a few decode
-    steps of the rollout's model at its batch (`rows` = prompts × samples)
-    with the cache half full — device busy time (sum of kernel times)
-    against the wall time, and the largest kernels."""
+def decode_profile(torch, mcfg, params, lora_scale, sampling: dict, rows: int,
+                   T: int) -> None:
+    """Where a decode step's time goes, eager against graph replay:
+    torch.profiler over one chunk of `sync_every` iterations of the
+    monolithic loop's body (`sampler._decode_body`, sampling included) at
+    `rows` rows with the cache half full, run eagerly with the per-step
+    loop's host check after each step, and over one replay of the same
+    chunk captured into a CUDA graph — for each, wall and device busy ms a
+    step (busy: the sum of kernel times), the idle share, kernel launches a
+    step and the largest kernels; then the wall of three chunks of each
+    with the profiler off."""
     from torch.profiler import ProfilerActivity, profile
 
     from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.sampler import sampler as ts
+    from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY, ChunkedLoop
 
-    mcfg, params = out["mcfg"], out["params"]
-    resp = out["responses"].shape[1]
-    T = out["context_length"] + resp
-    fill = T // 2
-    caches = tm.init_kv_cache(mcfg, rows, T, device="cuda")
-    key_mask = torch.zeros((rows, T), dtype=torch.bool, device="cuda")
-    key_mask[:, :fill] = True
-    tok = torch.full((rows,), 5, dtype=torch.long, device="cuda")
-    pos = torch.full((rows,), fill, dtype=torch.long, device="cuda")
-    with torch.no_grad():
-        for s in range(2):  # warm up
-            tm.decode_step(params, mcfg, tok, pos, fill, key_mask, caches, out["lora_scale"])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for s in range(steps):
-                key_mask[:, fill + s] = True
-                tm.decode_step(params, mcfg, tok, pos + s, fill + s, key_mask, caches,
-                               out["lora_scale"])
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+    S = SYNC_EVERY
+    Tp = T // 2
+    max_tokens = T - Tp
+    dev = "cuda"
+    key_mask = torch.zeros((rows, T), dtype=torch.bool, device=dev)
+    key_mask[:, :Tp] = True
+    state = {"step": torch.ones((), dtype=torch.int64, device=dev),
+             "out": torch.zeros((rows, max_tokens), dtype=torch.int64, device=dev),
+             "lp_out": torch.zeros((rows, max_tokens), dtype=torch.float32, device=dev),
+             "caches": tm.init_kv_cache(mcfg, rows, T, device=dev), "key_mask": key_mask,
+             "done": torch.zeros((rows,), dtype=torch.bool, device=dev),
+             "cur_tok": torch.full((rows,), 5, dtype=torch.int64, device=dev),
+             "prompt_len": torch.full((rows,), Tp, dtype=torch.int64, device=dev),
+             "table": None, "page_size": 0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def body():
+        ts._decode_body(params, mcfg, state, Tp=Tp, max_tokens=max_tokens,
+                        eos_token_id=-1, pad_token_id=0, lora_scale=lora_scale,
+                        capture_logprobs=False, generator=gen, **sampling)
+
+    loop = ChunkedLoop(body, sync_every=S, device=dev, generator=gen, what="profiled")
+
+    def chunk(mode):
+        if mode == "eager":
+            for _ in range(S):
+                body()
+                bool(ts._loop_active(state, max_tokens))  # the per-step host check
+        else:
+            loop.run_chunk()
+            bool(ts._loop_active(state, max_tokens))      # the chunk's host check
+
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
-        log(f"  decode-step profile ({rows} rows, cache {fill}/{T}, {steps} steps): wall "
-            f"{wall_us / steps / 1e3:.3f} ms/step; the profiler recorded no device "
-            f"time: busy time, idle share and K4's time per step not measured")
-        return
-    log(f"  decode-step profile ({rows} rows, cache {fill}/{T}, {steps} steps, "
-        f"profiler on): wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
-        f"{busy_us / steps / 1e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f}, "
-        f"kernel launches {sum(e.count for e in kernels) // steps}/step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} "
-            f"{e.key[:90]}")
-    k4 = [e for e in kernels if "decode_kernel" in e.key]
-    log(f"  K4 (decode_attention) device time per decode step: "
-        f"{sum(e.self_device_time_total for e in k4) / steps / 1e3:.4f} ms over "
-        f"{sum(e.count for e in k4) // steps} launches")
+    res = {}
+    with torch.no_grad():
+        loop.run_chunk()        # the warm-up chunk (eager)
+        loop.run_chunk()        # the capture and its first replay
+        torch.cuda.synchronize()
+        for mode in ("eager", "graph"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                chunk(mode)
+                wall_us = (time.perf_counter() - t0) * 1e6
+            kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+            busy_us = sum(e.self_device_time_total for e in kernels)
+            r = {"wall_ms": wall_us / S / 1e3,
+                 "busy_ms": busy_us / S / 1e3 if busy_us > 0 else None,
+                 "idle": 1 - busy_us / wall_us if busy_us > 0 else None,
+                 "launches": sum(e.count for e in kernels) / S if busy_us > 0 else None}
+            res[mode] = r
+            if r["busy_ms"] is None:
+                log(f"  decode-step profile, {mode} ({rows} rows, cache {Tp}/{T}, one "
+                    f"chunk of {S} steps): wall {r['wall_ms']:.3f} ms/step; the profiler "
+                    f"recorded no device time: busy time, idle share and launches not "
+                    f"measured")
+                continue
+            log(f"  decode-step profile, {mode} ({rows} rows, cache {Tp}/{T}, one "
+                f"chunk of {S} steps, profiler on): wall {r['wall_ms']:.3f} ms/step, device "
+                f"busy {r['busy_ms']:.3f} ms/step, idle share {r['idle']:.3f}, kernel "
+                f"launches {r['launches']:.1f}/step")
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"    {e.self_device_time_total / S / 1e3:8.3f} ms/step  "
+                    f"x{e.count / S:<6.1f} {e.key[:90]}")
+            k4 = [e for e in kernels if "decode_kernel" in e.key]
+            log(f"    K4 (decode_attention) device time per decode step: "
+                f"{sum(e.self_device_time_total for e in k4) / S / 1e3:.4f} ms over "
+                f"{sum(e.count for e in k4) / S:.1f} launches")
+        # the same chunk timed on the card's clock, profiler off
+        for mode in ("eager", "graph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                chunk(mode)
+            res[mode]["wall_ms_noprof"] = (time.perf_counter() - t0) / (3 * S) * 1e3
+        log(f"  decode step wall, profiler off, 3 chunks of {S}: eager "
+            f"{res['eager']['wall_ms_noprof']:.3f} ms/step, graph replay "
+            f"{res['graph']['wall_ms_noprof']:.3f} ms/step "
+            f"({res['graph']['wall_ms_noprof'] / res['eager']['wall_ms_noprof']:.3f} of eager)")
+    if not loop.replays:
+        fail("the profiled decode chunk never replayed a graph")
 
 
 def small_reference(torch, mcfg, cfg, queries, pad_id: int) -> None:
@@ -1685,8 +1767,8 @@ def paged_update(torch, max_tokens: int) -> dict:
     """`one_card_cut(build_config())` with rollout_page_size=128 and
     rollout_decode_rows=32 through `build_trainer`/`train(1)`: 16 prompts ×
     4 samples = 64 rows, 32 resident, the other 32 admitted mid-loop as
-    rows finish. Checks the launch counts (K7 once per layer and executed
-    decode step, K4 never, one flash forward per layer for the batched
+    rows finish. Checks the launch counts (K7 once per layer and decode
+    iteration the session's graph replays ran, K4 never, one flash forward per layer for the batched
     bootstrap and for each single-row admission), the pool statistics, the
     metrics rows, the update (finite loss and grad norm, LoRA moved, ref
     not) and the checkpoint; prints the phase timings and peak memory."""
@@ -1729,7 +1811,8 @@ def paged_update(torch, max_tokens: int) -> dict:
     log(f"  launches: whole update {counts}; generate {launches['generate']}; "
         f"score {launches['score']}; update half {launches['update']}")
     log(f"  pages: {pages}; session counters {trainer.session_status['counters']}")
-    gen_expected = {"paged_decode_attention": L * iters, "decode_attention": 0,
+    check_graph_steps("phase 5", t, monolithic=False)
+    gen_expected = {"paged_decode_attention": L * t["graph_steps_run"], "decode_attention": 0,
                     "flash_fwd": L * (1 + admitted), "decode_attention_q8": 0,
                     "paged_decode_attention_q8": 0, "decode_verify_attention": 0,
                     "paged_decode_verify_attention": 0}
@@ -1771,7 +1854,8 @@ def paged_update(torch, max_tokens: int) -> dict:
     log(f"  rollout_s={t['generate_s']:.3f} (prefill+admissions {t['prefill_s']:.3f} s "
         f"for 1 batched prefill + {t['admissions']} single-row admissions; decode "
         f"{t['decode_s']:.3f} s, {iters} iterations, "
-        f"{t['decode_s'] / max(iters, 1) * 1e3:.3f} ms/step) "
+        f"{t['decode_s'] / max(iters, 1) * 1e3:.3f} ms/step, graph pool "
+        f"{t['graph_pool_bytes'] / 1e9:.3f} GB) "
         f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
         f"({t['update_s'] / n_steps:.3f} s/step, "
         f"{metrics['perf/tokens_per_sec_update']:.2f} update tokens/s) "
@@ -1865,12 +1949,16 @@ def staggered_queue(torch, mcfg, queries, pad_id: int) -> None:
     small, params = _small_model(torch, mcfg, seed=11)
     M, R, P, depth = 96, 4, 16, 4
 
+    timings: dict = {}
+
     def run(ids, eos, **sp):
         stats = []
+        timings.clear()
         out = generate(params, small, ids, ids != pad_id,
                        torch.Generator(device="cuda").manual_seed(0),
                        SamplingParams(greedy=True, max_tokens=M, **sp),
-                       eos_token_id=eos, pad_token_id=pad_id, paged_stats_out=stats)
+                       eos_token_id=eos, pad_token_id=pad_id, paged_stats_out=stats,
+                       timings=timings)
         torch.cuda.synchronize()
         return out, (stats[0] if stats else None)
 
@@ -1906,7 +1994,7 @@ def staggered_queue(torch, mcfg, queries, pad_id: int) -> None:
     if not st["decode_iterations"] < fixed:
         fail("continuous batching did not beat the fixed-batch schedule")
     if st["admitted_midloop"] != 16 - R or counts["decode_attention"] != 0 \
-            or counts["paged_decode_attention"] != small.num_hidden_layers * st["decode_iterations"]:
+            or counts["paged_decode_attention"] != small.num_hidden_layers * timings["graph_steps_run"]:
         fail(f"staggered queue: stats or launch counts off ({st}, {counts})")
     same = (queued == contiguous).all(dim=1)
     log(f"  queued rows equal to the contiguous greedy rows: {int(same.sum())}/16")
@@ -1959,10 +2047,11 @@ def int8_rollouts(torch, max_tokens: int) -> dict:
         mcfg = out["mcfg"]
         L, hd = mcfg.num_hidden_layers, mcfg.actual_head_dim
         KV = mcfg.num_key_value_heads
-        steps = timings["decode_steps"]
+        steps, run = timings["decode_steps"], timings["graph_steps_run"]
+        check_graph_steps(f"int8 {label}", timings, monolithic=not page)
         want = {"decode_attention": 0, "paged_decode_attention": 0,
-                "decode_attention_q8": 0 if page else L * steps,
-                "paged_decode_attention_q8": L * steps if page else 0}
+                "decode_attention_q8": 0 if page else L * run,
+                "paged_decode_attention_q8": L * run if page else 0}
         for name, n in want.items():
             if counts[name] != n:
                 fail(f"int8 {label}: kernel {name} launched {counts[name]} times, "
@@ -2098,7 +2187,8 @@ def spec_update(torch, max_tokens: int, bwd_seen, fused_seen) -> dict:
     if rows["rollout/spec_verify_steps"] != steps or not all(
             math.isfinite(v) for v in rows.values()):
         fail(f"spec update: metrics rows {rows} disagree with {steps} verify steps")
-    gen_expected = {"decode_verify_attention": L * steps, "decode_attention": 0,
+    check_graph_steps("phase 7a", t)
+    gen_expected = {"decode_verify_attention": L * t["graph_steps_run"], "decode_attention": 0,
                     "flash_fwd": L, "paged_decode_verify_attention": 0,
                     "paged_decode_attention": 0, "decode_attention_q8": 0,
                     "paged_decode_attention_q8": 0}
@@ -2123,7 +2213,8 @@ def spec_update(torch, max_tokens: int, bwd_seen, fused_seen) -> dict:
                  f"{launches['update'][name]} times, expected {L * n_micro}")
     log(f"  rollout_s={t['generate_s']:.3f} (prefill {t['prefill_s'] * 1e3:.3f} ms; "
         f"{steps} verify steps in {t['decode_s']:.3f} s, "
-        f"{t['decode_s'] / max(steps, 1) * 1e3:.3f} ms per verify step, "
+        f"{t['decode_s'] / max(steps, 1) * 1e3:.3f} ms per verify step, graph pool "
+        f"{t['graph_pool_bytes'] / 1e9:.3f} GB, "
         f"{t['emitted_tokens']} tokens emitted, "
         f"{t['emitted_tokens'] / t['decode_s']:.2f} emitted tokens/s) "
         f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
@@ -2139,8 +2230,8 @@ def spec_update(torch, max_tokens: int, bwd_seen, fused_seen) -> dict:
 def spec_queued_rollout(torch, max_tokens: int) -> dict:
     """(b) `run_rollout` with rollout_spec_k=4 through the continuous-batching
     scheduler (page size 128, 32 resident rows, 16 prompts x 4 samples):
-    K9 launched once per layer and decode (draft + verify) iteration, K7,
-    K6 and K4 never."""
+    K9 launched once per layer and draft + verify iteration the session's
+    graph replays ran, K7, K6 and K4 never."""
     from nanorlhf_tpu_torch import _build
     from nanorlhf_tpu_torch.entrypoints.common import run_rollout
     from nanorlhf_tpu_torch.entrypoints.grpo import build_config
@@ -2159,13 +2250,16 @@ def spec_queued_rollout(torch, max_tokens: int) -> dict:
     iters = int(pages["decode_iterations"])
     stats = {k: (v if isinstance(v, int) else int(v)) for k, v in st.items()
              if k != "accepted_rows"}
-    log(f"  queued spec rollout: {iters} iterations ({timings['decode_s']:.3f} s, "
+    log(f"  queued spec rollout: {iters} iterations ({timings['decode_s']:.3f} s, graph "
+        f"pool {timings['graph_pool_bytes'] / 1e9:.3f} GB, "
         f"{timings['decode_s'] / max(iters, 1) * 1e3:.3f} ms per iteration, "
         f"{stats['emitted'] / timings['decode_s']:.2f} emitted tokens/s), "
         f"admitted_midloop {pages['admitted_midloop']}, page utilization "
         f"{pages['page_utilization']:.4f}; spec stats {stats}; launches {counts}")
-    want = {"paged_decode_verify_attention": L * iters, "paged_decode_attention": 0,
-            "decode_verify_attention": 0, "decode_attention": 0}
+    check_graph_steps("phase 7b", timings, monolithic=False)
+    want = {"paged_decode_verify_attention": L * timings["graph_steps_run"],
+            "paged_decode_attention": 0, "decode_verify_attention": 0,
+            "decode_attention": 0}
     for name, n in want.items():
         if counts[name] != n:
             fail(f"queued spec rollout: kernel {name} launched {counts[name]} times, "
@@ -2229,12 +2323,16 @@ def spec_cycle(torch, mcfg, queries, pad_id: int) -> None:
     q = torch.tensor([[300 + i, 400 + i] + cycle[i % 4:] + cycle[:i % 4] + [cycle[i % 4]]
                       for i in range(B)], device="cuda")
 
+    timings: dict = {}
+
     def run(model, ids, **sp):
         stats = []
+        timings.clear()
         out = generate(model[1], model[0], ids, ids != pad_id,
                        torch.Generator(device="cuda").manual_seed(0),
                        SamplingParams(greedy=True, max_tokens=M, **sp),
-                       eos_token_id=eos, pad_token_id=pad_id, spec_stats_out=stats)
+                       eos_token_id=eos, pad_token_id=pad_id, spec_stats_out=stats,
+                       timings=timings)
         torch.cuda.synchronize()
         return out, (stats[0] if stats else None)
 
@@ -2257,7 +2355,8 @@ def spec_cycle(torch, mcfg, queries, pad_id: int) -> None:
                  "monolithic ones")
         if steps * 2 > M or not acc > 0.5:
             fail(f"cycle model ({label}): {steps} verify steps, acceptance {acc:.3f}")
-        if counts[kernel] != cfg.num_hidden_layers * steps or counts["decode_attention"]:
+        if counts[kernel] != cfg.num_hidden_layers * timings["graph_steps_run"] \
+                or counts["decode_attention"]:
             fail(f"cycle model ({label}): launch counts {counts}")
 
     small, sparams = _small_model(torch, mcfg, seed=13)
@@ -2304,6 +2403,135 @@ def spec_int8_rollout(torch) -> None:
             or "spec_stats" not in out:
         fail("int8 + spec rollout: a verify kernel ran on the int8 cache, or the "
              "rollout is not finite")
+
+
+# --------------------------------------------------------------------------
+# phase 8: the compiled decode loop, graph replay against the per-step body
+# --------------------------------------------------------------------------
+
+# (label, model config changes, SamplingParams fields, the kernel of the loop)
+GRAPH_LOOPS = (
+    ("contiguous", {}, {}, "decode_attention"),
+    ("paged", {}, dict(page_size=128), "paged_decode_attention"),
+    ("int8", dict(kv_cache_quant="int8"), {}, "decode_attention_q8"),
+    ("int8 paged", dict(kv_cache_quant="int8"), dict(page_size=128),
+     "paged_decode_attention_q8"),
+    ("spec", {}, dict(spec_k=4), "decode_verify_attention"),
+    ("spec paged", {}, dict(spec_k=4, page_size=128), "paged_decode_verify_attention"),
+    ("queued", {}, dict(page_size=128, decode_rows=8), "paged_decode_attention"),
+    ("spec queued", {}, dict(spec_k=4, page_size=128, decode_rows=8),
+     "paged_decode_verify_attention"),
+)
+
+
+def _loop_counters(st_paged, st_spec, timings) -> dict:
+    """The loop's counters: decode steps (iterations with a live row), and
+    the queued session's iterations and admission schedule, the
+    speculative acceptance counters and per-row accepted drafts."""
+    c = {"decode_steps": timings["decode_steps"]}
+    if st_paged and st_paged.get("decode_iterations") is not None:
+        c["decode_iterations"] = st_paged["decode_iterations"]
+        c["admissions"] = [(a["row"], a["queue_index"], a["iteration"])
+                           for a in st_paged["admissions"]]
+    if st_spec:
+        for k, v in st_spec.items():
+            c[k] = v.tolist() if hasattr(v, "tolist") else v
+    return c
+
+
+def graph_loops(torch, prompts, pad_id: int, max_tokens: int = 96) -> None:
+    """Each decode loop — contiguous, paged, int8, int8 paged, speculative
+    (spec_k 4) on both layouts, queued and queued speculative (8 of 16 rows
+    resident, pages of 128) — at 16 rows on the full-depth Qwen2.5-1.5B
+    model (random weights from the seed, no stop token), greedy, through
+    `generate` twice: the per-step body (a host check before each step)
+    and the chunked loop (graph replays). Holds the tokens and every
+    counter equal row for row (the same kernels at the same shapes: a
+    difference fails, after printing the first differing token and its
+    top-2 logit margin); the graph run's launches of the loop's kernel
+    equal L x graph_steps_run, of which L x sync_every x replays came from
+    replays, and on a monolithic loop graph_steps_run - decode_steps <
+    sync_every. Prints each loop's decode ms a step and peak memory, eager
+    and graph (the graph's private pool holds a chunk's temporaries). Then
+    sampled streams from one seed: whether graph and eager give equal
+    tokens is printed, not required."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    base = dataclasses.replace(_demo_config(), attention_impl="auto")
+    params = tm.init_params(base, seed=8, device="cuda")
+    L = base.num_hidden_layers
+    ids = torch.as_tensor(prompts, device="cuda").long()
+    rows = ids.shape[0]
+    log(f"  {rows} rows x {max_tokens} tokens, {L} layers at full width, sync_every "
+        f"{SYNC_EVERY}, greedy, no stop token")
+
+    def run(cfg, sp, loop, seed=0, greedy=True):
+        paged, spec, timings = [], [], {}
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, ids, ids != pad_id,
+                       torch.Generator(device="cuda").manual_seed(seed),
+                       SamplingParams(greedy=greedy, max_tokens=max_tokens,
+                                      decode_loop=loop, **sp),
+                       eos_token_id=-1, pad_token_id=pad_id, timings=timings,
+                       paged_stats_out=paged, spec_stats_out=spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timings["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return (out, _loop_counters(paged and paged[0], spec and spec[0], timings),
+                timings, _build.launch_counts(), wall)
+
+    for label, mc, sp, kernel in GRAPH_LOOPS:
+        cfg = dataclasses.replace(base, **mc)
+        eager, c_e, t_e, n_e, w_e = run(cfg, sp, "per_step")
+        graph, c_g, t_g, n_g, w_g = run(cfg, sp, "chunked")
+        queued = "decode_rows" in sp
+        run_steps = t_g["graph_steps_run"]
+        from_replays = n_g[kernel] - L * SYNC_EVERY   # the first chunk runs eagerly
+        log(f"  {label}: eager {c_e['decode_steps']} steps in {t_e['decode_s']:.3f} s "
+            f"({t_e['decode_s'] / max(c_e['decode_steps'], 1) * 1e3:.3f} ms/step), graph "
+            f"{c_g['decode_steps']} steps in {t_g['decode_s']:.3f} s "
+            f"({t_g['decode_s'] / max(c_g['decode_steps'], 1) * 1e3:.3f} ms/step, capture "
+            f"{t_g['graph_capture_s'] * 1e3:.1f} ms, {t_g['graph_replays']} replays, "
+            f"graph_steps_run {run_steps}); {kernel} launches eager {n_e[kernel]}, graph "
+            f"{n_g[kernel]} ({from_replays} from replays); generate wall eager {w_e:.3f} s, "
+            f"graph {w_g:.3f} s; peak memory eager {t_e['peak_gb']:.3f} GB, graph "
+            f"{t_g['peak_gb']:.3f} GB (graph pool {t_g['graph_pool_bytes'] / 1e9:.3f} GB)")
+        same = (graph == eager).all(dim=1)
+        if not bool(same.all()):
+            r = int((~same).nonzero()[0, 0])
+            pos = int((graph[r] != eager[r]).nonzero()[0, 0])
+            seq = torch.cat([ids[r], eager[r, :pos]])[None]
+            logits = tm.padded_forward_logits(params, base, seq, pad_id)[0, -1].float()
+            top2 = logits.topk(2).values
+            fail(f"{label}: graph-replay tokens differ from the per-step body's in "
+                 f"{int((~same).sum())}/{rows} rows; row {r} first at token {pos} "
+                 f"(graph {int(graph[r, pos])}, eager {int(eager[r, pos])}, top-2 logit "
+                 f"margin there {float(top2[0] - top2[1]):.4e})")
+        if c_g != c_e:
+            fail(f"{label}: counters differ: graph {c_g}, eager {c_e}")
+        if n_e[kernel] != L * c_e["decode_steps"]:
+            fail(f"{label}: the per-step body launched {kernel} {n_e[kernel]} times, "
+                 f"expected L x decode_steps = {L * c_e['decode_steps']}")
+        check_graph_steps(f"phase 8 {label}", t_g, monolithic=not queued)
+        if n_g[kernel] != L * run_steps or from_replays != L * SYNC_EVERY * t_g["graph_replays"]:
+            fail(f"{label}: {kernel} launched {n_g[kernel]} times in the graph run, "
+                 f"expected L x graph_steps_run = {L * run_steps}, "
+                 f"{L * SYNC_EVERY * t_g['graph_replays']} of them from replays")
+    log(f"  every loop: graph-replay tokens and counters equal the per-step body's, "
+        f"row for row")
+    for label, sp in (("contiguous", {}), ("spec", dict(spec_k=4)),
+                      ("queued", dict(page_size=128, decode_rows=8))):
+        eager = run(base, sp, "per_step", seed=5, greedy=False)[0]
+        graph = run(base, sp, "chunked", seed=5, greedy=False)[0]
+        log(f"  sampled {label} (seed 5): graph and eager tokens equal in "
+            f"{int((graph == eager).all(dim=1).sum())}/{rows} rows (printed, not required)")
 
 
 def small_grad_reference(torch, trainer) -> None:
@@ -2475,6 +2703,10 @@ def main() -> None:
     ap.add_argument("--plant-faults", action="store_true",
                     help="plant each of FAULTS in its own copy of the port under "
                          "output/faults/ and check that its hold fails")
+    ap.add_argument("--graph-loops", action="store_true",
+                    help="build, then run only phase 8 (each decode loop's graph "
+                         "replay against its per-step body) and the decode-step "
+                         "profile, eager against graph replay")
     args = ap.parse_args()
 
     import torch
@@ -2512,7 +2744,6 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     log(f"  [{k.source_name}] {line.strip()}")
 
-    log("phase 2: kernels against their plain versions (bf16)")
     # the prompt width the rollout path uses: the first synthetic batch,
     # de-padded to the shape menu
     tok = ToyTokenizer(4096)
@@ -2521,6 +2752,24 @@ def main() -> None:
                           shape_menu(ds.input_ids.shape[1], 16))
     prompt_width = first.shape[1]
     resp = args.max_tokens
+    phase8_prompts = depad_queries(next(ds.loader(16, 4)), tok.pad_token_id,
+                                   shape_menu(ds.input_ids.shape[1], 16))
+    if args.graph_loops:
+        log("phase 8: the compiled decode loop, graph replay against the per-step body")
+        graph_loops(torch, phase8_prompts, tok.pad_token_id)
+        from nanorlhf_tpu_torch.core import model as tm
+
+        from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+        mcfg, cfg = _demo_config(), build_config()
+        decode_profile(torch, mcfg, tm.init_params(mcfg, seed=8, device="cuda"), 1.0,
+                       dict(temperature=cfg.temperature, top_p=cfg.top_p, greedy=False,
+                            top_k=cfg.rollout_top_k, approx_top_k=cfg.rollout_approx_top_k),
+                       16, prompt_width + min(resp, 512))
+        log(f"graph loops: every hold passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    log("phase 2: kernels against their plain versions (bf16)")
     # phases 3, 4, 5, 6 and 7b run shorter responses than the launcher's 1500
     # so the whole script stays within half its time limit: phase 7a, this
     # slice's main path, keeps the full length
@@ -2671,6 +2920,9 @@ def main() -> None:
                              shape_menu(ds.input_ids.shape[1], 16)),
                tok.pad_token_id)
     spec_int8_rollout(torch)
+
+    log("phase 8: the compiled decode loop, graph replay against the per-step body")
+    graph_loops(torch, phase8_prompts, tok.pad_token_id)
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the

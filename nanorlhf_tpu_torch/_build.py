@@ -11,14 +11,20 @@ the port.
 
 `KERNELS` is the registry the wrappers launch through. Each `Kernel` counts
 its successful launches (`launches`), which is how `chip_smoke.py` shows
-that the main path really ran on the kernels. Several kernels may share
-one source (the flash backward's `dq` and `dkv` live in `flash_bwd.cu`,
-the four decode and two verify kernels in `decode_attention.cu`): each
-keeps its own counter, the source is built once.
+that the main path really ran on the kernels. A launch made while a CUDA
+graph is captured enqueues nothing: inside `recording_launches()` it is
+recorded instead of counted, and each replay of the graph adds what was
+recorded (`add_launches`), so the counts stay the launches the device
+ran. Several kernels may share one source (the flash backward's `dq` and
+`dkv` live in `flash_bwd.cu`, the four decode and two verify kernels in
+`decode_attention.cu`): each keeps its own counter, the source is built
+once.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,7 +150,11 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}.{symbol} failed to launch: CUDA error {err}")
-        self.launches += 1
+        if _recording:
+            _recording[-1][self.name] += 1
+            _recording[-1].last = self.name
+        else:
+            self.launches += 1
 
 
 KERNELS = {
@@ -204,6 +214,33 @@ def build_all() -> float:
         k.build_log = by_source[k.source_name].build_log
         k.load()
     return time.perf_counter() - t0
+
+
+class LaunchRecord(collections.Counter):
+    """Kernel launches recorded during a capture, by kernel name; `last`
+    names the latest (the kernel at fault when a capture fails)."""
+    last: str | None = None
+
+
+_recording: list[LaunchRecord] = []
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside, launches are recorded into the yielded `LaunchRecord`
+    instead of counted (a CUDA-graph capture: nothing runs yet)."""
+    rec = LaunchRecord()
+    _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        _recording.remove(rec)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count one run of recorded launches (a replay of a graph)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def reset_launch_counts() -> None:

@@ -212,20 +212,26 @@ def _proj(h, layer, lora_layer, name, lora_scale):
     return y
 
 
-def _slots(cache_index, B: int, T: int, device):
-    """Logical cache slots [B, T] of a write of T tokens starting at
-    `cache_index`: an int shared by every row, or a per-row [B] tensor
+def _row_index(cache_index, B: int, device) -> torch.Tensor:
+    """A write's first cache slot per row, [B] int64: `cache_index` is an
+    int or a one-element device tensor shared by every row (the compiled
+    decode loop's slot: no host read), or a per-row [B] tensor
     (continuous-batching rows sit at different depths)."""
     idx = torch.as_tensor(cache_index, device=device).to(torch.int64)
-    if idx.dim() == 0:
-        idx = idx.expand(B)
-    return idx[:, None] + torch.arange(T, device=device)[None, :]
+    return idx.reshape(-1).expand(B)
+
+
+def _slots(cache_index, B: int, T: int, device):
+    """Logical cache slots [B, T] of a write of T tokens starting at
+    `cache_index` (see `_row_index`)."""
+    return (_row_index(cache_index, B, device)[:, None]
+            + torch.arange(T, device=device)[None, :])
 
 
 def _cache_update(cache, new, idx):
     """Write `new` [B, KV, T, ...] into `cache` [B, KV, T_max, ...] at slot
-    `idx` (int, or per-row [B] tensor), in place. Values carry a trailing
-    hd axis, int8 scales do not."""
+    `idx` (int, one-element or per-row [B] tensor), in place. Values carry
+    a trailing hd axis, int8 scales do not."""
     if isinstance(idx, int):
         cache[:, :, idx:idx + new.shape[2]] = new
         return cache
@@ -619,11 +625,12 @@ def decode_step(params, config, token, position, cache_index, key_mask,
                 kv_caches, lora_scale: float = 1.0, page_table=None,
                 page_size: int = 0):
     """One autoregressive decode step: token [B], position [B], the cache
-    slot `cache_index` (an int shared by every row, or a per-row [B] tensor
-    — continuous-batching rows sit at different depths), key_mask
-    [B, T_max] (valid slots incl. this one). `page_table` [B, nb] +
-    `page_size`: the paged layout. Returns (logits [B, V], caches updated in
-    place)."""
+    slot `cache_index` (an int or a one-element device tensor shared by
+    every row, or a per-row [B] tensor — continuous-batching rows sit at
+    different depths), key_mask [B, T_max] (valid slots incl. this one).
+    `page_table` [B, nb] + `page_size`: the paged layout. Reads nothing
+    back to the host, so the compiled decode loop (`sampler/graph.py`)
+    captures it. Returns (logits [B, V], caches updated in place)."""
     B = token.shape[0]
     paged = (page_table, page_size) if page_table is not None else None
     x = params["embed_tokens"][token][:, None, :]
@@ -632,11 +639,7 @@ def decode_step(params, config, token, position, cache_index, key_mask,
     # the valid slots form the contiguous range [start, cache_index + 1):
     # the bounds the prefix-reading decode kernels need
     start = key_mask.to(torch.uint8).argmax(dim=1).to(torch.int32)
-    if isinstance(cache_index, int):
-        filled = torch.full((B,), cache_index + 1, dtype=torch.int32,
-                            device=x.device)
-    else:
-        filled = (cache_index + 1).to(torch.int32)
+    filled = (_row_index(cache_index, B, x.device) + 1).to(torch.int32)
     x = _run_layers(config, params, x, cos, sin, mask, kv_caches=kv_caches,
                     cache_index=cache_index, lora_scale=lora_scale,
                     decode_bounds=(start, filled), paged=paged)

@@ -917,11 +917,29 @@ int verify_split_count(int B, int KV, int sms) {
   return std::max(1, std::min(VMAX_SPLITS, VSPLIT_BLOCKS_PER_SM * sms / (B * KV)));
 }
 
+// the verify instance's dynamic shared memory limit, set once per device
+// (cached as `sms[]` is): the launch itself then enqueues only stream work,
+// which a CUDA-graph capture of the decode loop records
+template <int HD, bool PAGED>
+cudaError_t verify_smem_attribute(int bytes) {
+  static bool set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!set[dev]) {
+    e = cudaFuncSetAttribute(verify_kernel<HD, PAGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    set[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int HD, bool PAGED>
 int launch_verify_hd(const VerifyArgs& a, int B, cudaStream_t s) {
   const int bytes = VerifySmem<HD>::BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(
-      verify_kernel<HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t e = verify_smem_attribute<HD, PAGED>(bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.S, a.KV * a.n_rg, B);

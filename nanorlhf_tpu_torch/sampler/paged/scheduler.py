@@ -4,7 +4,8 @@ speculative decode; without the radix prefix cache, chunked prefill or
 in-flight weight swaps).
 
 `decode_rows` rows are resident in a `DecodeSession` over a pool sized for
-exactly those rows. The session runs in chunks of `sync_every` iterations;
+exactly those rows. The session runs in chunks of `sync_every` iterations
+(CUDA-graph replays on the card, `sampler/graph.py`);
 at each host sync, rows that emitted EOS (or reached `max_tokens`) are
 flushed to the output in queue order, their pages go back to the free
 stack, and the next queued prompts are admitted into the freed rows
@@ -24,11 +25,13 @@ import time
 import numpy as np
 import torch
 
+from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY
 from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
 from nanorlhf_tpu_torch.sampler.sampler import sync_device
 from nanorlhf_tpu_torch.sampler.speculative import spec_stats
 
 
+@torch.no_grad()
 def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                            generator: torch.Generator, *, max_tokens: int,
                            eos_token_id: int, pad_token_id: int,
@@ -37,7 +40,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                            temperature: float = 1.0, top_p: float = 0.95,
                            greedy: bool = False, lora_scale: float = 1.0,
                            top_k: int = 64, capture_logprobs: bool = False,
-                           approx_top_k: bool = True, sync_every: int = 8,
+                           approx_top_k: bool = True, sync_every: int = SYNC_EVERY,
+                           decode_loop: str = "chunked",
                            paged_stats_out: list | None = None,
                            spec_stats_out: list | None = None,
                            timings: dict | None = None):
@@ -57,8 +61,11 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
 
     `timings`, when given, receives `prefill_s` (the batched bootstrap and
     every admission prefill), `decode_s` (the decode chunks, each ending in
-    the host sync that reads the done flags), `decode_steps` (decode
-    iterations) and `admissions` — wall seconds, device-synchronized."""
+    the host sync that reads the done flags, and the graph capture),
+    `decode_steps` (decode iterations that ran with a live row),
+    `admissions`, and the session loop's `graph_capture_s`,
+    `graph_steps_run`, `graph_replays` and `graph_pool_bytes` — wall seconds,
+    device-synchronized."""
     Q, Tp = prompt_ids.shape
     R = min(int(decode_rows), Q)
     device = prompt_ids.device
@@ -69,7 +76,7 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
         temperature=temperature, top_p=top_p, greedy=greedy, top_k=top_k,
         approx_top_k=approx_top_k, capture_logprobs=capture_logprobs,
         lora_scale=lora_scale, spec_k=spec_k, spec_ngram=spec_ngram,
-        sync_every=sync_every)
+        sync_every=sync_every, decode_loop=decode_loop)
     prompt_np = prompt_ids.cpu().numpy()
     pmask_np = prompt_mask.bool().cpu().numpy()
 
@@ -126,7 +133,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
     n_iter = sess.iterations()
     if timings is not None:
         timings.update(prefill_s=t_prefill, decode_s=t_decode,
-                       decode_steps=n_iter, admissions=len(admissions))
+                       decode_steps=n_iter, admissions=len(admissions),
+                       **sess.loop_stats())
     if paged_stats_out is not None:
         paged_stats_out.append({
             "page_utilization": float(np.mean(util_samples)),

@@ -12,14 +12,23 @@ scheduler (`scheduler.py`) drives it: `bootstrap` the first `rows` prompts
 in one batched prefill, then `step`, `release` finished rows and `admit`
 queued prompts into the freed rows, until the queue drains.
 
-Choices where eager PyTorch differs from JAX's jitted chunk:
+Choices where the port differs from JAX's jitted chunk:
 
-  * **The iteration counter.** JAX's `while_loop` stops inside a chunk
-    once every row is done, and its counter counts only iterations that ran
-    with a live row. `step` checks `done.all()` on the host before every
-    iteration (one sync per decode step, as the port's monolithic loop
-    does), so the same iterations run, `iterations()` means what it means
-    in JAX, and every kernel launch belongs to an executed step.
+  * **The chunk.** `step` runs `sync_every` iterations of one body over
+    device state (`_decode_body` or `_spec_body`), predicated on
+    `~all(done)`: on the card the first chunk runs eagerly and every later
+    one replays a CUDA graph captured once per session
+    (`sampler/graph.py`); on the CPU each chunk runs eagerly. JAX's
+    `while_loop` stops inside a chunk once every row is done; here the
+    chunk's tail runs predicated off, so the iteration counter still
+    counts only iterations that ran with a live row (`iterations()` means
+    what it means in JAX), while the kernels' launch counts include the
+    tail. Admissions and releases write the carry, the resident prompts
+    and the block table in place, so a replay reads what they wrote.
+    `decode_loop="per_step"` checks `done.all()` on the host before every
+    iteration instead — the plain version the chunk is held against; when
+    it stops early it still takes the draws the chunk's predicated-off
+    iterations would take (`_skip_draws`), so both see one random stream.
   * **PRNG streams.** Decode draws come from the session's generator, one
     draw per iteration; the first token of queue entry q comes from its own
     generator, `stream_generator(seed, ADMIT_STREAM, q)` with `seed` the
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from nanorlhf_tpu_torch.core.model import decode_step, prefill
+from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY, ChunkedLoop, check_decode_loop
 from nanorlhf_tpu_torch.sampler.paged.pages import (
     PageState,
     alloc_row,
@@ -65,6 +75,7 @@ from nanorlhf_tpu_torch.sampler.speculative import (
     _draft_fn,
     _spec_state,
     _verify_fn,
+    accept_candidates,
 )
 
 # the admission stream, far from any other stream constant of the port (the
@@ -80,7 +91,7 @@ class DecodeSession:
                  temperature=1.0, top_p=0.95, greedy=False, top_k=64,
                  approx_top_k=True, capture_logprobs=False, lora_scale=1.0,
                  per_row=False, spec_k=0, spec_ngram=3, prefix_cache=None,
-                 prefill_chunk=0, sync_every=8):
+                 prefill_chunk=0, sync_every=SYNC_EVERY, decode_loop="chunked"):
         unported = {"per_row (serving mode)": per_row,
                     "prefix_cache (radix prefix cache)": prefix_cache is not None,
                     "prefill_chunk > 0 (chunked prefill)": prefill_chunk > 0}
@@ -97,7 +108,9 @@ class DecodeSession:
         self.page_size = int(page_size)
         self.eos_token_id = int(eos_token_id)
         self.pad_token_id = int(pad_token_id)
+        check_decode_loop(decode_loop, sync_every)
         self.sync_every = int(sync_every)
+        self.decode_loop = decode_loop
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
         self.lora_scale = lora_scale
@@ -114,13 +127,19 @@ class DecodeSession:
         # through the identity table, churn begins at the first release
         self._pstate = PageState(np.arange(self.num_pages, dtype=np.int32), 0,
                                  full_table(self.rows, self.nb))
-        self._upload_table()
+        self.table = torch.as_tensor(self._pstate.table, device=self.device)
         self.state: dict = {}
+        self._loop = ChunkedLoop(
+            lambda: self._spec_body() if self.spec_k else self._decode_body(),
+            sync_every=self.sync_every, device=self.device, generator=generator,
+            what="queued speculative" if self.spec_k else "queued decode")
         self.launches = 0          # admission prefills (incl. the bootstrap)
         self.dispatch_tokens = 0   # prompt tokens prefilled
 
     def _upload_table(self) -> None:
-        self.table = torch.as_tensor(self._pstate.table, device=self.device)
+        """Copy the host table into the one device buffer the decode chunk
+        reads (a replay reads this storage)."""
+        self.table.copy_(torch.as_tensor(self._pstate.table))
 
     # ------------------------------------------------------------- #
     # admission
@@ -196,16 +215,18 @@ class DecodeSession:
     # ------------------------------------------------------------- #
 
     def _decode_body(self) -> None:
-        """One decode iteration over every resident row — the monolithic
-        `_decode_body` with per-row depths: row r's current token sits at
-        slot Tp + n_gen[r] - 1; done rows write nothing to the output, and
-        a row is done at EOS or at `max_tokens` generated tokens."""
+        """One decode iteration over every resident row, in place and with
+        no host read — the monolithic `_decode_body` with per-row depths:
+        row r's current token sits at slot Tp + n_gen[r] - 1; done rows
+        write nothing to the output, and a row is done at EOS or at
+        `max_tokens` generated tokens. Predicated on `~all(done)`."""
         s = self.state
         n_gen, done = s["n_gen"], s["done"]
+        active = ~done.all()
         R = n_gen.shape[0]
         rows = torch.arange(R, device=self.device)
         slot = self.Tp + n_gen - 1
-        s["key_mask"][rows, slot] = True
+        s["key_mask"][rows, slot] = s["key_mask"][rows, slot] | active
         position = s["prompt_len"] + n_gen - 1
         logits, _ = decode_step(
             self.params, self.config, s["cur_tok"], position, slot,
@@ -213,20 +234,23 @@ class DecodeSession:
             page_table=self.table, page_size=self.page_size)
         tok = _sample_token(self.generator, logits, **self._sample_kw)
         tok = torch.where(done, torch.full_like(tok, self.pad_token_id), tok)
-        live = ~done
+        live = ~done & active
         write = live & (n_gen < self.max_tokens)  # JAX drops the rest
         col = n_gen.clamp(max=self.max_tokens - 1)
         s["out"][rows, col] = torch.where(write, tok, s["out"][rows, col])
         if self.capture_logprobs:
             lp = _token_logprob(logits, tok, self._sample_kw["temperature"])
             s["lp_out"][rows, col] = torch.where(write, lp, s["lp_out"][rows, col])
-        s["cur_tok"] = torch.where(live, tok, s["cur_tok"])
-        s["n_gen"] = n_gen + live.to(n_gen.dtype)
-        s["done"] = done | (tok == self.eos_token_id) | (s["n_gen"] >= self.max_tokens)
+        s["cur_tok"].copy_(torch.where(live, tok, s["cur_tok"]))
+        n_gen += live.to(n_gen.dtype)
+        done.copy_(done | (active & ((tok == self.eos_token_id)
+                                     | (n_gen >= self.max_tokens))))
+        s["it"] += active
 
     def _spec_body(self) -> None:
         """One draft + verify iteration over every resident row, through the
-        live table (JAX `_spec_loop`'s body); advances `it`."""
+        live table (JAX `_spec_loop`'s body), predicated on `~all(done)`;
+        advances `it`."""
         drafts = _draft_fn(self.prompt_res, self.state, Tp=self.Tp,
                            spec_k=self.spec_k, spec_ngram=self.spec_ngram,
                            pad_token_id=self.pad_token_id)
@@ -235,21 +259,47 @@ class DecodeSession:
                    spec_k=self.spec_k, lora_scale=self.lora_scale,
                    capture_logprobs=self.capture_logprobs,
                    generator=self.generator, page_table=self.table,
-                   page_size=self.page_size, **self._sample_kw)
+                   page_size=self.page_size, active=~self.state["done"].all(),
+                   **self._sample_kw)
+
+    def _skip_draws(self) -> None:
+        """Take the draws of one predicated-off iteration from the session
+        generator (the sampler on zero logits), without touching the
+        carry: the per-step loop's stand-in for a chunk's tail."""
+        R, V = self.rows, self.config.vocab_size
+        if self._sample_kw["greedy"]:
+            return
+        if self.spec_k:
+            K1 = self.spec_k + 1
+            accept_candidates(torch.zeros((R, K1, V), device=self.device),
+                              torch.zeros((R, K1 - 1), dtype=torch.int64,
+                                          device=self.device),
+                              self.generator, **self._sample_kw)
+        else:
+            _sample_token(self.generator, torch.zeros((R, V), device=self.device),
+                          **self._sample_kw)
 
     def step(self) -> np.ndarray:
-        """Up to `sync_every` decode (or draft + verify) iterations, stopping
-        as soon as every resident row is done. Returns the host done flags
-        [rows]."""
-        for _ in range(self.sync_every):
-            if bool(self.state["done"].all()):
-                break
-            if self.spec_k:
-                self._spec_body()
-            else:
-                self._decode_body()
-                self.state["it"] += 1
+        """One chunk of `sync_every` decode (or draft + verify) iterations,
+        no host read inside (graph replay on the card); per step, a host
+        check before each iteration. Returns the host done flags [rows]."""
+        if self.decode_loop == "chunked":
+            self._loop.run_chunk()
+        else:
+            for i in range(self.sync_every):
+                if bool(self.state["done"].all()):
+                    for _ in range(self.sync_every - i):
+                        self._skip_draws()
+                    break
+                self._loop.body()
         return self.state["done"].cpu().numpy()
+
+    def loop_stats(self) -> dict:
+        """graph_capture_s, graph_steps_run, graph_replays and
+        graph_pool_bytes so far."""
+        stats: dict = {}
+        self._loop.record(stats)
+        return stats
 
     # ------------------------------------------------------------- #
     # release / introspection
@@ -263,8 +313,8 @@ class DecodeSession:
         return m
 
     def iterations(self) -> int:
-        """Decode iterations run so far."""
-        return self.state["it"] - 1
+        """Decode iterations that ran with a live row so far."""
+        return int(self.state["it"]) - 1
 
     def dispatch_events(self) -> int:
         """Model-forward launches: admission prefills plus decode

@@ -8,8 +8,11 @@ N consecutive samples per prompt, each row the generated tokens including
 the terminating EOS, right-padded with `pad_token_id`; `(tokens, logprobs)`
 with `capture_logprobs`.
 
-The JAX loop is a jitted `lax.while_loop`; here it is a Python loop over
-`decode_step` with the same all-EOS early exit (one host sync per step).
+The JAX loop is a jitted `lax.while_loop`; here its body (`_decode_body`)
+runs over device state in chunks of `sync_every` iterations with the same
+exit (the step bound or every row done) checked on the host between
+chunks: CUDA-graph replays on the card, eager chunks on the CPU
+(`sampler/graph.py`); `decode_loop="per_step"` checks before every step.
 `jax.random` keys become a `torch.Generator`: the per-step
 `fold_in(key, step)` draws become consecutive draws from the generator, so
 sampled streams match JAX in distribution, not bit for bit (greedy streams
@@ -43,6 +46,7 @@ from nanorlhf_tpu_torch.core.model import (
     prefill,
 )
 from nanorlhf_tpu_torch.ops.masking import guard_temperature
+from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY, check_decode_loop, run_loop
 from nanorlhf_tpu_torch.sampler.paged.pages import blocks_per_row, full_table
 
 
@@ -63,6 +67,10 @@ class SamplingParams:
     spec_ngram: int = 3
     prefill_chunk: int = 0
     shared_prompt_prefill: bool = True
+    # the port's decode loops (`sampler/graph.py`): iterations between host
+    # checks, and "chunked" (CUDA-graph replays on the card) or "per_step"
+    sync_every: int = SYNC_EVERY
+    decode_loop: str = "chunked"
 
 
 def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> None:
@@ -73,6 +81,7 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
         raise ValueError("page_size > 0 is incompatible with compaction_segments > 0")
     if sampling.spec_k > 0 and sampling.compaction_segments > 0:
         raise ValueError("spec_k > 0 is incompatible with compaction_segments > 0")
+    check_decode_loop(sampling.decode_loop, sampling.sync_every)
     queued_capable = sampling.page_size > 0 and sampling.decode_rows > 0
     if prefix_cache and not queued_capable:
         raise ValueError("prefix_cache requires continuous batching "
@@ -259,36 +268,57 @@ def _prefill_state(params, config, prompt_ids, prompt_mask, generator, *,
     out[:, 0] = tok
     if capture_logprobs:
         lp_out[:, 0] = _token_logprob(first_logits, tok, temperature)
-    return {"step": 1, "out": out, "lp_out": lp_out, "caches": caches,
+    step = torch.ones((), dtype=torch.int64, device=device)
+    return {"step": step, "out": out, "lp_out": lp_out, "caches": caches,
             "key_mask": key_mask, "done": tok == eos_token_id, "cur_tok": tok,
             "prompt_len": prompt_len, "table": table, "page_size": page_size}
+
+
+def _set_column(buf, col, where, value) -> None:
+    """buf[:, col] = value where `where` (per row), in place; `col` a [1]
+    index tensor."""
+    old = buf.index_select(1, col)[:, 0]
+    buf.index_copy_(1, col, torch.where(where, value, old)[:, None])
+
+
+def _loop_active(state, max_tokens):
+    """The monolithic loop's condition, on the device: JAX's
+    `(step < max_tokens) & ~all(done)`."""
+    return (state["step"] < max_tokens) & ~state["done"].all()
 
 
 def _decode_body(params, config, state, *, Tp, max_tokens, eos_token_id,
                  pad_token_id, temperature, top_p, greedy, lora_scale, top_k,
                  capture_logprobs, approx_top_k, generator):
-    """One decode step over the state (the cache and buffers in place)."""
-    step, done = state["step"], state["done"]
+    """One decode iteration over the device state, in place and with no
+    host read, predicated on `_loop_active`: an inactive iteration (past
+    the bound, or every row done) changes no output, flag, counter or
+    valid cache slot (its K/V lands in a slot no mask marks valid)."""
+    step, done, key_mask = state["step"], state["done"], state["key_mask"]
+    active = _loop_active(state, max_tokens)
     # token `step` was sampled from logits at position prompt_len + step - 1;
     # its KV lands in cache slot Tp + step - 1
-    cache_slot = Tp + step - 1
-    state["key_mask"][:, cache_slot] = True
+    # the slot and column are [1] index tensors: a 0-d tensor index is
+    # read back to the host by torch's indexing
+    cache_slot = (Tp + step - 1).clamp(max=key_mask.shape[1] - 1).view(1)
+    _set_column(key_mask, cache_slot, active, True)
     position = state["prompt_len"] + step - 1
     logits, _ = decode_step(params, config, state["cur_tok"], position,
-                            cache_slot, state["key_mask"], state["caches"],
+                            cache_slot, key_mask, state["caches"],
                             lora_scale=lora_scale, page_table=state["table"],
                             page_size=state["page_size"])
     tok = _sample_token(generator, logits, temperature, top_p, greedy, top_k,
                         approx_top_k)
     tok = torch.where(done, torch.full_like(tok, pad_token_id), tok)
-    live = ~done
-    state["out"][:, step] = torch.where(live, tok, state["out"][:, step])
+    live = ~done & active
+    col = step.clamp(max=max_tokens - 1).view(1)
+    _set_column(state["out"], col, live, tok)
     if capture_logprobs:
-        lp = _token_logprob(logits, tok, temperature)
-        state["lp_out"][:, step] = torch.where(live, lp, state["lp_out"][:, step])
-    state["done"] = done | (tok == eos_token_id)
-    state["cur_tok"] = tok
-    state["step"] = step + 1
+        _set_column(state["lp_out"], col, live,
+                    _token_logprob(logits, tok, temperature))
+    done.copy_(done | (active & (tok == eos_token_id)))
+    state["cur_tok"].copy_(torch.where(active, tok, state["cur_tok"]))
+    step.add_(active.to(step.dtype))
 
 
 @torch.no_grad()
@@ -299,12 +329,16 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
                     greedy: bool = False, lora_scale: float = 1.0,
                     top_k: int = 64, capture_logprobs: bool = False,
                     approx_top_k: bool = True, prompt_fanout: int = 1,
-                    page_size: int = 0, timings: dict | None = None):
+                    page_size: int = 0, timings: dict | None = None,
+                    sync_every: int = SYNC_EVERY, decode_loop: str = "chunked"):
     """Core loop: prefill, then decode until `max_tokens` or every row has
     emitted EOS. Returns [B*fanout, max_tokens] (+ logprobs f32).
     `page_size` > 0 runs it over the paged layout (identity table).
-    `timings`, when given, receives `prefill_s`, `decode_s` (wall seconds,
-    device-synchronized) and `decode_steps`."""
+    `sync_every` / `decode_loop`: see `sampler/graph.py`. `timings`, when
+    given, receives `prefill_s`, `decode_s` (wall seconds,
+    device-synchronized; the graph capture included), `decode_steps`
+    (iterations that ran with a live row), `graph_capture_s`,
+    `graph_steps_run`, `graph_replays` and `graph_pool_bytes`."""
     Tp = prompt_ids.shape[1]
     kw = dict(max_tokens=max_tokens, eos_token_id=eos_token_id,
               pad_token_id=pad_token_id, temperature=temperature, top_p=top_p,
@@ -317,12 +351,15 @@ def generate_tokens(params, config: ModelConfig, prompt_ids, prompt_mask,
         sync_device(prompt_ids.device)
         timings["prefill_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    while state["step"] < max_tokens and not bool(state["done"].all()):
-        _decode_body(params, config, state, Tp=Tp, generator=generator, **kw)
+    run_loop(lambda: _decode_body(params, config, state, Tp=Tp,
+                                  generator=generator, **kw),
+             lambda: bool(_loop_active(state, max_tokens)),
+             sync_every=sync_every, decode_loop=decode_loop,
+             device=prompt_ids.device, generator=generator, timings=timings)
     if timings is not None:
         sync_device(prompt_ids.device)
         timings["decode_s"] = time.perf_counter() - t0
-        timings["decode_steps"] = state["step"] - 1
+        timings["decode_steps"] = int(state["step"]) - 1
     out = state["out"]
     return (out, state["lp_out"]) if capture_logprobs else out
 
@@ -363,7 +400,8 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
               top_p=sampling.top_p, greedy=sampling.greedy,
               lora_scale=lora_scale, top_k=sampling.top_k,
               capture_logprobs=sampling.capture_logprobs,
-              approx_top_k=sampling.approx_top_k, timings=timings)
+              approx_top_k=sampling.approx_top_k, timings=timings,
+              sync_every=sampling.sync_every, decode_loop=sampling.decode_loop)
     if queued:
         from nanorlhf_tpu_torch.sampler.paged.scheduler import generate_tokens_queued
 

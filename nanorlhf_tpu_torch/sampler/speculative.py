@@ -24,9 +24,12 @@ never marked valid, which the next verify overwrites. The contiguous cache
 carries spec_k slack slots (`_prefill_state(cache_extra=spec_k)`); the
 paged one none (a write past a row's pages lands on the scratch page).
 
-The JAX `while_loop` becomes a Python loop with the same exit (iteration
-<= max_tokens and not every row done) and one host sync per iteration, as
-the port's other loops. Sampled acceptance draws from the port's
+The JAX `while_loop` becomes the port's compiled decode loop
+(`sampler/graph.py`): the draft + verify body over device state, predicated
+on JAX's condition (iteration <= max_tokens and not every row done),
+replayed from a CUDA graph in chunks of `sync_every` iterations with a host
+check between chunks (eager chunks on the CPU; `decode_loop="per_step"`
+checks before every iteration). Sampled acceptance draws from the port's
 generator — u, then the residual categorical, per iteration — so it
 matches JAX in distribution, not bit for bit; greedy streams and their
 statistics match exactly.
@@ -44,6 +47,7 @@ import torch
 
 from nanorlhf_tpu_torch.core.model import decode_verify
 from nanorlhf_tpu_torch.ops.masking import guard_temperature
+from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY, run_loop
 from nanorlhf_tpu_torch.sampler.sampler import (
     _categorical,
     _prefill_state,
@@ -135,12 +139,19 @@ def _draft_fn(prompt_rep, state, *, Tp, spec_k, spec_ngram, pad_token_id):
 def _verify_fn(params, config, state, drafts, *, Tp, max_tokens, eos_token_id,
                spec_k, temperature, top_p, greedy, lora_scale, top_k,
                capture_logprobs, approx_top_k, generator, page_table=None,
-               page_size=0):
-    """Verify + accept + per-row bookkeeping, in place on `state`: one
-    forward over the k+1 candidates (through `page_table` when `page_size`
-    > 0), the acceptance rule, the multi-token output writes, the per-row
-    cache-length / key_mask advance, EOS / budget termination and the
-    acceptance counters."""
+               page_size=0, active=None):
+    """Verify + accept + per-row bookkeeping, in place on `state` and with
+    no host read: one forward over the k+1 candidates (through
+    `page_table` when `page_size` > 0), the acceptance rule, the
+    multi-token output writes, the per-row cache-length / key_mask
+    advance, EOS / budget termination and the acceptance counters.
+
+    `active` (0-d bool on the device) predicates the iteration; None is
+    the monolithic loop's condition, `spec_active`. An inactive iteration
+    emits nothing and advances no flag or counter; its candidate K/V land
+    in slots no mask marks valid."""
+    if active is None:
+        active = spec_active(state, max_tokens)
     out, key_mask, done = state["out"], state["key_mask"], state["done"]
     cur_tok, n_gen, prompt_len = state["cur_tok"], state["n_gen"], state["prompt_len"]
     B = cur_tok.shape[0]
@@ -164,7 +175,7 @@ def _verify_fn(params, config, state, drafts, *, Tp, max_tokens, eos_token_id,
     is_eos = (emitted == eos_token_id) & (lane < n_emit[:, None])
     n_emit = torch.where(is_eos.any(dim=1), torch.argmax(is_eos.int(), dim=1) + 1, n_emit)
     n_emit = torch.minimum(n_emit, max_tokens - n_gen)
-    n_emit = torch.where(done, torch.zeros_like(n_emit), n_emit)
+    n_emit = torch.where(done | ~active, torch.zeros_like(n_emit), n_emit)
 
     # row b writes emitted[b, :n_emit[b]] at out[b, n_gen[b]:]: one column
     # per lane (no two writes of one call hit the same element)
@@ -185,13 +196,13 @@ def _verify_fn(params, config, state, drafts, *, Tp, max_tokens, eos_token_id,
     # advance: the last emitted token becomes cur_tok; its slot stays
     # outside key_mask (it is (re)written by the next verify)
     last = torch.gather(emitted, 1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
-    state["cur_tok"] = torch.where(n_emit > 0, last, cur_tok)
+    cur_tok.copy_(torch.where(n_emit > 0, last, cur_tok))
     slot = torch.arange(key_mask.shape[1], device=dev)[None, :]
     key_mask |= (slot >= fill[:, None]) & (slot < (fill + n_emit)[:, None])
-    state["n_gen"] = n_gen = n_gen + n_emit
+    n_gen += n_emit
     eos_emitted = ((emitted == eos_token_id) & (lane < n_emit[:, None])).any(dim=1)
-    live = (~done).long()
-    state["done"] = done | eos_emitted | (n_gen >= max_tokens)
+    live = (~done & active).long()
+    done.copy_(done | (active & (eos_emitted | (n_gen >= max_tokens))))
 
     acc_row = live * torch.minimum(acc, (n_emit - 1).clamp(min=0))
     state["n_drafted"] += live.sum() * spec_k
@@ -199,18 +210,25 @@ def _verify_fn(params, config, state, drafts, *, Tp, max_tokens, eos_token_id,
     state["n_emitted"] += n_emit.sum()
     state["n_rowsteps"] += live.sum()          # live (row, verify-step) pairs
     state["row_acc"] += acc_row                # per-row accepted drafts
-    state["it"] += 1
+    state["it"] += active
+
+
+def spec_active(state, max_tokens):
+    """The monolithic speculative loop's condition, on the device: JAX's
+    `(it <= max_tokens) & ~all(done)` (every live row emits >= 1 token an
+    iteration, so max_tokens bounds the trip count)."""
+    return (state["it"] <= max_tokens) & ~state["done"].all()
 
 
 def _spec_state(base: dict) -> dict:
     """Prefill state → speculative state: the step counter becomes per-row
     generated-token counts `n_gen` plus the acceptance counters; `it`
-    counts verify iterations (from 1)."""
+    counts verify iterations (from 1). Every counter is a device tensor."""
     B = base["cur_tok"].shape[0]
     dev = base["cur_tok"].device
     state = {k: base[k] for k in ("out", "lp_out", "caches", "key_mask", "done",
                                   "cur_tok", "prompt_len", "table", "page_size")}
-    state["it"] = 1
+    state["it"] = torch.ones((), dtype=torch.int64, device=dev)
     state["n_gen"] = torch.ones((B,), dtype=torch.int64, device=dev)
     for name in _COUNTERS:
         state[name] = torch.zeros((), dtype=torch.int64, device=dev)
@@ -235,14 +253,19 @@ def generate_tokens_spec(params, config, prompt_ids, prompt_mask,
                          lora_scale: float = 1.0, top_k: int = 64,
                          capture_logprobs: bool = False,
                          approx_top_k: bool = True, prompt_fanout: int = 1,
-                         page_size: int = 0, timings: dict | None = None):
+                         page_size: int = 0, timings: dict | None = None,
+                         sync_every: int = SYNC_EVERY,
+                         decode_loop: str = "chunked"):
     """The speculative decode loop. Same output contract as
     `generate_tokens` plus the stats dict: (tokens [B*fanout, max_tokens],
     logprobs f32, stats). `verify_steps` is the count of verify forwards
-    (the monolithic loop pays one per token); `row_steps` counts live (row,
-    verify-step) pairs, so emitted / row_steps is the mean tokens per row
-    per forward. `timings`: prefill_s, decode_s (the verify loop),
-    decode_steps (= verify_steps) and emitted_tokens, device-synchronized."""
+    that ran with a live row (the monolithic loop pays one per token);
+    `row_steps` counts live (row, verify-step) pairs, so emitted /
+    row_steps is the mean tokens per row per forward. `timings`:
+    prefill_s, decode_s (the verify loop, graph capture included),
+    decode_steps (= verify_steps), emitted_tokens, graph_capture_s,
+    graph_steps_run, graph_replays and graph_pool_bytes,
+    device-synchronized."""
     Tp = prompt_ids.shape[1]
     kw = dict(max_tokens=max_tokens, eos_token_id=eos_token_id,
               temperature=temperature, top_p=top_p, greedy=greedy,
@@ -258,16 +281,20 @@ def generate_tokens_spec(params, config, prompt_ids, prompt_mask,
     prompt_rep = (prompt_ids.repeat_interleave(prompt_fanout, dim=0)
                   if prompt_fanout > 1 else prompt_ids)
     state = _spec_state(base)
-    t0 = time.perf_counter()
-    # every live row emits >= 1 token per iteration, so max_tokens bounds
-    # the trip count; the done check is the real exit
-    while state["it"] <= max_tokens and not bool(state["done"].all()):
+
+    def body():
         drafts = _draft_fn(prompt_rep, state, Tp=Tp, spec_k=spec_k,
                            spec_ngram=spec_ngram, pad_token_id=pad_token_id)
         _verify_fn(params, config, state, drafts, Tp=Tp, spec_k=spec_k,
                    generator=generator, page_table=state["table"],
                    page_size=page_size, **kw)
-    steps = state["it"] - 1
+
+    t0 = time.perf_counter()
+    run_loop(body, lambda: bool(spec_active(state, max_tokens)),
+             sync_every=sync_every, decode_loop=decode_loop,
+             device=prompt_ids.device, generator=generator, what="speculative",
+             timings=timings)
+    steps = int(state["it"]) - 1
     if timings is not None:
         sync_device(prompt_ids.device)
         timings["decode_s"] = time.perf_counter() - t0
@@ -285,7 +312,8 @@ def generate_spec(params, config, prompt_ids, prompt_mask,
                   capture_logprobs: bool = False, approx_top_k: bool = True,
                   prompt_fanout: int = 1, spec_stats_out: list | None = None,
                   tracer=None, page_size: int = 0,
-                  timings: dict | None = None):
+                  timings: dict | None = None, sync_every: int = SYNC_EVERY,
+                  decode_loop: str = "chunked"):
     """`generate`-contract entry of the speculative path: tokens, or
     (tokens, logprobs) with capture; the stats dict goes to
     `spec_stats_out` when given."""
@@ -300,7 +328,8 @@ def generate_spec(params, config, prompt_ids, prompt_mask,
         temperature=temperature, top_p=top_p, greedy=greedy,
         lora_scale=lora_scale, top_k=top_k, capture_logprobs=capture_logprobs,
         approx_top_k=approx_top_k, prompt_fanout=prompt_fanout,
-        page_size=page_size, timings=timings)
+        page_size=page_size, timings=timings, sync_every=sync_every,
+        decode_loop=decode_loop)
     if spec_stats_out is not None:
         spec_stats_out.append(stats)
     return (out, lp) if capture_logprobs else out

@@ -136,11 +136,14 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     [B, R] f32. `ref_params=None` is the ref-free run (kl_coef 0): ref
     logprobs then equal the policy's. `timings`, when given, receives the
     wall seconds of each phase (device-synchronized) and the number of
-    decode steps. `sampling` overrides the trainer's SamplingParams (e.g.
+    decode steps (and the decode loop's `graph_capture_s`,
+    `graph_steps_run`, `graph_replays`: `sampler/graph.py`). `sampling`
+    overrides the trainer's SamplingParams (e.g.
     greedy, for parity tests). On a paged rollout the result also carries
     `paged_stats`, on a speculative one `spec_stats` (the sampler's stats
     dicts). `launches`, when given,
-    receives the kernel launches of the generation (`generate`) and of the
+    receives the kernel launches of the generation (`generate`: each CUDA-
+    graph replay of the decode loop counts what it launched) and of the
     scoring pass (`score`)."""
     check_supported(cfg)
     device = params["embed_tokens"].device

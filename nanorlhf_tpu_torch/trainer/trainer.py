@@ -156,9 +156,11 @@ class RLTrainer:
         self.logger = MetricsLogger(config.output_dir, config.report_to)
         self.state = {"episode": 0, "global_step": 0, "opt_steps": 0, "rollouts": 0}
         # the latest update's kernel launches per half (and the rollout
-        # half split into generate / score), phase timings (wall s,
-        # device-synchronized) and per-minibatch stats; and the wall
-        # seconds of the latest checkpoint write
+        # half split into generate / score; a decode loop's graph replays
+        # count what each replay launched), phase timings (wall s,
+        # device-synchronized; with the decode loop's graph_capture_s,
+        # graph_steps_run and graph_replays) and per-minibatch stats; and
+        # the wall seconds of the latest checkpoint write
         self.last_launches: dict = {}
         self.last_timings: dict = {}
         self.last_stats: list = []
