@@ -1746,10 +1746,11 @@ def train_update(torch, max_tokens: int, bwd_seen, fwd_seen, fused_seen) -> dict
     live = flatten(trainer.trainable)
     same = set(flatten(saved["params"])) == set(live) and all(
         torch.equal(t, live[p].detach()) for p, t in flatten(saved["params"]).items())
+    opt, saved_opt = trainer.opt_state["policy"], saved["opt_state"]["policy"]
     same = same and all(
-        torch.equal(t, flatten(getattr(trainer.opt_state, m))[p])
-        for m in ("mu", "nu") for p, t in flatten(saved["opt_state"][m]).items())
-    if not same or int(saved["opt_state"]["count"]) != trainer.opt_state.count:
+        torch.equal(t, flatten(getattr(opt, m))[p])
+        for m in ("mu", "nu") for p, t in flatten(saved_opt[m]).items())
+    if not same or int(saved_opt["count"]) != opt.count:
         fail("the checkpoint does not reload to the trained tensors")
     log(f"  checkpoint-{step} reloads to the same tensors "
         f"({len(flatten(saved['params']))} leaves + optimizer state)")
@@ -2600,6 +2601,284 @@ def small_grad_reference(torch, trainer) -> None:
         fail("kernel route LoRA gradients less accurate than the plain route")
 
 
+# --------------------------------------------------------------------------
+# phase 9: the other five algorithms
+# --------------------------------------------------------------------------
+
+ALGOS = ("rloo", "remax", "reinforce", "raft", "ppo")
+# PPO's value-init phase, cut from the launcher's 500 prompts x 8 epochs
+VALUE_INIT_CUT = dict(train_data_size=16, num_train_epochs=2, per_device_train_batch_size=4)
+
+
+def phase9_shapes(prompt_width: int, value_width: int, short: int):
+    """The K1 (B, H, KV, T, hd), K2/K3 (B, H, KV, T, hd), K10 (R, D, V,
+    with_entropy, transposed) and K4 (B, T_max) shapes phase 9 gives the
+    kernels at `short`-token responses: prefill of the 16 prompts;
+    scoring of the 64 rows of RLOO and RAFT and the 16 of the others (and
+    PPO's value pass); the update's 4-row microbatch (twice for PPO: the
+    policy and the value tree); the value init over `value_width`-token
+    prompts (the dataset's width, not de-padded, as in JAX): its rollout,
+    scoring and 4-row regression."""
+    fwd = {(b, 12, 2, t, 128) for t, bs in
+           ((prompt_width, (16,)), (prompt_width + short, (64, 16, 4)),
+            (value_width, (16,)), (value_width + short, (16, 4))) for b in bs}
+    bwd = {(4, 12, 2, w + short, 128) for w in (prompt_width, value_width)}
+    fused = {(rows * short, 1536, 151936, rows == 4, True) for rows in (64, 16, 4)}
+    decode = {(b, prompt_width + short) for b in (64, 16)} | {(16, value_width + short)}
+    return fwd, bwd, fused, decode
+
+
+def small_value_reference(torch, mcfg, pad_id: int) -> None:
+    """PPO's value forward (`score_forward`, sliced as the value pass
+    slices it) on a small input — 2 layers at the full Qwen2.5-1.5B width,
+    projections N(0, 1/fan_in), value LoRA B non-zero, a score head N(0,
+    1/D) — through the kernels, the plain bf16 route and the plain route in
+    f32: the kernel route must be no less accurate than the plain bf16
+    route against f32 (error at most 2x the plain route's)."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.core.lora import LoraConfig, init_lora_params
+
+    small = dataclasses.replace(mcfg, num_hidden_layers=2, attention_impl="auto")
+    plain = dataclasses.replace(small, attention_impl="xla")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = tm.init_params(small, seed=9, device="cuda")
+    for entry in params["layers"].values():
+        if isinstance(entry, dict):
+            entry["kernel"].mul_(math.sqrt(2 / entry["kernel"].shape[-1]))
+    lora = LoraConfig(r=64, alpha=16)
+    params["lora"] = init_lora_params(small, lora, gen, device="cuda")
+    for ab in params["lora"]["layers"].values():
+        ab["b"].normal_(0.0, 0.02, generator=gen)
+    params["score"] = tm.init_score_head(small, gen)
+    B, Tp, Tr = 4, 24, 200
+    q = torch.randint(3, 4096, (B, Tp), generator=gen, device="cuda")
+    q[1, :5] = pad_id
+    resp = torch.randint(3, 4096, (B, Tr), generator=gen, device="cuda")
+    resp[2, 150:] = pad_id
+    qr = torch.cat([q, resp], 1)
+    vals = {}
+    with torch.no_grad():
+        for name, c, dtype in (("kernel", small, torch.bfloat16),
+                               ("plain", plain, torch.bfloat16),
+                               ("f32", plain, torch.float32)):
+            p = _tree_map(lambda t: t.to(dtype), params)
+            vals[name] = tm.score_forward(p, c, qr, pad_id,
+                                          lora_scale=lora.scale)[:, Tp - 1:-1, 0]
+    errs = {r: float((vals[r] - vals["f32"]).abs().max()) for r in ("kernel", "plain")}
+    log(f"  small-input value pass (2 layers, full width, {B} rows x {Tp}+{Tr} tokens, "
+        f"max|err| vs f32, values of scale {float(vals['f32'].abs().max()):.3e}): "
+        f"kernel route {errs['kernel']:.3e}, plain bf16 route {errs['plain']:.3e}")
+    if not (math.isfinite(errs["kernel"]) and math.isfinite(errs["plain"])) \
+            or errs["kernel"] > 2 * errs["plain"]:
+        fail("kernel route value pass less accurate than the plain route")
+
+
+def algo_update(torch, algo: str, max_tokens: int, prompt_width: int, fwd_seen,
+                bwd_seen, fused_seen, card: str) -> dict:
+    """One update of `algo` through its launcher's config with the one-card
+    cut (PPO: its value-init phase first, cut to VALUE_INIT_CUT), at the
+    full Qwen2.5-1.5B width, then the checks of phase 9. Returns the
+    update's launch counts."""
+    import gc
+    import importlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import one_card_cut
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    launcher = importlib.import_module(f"nanorlhf_tpu_torch.entrypoints.{algo}")
+    cfg = one_card_cut(getattr(launcher, f"build_{algo}_config")())
+    if max_tokens != cfg.response_length:
+        log(f"  CUT: response_length {cfg.response_length} -> {max_tokens}")
+        cfg.response_length = max_tokens
+    cfg.output_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "output", f"chip_smoke_{algo}")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    hooks, value_init = {}, {}
+    if algo == "ppo":
+        from nanorlhf_tpu_torch.trainer.value_init import ValueInitConfig
+
+        log(f"  CUT: value init {VALUE_INIT_CUT} (the launcher's: 500 prompts x 8 "
+            "epochs, 8 rows a step)")
+        phase = launcher.value_init_phase(cfg, True, ValueInitConfig(**VALUE_INIT_CUT))
+
+        def timed(trainer, dataset, reward_func):
+            t0 = time.perf_counter()
+            phase(trainer, dataset, reward_func)
+            torch.cuda.synchronize()
+            value_init["s"] = time.perf_counter() - t0
+
+        hooks = dict(value_params_fn=launcher.make_value_params, post_build=timed)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_backward_shapes(bwd_seen), recording_forward_shapes(fwd_seen), \
+            recording_fused_shapes(fused_seen):
+        trainer = build_trainer(cfg, device="cuda", **hooks)
+        init_counts = _build.launch_counts()
+        L = trainer.mcfg.num_hidden_layers
+        if algo == "ppo":
+            log(f"  value init: {value_init['s']:.3f} s, launches {init_counts}")
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                         "decode_attention"):
+                if init_counts[name] <= 0:
+                    fail(f"ppo value init never launched {name}")
+        policy, ref = flatten(trainer.params), flatten(trainer.ref_params)
+        trained = set(flatten(trainer.trainable))
+        before = {p: t.detach().clone() for p, t in policy.items()}
+        ref_before = {p: t.clone() for p, t in ref.items()}
+        value_before = ({p: t.detach().clone() for p, t in flatten(trainer.value_params).items()}
+                        if algo == "ppo" else None)
+        _build.reset_launch_counts()
+        state = trainer.train(num_updates=1)
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, t = trainer.last_launches, trainer.last_timings
+    metrics = trainer.logger.latest()
+    n_steps = state["opt_steps"]
+    n_micro = n_steps * cfg.gradient_accumulation_steps
+    rows = cfg.batch_size * cfg.sample_n
+    trees = 2 if algo == "ppo" else 1  # PPO: the policy and the value tree
+    log(f"  {algo}: {cfg.batch_size} prompts x sample_n={cfg.sample_n}, "
+        f"{n_steps} optimizer steps x {cfg.gradient_accumulation_steps} microbatches; "
+        f"launches: generate {launches['generate']}, score {launches['score']}, "
+        f"value {launches['value']}, update {launches['update']}")
+
+    # the update half: remat runs each layer's forward twice a microbatch,
+    # once per tree; the backward once per tree
+    expected = {"flash_fwd": 2 * L * n_micro * trees, "flash_bwd_dq": L * n_micro * trees,
+                "flash_bwd_dkv": L * n_micro * trees, "fused_logprob": n_micro,
+                "decode_attention": 0}
+    for name, want in expected.items():
+        if launches["update"][name] != want:
+            fail(f"{algo} update: {name} launched {launches['update'][name]} times, "
+                 f"expected {want}")
+    # the generation: L x graph steps run, per generate (ReMax: two)
+    steps = t["graph_steps_run"] + t.get("greedy_graph_steps_run", 0)
+    check_graph_steps(f"{algo} rollout", t)
+    if algo == "remax":
+        check_graph_steps("remax greedy rollout", {k[len("greedy_"):]: v for k, v in t.items()
+                                                   if k.startswith("greedy_")})
+    if launches["generate"]["decode_attention"] != L * steps:
+        fail(f"{algo}: decode_attention launched {launches['generate']['decode_attention']} "
+             f"times in generation, expected L x graph steps run = {L * steps}")
+    # the scoring pass: policy + ref over every sampled row (RLOO, RAFT: all
+    # B·N) or the kept one per prompt
+    chunk = max(1, (22 * 2316) // (prompt_width + cfg.response_length))
+    n_chunks = math.ceil(rows / min(rows, chunk))
+    if launches["score"]["fused_logprob"] != 2 * n_chunks:
+        fail(f"{algo}: scoring launched fused_logprob {launches['score']['fused_logprob']} "
+             f"times, expected {2 * n_chunks} (policy + ref over {rows} rows)")
+    if algo == "ppo" and launches["value"]["flash_fwd"] != L:
+        fail(f"ppo value pass: flash_fwd {launches['value']['flash_fwd']}, expected {L}")
+
+    loss, gnorm = metrics["loss/policy_avg_new"], metrics["policy/grad_norm_new"]
+    first_kl = trainer.last_stats[0].get("approxkl")
+    log(f"  {algo}: loss {loss:.6e}, grad_norm {gnorm:.6e}, first-minibatch approxkl "
+        f"{'n/a (SFT loss)' if first_kl is None else f'{first_kl:.3e}'}, kl_rollout "
+        f"{metrics['objective/kl_rollout_old']:.3e}, non_score_reward "
+        f"{metrics['objective/non_score_reward_old']:.3e}, rlhf_reward "
+        f"{metrics['eval_objective/rlhf_reward_old']:.4f}"
+        + (f", value loss {metrics['loss/value_avg_new']:.6e}, value clipfrac "
+           f"{metrics['val/clipfrac_avg_new']:.4f}" if algo == "ppo" else ""))
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or gnorm <= 0:
+        fail(f"{algo}: loss / grad norm not finite, or a zero gradient")
+    if first_kl is not None and not first_kl < 1e-4:
+        fail(f"{algo}: first-minibatch approxkl {first_kl:.3e} >= 1e-4")
+    keys = ("objective/kl_old", "objective/kl_rollout_old", "objective/entropy_old",
+            "objective/non_score_reward_old", "eval_objective/scores_old",
+            "policy/approxkl_avg_new", "policy/clipfrac_avg_new", "policy/entropy_avg_new",
+            "loss/policy_avg_new", "val/ratio_new", "val/ratio_var_new",
+            "val/num_eos_tokens_old", "lr", "eps", "episode")
+    if algo == "ppo":
+        keys += ("loss/value_avg_new", "val/clipfrac_avg_new")
+    bad = [k for k in keys if k not in metrics or not math.isfinite(metrics[k])]
+    if bad:
+        fail(f"{algo}: metrics missing or not finite: {bad}")
+    if not math.isclose(metrics["objective/non_score_reward_old"],
+                        -cfg.kl_coef * metrics["objective/kl_rollout_old"],
+                        rel_tol=1e-5, abs_tol=1e-9):
+        fail(f"{algo}: non_score_reward_old != -kl_coef x kl_rollout_old")
+    after = flatten(trainer.params)
+    if not any(p[-1] == "b" and not torch.equal(after[p].detach(), before[p]) for p in trained):
+        fail(f"{algo}: no LoRA B leaf moved")
+    if any(not torch.equal(after[p].detach(), before[p]) for p in policy if p not in trained) \
+            or any(not torch.equal(v, ref_before[p])
+                   for p, v in flatten(trainer.ref_params).items()):
+        fail(f"{algo}: the frozen base or the ref moved")
+    if algo == "ppo":
+        vafter, vtrained = flatten(trainer.value_params), set(flatten(trainer.value_trainable))
+        moved = {p for p in vtrained if not torch.equal(vafter[p].detach(), value_before[p])}
+        want = {p for p in vtrained if p[0] != "lora" or p[-1] == "b"}
+        if not want <= moved:
+            fail(f"ppo: value leaves that did not move: {sorted(want - moved)[:4]}")
+        if any(not torch.equal(vafter[p].detach(), value_before[p])
+               for p in vafter if p not in vtrained):
+            fail("ppo: the value backbone moved")
+        log(f"  ppo: moved {len(moved)} value leaves (LoRA, score head, embeddings); "
+            "value backbone unchanged")
+
+    step = trainer.ckpt.latest_step()
+    saved = trainer.ckpt.restore(step, "cuda")
+    same = step == state["global_step"]
+    for key, live in (("params", trainer.trainable), ("value", trainer.value_trainable)):
+        if live is None:
+            same = same and key not in saved
+            continue
+        live = flatten(live)
+        same = same and key in saved and set(flatten(saved[key])) == set(live) and all(
+            torch.equal(v, live[p].detach()) for p, v in flatten(saved[key]).items())
+    for group, st in trainer.opt_state.items():
+        got = saved["opt_state"][group]
+        same = same and int(got["count"]) == st.count and all(
+            torch.equal(v, flatten(getattr(st, m))[p])
+            for m in ("mu", "nu") for p, v in flatten(got[m]).items())
+    if not same:
+        fail(f"{algo}: the checkpoint does not reload to the trained tensors")
+    vi = f" value_init_s={value_init['s']:.3f}" if value_init else ""
+    log(f"  {algo}: rollout_s={t['generate_s']:.3f} scoring_s={t['score_s']:.3f} "
+        f"update_s={t['update_s']:.3f}{vi} checkpoint_s={trainer.last_save_s:.3f} "
+        f"peak_gb={peak:.2f} (card: {card}); checkpoint-{step} reloads"
+        + (" with the value tree" if algo == "ppo" else ""))
+    if algo == "ppo":
+        small_value_reference(torch, trainer.mcfg, trainer.tokenizer.pad_token_id)
+    trainer.close()
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    del trainer, policy, ref, before, ref_before, value_before, after, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def other_algorithms(torch, max_tokens: int, prompt_width: int, fwd9, bwd9, fused9,
+                     card: str) -> None:
+    """Phase 9: one update of each of RLOO, ReMax, REINFORCE, RAFT and PPO;
+    every K1, K2/K3 and K10 shape they gave must be one phase 2 held."""
+    fwd_seen: collections.Counter = collections.Counter()
+    bwd_seen: collections.Counter = collections.Counter()
+    fused_seen: collections.Counter = collections.Counter()
+    for algo in ALGOS:
+        log(f" {algo}:")
+        algo_update(torch, algo, max_tokens, prompt_width, fwd_seen, bwd_seen,
+                    fused_seen, card)
+    log(f"  shapes phase 9 gave the kernels: flash forward {dict(fwd_seen)}; "
+        f"flash backward {dict(bwd_seen)}; fused_logprob {dict(fused_seen)}")
+    bwd_held = {(name, *s, True) for name in ("flash_bwd_dq", "flash_bwd_dkv") for s in bwd9}
+    for what, seen, held in (("flash forward", fwd_seen, fwd9),
+                             ("flash backward", bwd_seen, bwd_held),
+                             ("fused_logprob", fused_seen, fused9)):
+        if set(seen) != held:
+            fail(f"phase 9 gave the {what} {sorted(set(seen))}; phase 2 held it at "
+                 f"{sorted(held)}")
+
+
 # --holds: the kernel source each hold set builds
 HOLDS = {"K1": "flash_fwd", "K4": "decode_attention", "K6": "decode_attention",
          "K10": "fused_logprob"}
@@ -2707,6 +2986,10 @@ def main() -> None:
                     help="build, then run only phase 8 (each decode loop's graph "
                          "replay against its per-step body) and the decode-step "
                          "profile, eager against graph replay")
+    ap.add_argument("--algos", action="store_true",
+                    help="build, then run only phase 2's holds of the shapes phase 9 "
+                         "gives the kernels, and phase 9 (one update of each of RLOO, "
+                         "ReMax, REINFORCE, RAFT and PPO)")
     args = ap.parse_args()
 
     import torch
@@ -2802,10 +3085,24 @@ def main() -> None:
     fused4, fused7 = ({(rows * t, 1536, 151936, rows == 4, True) for rows in (16, 4)}
                       for t in (short, resp))
     fused_shapes = fused4 | fused7
+    # phase 9's shapes (its value init reads the dataset's own prompt width);
+    # it records what it gave and fails unless they are these
+    fwd9, bwd9, fused9, decode9 = phase9_shapes(prompt_width, ds.input_ids.shape[1], short)
     # the decode rows of phase 3 (4 prompts x 4 samples) and phase 4 (16 x 4)
     # at the full and the short response length, the full length first
-    decode_shapes = sorted({(B, prompt_width + t) for B in (16, 64) for t in (resp, short)},
-                           key=lambda s: (-s[1], s[0]))
+    decode_shapes = sorted({(B, prompt_width + t) for B in (16, 64) for t in (resp, short)}
+                           | decode9, key=lambda s: (-s[1], s[0]))
+    if args.algos:
+        check_flash(torch, F, sorted(fwd9))
+        check_flash_bwd(torch, F, bwd9)
+        check_fused(torch, F, short, fused9, timed=False)
+        check_decode(torch, F, prompt_width, sorted(decode9, key=lambda s: (-s[1], s[0])))
+        log("phase 9: the other five algorithms (RLOO, ReMax, REINFORCE, RAFT, PPO), "
+            "Qwen2.5-1.5B width")
+        other_algorithms(torch, short, prompt_width, fwd9, bwd9, fused9, card)
+        log(f"algos: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
     if args.holds == "K1":
         check_flash(torch, F, [fwd_long, *sorted(fwd_shapes - {fwd_long})])
     if args.holds == "K4":
@@ -2818,13 +3115,13 @@ def main() -> None:
     if args.holds:
         log(f"{args.holds}: every hold passed")
         return
-    bwd = check_flash_bwd(torch, F, bwd_shapes)
-    flash = check_flash(torch, F, [fwd_long, *sorted(fwd_shapes - {fwd_long})])
+    bwd = check_flash_bwd(torch, F, bwd_shapes | bwd9)
+    flash = check_flash(torch, F, [fwd_long, *sorted((fwd_shapes | fwd9) - {fwd_long})])
     decode = check_decode(torch, F, prompt_width, decode_shapes)
     results = {
         "flash_fwd": flash[fwd_long],
         "decode_attention": decode[(16, prompt_width + resp)],
-        "fused_logprob": check_fused(torch, F, resp, fused_shapes),
+        "fused_logprob": check_fused(torch, F, resp, fused_shapes | fused9),
         # the kernels line gives K2/K3 at phase 4's shape, whose launches it counts
         **bwd[prompt_width + short],
         **check_paged(torch, F, prompt_width, resp),
@@ -2923,6 +3220,10 @@ def main() -> None:
 
     log("phase 8: the compiled decode loop, graph replay against the per-step body")
     graph_loops(torch, phase8_prompts, tok.pad_token_id)
+
+    log("phase 9: the other five algorithms (RLOO, ReMax, REINFORCE, RAFT, PPO), "
+        "Qwen2.5-1.5B width")
+    other_algorithms(torch, short, prompt_width, fwd9, bwd9, fused9, card)
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the

@@ -1,12 +1,13 @@
-"""Policy losses — the port of `nanorlhf_tpu/algos/losses.py` (the GRPO
-path: token-level PPO-clip, the k3 KL and their joint masked mean).
+"""Losses of the six algorithms — the port of `nanorlhf_tpu/algos/losses.py`:
+token-level PPO-clip (PPO, REINFORCE, ReMax), GRPO's joint masked mean of
+it with the k3 KL, sequence-level PPO-clip (RLOO), the clipped value loss
+(PPO) and RAFT's SFT loss.
 
 Every function returns `(loss, aux)` with the JAX package's `aux` keys:
 the detached per-microbatch stats the trainer averages into its `_new`
 metrics. The truncated-IS correction of the async orchestrator
 (`behavior_logprobs`, `segment_ages`) is not ported: the synchronous path
-passes None, and anything else raises. The sequence-level, value and SFT
-losses of the other algorithms come with them.
+passes None, and anything else raises.
 """
 
 from __future__ import annotations
@@ -83,3 +84,45 @@ def grpo_loss(new_logprobs, old_logprobs, ref_logprobs, advantages, mask,
         "pg_loss": loss,
     }
     return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def ppo_clip_loss_sequence(new_logprobs, old_logprobs, advantages, mask,
+                           cliprange: float, behavior_logprobs=None,
+                           is_truncation: float = 2.0, segment_ages=None):
+    """Sequence-level PPO-clip (RLOO): the ratio of the masked sums of the
+    logprobs, clipped against the [B] sequence advantages, plain mean."""
+    _reject_is(behavior_logprobs, segment_ages)
+    mask_f = mask.to(new_logprobs.dtype)
+    logprobs_diff = ((new_logprobs * mask_f).sum(dim=1)
+                     - (old_logprobs * mask_f).sum(dim=1))
+    ratio = torch.exp(logprobs_diff)
+    pg_losses, pg_losses2 = _clip_terms(ratio, advantages, cliprange)
+    loss = torch.mean(torch.maximum(pg_losses, pg_losses2))
+    aux = {
+        "pg_clipfrac": torch.mean((pg_losses2 > pg_losses).float()),
+        "approxkl": 0.5 * torch.mean(logprobs_diff ** 2),
+        "ratio_mean": torch.mean(ratio),
+        "pg_loss": loss,
+    }
+    return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def value_loss_clipped(vpred, values, returns, mask_p1, cliprange_value: float):
+    """PPO's clipped value loss 0.5 · masked_mean(max((v − R)², (v_clip − R)²));
+    `mask_p1` is True on valid value positions (~padding_mask_p1)."""
+    vpredclipped = torch.clamp(vpred, values - cliprange_value, values + cliprange_value)
+    vf_losses1 = torch.square(vpred - returns)
+    vf_losses2 = torch.square(vpredclipped - returns)
+    loss = 0.5 * masked_mean(torch.maximum(vf_losses1, vf_losses2), mask_p1)
+    aux = {
+        "vf_loss": loss,
+        "vf_clipfrac": masked_mean((vf_losses2 > vf_losses1).float(), mask_p1),
+    }
+    return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def sft_loss(new_logprobs, mask):
+    """RAFT: the negative summed logprob of the kept sample, masked before
+    the sum, mean over the batch."""
+    loss = -torch.mean((new_logprobs * mask.to(new_logprobs.dtype)).sum(dim=1))
+    return loss, {"pg_loss": loss.detach()}

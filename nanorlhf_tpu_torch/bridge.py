@@ -5,7 +5,8 @@ projection kernels `[L, in, out]` (x @ W), `lm_head` `[D, V]`, and LoRA
 `a: [L, in, r]`, `b: [L, r, out]`. The port keeps the same names and the
 stacked layout in torch's nn.Linear orientation: kernels `[L, out, in]`,
 `lm_head` `[V, D]`, `a: [L, r, in]`, `b: [L, out, r]`. Everything else
-(embeddings, norms, biases) is laid out identically.
+(embeddings, norms, biases, and a value model's score head `score`, kept
+`[D, num_labels]` as in JAX) is laid out identically.
 
 Both functions take and return nested dicts: parameters, or any tree laid
 out like them by leaf name (gradients, the optimizer's Adam moments), so

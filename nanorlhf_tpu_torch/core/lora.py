@@ -83,3 +83,13 @@ def trainable_mask(params: dict, lora: LoraConfig | None) -> dict:
         return False
 
     return walk(params, None)
+
+
+def value_trainable_mask(value_params: dict, lora: LoraConfig | None) -> dict:
+    """`trainable_mask` of a value tree: under LoRA the score head trains
+    too (the reference's `value_modules_to_save`), beside the adapters and
+    the embeddings."""
+    mask = trainable_mask(value_params, lora)
+    if lora is not None:
+        mask["score"] = True
+    return mask

@@ -546,6 +546,30 @@ def padded_forward_hidden(params, config, query_responses, pad_token_id,
     return rms_norm(x, params["norm"], config.rms_norm_eps)
 
 
+def init_score_head(config: ModelConfig, generator: torch.Generator,
+                    num_labels: int = 1, dtype=torch.bfloat16) -> torch.Tensor:
+    """Score head [D, num_labels] ~ N(0, 1/D): a value model is the decoder
+    with this head in place of lm_head. Kept [D, num_labels], the JAX
+    layout (`bridge.py` passes it through unchanged), drawn on the
+    generator's device."""
+    D = config.hidden_size
+    w = torch.randn((D, num_labels), generator=generator, dtype=torch.float32,
+                    device=generator.device) / math.sqrt(D)
+    return w.to(dtype)
+
+
+def score_forward(params, config, query_responses, pad_token_id,
+                  lora_scale: float = 1.0, remat: bool = False) -> torch.Tensor:
+    """Per-position scores [B, T, num_labels] f32 of a tree carrying
+    "score": the final-normed hidden states of `_padded_hidden` (the flash
+    route on the card) times the head, in f32. The head is a [D, 1]
+    product, a plain matmul as in JAX."""
+    x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
+                       remat)
+    x = rms_norm(x, params["norm"], config.rms_norm_eps)
+    return torch.matmul(x.float(), params["score"].float())
+
+
 def _check_quant(config: ModelConfig) -> bool:
     if config.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={config.kv_cache_quant!r}: must be "

@@ -88,6 +88,16 @@ def resolve_rm_reward(reward_model_path: str, batch_size: int = 16):
     return make_rule_reward(fn)
 
 
+def device_arg(what: str) -> str:
+    """The `--device` of a launcher's command line: cuda unless it says
+    cpu."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=what)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args().device
+
+
 def _device(device, who: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -105,17 +115,30 @@ def _resolve_all(cfg: RLConfig, device):
             resolve_rm_reward(cfg.reward_model_path))
 
 
-def build_trainer(cfg: RLConfig, *, device="cuda") -> RLTrainer:
-    """Model, data, reward and the `RLTrainer` over them, on `device`."""
+def build_trainer(cfg: RLConfig, *, device="cuda", value_params_fn=None,
+                  post_build=None) -> RLTrainer:
+    """Model, data, reward and the `RLTrainer` over them, on `device`.
+    `value_params_fn(mcfg, params) -> tree` builds the value model from the
+    freshly resolved policy (PPO); `post_build(trainer, dataset,
+    reward_func)` runs once the trainer is built (PPO's value
+    initializer)."""
     mcfg, params, tokenizer, dataset, reward_func = _resolve_all(
         cfg, _device(device, "build_trainer"))
-    return RLTrainer(cfg, mcfg, tokenizer, params, dataset, reward_func)
+    value_params = value_params_fn(mcfg, params) if value_params_fn else None
+    trainer = RLTrainer(cfg, mcfg, tokenizer, params, dataset, reward_func,
+                        value_params=value_params)
+    if post_build is not None:
+        post_build(trainer, dataset, reward_func)
+    return trainer
 
 
-def run(cfg: RLConfig, *, device="cuda", num_updates: int | None = None) -> dict:
-    """Build everything and train — the tail of every launcher. Returns the
-    trainer state ({episode, global_step, opt_steps, rollouts})."""
-    trainer = build_trainer(cfg, device=device)
+def run(cfg: RLConfig, *, device="cuda", num_updates: int | None = None,
+        value_params_fn=None, post_build=None) -> dict:
+    """Build everything and train — the tail of every launcher (the hooks
+    as `build_trainer`'s). Returns the trainer state ({episode,
+    global_step, opt_steps, rollouts})."""
+    trainer = build_trainer(cfg, device=device, value_params_fn=value_params_fn,
+                            post_build=post_build)
     try:
         return trainer.train(num_updates)
     finally:

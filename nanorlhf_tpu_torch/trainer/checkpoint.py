@@ -13,7 +13,9 @@ What differs: orbax is not on the card's machine, so the tree is one
 name and renamed last — a directory counts as committed only once
 `tree.pt` exists. It holds the trainable leaves (the LoRA adapters and
 the trained embeddings; the frozen base is the run's input, not its
-output) and the optimizer state, beside `trainer_state.json`. Writes are
+output), PPO's value tree's trainable leaves under `value` (its adapters,
+score head and embeddings) and the optimizer state, beside
+`trainer_state.json`. Writes are
 synchronous; async writes, I/O retries, fault sites and tracer spans are
 not ported.
 """
@@ -88,9 +90,10 @@ class CheckpointManager:
 
     def save(self, step: int, params: dict, opt_state: dict | None = None,
              metric_old: float | None = None,
-             extra_state: dict | None = None) -> str:
-        """Save `params` (and `opt_state`) at `step`. `metric_old`, when
-        given, scores the previous checkpoint and is recorded against it."""
+             extra_state: dict | None = None, value: dict | None = None) -> str:
+        """Save `params` (and `opt_state`, and the value tree `value`) at
+        `step`. `metric_old`, when given, scores the previous checkpoint and
+        is recorded against it."""
         if metric_old is not None and self._last_saved_step is not None:
             self._metric_by_step[self._last_saved_step] = float(metric_old)
         path = self.path(step)
@@ -101,6 +104,8 @@ class CheckpointManager:
         tree = {"params": _to_cpu(params)}
         if opt_state is not None:
             tree["opt_state"] = _to_cpu(opt_state)
+        if value is not None:
+            tree["value"] = _to_cpu(value)
         tmp = os.path.join(path, _TREE + ".tmp")
         torch.save(tree, tmp)
         os.replace(tmp, os.path.join(path, _TREE))
@@ -131,7 +136,7 @@ class CheckpointManager:
             self._ckpt_dirs.remove(victim)
 
     def restore(self, step: int, device=None) -> dict:
-        """The tree saved at `step` ({"params": ..., "opt_state": ...}),
+        """The tree saved at `step` ({"params", "opt_state", "value"}),
         with its tensors on `device`."""
         return torch.load(os.path.join(self.path(step), _TREE),
                           map_location=device, weights_only=True)

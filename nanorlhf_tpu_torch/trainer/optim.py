@@ -1,8 +1,11 @@
 """The optimizer of the update — the port of `RLTrainer._build_optimizer`
-(`nanorlhf_tpu/trainer/trainer.py:1227-1269`): optax's AdamW on the
-trainable leaves, with the cosine-to-`min_lr_rate` schedule (linear warmup
-first when `warmup_steps > 0`) and, when `max_grad_norm` is set,
-`clip_by_global_norm` in front.
+(`nanorlhf_tpu/trainer/trainer.py:1227-1269`): optax's `multi_transform`
+over the trainable tree's groups ("policy", and "value" for PPO's value
+model), each group an AdamW with its own learning rate (`learning_rate`,
+`value_learning_rate or learning_rate`), its own cosine-to-`min_lr_rate`
+schedule (linear warmup first when `warmup_steps > 0`) and, when
+`max_grad_norm` is set, its own `clip_by_global_norm` in front: each
+group is clipped by its own norm, not by the norm of both.
 
 The update rule is optax's, step for step: m ← b1·m + (1−b1)·g,
 v ← b2·v + (1−b2)·g², m̂ = m / (1 − b1^t), v̂ = v / (1 − b2^t),
@@ -136,12 +139,31 @@ class AdamW:
         return AdamWState(count, state.mu, state.nu)
 
 
-def build_optimizer(cfg) -> AdamW:
-    """The policy optimizer of an RLConfig (value-model groups wait for
-    PPO)."""
+class MultiAdamW:
+    """optax.multi_transform labelled by the trainable tree's top-level keys:
+    `groups[k]` steps `trainable[k]`. States are `{group: AdamWState}` over
+    the groups the tree holds."""
+
+    def __init__(self, groups: dict):
+        self.groups = groups
+
+    def init(self, trainable: dict) -> dict:
+        return {k: self.groups[k].init(v) for k, v in trainable.items()}
+
+    def step(self, trainable: dict, grads: dict, state: dict) -> dict:
+        return {k: self.groups[k].step(v, grads[k], state[k])
+                for k, v in trainable.items()}
+
+
+def build_optimizer(cfg) -> MultiAdamW:
+    """The optimizer of an RLConfig: the policy and value groups."""
     total_steps = max(1, cfg.num_total_batches * cfg.num_ppo_epochs
                       * cfg.num_mini_batches)
-    sched = lr_schedule(cfg.learning_rate, total_steps, cfg.min_lr_rate,
-                        cfg.warmup_steps)
-    return AdamW(sched, eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
-                 max_grad_norm=cfg.max_grad_norm)
+
+    def adamw(lr: float) -> AdamW:
+        return AdamW(lr_schedule(lr, total_steps, cfg.min_lr_rate, cfg.warmup_steps),
+                     eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
+                     max_grad_norm=cfg.max_grad_norm)
+
+    return MultiAdamW({"policy": adamw(cfg.learning_rate),
+                       "value": adamw(cfg.value_learning_rate or cfg.learning_rate)})

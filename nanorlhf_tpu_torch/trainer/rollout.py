@@ -1,19 +1,20 @@
-"""One GRPO update's rollout-and-score half — the port of the trainer's
+"""One update's rollout-and-score half — the port of the trainer's
 `rollout_body` (`nanorlhf_tpu/trainer/trainer.py:1727-1819`: the
 monolithic loop over the contiguous or paged cache, or the queued
 continuous-batching scheduler, exact or with the int8 KV cache, with or
-without speculative decode) followed by its reward, group-advantage,
-keep-1-of-N and scoring steps (:2029-2189), then the response
-post-processing (:2191-2221) and the GRPO branch of `_assemble_batch`
-(:2987-3016), as plain functions:
+without speculative decode; ReMax's extra greedy rollout) followed by its
+reward, GRPO's group advantage and keep-1-of-N, and scoring steps
+(:2029-2189), then the response post-processing (:2191-2221) and
+`_assemble_batch` (:2968-3089), as plain functions:
 
-    depad prompts → generate (prefill + sampled decode) → host reward →
-    GRPO group z-score → keep 1 of N per prompt → fused policy (with LoRA)
-    and ref logprobs of the kept rows → stop-token truncation, padding
-    masks, INVALID_LOGPROB fill → sparse terminal reward → γ=1 returns.
+    depad prompts → generate (prefill + sampled decode; ReMax: + a greedy
+    generate) → host reward → [GRPO: group z-score, keep 1 of N] → fused
+    policy (with LoRA) and ref logprobs → stop-token truncation, padding
+    masks, INVALID_LOGPROB fill → the algorithm's batch.
 
-As in JAX, the N−1 dropped samples per prompt leave BEFORE the logprob
-pass: only `batch_size` rows are scored.
+GRPO drops its N−1 other samples per prompt BEFORE the logprob pass (only
+`batch_size` rows are scored); RLOO and RAFT score all B·N rows and select
+after batch assembly, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +27,13 @@ import torch
 
 from nanorlhf_tpu_torch._build import launch_counts
 from nanorlhf_tpu_torch.algos.advantages import (
+    best_of_k_indices,
     discounted_returns,
+    gae,
     grpo_group_advantage,
     keep_one_of_n_indices,
+    remax_advantage,
+    rloo_advantage,
     sparse_terminal_rewards,
 )
 from nanorlhf_tpu_torch.ops.masking import (
@@ -70,7 +75,6 @@ def check_supported(cfg: RLConfig) -> None:
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     unported = {
-        "algo != GRPO": cfg.algo != AlgoName.GRPO,
         "rollout_orchestrator": cfg.rollout_orchestrator,
         "rollout_workers > 1 (fleet)": cfg.rollout_workers > 1,
         "rollout_ahead": cfg.rollout_ahead,
@@ -104,7 +108,7 @@ def rollout_model_config(mcfg, cfg: RLConfig):
 
 
 def sampling_params(cfg: RLConfig) -> SamplingParams:
-    """The trainer's rollout SamplingParams for a GRPO run."""
+    """The trainer's rollout SamplingParams."""
     return SamplingParams(
         temperature=cfg.temperature, top_p=cfg.top_p, n=cfg.sample_n,
         max_tokens=cfg.response_length,
@@ -127,24 +131,27 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       timings: dict | None = None,
                       sampling: SamplingParams | None = None,
                       launches: dict | None = None) -> dict:
-    """Roll out `queries` ([B, T] left-padded prompt ids), keep one sample
-    per prompt and score the kept rows. Returns numpy arrays: `queries`
-    (de-padded, [B, Tq]), `scores` [B·N] (every sample's raw score),
-    `keep` [B] (the kept sample of each prompt, drawn from
-    `keep_generator`), and for the kept rows `responses` [B, R],
-    `advantages` [B] (their group z-scores), `logprobs`, `ref_logprobs`
-    [B, R] f32. `ref_params=None` is the ref-free run (kl_coef 0): ref
-    logprobs then equal the policy's. `timings`, when given, receives the
-    wall seconds of each phase (device-synchronized) and the number of
-    decode steps (and the decode loop's `graph_capture_s`,
-    `graph_steps_run`, `graph_replays`: `sampler/graph.py`). `sampling`
-    overrides the trainer's SamplingParams (e.g.
-    greedy, for parity tests). On a paged rollout the result also carries
-    `paged_stats`, on a speculative one `spec_stats` (the sampler's stats
-    dicts). `launches`, when given,
-    receives the kernel launches of the generation (`generate`: each CUDA-
-    graph replay of the decode loop counts what it launched) and of the
-    scoring pass (`score`)."""
+    """Roll out `queries` ([B, T] left-padded prompt ids), score each
+    sample with `reward_func`, and run the logprob pass. Returns numpy
+    arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
+    raw score), `logprobs`, `ref_logprobs` and `responses` [rows, R] f32 /
+    ids. GRPO keeps one sample per prompt before scoring: rows = B,
+    `keep` [B] (drawn from `keep_generator`) and `advantages` [B] (the kept
+    rows' group z-scores). The other algorithms score all rows = B·N
+    (`keep` None); ReMax also rolls out greedily and carries
+    `greedy_scores` [B]. `ref_params=None` is the ref-free run (kl_coef
+    0): ref logprobs then equal the policy's. `timings`, when given,
+    receives the wall seconds of each phase (device-synchronized) and the
+    number of decode steps (and the decode loop's `graph_capture_s`,
+    `graph_steps_run`, `graph_replays`: `sampler/graph.py`; ReMax's greedy
+    generate adds its own under `greedy_*`, and its capture to
+    `graph_capture_s`). `sampling` overrides the trainer's SamplingParams
+    (e.g. greedy, for parity tests). On a paged rollout the result also
+    carries `paged_stats`, on a speculative one `spec_stats` (the
+    sampler's stats dicts). `launches`, when given, receives the kernel
+    launches of the generation (`generate`, both of ReMax's: each
+    CUDA-graph replay of the decode loop counts what it launched) and of
+    the scoring pass (`score`)."""
     check_supported(cfg)
     device = params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
@@ -159,12 +166,25 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     paged_stats: list = []
     spec_stats: list = []
     counts0 = launch_counts()
-    responses = generate(params, rollout_model_config(mcfg, cfg), queries_t,
-                         prompt_mask, generator, sampling or sampling_params(cfg),
+    gen_mcfg = rollout_model_config(mcfg, cfg)
+    responses = generate(params, gen_mcfg, queries_t, prompt_mask, generator,
+                         sampling or sampling_params(cfg),
                          eos_token_id=eos_id, pad_token_id=pad_id,
                          lora_scale=lora_scale, timings=t,
                          paged_stats_out=paged_stats, spec_stats_out=spec_stats)
     responses_np = responses.cpu().numpy()
+    greedy_np = None
+    if cfg.algo == AlgoName.REMAX:
+        # the greedy rollout of the same prompts: ReMax's baseline
+        tg: dict = {}
+        greedy_np = generate(
+            params, gen_mcfg, queries_t, prompt_mask, generator,
+            SamplingParams(greedy=True, max_tokens=cfg.response_length),
+            eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
+            timings=tg).cpu().numpy()
+        t.update({f"greedy_{k}": v for k, v in tg.items()})
+        if "graph_capture_s" in tg:
+            t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
     t["generate_s"] = time.perf_counter() - t_start
     counts1 = launch_counts()
 
@@ -177,20 +197,31 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     scores = np.asarray(reward_func(
         [q + r for q, r in zip(question_n, responses_decoded)],
         tokenizer.eos_token), dtype=np.float32)
-    advantages = grpo_group_advantage(torch.as_tensor(scores), n).numpy()
-    # keep 1 of N per prompt BEFORE scoring (the reference's forward/backward
-    # saving): the group baseline above already saw all N
     batch = queries.shape[0]
-    keep = keep_one_of_n_indices(keep_generator, batch, n).cpu().numpy()
-    prompt = np.arange(batch)
-    advantages = advantages.reshape(batch, n)[prompt, keep]
-    responses_np = responses_np.reshape(batch, n, -1)[prompt, keep]
+    out = {"queries": queries, "scores": scores, "keep": None}
+    if greedy_np is not None:
+        out["greedy_scores"] = np.asarray(reward_func(
+            [q + r for q, r in zip(question_strings,
+                                   tokenizer.batch_decode(greedy_np))],
+            tokenizer.eos_token), dtype=np.float32)
+    if cfg.algo == AlgoName.GRPO:
+        advantages = grpo_group_advantage(torch.as_tensor(scores), n).numpy()
+        # keep 1 of N per prompt BEFORE scoring (the reference's
+        # forward/backward saving): the group baseline above saw all N
+        keep = keep_one_of_n_indices(keep_generator, batch, n).cpu().numpy()
+        prompt = np.arange(batch)
+        out["advantages"] = advantages.reshape(batch, n)[prompt, keep]
+        out["keep"] = keep
+        responses_np = responses_np.reshape(batch, n, -1)[prompt, keep]
+        queries_rep = queries
+    else:
+        queries_rep = np.repeat(queries, n, axis=0)
     t["reward_s"] = time.perf_counter() - t0
 
     # ---- logprob pass (chunked) ----
     t0 = time.perf_counter()
     context_length = queries.shape[1]
-    qr = np.concatenate([queries, responses_np], axis=1)
+    qr = np.concatenate([queries_rep, responses_np], axis=1)
     total = qr.shape[0]
     chunk = cfg.local_rollout_forward_batch_size or max(
         1, forward_token_budget(mcfg.vocab_size, fused_logprob=cfg.fused_logprob)
@@ -210,12 +241,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         counts2 = launch_counts()
         launches["generate"] = {k: counts1[k] - counts0[k] for k in counts0}
         launches["score"] = {k: counts2[k] - counts1[k] for k in counts0}
-    out = {
-        "queries": queries, "responses": responses_np, "scores": scores,
-        "keep": keep, "advantages": advantages,
-        "logprobs": np.concatenate(lps), "ref_logprobs": np.concatenate(rlps),
-        "context_length": context_length,
-    }
+    out.update(responses=responses_np, logprobs=np.concatenate(lps),
+               ref_logprobs=np.concatenate(rlps), context_length=context_length)
     if paged_stats:
         out["paged_stats"] = paged_stats[0]
     if spec_stats:
@@ -236,44 +263,128 @@ def postprocess_responses(responses: np.ndarray, stop_id: int | None, pad_id: in
     return post.numpy(), seq_lengths.numpy(), padding_mask.numpy(), padding_mask_p1.numpy()
 
 
-def assemble_grpo_batch(ro: dict, cfg: RLConfig, stop_id: int | None,
-                        pad_id: int, eos_id: int):
-    """The update's batch from a `rollout_and_score` result (numpy arrays,
-    one row per kept sample), and the post-processed responses. GRPO keeps
-    its KL in the loss: the advantage is the group z-score (less
-    `missing_eos_penalty` for rows without EOS) placed one past the last
-    real token and broadcast back over the row by the γ=1 reversed cumsum."""
+def _whiten_rewards(rewards: torch.Tensor, padding_mask_p1: np.ndarray) -> torch.Tensor:
+    """`whiten_rewards`: whiten over the valid value positions, zero after."""
+    pm1 = torch.as_tensor(padding_mask_p1)
+    rewards = masked_whiten(rewards, ~pm1, shift_mean=True)
+    return torch.where(pm1, torch.zeros_like(rewards), rewards)
+
+
+def _token_advantages(adv: torch.Tensor, cfg: RLConfig,
+                      padding_mask: np.ndarray) -> np.ndarray:
+    """`advantage_whiten` over the real tokens, then zero at the pads."""
+    if cfg.advantage_whiten:
+        adv = masked_whiten(adv, torch.as_tensor(~padding_mask))
+    return np.where(padding_mask, 0.0, adv.numpy()).astype(np.float32)
+
+
+def assemble_batch(ro: dict, cfg: RLConfig, stop_id: int | None, pad_id: int,
+                   eos_id: int, keep_generator: torch.Generator | None = None,
+                   value_fn=None):
+    """The update's batch from a `rollout_and_score` result (numpy arrays),
+    branch by branch as JAX's `_assemble_batch`. Each row's terminal score
+    (GRPO: its group z-score; ReMax: score − greedy score; else the raw
+    score, less `missing_eos_penalty` for rows without EOS) lands one past
+    its last real token, then:
+
+    - GRPO keeps its KL in the loss: the γ=1 reversed cumsum broadcasts
+      the score over the row;
+    - every other algorithm puts −kl_coef · (logπ − logπ_ref) into the
+      per-token reward (`non_score_reward_old`, `rlhf_reward_old` are over
+      all B·N rows); RLOO: the leave-one-out sequence advantage, then keep
+      1 of N from `keep_generator`; RAFT: best-of-K (`raft_selection`
+      "best", or "random" from `keep_generator`); PPO: `value_fn(qr)` →
+      values, GAE(γ, λ) → advantages, returns; REINFORCE and ReMax: the
+      γ-discounted returns.
+
+    Returns (batch, info): info holds the post-processed responses `post`,
+    the INVALID-filled `logprobs` / `ref_logprobs` and `padding_mask` of
+    every scored row (the `_old` metrics read them), the kept sample of
+    each prompt `keep` (GRPO's from the rollout, RLOO's and RAFT's from
+    here; None otherwise), and the two reward metrics."""
     responses = ro["responses"]
     post, seq_lengths, padding_mask, padding_mask_p1 = postprocess_responses(
         responses, stop_id, pad_id)
     logprobs = np.where(padding_mask, INVALID_LOGPROB, ro["logprobs"]).astype(np.float32)
     ref_logprobs = np.where(padding_mask, INVALID_LOGPROB,
                             ro["ref_logprobs"]).astype(np.float32)
-    scores_sel = ro["advantages"].astype(np.float32)
+    algo = cfg.algo
+    if algo == AlgoName.GRPO:
+        scores_sel = ro["advantages"]
+    elif algo == AlgoName.REMAX:
+        scores_sel = remax_advantage(torch.as_tensor(ro["scores"]),
+                                     torch.as_tensor(ro["greedy_scores"])).numpy()
+    else:
+        scores_sel = ro["scores"]
+    scores_sel = scores_sel.astype(np.float32)
     if cfg.missing_eos_penalty is not None:
         contain_eos = (post == eos_id).any(axis=1)
         scores_sel = scores_sel.copy()
         scores_sel[~contain_eos] -= cfg.missing_eos_penalty
     T = responses.shape[1]
-    rewards = sparse_terminal_rewards(torch.as_tensor(scores_sel),
-                                      torch.as_tensor(seq_lengths), T)
-    if cfg.whiten_rewards:
-        rewards = masked_whiten(rewards, torch.as_tensor(~padding_mask_p1),
-                                shift_mean=True)
-        rewards = torch.where(torch.as_tensor(padding_mask_p1),
-                              torch.zeros_like(rewards), rewards)
-    adv = discounted_returns(rewards, 1.0)
-    if cfg.advantage_whiten:
-        adv = masked_whiten(adv, torch.as_tensor(~padding_mask))
-    adv = np.where(padding_mask, 0.0, adv.numpy()).astype(np.float32)
-    qr = np.concatenate([ro["queries"], responses], axis=1)
+    qr = np.concatenate([np.repeat(ro["queries"], responses.shape[0]
+                                   // ro["queries"].shape[0], axis=0), responses], axis=1)
     batch = {
         "query_responses": qr,
         "responses": responses,
         "logprobs": logprobs,
         "padding_mask": padding_mask,
         "padding_mask_p1": padding_mask_p1,
-        "advantages": adv,
-        "ref_logprobs": ref_logprobs,
     }
-    return batch, post
+    info = {"post": post, "logprobs": logprobs, "ref_logprobs": ref_logprobs,
+            "padding_mask": padding_mask, "keep": ro.get("keep")}
+    if algo == AlgoName.GRPO:
+        rewards = sparse_terminal_rewards(torch.as_tensor(scores_sel),
+                                          torch.as_tensor(seq_lengths), T)
+        if cfg.whiten_rewards:
+            rewards = _whiten_rewards(rewards, padding_mask_p1)
+        batch["advantages"] = _token_advantages(discounted_returns(rewards, 1.0),
+                                                cfg, padding_mask)
+        batch["ref_logprobs"] = ref_logprobs
+        info["non_score_reward_old"] = 0.0
+        return batch, info
+
+    # the KL-in-reward family
+    kl_penalty = (-cfg.kl_coef * np.where(padding_mask, 0.0, logprobs - ref_logprobs)
+                  ).astype(np.float32)
+    rewards = sparse_terminal_rewards(torch.as_tensor(scores_sel),
+                                      torch.as_tensor(seq_lengths), T,
+                                      kl_penalty=torch.as_tensor(kl_penalty))
+    if cfg.whiten_rewards:
+        rewards = _whiten_rewards(rewards, padding_mask_p1)
+    info["non_score_reward_old"] = float(kl_penalty.sum(1).mean())
+    info["rlhf_reward_old"] = float(rewards.sum(1).mean())
+
+    if algo in (AlgoName.RLOO, AlgoName.RAFT):
+        n = cfg.sample_n
+        prompts = responses.shape[0] // n
+        rlhf_reward = rewards.sum(1)
+        if algo == AlgoName.RLOO:
+            keep = keep_one_of_n_indices(keep_generator, prompts, n).cpu().numpy()
+        else:
+            keep = best_of_k_indices(
+                rlhf_reward, n,
+                keep_generator if cfg.raft_selection == "random" else None).cpu().numpy()
+        rows = np.arange(prompts)
+        batch = {k: v.reshape(prompts, n, *v.shape[1:])[rows, keep]
+                 for k, v in batch.items()}
+        if algo == AlgoName.RLOO:
+            adv_seq = rloo_advantage(rlhf_reward, n).reshape(prompts, n)[rows, keep]
+            if cfg.advantage_whiten:
+                adv_seq = masked_whiten(adv_seq, torch.ones_like(adv_seq, dtype=torch.bool))
+            batch["advantages_seq"] = adv_seq.numpy().astype(np.float32)
+        info["keep"] = keep
+        return batch, info
+
+    if algo == AlgoName.PPO:
+        values = np.where(padding_mask_p1, 0.0, value_fn(qr)).astype(np.float32)
+        adv, returns = gae(rewards, torch.as_tensor(values), cfg.gamma, cfg.lam)
+        batch["advantages"] = _token_advantages(adv, cfg, padding_mask)
+        batch["returns"] = returns.numpy().astype(np.float32)
+        batch["values"] = values
+        return batch, info
+
+    # REINFORCE / ReMax: the γ-discounted reversed cumsum
+    batch["advantages"] = _token_advantages(discounted_returns(rewards, cfg.gamma),
+                                            cfg, padding_mask)
+    return batch, info

@@ -1,9 +1,10 @@
 """Policy/ref logprob scoring of a rollout — the port of
-`nanorlhf_tpu/trainer/trainer.py`'s `fused_response_logprobs` (:114) and the
-scoring body of `RLTrainer._score_chunk_fn` (:1565-1598), as plain
-functions. The fused branch (the default, `cfg.fused_logprob=True`) runs
-the final hidden states straight into the fused hidden→logprob op; the
-naive branch materializes logits. Sequence-parallel scoring is not ported.
+`nanorlhf_tpu/trainer/trainer.py`'s `fused_response_logprobs` (:114), the
+scoring body of `RLTrainer._score_chunk_fn` (:1565-1598) and PPO's chunked
+value pass (`_value_pass`, :3091-3138), as plain functions. The fused
+branch (the default, `cfg.fused_logprob=True`) runs the final hidden
+states straight into the fused hidden→logprob op; the naive branch
+materializes logits. Sequence-parallel scoring is not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from nanorlhf_tpu_torch.core.model import (
     padded_forward_hidden,
     padded_forward_logits,
+    score_forward,
     unembedding,
 )
 from nanorlhf_tpu_torch.ops.fused_logprob import fused_logprob
@@ -91,3 +93,22 @@ def score_chunk(params, ref_params, mcfg, cfg, query_responses,
     ref_logits = padded_forward_logits(ref_params, mcfg, query_responses, pad_id,
                                        response_context_length=context_length)
     return logprobs, logprobs_from_logits(ref_logits, responses, cfg.temperature)
+
+
+@torch.no_grad()
+def value_pass(value_params, mcfg, qr: np.ndarray, context_length: int,
+               pad_id: int, lora_scale: float = 1.0) -> np.ndarray:
+    """PPO's value predictions [rows, T_resp] f32 of query+response rows:
+    `score_forward` of the value tree (with its LoRA), sliced to the
+    positions before each response token, in chunks of the activation
+    budget's rows (the scores are [B, T, 1]: no vocab cap applies)."""
+    device = value_params["embed_tokens"].device
+    total = qr.shape[0]
+    chunk = max(1, min(total, ACTIVATION_TOKEN_BUDGET // qr.shape[1]))
+    vals = []
+    for i in range(0, total, chunk):
+        n_real = min(chunk, total - i)
+        rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
+        v = score_forward(value_params, mcfg, rows, pad_id, lora_scale=lora_scale)
+        vals.append(v[:n_real, context_length - 1:-1, 0].cpu().numpy())
+    return np.concatenate(vals)

@@ -1,29 +1,31 @@
 """RLTrainer — the port of `nanorlhf_tpu/trainer/trainer.py`'s `RLTrainer`
-on its main path: the monolithic, synchronous GRPO branch of `train`
-(:1676-2671) on one device.
+on its main path: the monolithic, synchronous branch of `train`
+(:1676-2671) on one device, for all six algorithms.
 
 One update, as in JAX:
-    rollout (prefill + sampled decode) → host reward → GRPO group z-score
-    → keep 1 of N → policy + ref scoring of the kept rows → GRPO batch
-    → PPO epochs × minibatches of `update_minibatch` (microbatch loss,
-    backward, AdamW on the trainable leaves) → `_old`/`_new` metrics
-    → checkpoint every `save_steps`.
+    rollout (prefill + sampled decode; ReMax: + a greedy decode) → host
+    reward → [GRPO: group z-score, keep 1 of N] → policy + ref scoring →
+    the algorithm's batch (`rollout.assemble_batch`; PPO: the value pass,
+    GAE) → PPO epochs × minibatches of `update_minibatch` (microbatch
+    loss, backward, AdamW on each group's trainable leaves) →
+    `_old`/`_new` metrics → checkpoint every `save_steps`.
 
 `__init__` builds what JAX's does for this path: the policy with a fresh
-LoRA subtree, the frozen ref, the trainable-leaf partition (the LoRA
-adapters and, as PEFT's `modules_to_save`, the embeddings — JAX's
-`LoraConfig` defaults), the optimizer, the checkpoint manager and the
-metrics logger. The random draws JAX takes by splitting its trainer key
-(keep-1-of-N, the per-epoch permutation, the LoRA init) come from
+LoRA subtree, the frozen ref, PPO's value tree (its own LoRA, a copy that
+shares no storage with the policy), the trainable-leaf partition (the
+LoRA adapters and, as PEFT's `modules_to_save`, the embeddings — JAX's
+`LoraConfig` defaults; the value tree's score head too), the optimizer's
+two groups, the checkpoint manager and the metrics logger. The random
+draws JAX takes by splitting its trainer key (keep-1-of-N, RAFT's random
+selection, the per-epoch permutation, the LoRA inits) come from
 generators seeded from (seed, stream, index): same distributions, other
 bits.
 
 Unported knobs raise (`check_trainer_supported`): the async orchestrator
 and fleet, rollout_ahead, environments, telemetry, lineage, the status
-port, fault injection, profiling windows, HF export and the other
-algorithms. The sentinel, the health plane and the latency histograms are
-on by default in JAX but only observe a healthy run; the port does not run
-them yet (ROADMAP).
+port, fault injection, profiling windows and HF export. The sentinel, the
+health plane and the latency histograms are on by default in JAX but only
+observe a healthy run; the port does not run them yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,25 +36,33 @@ import numpy as np
 import torch
 
 from nanorlhf_tpu_torch._build import launch_counts
-from nanorlhf_tpu_torch.core.lora import LoraConfig, init_lora_params, trainable_mask
+from nanorlhf_tpu_torch.core.lora import (
+    LoraConfig,
+    init_lora_params,
+    trainable_mask,
+    value_trainable_mask,
+)
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
-from nanorlhf_tpu_torch.trainer.config import RLConfig
+from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
 from nanorlhf_tpu_torch.trainer.metrics import MetricsLogger
 from nanorlhf_tpu_torch.trainer.optim import AdamWState, build_optimizer, flatten
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM,
     PERM_STREAM,
-    assemble_grpo_batch,
+    assemble_batch,
     check_supported,
     rollout_and_score,
     rollout_generator,
     stream_generator,
 )
+from nanorlhf_tpu_torch.trainer.scoring import value_pass
 from nanorlhf_tpu_torch.trainer.update import check_update_supported, update_minibatch
 
-# seed stream of the LoRA init (the JAX trainer splits its key for it)
+# seed streams of the policy's and the value tree's LoRA inits (the JAX
+# trainer splits its key for them)
 LORA_STREAM = 0x10AA
+VALUE_LORA_STREAM = 0x7A1E
 
 
 def check_trainer_supported(cfg: RLConfig) -> None:
@@ -114,14 +124,33 @@ def build_policy(cfg: RLConfig, mcfg, params: dict):
     return policy, ref, lora_cfg, (lora_cfg.scale if lora_cfg else 1.0)
 
 
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _unshared(tree: dict, others) -> dict:
+    """`tree` with a copy of every leaf whose storage a leaf of `others`
+    shares: a value tree built by aliasing the policy's leaves would
+    otherwise step the policy's embeddings (or be stepped by them)."""
+    taken = {_storage(t) for o in others for t in flatten(o).values()}
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict)
+                else (v.detach().clone() if _storage(v) in taken else v)
+                for k, v in node.items()}
+
+    return walk(tree)
+
+
 class RLTrainer:
-    """The GRPO trainer on one device. Args mirror the JAX trainer's:
-    config, model config, tokenizer, base params (the port's layout, on
-    the device to train on), a dataset with `loader(batch, seed)` and
-    `input_ids`, and `reward_func(list[str], eos_token) -> scores`."""
+    """The trainer on one device. Args mirror the JAX trainer's: config,
+    model config, tokenizer, base params (the port's layout, on the device
+    to train on), a dataset with `loader(batch, seed)` and `input_ids`,
+    `reward_func(list[str], eos_token) -> scores`, and for PPO the value
+    tree (`entrypoints/ppo.make_value_params`)."""
 
     def __init__(self, config: RLConfig, model_config, tokenizer, params: dict,
-                 dataset, reward_func):
+                 dataset, reward_func, value_params: dict | None = None):
         check_trainer_supported(config)
         self.cfg, self.mcfg = config, model_config
         self.tokenizer, self.reward_func, self.dataset = tokenizer, reward_func, dataset
@@ -143,13 +172,16 @@ class RLTrainer:
             raise ValueError("score_ref_logprobs=False requires kl_coef == 0")
         self.ref_params = None if self._ref_free else ref
         # the optimizer sees only the trainable leaves (the same tensors as
-        # in self.params): frozen weights get no moments and never move
+        # in self.params / self.value_params): frozen weights get no
+        # moments and never move
         self.trainable = _trainable_leaves(
             self.params, trainable_mask(self.params, self.lora_cfg))
-        for t in flatten(self.trainable).values():
+        self._build_value(value_params, ref)
+        groups = self._groups()
+        for t in flatten(groups).values():
             t.requires_grad_(True)
         self.optimizer = build_optimizer(config)
-        self.opt_state = self.optimizer.init(self.trainable)
+        self.opt_state = self.optimizer.init(groups)
 
         self.ckpt = CheckpointManager(config.output_dir, config.save_total_limit,
                                       config.greater_is_better)
@@ -171,6 +203,37 @@ class RLTrainer:
         self._iter = dataset.loader(config.batch_size, config.seed)
         self.ctx_menu = shape_menu(dataset.input_ids.shape[1], min_value=16)
 
+    def _build_value(self, value_params: dict | None, ref: dict) -> None:
+        """PPO's value tree: its own LoRA subtree (from (seed,
+        VALUE_LORA_STREAM) unless it carries one) when `value_use_lora`,
+        no leaf shared with the policy or the ref, and its trainable
+        leaves (the adapters, the score head and the embeddings)."""
+        cfg = self.cfg
+        self.value_params = self.value_trainable = self.value_lora_cfg = None
+        self.value_lora_scale = 1.0
+        if value_params is None:
+            if cfg.algo == AlgoName.PPO:
+                raise ValueError("PPO requires value_params")
+            return
+        if cfg.value_use_lora:
+            self.value_lora_cfg = LoraConfig(r=cfg.value_lora_r, alpha=cfg.value_lora_alpha)
+            self.value_lora_scale = self.value_lora_cfg.scale
+            if "lora" not in value_params:
+                gen = stream_generator(cfg.seed, VALUE_LORA_STREAM, device=self.device)
+                value_params = {**value_params, "lora": init_lora_params(
+                    self.mcfg, self.value_lora_cfg, gen,
+                    dtype=value_params["embed_tokens"].dtype, device=self.device)}
+        self.value_params = _unshared(value_params, (self.params, ref))
+        self.value_trainable = _trainable_leaves(
+            self.value_params, value_trainable_mask(self.value_params,
+                                                    self.value_lora_cfg))
+
+    def _groups(self) -> dict:
+        """The trainable leaves by optimizer group."""
+        if self.value_trainable is None:
+            return {"policy": self.trainable}
+        return {"policy": self.trainable, "value": self.value_trainable}
+
     # ------------------------------------------------------------------ #
 
     def _update(self, batch: dict, context_length: int) -> list[dict]:
@@ -187,9 +250,10 @@ class RLTrainer:
                 inds = perm[start:start + mini].to(self.device)
                 mb = {k: v[inds] for k, v in on_device.items()}
                 self.opt_state, stats = update_minibatch(
-                    self.params, self.trainable, self.optimizer, self.opt_state,
+                    self.params, self._groups(), self.optimizer, self.opt_state,
                     mb, self.mcfg, cfg, context_length,
-                    self.tokenizer.pad_token_id, self.lora_scale)
+                    self.tokenizer.pad_token_id, self.lora_scale,
+                    value=self.value_params, value_lora_scale=self.value_lora_scale)
                 self.state["opt_steps"] += 1
                 all_stats.append(stats)
         return all_stats
@@ -198,7 +262,6 @@ class RLTrainer:
         cfg, tok = self.cfg, self.tokenizer
         pad_id, eos_id = tok.pad_token_id, tok.eos_token_id
         stop_id = eos_id if cfg.stop_token == "eos" else None
-        n = cfg.sample_n
         n_updates = (max(0, cfg.num_total_batches - self.state["global_step"])
                      if num_updates is None else num_updates)
         for _ in range(n_updates):
@@ -210,16 +273,24 @@ class RLTrainer:
             t: dict = {}
             ro_launches: dict = {}
             counts0 = launch_counts()
+            # GRPO draws its keep in the rollout, RLOO and RAFT ("random")
+            # theirs in the batch assembly: one stream an update
+            keep_gen = stream_generator(cfg.seed, KEEP_STREAM, index)
             ro = rollout_and_score(
                 self.params, self.ref_params, self.mcfg, cfg, tok, queries,
                 self.reward_func, rollout_generator(cfg.seed, index, self.device),
-                self.lora_scale, stream_generator(cfg.seed, KEEP_STREAM, index),
+                self.lora_scale, keep_gen,
                 ctx_menu=self.ctx_menu, timings=t, launches=ro_launches)
             self._snapshot_pages(ro.get("paged_stats"))
-            if self.ref_params is None:
-                ro["ref_logprobs"] = ro["logprobs"].copy()
-            batch, post = assemble_grpo_batch(ro, cfg, stop_id, pad_id, eos_id)
             context_length = ro["context_length"]
+            t0 = time.perf_counter()
+            counts_v = launch_counts()
+            batch, info = assemble_batch(
+                ro, cfg, stop_id, pad_id, eos_id, keep_generator=keep_gen,
+                value_fn=lambda qr: value_pass(self.value_params, self.mcfg, qr,
+                                               context_length, pad_id,
+                                               self.value_lora_scale))
+            t["assemble_s"] = time.perf_counter() - t0
 
             t0 = time.perf_counter()
             counts1 = launch_counts()
@@ -230,23 +301,29 @@ class RLTrainer:
             self.last_launches = {
                 "rollout_and_score": {k: counts1[k] - counts0[k] for k in counts0},
                 **ro_launches,
+                "value": {k: counts1[k] - counts_v[k] for k in counts0},
                 "update": {k: counts2[k] - counts1[k] for k in counts0}}
             self.last_timings, self.last_stats = t, all_stats
             agg = {k: float(np.mean([s[k] for s in all_stats]))
                    for k in (all_stats[0] if all_stats else {})}
-            metrics = self._metrics(ro, batch, post, agg, all_stats, lr_step, t,
+            metrics = self._metrics(ro, batch, info, agg, all_stats, lr_step, t,
                                     t_start, context_length)
             self.state["global_step"] += 1
             step = self.state["global_step"]
             if step % cfg.logging_steps == 0:
                 self.logger.log(step, self.state["episode"], metrics)
-                kept = ro["responses"]
+                kept = batch["responses"]
+                keep = info["keep"]
+                scores = ro["scores"] if keep is None else ro["scores"].reshape(
+                    -1, cfg.sample_n)[np.arange(kept.shape[0]), keep]
+                queries_dec = [q.replace(tok.pad_token, "")
+                               for q in tok.batch_decode(ro["queries"])]
+                if keep is None:
+                    queries_dec = [q for q in queries_dec for _ in range(cfg.sample_n)]
                 limit = (cfg.log_samples_limit if cfg.log_samples_limit is not None
                          else cfg.num_printed_samples)
-                self.logger.log_samples(
-                    step, [q.replace(tok.pad_token, "") for q in tok.batch_decode(ro["queries"])],
-                    tok.batch_decode(kept), ro["scores"].reshape(-1, n)[
-                        np.arange(kept.shape[0]), ro["keep"]], limit)
+                self.logger.log_samples(step, queries_dec, tok.batch_decode(kept),
+                                        scores, limit)
             if cfg.save_steps and step % cfg.save_steps == 0:
                 t0 = time.perf_counter()
                 self.save_checkpoint(metrics)
@@ -254,19 +331,25 @@ class RLTrainer:
         if cfg.load_best_model_at_end and num_updates is None:
             best = self.ckpt.best_step()
             if best is not None and best != self.state["global_step"]:
-                self._load_trainable(self.ckpt.restore(best, self.device)["params"])
+                self._load_trainable(self.ckpt.restore(best, self.device))
                 print(f"loaded best checkpoint (step {best})")
         return self.state
 
-    def _metrics(self, ro, batch, post, agg, all_stats, lr_step, t, t_start,
+    def _metrics(self, ro, batch, info, agg, all_stats, lr_step, t, t_start,
                  context_length) -> dict:
         """The `_old`/`_new` rows of the JAX trainer that this path computes
-        (names and semantics per docs/METRICS.md)."""
+        (names and semantics per docs/METRICS.md). The `_old` rollout rows
+        read every scored row (all B·N for RLOO and RAFT)."""
         cfg = self.cfg
-        pm = batch["padding_mask"]
-        logprobs, ref_logprobs = batch["logprobs"], batch["ref_logprobs"]
+        pm = info["padding_mask"]
+        logprobs, ref_logprobs = info["logprobs"], info["ref_logprobs"]
         kl_rollout = float(np.where(pm, 0.0, logprobs - ref_logprobs).sum(1).mean())
-        kl_old = 0.0 if self._ref_free else agg.get("refkl_mean", kl_rollout)
+        # GRPO's kl_old is the update pass's new-vs-ref KL; the KL-in-reward
+        # algorithms report the rollout's
+        kl_old = (agg.get("refkl_mean", kl_rollout) if cfg.algo == AlgoName.GRPO
+                  else kl_rollout)
+        if self._ref_free:
+            kl_old = 0.0
         scores_all = float(np.mean(ro["scores"]))
         local_bs, t_resp = batch["responses"].shape
         train_tokens = cfg.num_ppo_epochs * local_bs * (context_length + t_resp)
@@ -277,18 +360,19 @@ class RLTrainer:
             "objective/kl_old": kl_old,
             "objective/kl_rollout_old": kl_rollout,
             "objective/entropy_old": float((-np.where(pm, 0.0, logprobs)).sum(1).mean()),
-            "objective/non_score_reward_old": 0.0,
-            "eval_objective/rlhf_reward_old": scores_all,
+            "objective/non_score_reward_old": info.get("non_score_reward_old", 0.0),
+            "eval_objective/rlhf_reward_old": info.get("rlhf_reward_old", scores_all),
             "eval_objective/scores_old": scores_all,
             "policy/approxkl_avg_new": agg.get("approxkl", 0.0),
             "policy/clipfrac_avg_new": agg.get("pg_clipfrac", 0.0),
             "policy/entropy_avg_new": agg.get("entropy", 0.0),
             "loss/policy_avg_new": agg.get("pg_loss", 0.0),
             "val/ratio_new": agg.get("ratio_mean", 1.0),
-            "val/ratio_var_new": float(np.var([s["ratio_mean"] for s in all_stats]))
+            "val/ratio_var_new": float(np.var([s.get("ratio_mean", 1.0)
+                                               for s in all_stats]))
             if all_stats else 0.0,
-            "val/num_eos_tokens_old": float((post == self.tokenizer.eos_token_id).sum()),
-            "lr": self.optimizer.schedule(lr_step),
+            "val/num_eos_tokens_old": float((info["post"] == self.tokenizer.eos_token_id).sum()),
+            "lr": self.optimizer.groups["policy"].schedule(lr_step),
             "eps": cfg.adam_eps,
             "sec_per_episode": (time.perf_counter() - t_start) / cfg.batch_size,
             "episode": self.state["episode"],
@@ -303,6 +387,9 @@ class RLTrainer:
             "time/update_s": t["update_s"],
             "perf/tokens_per_sec_update": train_tokens / max(t["update_s"], 1e-9),
         }
+        if "vf_loss" in agg:
+            metrics["loss/value_avg_new"] = agg["vf_loss"]
+            metrics["val/clipfrac_avg_new"] = agg.get("vf_clipfrac", 0.0)
         metrics.update(self._paged_metrics(ro.get("paged_stats")))
         metrics.update(self._spec_decode_metrics(ro.get("spec_stats")))
         return metrics
@@ -371,41 +458,52 @@ class RLTrainer:
     # ------------------------------------------------------------------ #
 
     def save_checkpoint(self, metrics: dict | None = None) -> str:
+        """The trainable leaves of the policy (`params`) and, when
+        `save_value_model`, of the value tree (`value`), with each group's
+        optimizer state when `save_optimizer_state`."""
         cfg = self.cfg
         opt = None
         if cfg.save_optimizer_state:
-            opt = {"count": self.opt_state.count, "mu": self.opt_state.mu,
-                   "nu": self.opt_state.nu}
+            opt = {g: {"count": st.count, "mu": st.mu, "nu": st.nu}
+                   for g, st in self.opt_state.items()}
+        value = (self.value_trainable
+                 if cfg.save_value_model and self.value_trainable is not None else None)
         metrics = metrics or {}
         return self.ckpt.save(
             self.state["global_step"], self.trainable, opt_state=opt,
             metric_old=metrics.get(cfg.metric_for_best_model),
-            extra_state={k: self.state[k] for k in ("episode", "opt_steps", "rollouts")})
+            extra_state={k: self.state[k] for k in ("episode", "opt_steps", "rollouts")},
+            value=value)
 
     @torch.no_grad()
-    def _load_trainable(self, saved: dict) -> None:
-        live = flatten(self.trainable)
-        for path, t in flatten(saved).items():
-            live[path].copy_(t)
+    def _load_trainable(self, tree: dict) -> None:
+        """Copy a checkpoint tree's `params` (and `value`) into the live
+        trainable leaves."""
+        for key, live_tree in (("params", self.trainable), ("value", self.value_trainable)):
+            if key not in tree:
+                continue
+            live = flatten(live_tree)
+            for path, t in flatten(tree[key]).items():
+                live[path].copy_(t)
 
     @torch.no_grad()
     def restore_checkpoint(self, step: int | None = None) -> int:
-        """Load the trainable leaves, the optimizer state and the step
-        counters saved at `step` (default: the latest) into this trainer,
-        and fast-forward the data stream to the saved rollout cursor."""
+        """Load the trainable leaves (the value tree's too), the optimizer
+        state and the step counters saved at `step` (default: the latest)
+        into this trainer, and fast-forward the data stream to the saved
+        rollout cursor."""
         step = self.ckpt.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.cfg.output_dir}")
         tree = self.ckpt.restore(step, self.device)
-        self._load_trainable(tree["params"])
-        if "opt_state" in tree:
-            opt = tree["opt_state"]
+        self._load_trainable(tree)
+        for group, opt in tree.get("opt_state", {}).items():
+            st = self.opt_state[group]
             for name in ("mu", "nu"):
-                live = flatten(getattr(self.opt_state, name))
+                live = flatten(getattr(st, name))
                 for path, t in flatten(opt[name]).items():
                     live[path].copy_(t)
-            self.opt_state = AdamWState(int(opt["count"]), self.opt_state.mu,
-                                        self.opt_state.nu)
+            self.opt_state[group] = AdamWState(int(opt["count"]), st.mu, st.nu)
         state = self.ckpt.load_trainer_state(step)
         self.state.update(global_step=state["step"],
                           **{k: state[k] for k in ("episode", "opt_steps", "rollouts")})

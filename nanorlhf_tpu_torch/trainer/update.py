@@ -1,48 +1,60 @@
-"""One optimizer step of the GRPO update — the port of the trainer's
+"""One optimizer step of the update — the port of the trainer's
 `_make_update_fn` (`nanorlhf_tpu/trainer/trainer.py:1275-1500`): the
 microbatch loss and the gradient-accumulated minibatch step, as plain
 functions over the trainer's tensors.
 
 - `microbatch_loss`: the policy's response logprobs (the fused path, with
   per-layer remat when `gradient_checkpointing`) → `INVALID_LOGPROB` at
-  pads → `grpo_loss`; the entropy stat is the detached, unmasked mean of
-  the fused op's per-token entropy.
+  pads → the algorithm's loss: GRPO `grpo_loss`; RLOO the sequence-level
+  PPO-clip on `advantages_seq`; RAFT `sft_loss`; REINFORCE and ReMax the
+  token-level PPO-clip; PPO the token-level PPO-clip + `vf_coef` · the
+  clipped value loss of the value tree's `score_forward` (with remat).
+  The entropy stat is the detached, unmasked mean of the fused op's
+  per-token entropy.
 - `update_minibatch`: microbatch g is the strided row set {g, G+g, …} (the
-  JAX `reshape(-1, grad_accum)`); gradients of the trainable leaves only
-  accumulate in f32, are divided by `grad_accum`, and AdamW steps the
-  leaves in place. Stats are means over the microbatches, plus the
-  pre-clip `grad_norm`.
+  JAX `reshape(-1, grad_accum)`); gradients of every group's trainable
+  leaves accumulate in f32, are divided by `grad_accum`, and each group's
+  AdamW steps its leaves in place. Stats are means over the microbatches,
+  plus the pre-clip `grad_norm` over both groups' gradients.
 
 Not ported (raise): the naive full-logits branch (`fused_logprob=False`),
-sequence parallelism, the value head (PPO), the other algorithms' losses,
-the env `loss_mask` and in-flight-swap segment ages.
+sequence parallelism, the env `loss_mask`, behavior logprobs and
+in-flight-swap segment ages.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nanorlhf_tpu_torch.algos.losses import grpo_loss
+from nanorlhf_tpu_torch.algos.losses import (
+    grpo_loss,
+    ppo_clip_loss_sequence,
+    ppo_clip_loss_token,
+    sft_loss,
+    value_loss_clipped,
+)
+from nanorlhf_tpu_torch.core.model import score_forward
 from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB
 from nanorlhf_tpu_torch.trainer.config import AlgoName
-from nanorlhf_tpu_torch.trainer.optim import AdamW, AdamWState, flatten, global_norm, unflatten
+from nanorlhf_tpu_torch.trainer.optim import MultiAdamW, flatten, global_norm, unflatten
 from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
 
-# minibatch keys the GRPO update reads; anything else is an unported path
-_GRPO_KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
-              "advantages", "padding_mask", "padding_mask_p1"}
+# minibatch keys the update reads (each algorithm a subset); anything else
+# is an unported path
+_KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
+         "advantages", "advantages_seq", "returns", "values",
+         "padding_mask", "padding_mask_p1"}
 
 
 def check_update_supported(cfg, minibatch: dict) -> None:
     unported = {
-        "algo != GRPO": cfg.algo != AlgoName.GRPO,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
         "the naive update branch (fused_logprob=False)": not cfg.fused_logprob,
     }
-    extra = sorted(set(minibatch) - _GRPO_KEYS)
+    extra = sorted(set(minibatch) - _KEYS)
     if extra:
-        unported[f"minibatch keys {extra} (value head, loss_mask, behavior "
-                 "logprobs, segment ages)"] = True
+        unported[f"minibatch keys {extra} (loss_mask, behavior logprobs, "
+                 "segment ages)"] = True
     on = [what for what, flag in unported.items() if flag]
     if on:
         raise NotImplementedError(
@@ -50,9 +62,10 @@ def check_update_supported(cfg, minibatch: dict) -> None:
 
 
 def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
-                    pad_id: int, lora_scale: float, remat: bool):
-    """(loss, aux) of one microbatch; aux holds the detached GRPO stats and
-    `entropy`."""
+                    pad_id: int, lora_scale: float, remat: bool,
+                    value: dict | None = None, value_lora_scale: float = 1.0):
+    """(loss, aux) of one microbatch; aux holds the detached stats of the
+    algorithm's loss and `entropy`. `value` is PPO's value tree."""
     new_logprobs, ent_tok = fused_response_logprobs(
         policy, mcfg, mb["query_responses"], mb["responses"], pad_id,
         context_length, cfg, lora_scale=lora_scale, with_entropy=True,
@@ -61,18 +74,40 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
     new_logprobs = torch.where(mb["padding_mask"],
                                torch.full_like(new_logprobs, INVALID_LOGPROB),
                                new_logprobs)
-    loss, aux = grpo_loss(new_logprobs, mb["logprobs"], mb["ref_logprobs"],
-                          mb["advantages"], ~mb["padding_mask"], cfg.cliprange,
-                          cfg.kl_coef)
+    mask = ~mb["padding_mask"]
+    algo = cfg.algo
+    if algo == AlgoName.GRPO:
+        loss, aux = grpo_loss(new_logprobs, mb["logprobs"], mb["ref_logprobs"],
+                              mb["advantages"], mask, cfg.cliprange, cfg.kl_coef)
+    elif algo == AlgoName.RLOO:
+        loss, aux = ppo_clip_loss_sequence(new_logprobs, mb["logprobs"],
+                                           mb["advantages_seq"], mask, cfg.cliprange)
+    elif algo == AlgoName.RAFT:
+        loss, aux = sft_loss(new_logprobs, mask)
+    else:  # PPO, REINFORCE, ReMax: token-level PPO-clip
+        loss, aux = ppo_clip_loss_token(new_logprobs, mb["logprobs"],
+                                        mb["advantages"], mask, cfg.cliprange)
+    if algo == AlgoName.PPO:
+        vpred = score_forward(value, mcfg, mb["query_responses"], pad_id,
+                              lora_scale=value_lora_scale,
+                              remat=remat)[:, context_length - 1:-1, 0]
+        pm1 = mb["padding_mask_p1"]
+        vpred = torch.where(pm1, torch.zeros_like(vpred), vpred)
+        vf_loss, vf_aux = value_loss_clipped(vpred, mb["values"], mb["returns"],
+                                             ~pm1, cfg.cliprange_value)
+        loss = loss + cfg.vf_coef * vf_loss
+        aux.update(vf_aux)
     aux["entropy"] = entropy
     return loss, aux
 
 
-def update_minibatch(policy: dict, trainable: dict, optimizer: AdamW,
-                     opt_state: AdamWState, minibatch: dict, mcfg, cfg,
-                     context_length: int, pad_id: int, lora_scale: float):
+def update_minibatch(policy: dict, trainable: dict, optimizer: MultiAdamW,
+                     opt_state: dict, minibatch: dict, mcfg, cfg,
+                     context_length: int, pad_id: int, lora_scale: float,
+                     value: dict | None = None, value_lora_scale: float = 1.0):
     """One optimizer step over `gradient_accumulation_steps` microbatches.
-    `trainable` holds the policy's trainable leaves (the same tensors, with
+    `trainable` holds the trainable leaves by group, `{"policy": ...}` and
+    for PPO `"value"` (the same tensors as in `policy` / `value`, with
     requires_grad); they are updated in place. Returns (opt_state, stats)
     with python-float stats."""
     check_update_supported(cfg, minibatch)
@@ -89,7 +124,8 @@ def update_minibatch(policy: dict, trainable: dict, optimizer: AdamW,
         mb = {k: v[g::grad_accum] for k, v in minibatch.items()}
         loss, aux = microbatch_loss(policy, mcfg, cfg, mb, context_length,
                                     pad_id, lora_scale,
-                                    remat=cfg.gradient_checkpointing)
+                                    remat=cfg.gradient_checkpointing,
+                                    value=value, value_lora_scale=value_lora_scale)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         for a, gr in zip(acc, grads):
             if gr is not None:

@@ -88,9 +88,9 @@ def test_one_update_on_cpu_trains_saves_and_restores(tmp_path):
     for p, t in flatten(tr.trainable).items():
         assert torch.equal(flatten(tr2.trainable)[p].detach(), t.detach())
     for m in ("mu", "nu"):
-        for p, t in flatten(getattr(tr.opt_state, m)).items():
-            assert torch.equal(flatten(getattr(tr2.opt_state, m))[p], t)
-    assert tr2.opt_state.count == tr.opt_state.count == 2
+        for p, t in flatten(getattr(tr.opt_state["policy"], m)).items():
+            assert torch.equal(flatten(getattr(tr2.opt_state["policy"], m))[p], t)
+    assert tr2.opt_state["policy"].count == tr.opt_state["policy"].count == 2
     assert tr2.state == tr.state
 
 
@@ -163,7 +163,7 @@ def test_checkpoint_rotation_matches_jax(tmp_path):
 @pytest.mark.parametrize("knob,value", [
     ("telemetry", True), ("lineage", True), ("fault_spec", "update.step:at=1"),
     ("status_port", -1), ("export_hf_dir", "out"), ("profile_at_step", 1),
-    ("algo", "ppo"),
+    ("rollout_ahead", True),
 ])
 def test_unported_trainer_knobs_raise(knob, value):
     cfg = build_config()

@@ -137,13 +137,14 @@ def test_update_minibatch_matches_jax_update_fn(case, tmp_path):
     for t in flatten(port_train).values():
         t.requires_grad_(True)
     opt = build_optimizer(cfg)
-    state = opt.init(port_train)
+    groups = opt.init({"policy": port_train})
     stats = []
     for mb in mbs:
-        state, st = update_minibatch(tparams, port_train, opt, state,
-                                     {k: torch.as_tensor(v) for k, v in mb.items()},
-                                     mcfg, cfg, CTX, PAD, LORA.scale)
+        groups, st = update_minibatch(tparams, {"policy": port_train}, opt, groups,
+                                      {k: torch.as_tensor(v) for k, v in mb.items()},
+                                      mcfg, cfg, CTX, PAD, LORA.scale)
         stats.append(st)
+    state = groups["policy"]
 
     want_params = _drop_none(jax.tree.map(np.asarray, trainable)["policy"])
     got_params = params_to_numpy(port_train)
