@@ -12,6 +12,10 @@ toolkit:
                                           # the port must fail its hold
     python3 chip_smoke.py --graph-loops   # build, then only phase 8 and the
                                           # eager-vs-replay decode profile
+    python3 chip_smoke.py --algos         # build, then only phase 9 (and the
+                                          # holds at its shapes)
+    python3 chip_smoke.py --io            # build, then only phase 10 (and the
+                                          # holds at its shapes)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -112,7 +116,27 @@ Phases (any failure exits non-zero):
      16 rows on the full-depth model, greedy, run by the per-step body and
      by graph replay: tokens and counters equal row for row, the loop
      kernel's launches L × graph_steps_run with L × sync_every × replays
-     from replays; sampled streams from one seed compared (printed).
+     from replays; sampled streams from one seed compared (printed);
+  9. the other five algorithms — one update each of RLOO, ReMax,
+     REINFORCE, RAFT and PPO (with its value init) on its launcher's config;
+ 10. checkpoints and data in and out, full depth — (a) a random bf16 HF
+     directory (two shards, ~3.1 GB) written by the port's safetensors
+     writer and loaded onto the card bit for bit (seconds, GB/s); (b) two
+     GRPO updates with async saves (each save's blocking seconds, the
+     writer's seconds, update 2's decode ms a step with the writer in
+     flight) and one synchronous save of the same tree, which every async
+     save must block less than; (c) an injected write failure: nothing
+     committed, absorbed by the next save, retry_count up; (d) a fresh
+     trainer resumed from step 1 trains update 2 to the same tokens and
+     leaves bit for bit (and times the decode without a writer); (e) LoRA
+     B drawn non-zero, `export_model` in bf16, reloaded: the merged
+     model's response logprobs within EXPORT_FACTOR of the unmerged
+     policy's error against the f32 plain route; (f) `make_rm_reward` over
+     a value tree, finite and deterministic; (g) the decode-step cost of a
+     write in flight: one fixed rollout timed with no write, with the
+     checkpoint writer, and with plain file writes of the same staged
+     tree, in turns. The kernels the two updates
+     launched are held at the shapes they gave them that phase 2 did not.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -1717,7 +1741,8 @@ def train_update(torch, max_tokens: int, bwd_seen, fwd_seen, fused_seen) -> dict
         f"{t['update_s'] / n_steps:.3f} update_tokens_per_s={tokens:.2f} "
         f"rollout_s={t['generate_s']:.3f} scoring_ms={t['score_s'] * 1e3:.3f} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"checkpoint_write_s={trainer.last_save_s:.3f}")
+        f"checkpoint_blocking_s={trainer.last_save_s:.3f} "
+        f"checkpoint_writer_s={trainer.ckpt.last_write_s:.3f}")
     if not (math.isfinite(loss) and math.isfinite(gnorm)) or gnorm <= 0:
         fail("update: loss / grad norm not finite, or a zero gradient")
     # new and old logprobs of the first minibatch come from the same kernels
@@ -1860,7 +1885,8 @@ def paged_update(torch, max_tokens: int) -> dict:
         f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
         f"({t['update_s'] / n_steps:.3f} s/step, "
         f"{metrics['perf/tokens_per_sec_update']:.2f} update tokens/s) "
-        f"checkpoint_write_s={trainer.last_save_s:.3f} peak_mem_gb={peak / 1e9:.2f}")
+        f"checkpoint_blocking_s={trainer.last_save_s:.3f} "
+        f"checkpoint_writer_s={trainer.ckpt.last_write_s:.3f} peak_mem_gb={peak / 1e9:.2f}")
     log(f"  update: loss {loss:.6e}, grad_norm {gnorm:.6e}, {len(moved_b)} LoRA B "
         f"leaves moved, ref unchanged; page_utilization "
         f"{row['rollout/page_utilization']:.4f}, pages_recycled "
@@ -2221,7 +2247,8 @@ def spec_update(torch, max_tokens: int, bwd_seen, fused_seen) -> dict:
         f"scoring_ms={t['score_s'] * 1e3:.3f} update_wall_s={t['update_s']:.3f} "
         f"({t['update_s'] / n_steps:.3f} s/step, "
         f"{metrics['perf/tokens_per_sec_update']:.2f} update tokens/s) "
-        f"checkpoint_write_s={trainer.last_save_s:.3f} peak_mem_gb={peak / 1e9:.2f}; "
+        f"checkpoint_blocking_s={trainer.last_save_s:.3f} "
+        f"checkpoint_writer_s={trainer.ckpt.last_write_s:.3f} peak_mem_gb={peak / 1e9:.2f}; "
         f"loss {loss:.6e}, grad_norm {gnorm:.6e}, {len(moved_b)} LoRA B leaves moved")
     trainer.close()
     shutil.rmtree(cfg.output_dir, ignore_errors=True)
@@ -2844,7 +2871,8 @@ def algo_update(torch, algo: str, max_tokens: int, prompt_width: int, fwd_seen,
         fail(f"{algo}: the checkpoint does not reload to the trained tensors")
     vi = f" value_init_s={value_init['s']:.3f}" if value_init else ""
     log(f"  {algo}: rollout_s={t['generate_s']:.3f} scoring_s={t['score_s']:.3f} "
-        f"update_s={t['update_s']:.3f}{vi} checkpoint_s={trainer.last_save_s:.3f} "
+        f"update_s={t['update_s']:.3f}{vi} checkpoint_blocking_s={trainer.last_save_s:.3f} "
+        f"checkpoint_writer_s={trainer.ckpt.last_write_s:.3f} "
         f"peak_gb={peak:.2f} (card: {card}); checkpoint-{step} reloads"
         + (" with the value tree" if algo == "ppo" else ""))
     if algo == "ppo":
@@ -2877,6 +2905,539 @@ def other_algorithms(torch, max_tokens: int, prompt_width: int, fwd9, bwd9, fuse
         if set(seen) != held:
             fail(f"phase 9 gave the {what} {sorted(set(seen))}; phase 2 held it at "
                  f"{sorted(held)}")
+
+
+# --------------------------------------------------------------------------
+# phase 10: checkpoints and data in and out
+# --------------------------------------------------------------------------
+
+IO_SEED = 10
+# export check (e): the merged bf16 model's response logprobs may be off the
+# f32 plain route by at most EXPORT_FACTOR times the unmerged LoRA policy's
+# error on the kernel route (the merge adds one bf16 rounding of each kernel)
+EXPORT_FACTOR = 3.0
+
+
+@contextlib.contextmanager
+def recording_decode_shapes(seen):
+    """Count, by (B, T_max), the calls of the contiguous decode wrapper (K4)
+    the model makes; a decode loop's graph replays call no Python, so these
+    are its eager chunk's and its capture's calls."""
+    from nanorlhf_tpu_torch.core import model as tm
+
+    fn = tm.decode_attention
+
+    def rec(q, k, v, start, filled):
+        seen[(q.shape[0], k.shape[2])] += 1
+        return fn(q, k, v, start, filled)
+
+    tm.decode_attention = rec
+    try:
+        yield
+    finally:
+        tm.decode_attention = fn
+
+
+def _io_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_io", *parts)
+
+
+def _drop_page_cache(path: str) -> bool:
+    """Evict a written file's pages, so the next read comes from the disk."""
+    import os
+
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        return True
+    except (AttributeError, OSError):
+        return False
+    finally:
+        os.close(fd)
+
+
+def write_hf_dir(torch, mcfg, path: str, tok) -> tuple[dict, int, float]:
+    """Random bf16 weights from IO_SEED written as an HF directory of two
+    shards with `config.json`, through the port's writer. Returns (params
+    on the card, bytes, seconds)."""
+    import os
+
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.core.params import hf_state_dict_from_params, write_hf_config
+    from nanorlhf_tpu_torch.core.safetensors_io import write_safetensors
+
+    params = tm.init_params(mcfg, seed=IO_SEED, device="cuda")
+    sd = hf_state_dict_from_params(mcfg, params, torch.bfloat16)
+    names = list(sd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, part in enumerate((names[:len(names) // 2], names[len(names) // 2:])):
+        write_safetensors(os.path.join(path, f"model-{i + 1:05d}-of-00002.safetensors"),
+                          {n: sd[n] for n in part})
+    write_hf_config(mcfg, path, "bfloat16", eos_token_id=tok.eos_token_id,
+                    pad_token_id=tok.pad_token_id)
+    secs = time.perf_counter() - t0
+    return params, sum(t.numel() * t.element_size() for t in sd.values()), secs
+
+
+def _instrument(trainer, trainer_mod, saves, writes, rollouts):
+    """Record each save's blocking seconds, each write's (start, end) on the
+    writer thread, and each rollout's (start, end, output)."""
+    ckpt, real_save, real_write = trainer.ckpt, trainer.ckpt.save, trainer.ckpt._write
+    real_rollout = trainer_mod.rollout_and_score
+
+    def save(*a, **k):
+        t0 = time.perf_counter()
+        out = real_save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    def write(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_write(*a, **k)
+        finally:
+            writes.append((t0, time.perf_counter()))
+
+    def rollout(*a, **k):
+        t0 = time.perf_counter()
+        ro = real_rollout(*a, **k)
+        rollouts.append((t0, time.perf_counter(), ro))
+        return ro
+
+    ckpt.save, ckpt._write = save, write
+    trainer_mod.rollout_and_score = rollout
+    return lambda: setattr(trainer_mod, "rollout_and_score", real_rollout)
+
+
+def _trainable_copy(trainer) -> dict:
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    return {p: t.detach().clone() for p, t in flatten(trainer.trainable).items()}
+
+
+def _resumed_update(torch, cfg, mcfg, hf_dir, trainer_mod):
+    """A fresh trainer over `cfg.output_dir` (weights reloaded from the HF
+    directory, a fresh toy tokenizer and dataset, as a new process would
+    build them) resumed from step 1, then update 2. Returns (trainer, its
+    update-2 rollout, its timings)."""
+    from nanorlhf_tpu_torch.core.params import load_hf_checkpoint
+    from nanorlhf_tpu_torch.data.tokenizer import load_tokenizer
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_dataset, resolve_rm_reward
+    from nanorlhf_tpu_torch.trainer.trainer import RLTrainer
+
+    _, params = load_hf_checkpoint(hf_dir, torch.bfloat16, "cuda")
+    tok = load_tokenizer("toy:4096")
+    trainer = RLTrainer(cfg, mcfg, tok, params, resolve_dataset(cfg, tok),
+                        resolve_rm_reward(cfg.reward_model_path))
+    state = trainer.resume_from_checkpoint(1)
+    if state["global_step"] != 1 or trainer.ckpt.latest_step() != 1:
+        fail(f"resume from step 1: global_step {state['global_step']}, latest "
+             f"checkpoint {trainer.ckpt.latest_step()} (a newer one survived the resume)")
+    rollouts: list = []
+    undo = _instrument(trainer, trainer_mod, [], [], rollouts)
+    try:
+        trainer.train(num_updates=1)
+    finally:
+        undo()
+    return trainer, rollouts[0][2], trainer.last_timings
+
+
+def _max_diff(torch, a: dict, b: dict) -> float:
+    return max(float((a[p].float() - b[p].float()).abs().max()) for p in a)
+
+
+def write_interference(torch, trainer, queries, tok) -> None:
+    """The decode-step cost of a write in flight: one fixed rollout (the
+    trainer's policy, 16 prompts, 256 sampled tokens from one seed) timed
+    with nothing written, with the checkpoint writer (`torch.save` on its
+    thread) writing the trainer's tree, and with the same staged tree
+    written by plain file writes on a thread, in turns (none, torch.save,
+    plain, plain, torch.save, none)."""
+    import os
+    import threading
+
+    from nanorlhf_tpu_torch.sampler.sampler import generate_tokens
+    from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
+
+    cfg = trainer.cfg
+    mgr = CheckpointManager(_io_dir("interference"), save_total_limit=1)
+    opt = {g: {"count": st.count, "mu": st.mu, "nu": st.nu}
+           for g, st in trainer.opt_state.items()}
+    q = torch.as_tensor(queries, device="cuda").long()
+    mask = q != tok.pad_token_id
+    raw_path = _io_dir("interference", "plain.bin")
+
+    plain_s: list = []
+
+    def plain_write(staged):
+        t0 = time.perf_counter()
+        with open(raw_path, "wb") as f:
+            for t in (v for v in _tree_leaves(staged) if isinstance(v, torch.Tensor)):
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+        plain_s.append(time.perf_counter() - t0)
+
+    rows = {}
+    for i, how in enumerate(("none", "torch.save", "plain", "plain", "torch.save", "none")):
+        tree = {"params": trainer.trainable, "opt_state": opt}
+        writer, t_write = None, None
+        t0 = time.perf_counter()
+        if how == "torch.save":
+            mgr.save(i, trainer.trainable, opt_state=opt)
+        elif how == "plain":
+            staged, events = mgr._stage(tree)
+            for ev in events:
+                ev.synchronize()
+            writer = threading.Thread(target=plain_write, args=(staged,))
+            writer.start()
+        t: dict = {}
+        generate_tokens(trainer.params, trainer.mcfg, q, mask,
+                        torch.Generator(device="cuda").manual_seed(IO_SEED),
+                        max_tokens=256, eos_token_id=tok.eos_token_id,
+                        pad_token_id=tok.pad_token_id, temperature=cfg.temperature,
+                        top_p=cfg.top_p, top_k=cfg.rollout_top_k,
+                        approx_top_k=cfg.rollout_approx_top_k,
+                        lora_scale=trainer.lora_scale, timings=t)
+        t_gen = time.perf_counter() - t0
+        if how == "torch.save":
+            mgr.wait()
+            t_write = mgr.last_write_s
+        elif how == "plain":
+            writer.join()
+            t_write = plain_s[-1]
+        ms = t["decode_s"] / t["decode_steps"] * 1e3
+        rows.setdefault(how, []).append(ms)
+        log(f"  (g) {how:10s}: decode {ms:.3f} ms/step over {t['decode_steps']} steps "
+            f"(prefill + decode {t_gen:.3f} s, writer "
+            f"{'-' if t_write is None else f'{t_write:.3f} s'})")
+    mgr.close()
+    os.remove(raw_path)
+    base = sum(rows["none"]) / 2
+    log(f"  (g) decode ms/step, mean of two: none {base:.3f}, torch.save writer "
+        f"{sum(rows['torch.save']) / 2:.3f} ({sum(rows['torch.save']) / 2 / base:.3f}x), "
+        f"plain-write writer {sum(rows['plain']) / 2:.3f} "
+        f"({sum(rows['plain']) / 2 / base:.3f}x)")
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def checkpoints_in_and_out(torch, F, max_tokens: int, held: dict) -> None:
+    """Phase 10 at Qwen2.5-1.5B geometry, full depth: (a) write a random
+    bf16 HF directory (two shards) and load it onto the card bit for bit;
+    (b) two GRPO updates with async saves — blocking and writer seconds,
+    update 2's decode ms a step with the writer in flight — and one
+    synchronous save of the same tree; (c) a failed write absorbed; (d) a
+    fresh trainer resumed from step 1 trains update 2 to the same tokens and
+    leaves (and is the decode control without a writer); (e) LoRA merged
+    into a bf16 export, reloaded, its response logprobs against the
+    unmerged policy's, both against the f32 plain route; (f) the decoder
+    RM over a value tree; (g) the decode-step cost of a write in flight
+    (`write_interference`). The kernels the training path launched are held
+    against their plain versions at the shapes it gave them (those phase 2
+    did not hold already: `held`)."""
+    import dataclasses
+    import gc
+    import importlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.core.params import load_hf_checkpoint
+    from nanorlhf_tpu_torch.data.tokenizer import load_tokenizer
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_dataset, resolve_rm_reward
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.entrypoints.ppo import make_value_params
+    from nanorlhf_tpu_torch.rewards.builders import make_rm_reward
+    from nanorlhf_tpu_torch.trainer import checkpoint as tck
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+    from nanorlhf_tpu_torch.trainer.bucketing import depad_queries, shape_menu
+    from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+    from nanorlhf_tpu_torch.trainer.scoring import score_chunk
+
+    shutil.rmtree(_io_dir(), ignore_errors=True)
+    hf_dir = _io_dir("hf")
+    os.makedirs(hf_dir)
+    mcfg = _demo_config()
+    tok = load_tokenizer("toy:4096")
+
+    # (a) write and load
+    params, nbytes, write_s = write_hf_dir(torch, mcfg, hf_dir, tok)
+    shards = sorted(f for f in os.listdir(hf_dir) if f.endswith(".safetensors"))
+    cold = all(_drop_page_cache(os.path.join(hf_dir, f)) for f in shards)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcfg2, loaded = load_hf_checkpoint(hf_dir, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    geometry = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+                "num_attention_heads", "num_key_value_heads", "tie_word_embeddings",
+                "attention_bias", "rope_theta", "rms_norm_eps", "max_position_embeddings")
+    bad = [f for f in geometry if getattr(mcfg2, f) != getattr(mcfg, f)]
+    a, b = flatten(params), flatten(loaded)
+    if bad or a.keys() != b.keys() or not all(
+            b[p].dtype == t.dtype and torch.equal(b[p], t) for p, t in a.items()):
+        fail(f"(a) the HF directory does not load to the written weights (config {bad})")
+    log(f"  (a) wrote {nbytes / 1e9:.3f} GB of bf16 weights as {len(shards)} shards + "
+        f"config.json in {write_s:.3f} s ({nbytes / write_s / 1e9:.3f} GB/s); "
+        f"load_hf_checkpoint onto the card in {load_s:.3f} s "
+        f"({nbytes / load_s / 1e9:.3f} GB/s, page cache "
+        f"{'dropped first' if cold else 'NOT dropped: a warm read'}); "
+        f"{len(b)} leaves equal bit for bit, geometry {mcfg2.model_type} "
+        f"D={mcfg2.hidden_size} L={mcfg2.num_hidden_layers} V={mcfg2.vocab_size}")
+    del params, a, b
+    torch.cuda.empty_cache()
+
+    # (b) two GRPO updates with async saves
+    have = {}
+    for m in ("transformers", "datasets", "safetensors", "tokenizers"):
+        try:
+            importlib.import_module(m)
+            have[m] = "imports"
+        except Exception as e:  # a missing or broken library is the record
+            have[m] = type(e).__name__
+    log(f"  (b) HF libraries here: {have}; the trainer takes the toy tokenizer "
+        "(an HF tokenizer needs transformers and the tokenizer's files)")
+    cfg = one_card_cut(build_config())
+    cfg.sft_model_path = hf_dir
+    if max_tokens != cfg.response_length:
+        log(f"CUT: response_length {cfg.response_length} -> {max_tokens}")
+        cfg.response_length = max_tokens
+    cfg.save_steps = 1
+    cfg.output_dir = _io_dir("run")
+    dataset = resolve_dataset(cfg, tok)
+    from nanorlhf_tpu_torch.trainer.trainer import RLTrainer
+
+    trainer = RLTrainer(cfg, mcfg2, tok, loaded, dataset,
+                        resolve_rm_reward(cfg.reward_model_path))
+    saves, writes, rollouts = [], [], []
+    fwd_seen, bwd_seen, fused_seen, dec_seen = (collections.Counter() for _ in range(4))
+    undo = _instrument(trainer, trainer_mod, saves, writes, rollouts)
+    _build.reset_launch_counts()
+    try:
+        with recording_forward_shapes(fwd_seen), recording_backward_shapes(bwd_seen), \
+                recording_fused_shapes(fused_seen), recording_decode_shapes(dec_seen):
+            state = trainer.train(num_updates=2)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"  launches over the two updates: {counts}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+                 "fused_logprob"):
+        if counts[name] <= 0:
+            fail(f"(b) kernel {name} was never launched by the two updates")
+    if state["global_step"] != 2 or len(saves) != 2 or len(writes) != 2:
+        fail(f"(b) {state}, {len(saves)} saves, {len(writes)} writes")
+    t2 = trainer.last_timings
+    w0, w1 = writes[0]
+    r0, r1, ro_a = rollouts[1]
+    overlap = max(0.0, min(w1, r1) - max(w0, r0))
+    log(f"  save blocking s (update 1, 2): {saves[0]:.3f}, {saves[1]:.3f}; writer s: "
+        f"{writes[0][1] - writes[0][0]:.3f}, {writes[1][1] - writes[1][0]:.3f}")
+    log(f"  update 2's rollout: decode {t2['decode_s']:.3f} s over {t2['decode_steps']} "
+        f"steps with save 1's writer in flight for {overlap:.3f} s of the rollout's "
+        f"{r1 - r0:.3f} s")
+    a_leaves = _trainable_copy(trainer)
+    # one synchronous save of the same tree
+    sync_mgr = CheckpointManager(_io_dir("sync"), async_save=False)
+    real_ckpt, trainer.ckpt = trainer.ckpt, sync_mgr
+    t0 = time.perf_counter()
+    trainer.save_checkpoint()
+    sync_s = time.perf_counter() - t0
+    trainer.ckpt = real_ckpt
+    got, want = real_ckpt.restore(2, "cuda"), sync_mgr.restore(2, "cuda")
+    if not _trees_equal(torch, got, want):
+        fail("(b) the async checkpoint differs from the synchronous one of the same tree")
+    log(f"  synchronous save of the same tree: {sync_s:.3f} s (writer {sync_mgr.last_write_s:.3f}); "
+        f"async blocking {max(saves):.3f} s at most; the two checkpoints equal")
+    if not max(saves) < sync_s:
+        fail(f"(b) an async save blocked {max(saves):.3f} s, the synchronous one {sync_s:.3f} s")
+    sync_mgr.close()
+    del got, want
+    shutil.rmtree(_io_dir("sync"), ignore_errors=True)
+
+    # (c) a failed write
+    fail_mgr = CheckpointManager(_io_dir("failed"), io_retries=1, retry_backoff=0.1)
+    real_write = tck.write_tree
+
+    def dies(tree, path):
+        raise OSError("injected write failure")
+
+    trainer.ckpt, tck.write_tree = fail_mgr, dies
+    try:
+        trainer.save_checkpoint()
+        fail_mgr._writer.join()
+    finally:
+        tck.write_tree = real_write
+    committed = os.path.isfile(os.path.join(fail_mgr.path(2), "tree.pt"))
+    before = fail_mgr.retry_count
+    trainer.save_checkpoint()
+    fail_mgr.wait()
+    if committed or fail_mgr.retry_count <= before or fail_mgr.latest_step() != 2:
+        fail(f"(c) failed write: committed={committed}, retry_count {before} -> "
+             f"{fail_mgr.retry_count}, latest {fail_mgr.latest_step()}")
+    log(f"  (c) an injected write failure (every attempt): checkpoint-2 not committed; "
+        f"the next save absorbed it, retry_count {before} -> {fail_mgr.retry_count}, "
+        f"checkpoint-2 then committed")
+    fail_mgr.close()
+    trainer.ckpt = real_ckpt
+    shutil.rmtree(_io_dir("failed"), ignore_errors=True)
+    trainer.close()
+    a_opt = {(g, m, p): t.clone() for g, st in trainer.opt_state.items()
+             for m in ("mu", "nu") for p, t in flatten(getattr(st, m)).items()}
+    del trainer, loaded, real_ckpt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) resume from step 1 in a fresh trainer, then update 2
+    tb, ro_b, tb_t = _resumed_update(torch, cfg, mcfg2, hf_dir, trainer_mod)
+    same_tokens = all(np.array_equal(ro_a[k], ro_b[k])
+                      for k in ("responses", "scores", "logprobs", "keep"))
+    b_leaves = _trainable_copy(tb)
+    b_opt = {(g, m, p): t for g, st in tb.opt_state.items()
+             for m in ("mu", "nu") for p, t in flatten(getattr(st, m)).items()}
+    d_leaves = _max_diff(torch, a_leaves, b_leaves)
+    d_opt = _max_diff(torch, a_opt, b_opt)
+    log(f"  (d) resumed from step 1 (newer checkpoints truncated), update 2: sampled "
+        f"tokens, rewards and logprobs {'equal' if same_tokens else 'DIFFER'}; trainable "
+        f"leaves max|diff| {d_leaves:.3e}, Adam moments {d_opt:.3e}")
+    for what, t in (("with save 1's writer in flight", t2), ("the resumed run, no writer", tb_t)):
+        steps, cap = t["decode_steps"], t["graph_capture_s"]
+        log(f"  update 2's decode, {what}: {t['decode_s'] / steps * 1e3:.3f} ms/step, "
+            f"{(t['decode_s'] - cap) / steps * 1e3:.3f} without the capture ({cap:.3f} s)")
+    if not same_tokens:
+        fail("(d) the resumed update 2 sampled other tokens than the uninterrupted run")
+    if d_leaves or d_opt:
+        # the card is not deterministic here: the criterion becomes the
+        # spread of two runs of update 2 from the same restored state
+        tb.close()
+        del tb
+        torch.cuda.empty_cache()
+        import warnings
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tc, _, _ = _resumed_update(torch, cfg, mcfg2, hf_dir, trainer_mod)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        spread = _max_diff(torch, b_leaves, _trainable_copy(tc))
+        calls = sorted({str(w.message).split(".")[0] for w in caught})
+        log(f"  (d) run-to-run spread of update 2 from the same state: {spread:.3e}; "
+            f"nondeterministic calls torch names: {calls}")
+        if not (spread > 0 and d_leaves <= 4 * spread):
+            fail(f"(d) resumed leaves differ by {d_leaves:.3e}, spread {spread:.3e}")
+        tb = tc
+
+    from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
+
+    ds = load_prompt_dataset("synthetic:64", tok)
+    write_interference(torch, tb, depad_queries(next(ds.loader(16, IO_SEED)), tok.pad_token_id,
+                                                shape_menu(ds.input_ids.shape[1], 16)), tok)
+
+    # (e) export and reload
+
+    gen = torch.Generator(device="cuda").manual_seed(IO_SEED + 5)
+    with torch.no_grad():
+        for ab in tb.params["lora"]["layers"].values():
+            ab["b"].normal_(0.0, 0.02, generator=gen)
+    exp_dir = _io_dir("export")
+    t0 = time.perf_counter()
+    tb.export_model(exp_dir)
+    export_s = time.perf_counter() - t0
+    gen_cfg = json.load(open(os.path.join(exp_dir, "generation_config.json")))
+    if gen_cfg.get("eos_token_id") != tok.eos_token_id or \
+            gen_cfg.get("pad_token_id") != tok.pad_token_id:
+        fail(f"(e) generation_config.json {gen_cfg}")
+    _, merged = load_hf_checkpoint(exp_dir, torch.bfloat16, "cuda")
+    pad = tok.pad_token_id
+    q = depad_queries(next(ds.loader(4, IO_SEED)), pad, shape_menu(ds.input_ids.shape[1], 16))
+    q = torch.as_tensor(q, device="cuda").long()
+    resp = torch.randint(3, 4096, (q.shape[0], 64), generator=gen, device="cuda")
+    qr, Tp = torch.cat([q, resp], 1), q.shape[1]
+    auto = dataclasses.replace(tb.mcfg, attention_impl="auto")
+    plain = dataclasses.replace(tb.mcfg, attention_impl="xla")
+    plain_cfg = dataclasses.replace(cfg, fused_logprob_impl="lax")
+    policy_f32 = _tree_map(lambda t: t.detach().float(), tb.params)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        lp_merged = score_chunk(merged, None, auto, cfg, qr, Tp, pad, 1.0)[0].float()
+        lp_lora = score_chunk(tb.params, None, auto, cfg, qr, Tp, pad, tb.lora_scale)[0].float()
+        e_counts = _build.launch_counts()
+        lp_f32 = score_chunk(policy_f32, None, plain, plain_cfg, qr, Tp, pad,
+                             tb.lora_scale)[0].float()
+    del policy_f32
+    err_m = float((lp_merged - lp_f32).abs().max())
+    err_l = float((lp_lora - lp_f32).abs().max())
+    d_ml = float((lp_merged - lp_lora).abs().max())
+    log(f"  (e) export_model (bf16, LoRA merged at scale {tb.lora_scale}) in {export_s:.3f} s, "
+        f"reloaded; response logprobs on the kernel route ({q.shape[0]} rows x 64 tokens; "
+        f"K1 {e_counts['flash_fwd']}, K10 {e_counts['fused_logprob']} launches), max|err| "
+        f"vs the f32 plain route: merged {err_m:.3e}, unmerged LoRA {err_l:.3e}; merged vs "
+        f"unmerged {d_ml:.3e} (tolerance: merged <= {EXPORT_FACTOR} x unmerged)")
+    if not (math.isfinite(err_m) and math.isfinite(err_l)) or err_m > EXPORT_FACTOR * err_l \
+            or e_counts["flash_fwd"] <= 0 or e_counts["fused_logprob"] <= 0:
+        fail("(e) the merged export's logprobs are off the unmerged policy's")
+
+    # (f) the decoder RM over a value-shaped tree
+    value = make_value_params(tb.mcfg, merged)
+    del merged
+    rm = make_rm_reward(value, auto, tok, batch_size=4)
+    texts = tok.batch_decode(qr.cpu().numpy()[:, Tp - 8:]) + ["a short one", "</s>"]
+    _build.reset_launch_counts()
+    s1 = rm(texts, tok.eos_token)
+    k1 = _build.launch_counts()["flash_fwd"]
+    s2 = rm(texts, tok.eos_token)
+    if s1.shape != (len(texts),) or not np.isfinite(s1).all() or not np.array_equal(s1, s2) \
+            or k1 <= 0:
+        fail(f"(f) RM scores {s1} / {s2}, K1 launches {k1}")
+    log(f"  (f) make_rm_reward over the value tree: {len(texts)} strings scored "
+        f"{np.round(s1, 4).tolist()}, equal on a second call, K1 {k1} launches")
+    tb.close()
+    del tb, value
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(_io_dir(), ignore_errors=True)
+
+    # the kernels of the training path at the shapes it gave them
+    fwd_new = sorted(set(fwd_seen) - held["fwd"])
+    bwd_new = {s[1:6] for s in bwd_seen} - held["bwd"]
+    fused_new = set(fused_seen) - held["fused"]
+    dec_new = sorted(set(dec_seen) - held["decode"], key=lambda s: (-s[1], s[0]))
+    log(f"  shapes the two updates gave the kernels: K1 {dict(fwd_seen)}; K2/K3 "
+        f"{dict(bwd_seen)}; K10 {dict(fused_seen)}; K4 {dict(dec_seen)}; not held in "
+        f"phase 2: K1 {fwd_new}, K2/K3 {sorted(bwd_new)}, K10 {sorted(fused_new)}, "
+        f"K4 {dec_new}")
+    if fwd_new:
+        check_flash(torch, F, fwd_new)
+    if bwd_new:
+        check_flash_bwd(torch, F, bwd_new)
+    if fused_new:
+        check_fused(torch, F, max_tokens, set(fused_seen), timed=False)
+    if dec_new:
+        check_decode(torch, F, min(T for _, T in dec_new) - max_tokens, dec_new)
+
+
+def _trees_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
 
 
 # --holds: the kernel source each hold set builds
@@ -2986,6 +3547,10 @@ def main() -> None:
                     help="build, then run only phase 8 (each decode loop's graph "
                          "replay against its per-step body) and the decode-step "
                          "profile, eager against graph replay")
+    ap.add_argument("--io", action="store_true",
+                    help="build, then run only phase 10 (HF weights written and loaded, "
+                         "async checkpoint saves, a failed write, resume, export, the RM) "
+                         "and the holds of the kernels at the shapes it gives them")
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
                          "gives the kernels, and phase 9 (one update of each of RLOO, "
@@ -3051,6 +3616,13 @@ def main() -> None:
                        16, prompt_width + min(resp, 512))
         log(f"graph loops: every hold passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.io:
+        log("phase 10: checkpoints and data in and out, Qwen2.5-1.5B width, full depth")
+        checkpoints_in_and_out(torch, F, min(resp, 512),
+                               {"fwd": set(), "bwd": set(), "fused": set(), "decode": set()})
+        log(f"io: every check passed; total wall {time.perf_counter() - t_all:.1f} s; "
+            f"card: {card}")
         return
     log("phase 2: kernels against their plain versions (bf16)")
     # phases 3, 4, 5, 6 and 7b run shorter responses than the launcher's 1500
@@ -3224,6 +3796,11 @@ def main() -> None:
     log("phase 9: the other five algorithms (RLOO, ReMax, REINFORCE, RAFT, PPO), "
         "Qwen2.5-1.5B width")
     other_algorithms(torch, short, prompt_width, fwd9, bwd9, fused9, card)
+
+    log("phase 10: checkpoints and data in and out, Qwen2.5-1.5B width, full depth")
+    checkpoints_in_and_out(torch, F, short, {
+        "fwd": {fwd_long} | fwd_shapes | fwd9, "bwd": bwd_shapes | bwd9,
+        "fused": fused_shapes | fused9, "decode": set(decode_shapes)})
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the

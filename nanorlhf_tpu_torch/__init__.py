@@ -10,7 +10,10 @@ Ported so far: the default GRPO run end to end — rollout-and-score
 (prefill, sampled decode, host reward, group advantage, fused policy/ref
 scoring), the update (loss, flash backward, AdamW on LoRA) and the
 checkpoint — and the rollout variants: the paged KV cache with continuous
-batching, the int8 KV cache and speculative decode. All ten Pallas kernels
+batching, the int8 KV cache and speculative decode — for all six
+algorithms, with HF weights loaded and exported, async checkpoints with
+retries, fallback and resume, and the launcher's tokenizer, dataset,
+token-cache and reward-model branches. All ten Pallas kernels
 of the JAX package have a hand-written Hopper counterpart under `csrc/`:
 the flash-attention forward and backward (dQ, dK/dV), the decode attention
 over the contiguous, paged and int8 caches, the k-query verify over the

@@ -64,6 +64,27 @@ def init_lora_params(config: ModelConfig, lora: LoraConfig,
     return {"layers": layers}
 
 
+@torch.no_grad()
+def merge_lora(params: dict, lora_scale: float) -> dict:
+    """Fold the adapter into the base kernels (checkpoint export only): each
+    kernel [L, out, in] gains `lora_scale · B·A`, computed in f32 and cast
+    back to the kernel's dtype, one layer at a time. Returns a new tree
+    without "lora"; the leaves it does not change are shared."""
+    if "lora" not in params:
+        return params
+    merged = {k: v for k, v in params.items() if k != "lora"}
+    layers = dict(params["layers"])
+    for name, ab in params["lora"]["layers"].items():
+        kernel = layers[name]["kernel"]
+        out = torch.empty_like(kernel)
+        for i in range(kernel.shape[0]):
+            delta = torch.matmul(ab["b"][i].float(), ab["a"][i].float())
+            out[i] = kernel[i].float() + lora_scale * delta
+        layers[name] = {**layers[name], "kernel": out}
+    merged["layers"] = layers
+    return merged
+
+
 def trainable_mask(params: dict, lora: LoraConfig | None) -> dict:
     """Nested bool dict: which leaves the optimizer updates (the JAX
     `trainable_mask`). Full fine-tuning (lora=None): everything. LoRA: the

@@ -1,6 +1,8 @@
-"""The toy tokenizer — a copy of `nanorlhf_tpu/data/tokenizer.py:ToyTokenizer`
-(the port does not import the JAX package). Deterministic hashed vocab,
-`[PAD]`=0 and EOS `</s>`=1, reversible for its own output.
+"""Tokenizers — a copy of `nanorlhf_tpu/data/tokenizer.py` (the port does
+not import the JAX package): the toy tokenizer (deterministic hashed vocab,
+`[PAD]`=0 and EOS `</s>`=1, reversible for its own output) and
+`load_tokenizer`, which imports `transformers` only when it is asked for
+an HF tokenizer.
 """
 
 from __future__ import annotations
@@ -55,3 +57,18 @@ class ToyTokenizer:
     def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
         text = " ".join(m["content"] for m in messages)
         return f"<user> {text} <assistant>"
+
+
+def load_tokenizer(name_or_path: str):
+    """`toy:<vocab_size>` (or `toy`) → the toy tokenizer; anything else → an
+    HF `AutoTokenizer` padding on the left, with a `[PAD]` token added when
+    it has none (the reference's move)."""
+    if name_or_path.startswith("toy"):
+        _, _, size = name_or_path.partition(":")
+        return ToyTokenizer(int(size) if size else 4096)
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(name_or_path, padding_side="left")
+    if tok.pad_token is None:
+        tok.add_special_tokens({"pad_token": "[PAD]"})
+    return tok

@@ -1,6 +1,9 @@
-"""Shared launcher plumbing — the port of `nanorlhf_tpu/entrypoints/common.py`
-(the offline branches: random-init demo model, toy tokenizer, synthetic
-prompts, the rule-based stand-in reward).
+"""Shared launcher plumbing — the port of `nanorlhf_tpu/entrypoints/common.py`:
+an HF checkpoint directory when one is on disk (its weights, its
+tokenizer), the HF dataset when it loads, the torch RM when its directory
+exists; otherwise the offline demo's random-init model, toy tokenizer,
+synthetic prompts and rule-based stand-in reward. These are JAX's own
+host-side fallbacks; none of them stands in for the card or a kernel.
 
 `run` is the counterpart of the JAX `run`: it builds model, data, reward
 and `RLTrainer` from a launcher config and trains. `run_rollout` builds the
@@ -17,9 +20,10 @@ import torch
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.core.model import init_params
+from nanorlhf_tpu_torch.core.params import load_hf_checkpoint
 from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
-from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
-from nanorlhf_tpu_torch.rewards.builders import make_rule_reward
+from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer, load_tokenizer
+from nanorlhf_tpu_torch.rewards.builders import make_rule_reward, make_torch_rm_reward
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.config import RLConfig
 from nanorlhf_tpu_torch.trainer.rollout import (
@@ -33,50 +37,57 @@ from nanorlhf_tpu_torch.trainer.trainer import RLTrainer, build_policy
 
 def resolve_model(sft_model_path: str, seed: int = 0, attention_impl: str = "auto",
                   device="cuda", dtype=torch.bfloat16):
-    """(ModelConfig, params, tokenizer): the offline demo model — random-init
-    weights in the geometry the path names (1.5B-shaped unless it says
-    'tiny'; Llama family when it says 'llama') and the toy tokenizer.
-    Loading an HF checkpoint directory comes with a later slice."""
+    """(ModelConfig, params on `device`, tokenizer): an HF checkpoint
+    directory is loaded (weights and tokenizer); any other path gives the
+    offline demo model — random-init weights in the geometry the path names
+    (1.5B-shaped unless it says 'tiny'; Llama family when it says 'llama')
+    and the toy tokenizer."""
     if sft_model_path and os.path.isdir(sft_model_path):
-        raise NotImplementedError(
-            f"'{sft_model_path}' is a checkpoint directory: HF weight loading "
-            "(core/params.py) is not ported to nanorlhf_tpu_torch yet")
-    print(f"[offline demo] '{sft_model_path}' not found locally — "
-          "random-init model + toy tokenizer")
-    path = (sft_model_path or "").lower()
-    llama = "llama" in path
-    if "tiny" in path:
-        config = ModelConfig.qwen2_tiny(vocab_size=4096)
-        if llama:
-            config = dataclasses.replace(config, attention_bias=False,
-                                         rope_theta=500_000.0)
-    elif llama:
-        config = ModelConfig.llama3_2_1b()
+        config, params = load_hf_checkpoint(sft_model_path, dtype, device)
+        tokenizer = load_tokenizer(sft_model_path)
     else:
-        config = ModelConfig.qwen2_1_5b()
-    tokenizer = ToyTokenizer(vocab_size=min(4096, config.vocab_size))
-    params = init_params(config, seed, dtype, device)
+        print(f"[offline demo] '{sft_model_path}' not found locally — "
+              "random-init model + toy tokenizer")
+        path = (sft_model_path or "").lower()
+        llama = "llama" in path
+        if "tiny" in path:
+            config = ModelConfig.qwen2_tiny(vocab_size=4096)
+            if llama:
+                config = dataclasses.replace(config, attention_bias=False,
+                                             rope_theta=500_000.0)
+        elif llama:
+            config = ModelConfig.llama3_2_1b()
+        else:
+            config = ModelConfig.qwen2_1_5b()
+        tokenizer = ToyTokenizer(vocab_size=min(4096, config.vocab_size))
+        params = init_params(config, seed, dtype, device)
     if attention_impl != config.attention_impl:
         config = dataclasses.replace(config, attention_impl=attention_impl)
     return config, params, tokenizer
 
 
 def resolve_dataset(cfg: RLConfig, tokenizer, max_prompt_len: int = 256):
-    """The synthetic corpus (the HF loader is not ported yet)."""
-    if not cfg.train_dataset_name.startswith("synthetic"):
-        print(f"[offline demo] dataset '{cfg.train_dataset_name}' unavailable "
-              "(not ported) — synthetic prompts")
-    name = (cfg.train_dataset_name if cfg.train_dataset_name.startswith("synthetic")
-            else "synthetic:512")
-    return load_prompt_dataset(name, tokenizer, max_prompt_len=max_prompt_len)
+    """The configured dataset when it loads (the local HF cache or a local
+    directory; `dataset_cache_dir` turns on the token cache); the synthetic
+    corpus otherwise."""
+    name = cfg.train_dataset_name
+    try:
+        return load_prompt_dataset(name, tokenizer, split=cfg.train_dataset_split,
+                                   max_prompt_len=max_prompt_len,
+                                   cache_dir=cfg.dataset_cache_dir)
+    except Exception as e:  # no local copy, no `datasets`: the offline demo
+        print(f"[offline demo] dataset '{name}' unavailable ({type(e).__name__}) — "
+              "synthetic prompts")
+        return load_prompt_dataset("synthetic:512", tokenizer,
+                                   max_prompt_len=max_prompt_len)
 
 
 def resolve_rm_reward(reward_model_path: str, batch_size: int = 16):
-    """The rule-based stand-in reward (the torch RM needs its checkpoint)."""
+    """The host-side torch RM when its directory exists (the reference's
+    deberta path); otherwise a rule-based stand-in so the loop still runs
+    offline."""
     if reward_model_path and os.path.isdir(reward_model_path):
-        raise NotImplementedError(
-            "the host-side torch reward model is not ported to "
-            "nanorlhf_tpu_torch yet")
+        return make_torch_rm_reward(reward_model_path, batch_size)
     print(f"[offline demo] reward model '{reward_model_path}' not found — "
           "rule-based stand-in reward")
 

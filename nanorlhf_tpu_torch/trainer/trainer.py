@@ -23,7 +23,7 @@ bits.
 
 Unported knobs raise (`check_trainer_supported`): the async orchestrator
 and fleet, rollout_ahead, environments, telemetry, lineage, the status
-port, fault injection, profiling windows and HF export. The sentinel, the
+port, fault injection and profiling windows. The sentinel, the
 health plane and the latency histograms are on by default in JAX but only
 observe a healthy run; the port does not run them yet (ROADMAP).
 """
@@ -42,6 +42,7 @@ from nanorlhf_tpu_torch.core.lora import (
     trainable_mask,
     value_trainable_mask,
 )
+from nanorlhf_tpu_torch.core.params import export_hf_checkpoint
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
 from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
@@ -77,7 +78,6 @@ def check_trainer_supported(cfg: RLConfig) -> None:
         "fault_spec": bool(cfg.fault_spec),
         "profile_at_step": cfg.profile_at_step is not None,
         "health_arm_sentinel": cfg.health_arm_sentinel,
-        "export_hf_dir": bool(cfg.export_hf_dir),
         "env_name": bool(cfg.env_name),
         "rollout_inflight_swaps": cfg.rollout_inflight_swaps,
     }
@@ -184,7 +184,9 @@ class RLTrainer:
         self.opt_state = self.optimizer.init(groups)
 
         self.ckpt = CheckpointManager(config.output_dir, config.save_total_limit,
-                                      config.greater_is_better)
+                                      config.greater_is_better,
+                                      io_retries=config.ckpt_io_retries,
+                                      retry_backoff=config.ckpt_retry_backoff)
         self.logger = MetricsLogger(config.output_dir, config.report_to)
         self.state = {"episode": 0, "global_step": 0, "opt_steps": 0, "rollouts": 0}
         # the latest update's kernel launches per half (and the rollout
@@ -192,7 +194,8 @@ class RLTrainer:
         # count what each replay launched), phase timings (wall s,
         # device-synchronized; with the decode loop's graph_capture_s,
         # graph_steps_run and graph_replays) and per-minibatch stats; and
-        # the wall seconds of the latest checkpoint write
+        # the seconds the latest checkpoint save blocked the loop (the
+        # write itself runs on the manager's writer: `ckpt.last_write_s`)
         self.last_launches: dict = {}
         self.last_timings: dict = {}
         self.last_stats: list = []
@@ -328,11 +331,18 @@ class RLTrainer:
                 t0 = time.perf_counter()
                 self.save_checkpoint(metrics)
                 self.last_save_s = time.perf_counter() - t0
+        # train() returning means every checkpoint is durable: the final
+        # write's failure raises here
+        self.ckpt.wait()
         if cfg.load_best_model_at_end and num_updates is None:
             best = self.ckpt.best_step()
             if best is not None and best != self.state["global_step"]:
                 self._load_trainable(self.ckpt.restore(best, self.device))
                 print(f"loaded best checkpoint (step {best})")
+        if cfg.export_hf_dir and num_updates is None:
+            # after load_best: the exported policy is the one the run deploys
+            print(f"exporting HF checkpoint to {cfg.export_hf_dir}")
+            self.export_model(cfg.export_hf_dir)
         return self.state
 
     def _metrics(self, ro, batch, info, agg, all_stats, lr_step, t, t_start,
@@ -487,15 +497,23 @@ class RLTrainer:
                 live[path].copy_(t)
 
     @torch.no_grad()
-    def restore_checkpoint(self, step: int | None = None) -> int:
+    def resume_from_checkpoint(self, step: int | None = None) -> dict:
         """Load the trainable leaves (the value tree's too), the optimizer
         state and the step counters saved at `step` (default: the latest)
         into this trainer, and fast-forward the data stream to the saved
-        rollout cursor."""
-        step = self.ckpt.latest_step() if step is None else step
+        rollout cursor. A checkpoint that will not load falls back to an
+        older intact one, whose step is adopted; resuming an earlier step
+        than the latest abandons the newer trajectory (`truncate_after`).
+        The random streams are functions of (seed, stream, step or rollout
+        index), so the restored counters restore them too."""
+        latest = self.ckpt.latest_step()
+        step = latest if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.cfg.output_dir}")
         tree = self.ckpt.restore(step, self.device)
+        step = self.ckpt.last_restored_step
+        if latest is not None and step < latest:
+            self.ckpt.truncate_after(step)
         self._load_trainable(tree)
         for group, opt in tree.get("opt_state", {}).items():
             st = self.opt_state[group]
@@ -510,8 +528,23 @@ class RLTrainer:
         self._iter = self.dataset.loader(self.cfg.batch_size, self.cfg.seed)
         for _ in range(self.state["rollouts"]):
             next(self._iter)
-        return step
+        return self.state
+
+    def restore_checkpoint(self, step: int | None = None) -> int:
+        """`resume_from_checkpoint`, returning the step that loaded."""
+        return self.resume_from_checkpoint(step)["global_step"]
+
+    def export_model(self, out_dir: str, dtype: str = "bfloat16") -> str:
+        """Write the current policy as an HF checkpoint directory, LoRA
+        folded into the base kernels at `lora_scale`, with the tokenizer's
+        special ids (and its files, when it can save them)."""
+        return export_hf_checkpoint(
+            self.mcfg, self.params, out_dir,
+            lora_scale=self.lora_scale if self.cfg.use_lora else None,
+            dtype=dtype, tokenizer=self.tokenizer)
 
     def close(self) -> None:
-        self.logger.close()
-
+        try:
+            self.ckpt.close()
+        finally:
+            self.logger.close()

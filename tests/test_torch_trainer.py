@@ -162,7 +162,7 @@ def test_checkpoint_rotation_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("telemetry", True), ("lineage", True), ("fault_spec", "update.step:at=1"),
-    ("status_port", -1), ("export_hf_dir", "out"), ("profile_at_step", 1),
+    ("status_port", -1), ("profile_at_step", 1),
     ("rollout_ahead", True),
 ])
 def test_unported_trainer_knobs_raise(knob, value):
