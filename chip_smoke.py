@@ -16,6 +16,8 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --io            # build, then only phase 10 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --r1            # build, then only phase 11 (and the
+                                          # holds at its shapes)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -136,7 +138,30 @@ Phases (any failure exits non-zero):
      write in flight: one fixed rollout timed with no write, with the
      checkpoint writer, and with plain file writes of the same staged
      tree, in turns. The kernels the two updates
-     launched are held at the shapes they gave them that phase 2 did not.
+     launched are held at the shapes they gave them that phase 2 did not;
+ 11. sparse GRPO and the R1-Zero launcher at 8,000-token responses —
+     `grpo_r1.build_trainer` at `r1_card_cut`, then `train` (`grpo_r1.
+     main`'s two steps; 8 prompts x 4 samples, Qwen2-1.5B
+     geometry at full depth, random weights, the synthetic arithmetic
+     corpus): the greedy accuracy eval (16 questions, 1,024 tokens) before
+     training and after each of two updates; (a) each rollout graded by the
+     launcher's binary reward (how many correct, whether the sparse filter
+     would skip), then trained on a planted, seeded reward that keeps 7 of
+     the 8 rows: kept rows, scoring and backward buckets, K2/K3 and K10
+     launched by each update, a finite loss, the checkpoints committed, the
+     forked grader run from this process while a checkpoint write is in
+     flight; rollout, decode ms a step and tokens/s, reward, scoring,
+     update and checkpoint seconds, peak memory; (b) 8 rows ending at
+     lengths spread over 200-8,000 tokens: the bucketed logprobs and the sum
+     of the scaled bucket gradients against one pass over all rows
+     (R1_LOGPROB_TOL, R1_GRAD_TOL), a bucket padded with all-pad rows
+     against itself unpadded (R1_GRAD_TOL), and the witnesses that bound
+     R1_GRAD_TOL: each bucket against its term of one pass, the unpadded
+     bucket twice, two planted faults. The shapes phase 11 gave K1,
+     K2/K3, K4 and K10 (known only after the run: EOS and the kept rows
+     decide them) are then held against the plain versions as in phase 2,
+     the plain attention by batch rows where its scores would pass
+     PLAIN_SCORE_BYTES, and reported in the kernels line under `r1`.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -160,7 +185,13 @@ H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s, H100 SXM
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    # a phase's first line carries the script's elapsed seconds
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -324,6 +355,44 @@ def _f32(*ts):
     return tuple(t.float() for t in ts)
 
 
+# a plain attention call materialises [rows, H, T, T] scores; at the 8k
+# shapes of phase 11 (B=8, T=8021: 25 GB in f32) the plain versions run a
+# few batch rows at a time so that their scores stay under this size
+PLAIN_SCORE_BYTES = 8e9
+
+
+def plain_rows(B: int, H: int, T: int) -> int:
+    """Batch rows a plain attention call takes at once: all of them unless
+    their f32 scores would pass PLAIN_SCORE_BYTES."""
+    return max(1, min(B, int(PLAIN_SCORE_BYTES // (4 * H * T * T))))
+
+
+def by_rows(torch, fn, rows: int, *args):
+    """`fn` over chunks of `rows` batch rows of its tensor arguments (dim 0),
+    the outputs concatenated (a tuple output piece by piece)."""
+    B = args[0].shape[0]
+    outs = [fn(*(a[i:i + rows] for a in args)) for i in range(0, B, rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def sdpa_ms(torch, F, q, k, v, mask, iters: int) -> tuple[float, str]:
+    """SDPA with a boolean mask, timed as one call; where that call runs out
+    of device memory (the math backend's [B, H, T, T] scores at 8k), by
+    rows as the plain versions are, and said so."""
+    try:
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), iters), "SDPA"
+    except torch.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        rows = plain_rows(*q.shape[:3])
+        return time_ms(torch, lambda: by_rows(
+            torch, lambda a, b, c, m: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, enable_gqa=True), rows, q, k, v, mask), iters), \
+            f"SDPA by {rows} rows (one call ran out of memory)"
+
+
 def check_flash(torch, F, shapes) -> dict:
     """K1 at each shape in `shapes` (B, H, KV, T, hd): the scoring shape of
     the full response (B=16, T = prompt + 1500, the kernels line) and the
@@ -352,8 +421,13 @@ def check_flash(torch, F, shapes) -> dict:
         pad[0] = 0
         valid = torch.arange(T, device="cuda")[None, :] >= pad[:, None]
         out, lse = flash_attention_forward(q, k, v, valid, causal=True)
-        ref_out, ref_lse = flash_attention_reference(*_f32(q, k, v), valid, causal=True)
-        b_out, b_lse = flash_attention_reference(q, k, v, valid, causal=True)
+        rows_at = plain_rows(B, H, T)
+
+        def plain_fn(*a):
+            return flash_attention_reference(*a, causal=True)
+
+        ref_out, ref_lse = by_rows(torch, plain_fn, rows_at, *_f32(q, k, v), valid)
+        b_out, b_lse = by_rows(torch, plain_fn, rows_at, q, k, v, valid)
         rows = valid[:, None, :].expand(B, H, T)  # padding query rows are free
         what = f"flash_fwd B={B} H={H} KV={KV} T={T} hd={hd} causal"
         keep = rows[..., None]
@@ -367,11 +441,11 @@ def check_flash(torch, F, shapes) -> dict:
         ms = time_ms(torch, lambda: flash_attention_forward(q, k, v, valid), 10)
         on_card = dev_total(device_ms(
             torch, lambda: flash_attention_forward(q, k, v, valid), 10, "flash_fwd"))
-        plain = time_ms(torch, lambda: flash_attention_reference(q, k, v, valid), 3)
+        plain = time_ms(torch, lambda: by_rows(torch, plain_fn, rows_at, q, k, v, valid), 3)
         mask = (valid[:, None, None, :]
                 & torch.ones((T, T), dtype=torch.bool, device="cuda").tril())
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), 5)
+        lib, lib_how = sdpa_ms(torch, F, q, k, v, mask, 5)
+        del mask
         nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + valid.numel()
                   + 2 * q.numel() + 4 * lse.numel())
         flops = 4.0 * B * H * hd * T * (T + 1) / 2  # causal pairs only
@@ -381,8 +455,9 @@ def check_flash(torch, F, shapes) -> dict:
         t, of = (on_card, "device time") if on_card else (ms, "events")
         log(f"  {what}: kernel {ms:.4f} ms, device time (profiler) {fmt_ms(on_card)} "
             f"({flops / t / 1e9:.1f} TFLOP/s, {bms / t:.3f} of the bound {bms:.4f} ms "
-            f"{by}, by {of}); plain {plain:.4f} ms; SDPA {lib:.4f} ms (kernel / SDPA "
-            f"{ms / lib:.3f}); two launches equal bit for bit")
+            f"{by}, by {of}); plain {plain:.4f} ms{'' if rows_at == B else f' (by {rows_at} rows)'}; "
+            f"{lib_how} {lib:.4f} ms (kernel / SDPA {ms / lib:.3f}); two launches equal bit "
+            f"for bit")
         results[(B, H, KV, T, hd)] = dict(
             ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=bms,
             bound_by=by, max_abs_err=worst, shape=f"B={B} H={H} KV={KV} T={T} hd={hd}")
@@ -3432,6 +3507,482 @@ def checkpoints_in_and_out(torch, F, max_tokens: int, held: dict) -> None:
         check_decode(torch, F, min(T for _, T in dec_new) - max_tokens, dec_new)
 
 
+# --------------------------------------------------------------------------
+# phase 11: sparse GRPO and the R1-Zero launcher at 8,000-token responses
+# --------------------------------------------------------------------------
+
+R1_SEED = 11
+# phase 11 (b) holds the bucketed passes against one pass over all rows,
+# and a bucket padded with all-pad rows against itself unpadded. A row's
+# logprobs do not depend on the other rows of its batch: only the GEMMs'
+# shapes differ, and with them at most cuBLAS's choice of kernel (1.9e-6
+# on an H100 80GB HBM3). The gradients are bf16 through 28 layers of remat
+# and backward. On that card, at one shape they repeat bit for bit; the
+# same rows at another shape with no pad row (a single-row bucket, or the
+# unpadded bucket, against its term of one pass over all 8 rows) move
+# every leaf by 2.19e-2 to 2.26e-2, and padding adds nothing beyond that
+# (2.29e-2 to 2.33e-2). The planted faults that (b) runs read 0.33 (loss
+# scaled by the padded rows) and 0.097 to 0.10 (a bucket's shortest row
+# dropped) on every leaf: R1_GRAD_TOL sits between.
+R1_LOGPROB_TOL = 1e-2  # max |bucketed - one pass| logprob over the real tokens
+R1_GRAD_TOL = 5e-2     # per leaf ||diff|| / ||reference||: the sum of the scaled
+                       # bucket gradients against one pass, a padded bucket against
+                       # the same bucket unpadded, and each sound witness
+
+
+def _r1_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_r1", *parts)
+
+
+def check_fused_at(torch, shapes) -> dict:
+    """K10 at each shape (R, D, V, with_entropy, transposed) phase 11 gave
+    it: held per row against its f32 plain version (FUSED_TOL; the plain
+    version runs [chunk, V] logits blocks, so its memory stays bounded at
+    R = 64,000), its split count the C entry's and `fused_logprob_split_
+    count`'s; timed: events, device time (profiler), the plain version in
+    bf16, the library yardstick (matmul + logsumexp + gather, + Σ
+    softmax·z with entropy; in calls of at most 8,000 rows, since one call's
+    [R, V] logits at R = 64,000 take 19 GB in bf16 before its f32
+    temporaries) and the bound. Returns {shape: result}."""
+    from nanorlhf_tpu_torch.ops.fused_logprob import (
+        fused_chunk_rows, fused_logprob_chunked, fused_logprob_kernel,
+        fused_logprob_split_count, fused_logprob_split_count_on_card)
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    temp, lib_rows = 0.9, 8000
+    results = {}
+    for R, D, V, ent, transposed in sorted(shapes, reverse=True):
+        if not transposed:
+            fail(f"fused_logprob: phase 11 gave an untied head (R={R}); no hold for it")
+        S, S_rule = (fused_logprob_split_count_on_card(R, V),
+                     fused_logprob_split_count(R, V, sm))
+        if S != S_rule:
+            fail(f"fused_logprob R={R} V={V}: the C entry splits {S} ways, the rule {S_rule}")
+        h = torch.randn((R, D), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        lab = torch.randint(0, V, (R,), generator=gen, device="cuda")
+        chunk = fused_chunk_rows(V, R)
+        got = fused_logprob_kernel(h, w, lab, temp, with_entropy=ent, transposed=True)
+        want = fused_logprob_chunked(*_f32(h, w), lab, temp, chunk, with_entropy=ent,
+                                     transposed=True)
+        bf16 = fused_logprob_chunked(h, w, lab, temp, chunk, with_entropy=ent,
+                                     transposed=True)
+        pairs = [("logprob", got[0], want[0], bf16[0], None)]
+        if ent:
+            pairs.append(("entropy", got[1], want[1], bf16[1], None))
+        what = f"fused_logprob R={R} D={D} V={V} tied splits={S} with_entropy={ent}"
+        err = hold(torch, what, pairs, FUSED_TOL)
+        del got, want, bf16
+
+        def kern():
+            fused_logprob_kernel(h, w, lab, temp, with_entropy=ent, transposed=True)
+
+        h_t = (h.float() / temp).to(torch.bfloat16)
+
+        def library():
+            for i in range(0, R, lib_rows):
+                z = torch.matmul(h_t[i:i + lib_rows], w.t())
+                lse = torch.logsumexp(z, dim=-1)
+                torch.gather(z, 1, lab[i:i + lib_rows, None])
+                if ent:
+                    (torch.softmax(z, dim=-1) * z).sum(-1)
+                del z, lse
+
+        ms = time_ms(torch, kern, 3)
+        on_card = dev_total(device_ms(torch, kern, 3, "fused_"))
+        plain = time_ms(torch, lambda: fused_logprob_chunked(
+            h, w, lab, temp, chunk, with_entropy=ent, transposed=True), 1)
+        lib = time_ms(torch, library, 1)
+        bms, by = bound_ms(2 * h.numel() + 2 * w.numel() + 8 * R + 4 * R * (2 if ent else 1),
+                           2.0 * R * D * V)
+        t_dev = on_card if on_card is not None else ms
+        log(f"  {what}: kernel {ms:.4f} ms, device time (profiler) {fmt_ms(on_card)}, "
+            f"plain {plain:.4f} ms, library {lib:.4f} ms ({-(-R // lib_rows)} calls of "
+            f"<= {lib_rows} rows; kernel / library {t_dev / lib:.3f}), bound {bms:.4f} ms "
+            f"({by}, {100 * bms / t_dev:.1f}% of it)")
+        results[(R, D, V, ent, transposed)] = dict(
+            ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, bound_ms=bms,
+            bound_by=by, max_abs_err=err, shape=f"R={R} D={D} V={V} tied, with_entropy={ent}")
+        del h, w, lab, h_t
+        torch.cuda.empty_cache()
+    return results
+
+
+def _leaf_errors(torch, got: dict, want: dict) -> dict[str, float]:
+    """{leaf: ||got - want|| / ||want||} (0 for a leaf that is all zeros on
+    both sides); fails on a non-finite leaf or one zero on one side only."""
+    out = {}
+    for p, w in want.items():
+        g, name = got[p].float(), "/".join(map(str, p))
+        if not torch.isfinite(g).all():
+            fail(f"a non-finite gradient in leaf {name}")
+        norm = float(w.float().norm())
+        if norm == 0.0:
+            if float(g.abs().max()) != 0.0:
+                fail(f"leaf {name}: zero on one side only")
+            out[name] = 0.0
+            continue
+        out[name] = float((g - w.float()).norm()) / norm
+    return out
+
+
+def _hold_leaves(what: str, errors: dict[str, float], tol: float) -> None:
+    """One line of every leaf's relative error; fails above `tol`."""
+    worst = max(errors, key=errors.get)
+    log(f"  {what}: per leaf ||diff|| / ||reference||: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(errors.items()))
+        + f"; worst {worst} {errors[worst]:.3e}; tol {tol}")
+    if errors[worst] > tol or not any(errors.values()):
+        fail(f"{what}: a leaf disagrees (or every leaf is zero)")
+
+
+def r1_buckets(torch, tr) -> None:
+    """Phase 11 (b): 8 kept rows whose responses end (EOS planted) at
+    lengths spread over 200-8000 tokens, on the trained policy at full
+    depth and width. The trainer's bucketed scoring (`kept_batch`) against
+    one scoring pass over all rows at the minibatch's width; the sum of the
+    scaled bucket gradients (`minibatch_grads`) against the gradient of the
+    same objective from one pass over all rows; the bucket the rows menu
+    padded with all-pad rows against the same bucket unpadded. What bounds
+    R1_GRAD_TOL is measured here too: each backward bucket, padded or not,
+    against its own term of the one pass (the same rows and objective at
+    other shapes), the unpadded bucket twice (run to run), and two planted
+    faults on the padded bucket (its loss scaled by the padded rows; its
+    shortest row dropped), which must read above the tolerance."""
+    import numpy as np
+
+    from nanorlhf_tpu_torch.algos.losses import grpo_loss
+    from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB
+    from nanorlhf_tpu_torch.trainer.bucketing import create_batches
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+    from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs, score_chunk
+
+    cfg, tok = tr.cfg, tr.tokenizer
+    pad, eos = tok.pad_token_id, tok.eos_token_id
+    rng = np.random.default_rng(R1_SEED + 1)
+    rows, R = 8, cfg.response_length
+    lengths = rng.permutation(np.linspace(200, R, rows).astype(int))
+    responses = rng.integers(3, tok.vocab_size, (rows, R)).astype(np.int32)
+    responses[np.arange(rows), lengths - 1] = eos
+    queries = tr.dataset.input_ids[:rows]
+    scores = rng.normal(size=rows).astype(np.float32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score_buckets: list = []
+    batch = tr.kept_batch(queries, responses, scores, score_buckets)
+    t_score = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    upd_buckets: list = []
+    grads_b = tr.minibatch_grads(batch, np.arange(rows), None, upd_buckets)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    ctx, qr_len = batch["context_length"], batch["qr_len"]
+    log(f"  (b) response lengths {sorted(lengths.tolist())} (EOS planted), context {ctx}: "
+        f"scoring buckets (real rows, rows_b, width) {score_buckets} in {t_score:.3f} s; "
+        f"backward buckets {upd_buckets} in {t_grad:.3f} s")
+
+    # one pass over all rows at the minibatch's width
+    dev = tr.device
+    qr = torch.as_tensor(batch["qr"], device=dev)
+    t0 = time.perf_counter()
+    lp_all = score_chunk(tr.params, None, tr.mcfg, cfg, qr, ctx, pad, tr.lora_scale)[0]
+    lp_all = lp_all.float().cpu().numpy()
+    t_one = time.perf_counter() - t0
+    real = ~batch["padding_mask"]
+    d = np.abs(batch["logprobs"] - lp_all)[real]
+    log(f"  (b) logprobs, bucketed against one pass over {rows} x {qr.shape[1]} tokens "
+        f"({t_one:.3f} s): max |diff| {d.max():.3e}, mean {d.mean():.3e} over {d.size} "
+        f"real tokens; tol {R1_LOGPROB_TOL}")
+    if not np.isfinite(batch["logprobs"][real]).all() or d.max() > R1_LOGPROB_TOL:
+        fail("(b) the bucketed logprobs disagree with one pass over all rows")
+
+    # the gradient of each bucket's term (its rows' loss x real rows / rows)
+    # from one pass over all rows; their sum is the one pass's objective
+    leaves = flatten(tr._groups())
+    paths, tensors = list(leaves), list(leaves.values())
+
+    def as_f32(grads):
+        return {p: torch.zeros_like(leaves[p], dtype=torch.float32) if g is None
+                else g.float() for p, g in zip(paths, grads)}
+
+    t = {k: torch.as_tensor(batch[k], device=dev)
+         for k in ("responses", "logprobs", "ref_logprobs", "advantages", "padding_mask")}
+    buckets = [np.asarray(b) for b in create_batches(qr_len, tr.backward_budget())]
+    pi = next((i for i, (n, rb, _) in enumerate(upd_buckets) if rb > n), None)
+    if pi is None:
+        fail(f"(b) no backward bucket was padded with all-pad rows: {upd_buckets}")
+    t0 = time.perf_counter()
+    new_lp, _ = fused_response_logprobs(tr.params, tr.mcfg, qr, t["responses"], pad, ctx,
+                                        cfg, lora_scale=tr.lora_scale, with_entropy=True,
+                                        remat=cfg.gradient_checkpointing)
+    new_lp = torch.where(t["padding_mask"], torch.full_like(new_lp, INVALID_LOGPROB), new_lp)
+    sound: dict[str, dict] = {}
+    grads_u = ref_pad = None
+    for i, sel in enumerate(buckets):
+        s_ = torch.as_tensor(sel, device=dev)
+        part, _ = grpo_loss(new_lp[s_], t["logprobs"][s_], t["ref_logprobs"][s_],
+                            t["advantages"][s_], ~t["padding_mask"][s_], cfg.cliprange,
+                            cfg.kl_coef)
+        ref = as_f32(torch.autograd.grad(part * (len(sel) / rows), tensors,
+                                         allow_unused=True,
+                                         retain_graph=i + 1 < len(buckets)))
+        mb, _ = tr.bucket_batch(batch, sel)
+        g, _ = tr.bucket_grads(mb, ctx, len(sel) / rows)
+        sound[f"bucket {i} ({len(sel)} rows as {mb['responses'].shape[0]}) against its "
+              f"term of one pass"] = _leaf_errors(torch, g, ref)
+        if i == pi:
+            ref_pad = ref
+        if grads_u is None:
+            grads_u = {p: r.clone() for p, r in ref.items()}
+        else:
+            for p, r in ref.items():
+                grads_u[p].add_(r)
+        del g, mb, ref
+    del new_lp
+    torch.cuda.synchronize()
+    t_one_grad = time.perf_counter() - t0
+    _hold_leaves(f"(b) gradients, the sum of the scaled bucket gradients against one "
+                 f"pass over all rows ({t_one_grad:.3f} s, each bucket's term its own "
+                 f"backward)", _leaf_errors(torch, grads_b, grads_u), R1_GRAD_TOL)
+    del grads_u, grads_b
+
+    sel = buckets[pi]
+    scale = len(sel) / rows
+    mb_pad, _ = tr.bucket_batch(batch, sel)
+    g_pad, _ = tr.bucket_grads(mb_pad, ctx, scale)
+    menu = tr._rows_menu
+    tr._rows_menu = sorted(set(menu) | {len(sel)})
+    try:
+        mb, _ = tr.bucket_batch(batch, sel)
+    finally:
+        tr._rows_menu = menu
+    g, _ = tr.bucket_grads(mb, ctx, scale)
+    rb, n = mb_pad["responses"].shape[0], mb["responses"].shape[0]
+    _hold_leaves(f"(b) a bucket of {n} rows padded to {rb} with all-pad rows against the "
+                 f"same {n} rows unpadded", _leaf_errors(torch, g_pad, g), R1_GRAD_TOL)
+    sound["the padded bucket against its term of one pass"] = _leaf_errors(
+        torch, g_pad, ref_pad)
+    sound["the unpadded bucket against its term of one pass"] = _leaf_errors(
+        torch, g, ref_pad)
+    sound["the unpadded bucket twice (run to run)"] = _leaf_errors(
+        torch, tr.bucket_grads(mb, ctx, scale)[0], g)
+    del g_pad, ref_pad
+    planted = {
+        f"its loss scaled by the padded rows ({rb} / {rows} for {n} / {rows})":
+            _leaf_errors(torch, tr.bucket_grads(mb_pad, ctx, rb / rows)[0], g),
+        f"its shortest row dropped ({n - 1} rows at the same scale)":
+            _leaf_errors(torch, tr.bucket_grads(tr.bucket_batch(batch, sel[1:])[0], ctx,
+                                                scale)[0], g),
+    }
+    worst = {k: max(e.values()) for k, e in sound.items()}
+    least = {k: (max(e.values()), min(e.values())) for k, e in planted.items()}
+    log("  (b) the witnesses of R1_GRAD_TOL, the worst leaf of each: sound: "
+        + "; ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + "; planted faults against the unpadded bucket (worst, least leaf): "
+        + "; ".join(f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in least.items())
+        + f"; tol {R1_GRAD_TOL}")
+    if max(worst.values()) > R1_GRAD_TOL:
+        fail("(b) a sound witness reads above R1_GRAD_TOL")
+    if min(a for a, _ in least.values()) <= R1_GRAD_TOL:
+        fail("(b) a planted fault reads inside R1_GRAD_TOL: the hold would not catch it")
+
+
+def r1_zero(torch, seen: dict) -> dict:
+    """Phase 11: `grpo_r1.build_trainer` at `r1_card_cut` on the card, then
+    `train` (`grpo_r1.main`'s two steps) — 8 prompts x
+    4 samples of 8,000 tokens, random weights in the Qwen2-1.5B geometry at
+    full depth, the synthetic arithmetic corpus, the greedy accuracy eval
+    (16 questions, 1,024 tokens) before training and after each update,
+    two updates with a checkpoint each. (a) Each rollout is graded by the
+    launcher's binary reward (how many correct; whether the sparse filter
+    would skip), then trained on a planted, seeded reward (prompt 0's group
+    scores alike, the rest at random, so the filter drops one row and keeps
+    the others); the forked grader runs from this process while the
+    checkpoint writer is alive. (b) `r1_buckets`. Records the kernels'
+    shapes in `seen` ({"fwd", "bwd", "fused", "decode"} counters) and
+    returns the phase's launch counts."""
+    import shutil
+
+    from nanorlhf_tpu_torch.entrypoints import grpo_r1
+
+    shutil.rmtree(_r1_dir(), ignore_errors=True)
+    cfg = grpo_r1.r1_card_cut(grpo_r1.build_config())
+    cfg.output_dir = _r1_dir("run")
+    cfg.dataset_cache_dir = _r1_dir("token_cache")
+    cfg.finalize(1)
+    log(f"CUT: {cfg.batch_size} prompts x sample_n={cfg.sample_n} an update "
+        f"(per_device_train_batch_size={cfg.per_device_train_batch_size}, "
+        f"num_mini_batches={cfg.num_mini_batches}, gradient_accumulation_steps="
+        f"{cfg.gradient_accumulation_steps}; the launcher's batch is 512 prompts), "
+        f"2 updates, eval_steps={cfg.eval_steps} on 16 questions; response_length "
+        f"{cfg.response_length}, widths and budgets the launcher's")
+    t0 = time.perf_counter()
+    tr = grpo_r1.build_trainer(cfg, device="cuda")
+    log(f"  grpo_r1.build_trainer: {time.perf_counter() - t0:.3f} s")
+    try:
+        counts = r1_train(torch, tr, seen)
+        log("  (b) buckets at spread lengths, full depth and width")
+        r1_buckets(torch, tr)
+    finally:
+        tr.close()
+    shutil.rmtree(_r1_dir(), ignore_errors=True)
+    return counts
+
+
+def r1_train(torch, tr, seen: dict) -> dict:
+    """Phase 11 (a): the launcher's trainer `tr` with its reward wrapped
+    (graded, then replaced by the planted one) and its accuracy eval on
+    the first 16 questions, trained 2 updates with the kernel counts reset
+    just before; then the forked grader probed while a checkpoint write is
+    in flight. Fails unless each update kept rows, launched K2/K3 and K10
+    and gave a finite loss, and the checkpoints committed. Returns the
+    launch counts of the 2 updates."""
+    import math
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints import grpo_r1
+
+    cfg, r1_reward = tr.cfg, tr.reward_func
+    rng = np.random.default_rng(R1_SEED)
+
+    def planted(texts, ids, tok):
+        t0 = time.perf_counter()
+        binary = r1_reward(texts, ids, tok)
+        alike = bool((binary.reshape(-1, cfg.sample_n).std(1) == 0).all())
+        log(f"  the launcher's binary reward: {int(binary.sum())} of {len(texts)} "
+            f"correct in {time.perf_counter() - t0:.3f} s; every group alike, so the "
+            f"sparse filter would skip this update: {alike}")
+        out = rng.random(len(texts)).astype(np.float32)
+        out[:cfg.sample_n] = 0.0  # prompt 0's group scores alike: filtered out
+        return out
+
+    tr.reward_func = planted
+    train_qa, eval_qa = grpo_r1.load_math_datasets("meta-math/MetaMathQA",
+                                                   "HuggingFaceH4/MATH-500")
+    tr.accuracy_func = grpo_r1.make_accuracy_func(eval_qa[:16])
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording_forward_shapes(seen["fwd"]), recording_backward_shapes(seen["bwd"]), \
+            recording_fused_shapes(seen["fused"]), recording_decode_shapes(seen["decode"]):
+        state = tr.train(2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    latest, writer_s = tr.ckpt.latest_step(), tr.ckpt.last_write_s
+    log(f"  (a) SparseGRPOTrainer.train: {wall:.3f} s for 2 updates and 3 evals; state "
+        f"{state}; launches {counts}; peak {peak:.2f} GB")
+    rows = cfg.batch_size * cfg.sample_n
+    for rec in tr.update_log:
+        t = rec["timings"]
+        if rec["skipped"]:
+            fail(f"rollout {rec['index']}: skipped; the planted reward keeps rows")
+        steps = t["decode_steps"]
+        dec = t["decode_s"]
+        cap = t.get("graph_capture_s", 0.0)
+        m = rec["metrics"]
+        log(f"  update {rec['index'] + 1}: rollout {t['generate_s']:.3f} s (prefill "
+            f"{t['prefill_s']:.3f} s, decode {dec:.3f} s: {steps} steps of "
+            f"{1e3 * dec / max(steps, 1):.3f} ms, {1e3 * (dec - cap) / max(steps, 1):.3f} ms "
+            f"without the {cap:.3f} s capture, {rows * steps / dec:.1f} tokens/s at {rows} "
+            f"rows; graph pool {t.get('graph_pool_bytes', 0) / 1e9:.2f} GB); reward "
+            f"{t['reward_s']:.3f} s; kept {rec['kept']} of {cfg.batch_size}; context "
+            f"{rec['context_length']}, response cut {rec['max_resp']}; scoring buckets "
+            f"(real rows, rows_b, width) {rec['score_buckets']} in {t['score_s']:.3f} s; "
+            f"backward buckets {rec['update_buckets']} in {t['update_s']:.3f} s; "
+            f"checkpoint blocking {rec.get('save_s', float('nan')):.3f} s; loss "
+            f"{m['loss/policy_avg_new']:.6e}, approxkl {m['policy/approxkl_avg_new']:.3e}, "
+            f"entropy {m['policy/entropy_avg_new']:.4f}, eval accuracy "
+            f"{m.get('eval_accuracy_new')}")
+        upd = rec["launches"]["update"]
+        log(f"    launches: generate {rec['launches']['generate']}; score "
+            f"{rec['launches']['score']}; update {upd}")
+        if rec["kept"] <= 0 or not math.isfinite(m["loss/policy_avg_new"]):
+            fail(f"update {rec['index'] + 1}: kept {rec['kept']}, loss "
+                 f"{m['loss/policy_avg_new']}")
+        # the first backward bucket's new and old logprobs come from the same
+        # weights (its scoring bucket ran 8 rows, it runs 1): |dlogp| small
+        first_kl = rec["stats"][0]["approxkl"]
+        log(f"    first backward bucket's approxkl {first_kl:.3e}")
+        if not first_kl < 1e-4:
+            fail(f"update {rec['index'] + 1}: first-bucket approxkl {first_kl:.3e} >= "
+                 f"1e-4: the update's logprobs disagree with the scoring pass's")
+        for name in ("flash_bwd_dq", "flash_bwd_dkv", "fused_logprob", "flash_fwd"):
+            if upd[name] <= 0:
+                fail(f"update {rec['index'] + 1}: {name} never launched by the update")
+    if len(tr.update_log) != 2 or latest != 2:
+        fail(f"{len(tr.update_log)} updates, latest checkpoint {latest}")
+    log(f"  checkpoint-2 committed; the last write took {writer_s:.3f} s on the writer")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                 "decode_attention"):
+        if counts[name] <= 0:
+            fail(f"phase 11 never launched {name}")
+
+    # the grader forked from this CUDA process while a checkpoint write runs
+    texts, want = [], []
+    for q, a in train_qa[:2]:
+        for sol, ok in ((f"\\boxed{{{a} + 0}}", 1.0), (f"\\boxed{{{a} + 1}}", 0.0),
+                        (f"\\boxed{{{a}}}", 1.0)):
+            texts.append(grpo_r1.TEMPLATE.replace("QUESTION", q) + sol
+                         + tr.tokenizer.eos_token)
+            want.append(ok)
+    step = tr.state["global_step"] + 1
+    tr.ckpt.save(step, tr.trainable)
+    alive = tr.ckpt._writer is not None and tr.ckpt._writer.is_alive()
+    t0 = time.perf_counter()
+    got = r1_reward(texts, None, tr.tokenizer)
+    t_grade = time.perf_counter() - t0
+    tr.ckpt.wait()
+    log(f"  forked grader: {len(texts)} probes ({4} through the subprocess) graded "
+        f"{got.tolist()} in {t_grade:.3f} s with the checkpoint writer "
+        f"{'alive' if alive else 'already done'} at the fork; checkpoint-{step} "
+        f"committed: {tr.ckpt.latest_step() == step}")
+    if got.tolist() != want or tr.ckpt.latest_step() != step:
+        fail(f"forked grader: {got.tolist()} against {want}, or the save did not commit")
+    return counts
+
+
+def r1_entries(results: dict, counts: dict) -> dict:
+    """The kernels line's `r1` entry of each kernel phase 11 ran: its
+    launches in phase 11 (counts reset just before the trainer's `train`, read just
+    after) and its numbers at the 8k shape (`hold_r1_shapes`)."""
+    keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {name: {"launches": counts[name], **{k: r.get(k) for k in keys}}
+            for name, r in results.items()}
+
+
+def hold_r1_shapes(torch, F, seen: dict) -> dict:
+    """Phase 2's holds at every shape phase 11 gave K1, K2/K3, K4 and K10
+    (the plain versions by rows where their scores would pass
+    PLAIN_SCORE_BYTES). Returns the results at the 8k shapes the kernels
+    line reports: K1 and K10 at the scoring bucket, K2/K3 at the update's
+    row, K4 at the rollout's decode."""
+    log(f"  shapes phase 11 gave the kernels: K1 (B, H, KV, T, hd) {dict(seen['fwd'])}; "
+        f"K2/K3 {dict(seen['bwd'])}; K10 (R, D, V, with_entropy, tied) "
+        f"{dict(seen['fused'])}; K4 (B, T_max) {dict(seen['decode'])}")
+    fwd = check_flash(torch, F, sorted(seen["fwd"], key=lambda s: (-s[3], -s[0])))
+    bwd = check_flash_bwd(torch, F, {s[1:6] for s in seen["bwd"]})
+    fused = check_fused_at(torch, seen["fused"])
+    dec_shapes = sorted(seen["decode"], key=lambda s: (-s[1], s[0]))
+    prompt = min(T for _, T in dec_shapes) - 1024
+    decode = check_decode(torch, F, max(prompt, 2), dec_shapes)
+    longest = max(s[3] for s in seen["fwd"])
+    fwd_at = max((s for s in seen["fwd"] if s[3] == longest), key=lambda s: s[0])
+    return {"flash_fwd": fwd[fwd_at], **bwd[max(bwd)],
+            "fused_logprob": fused[max(fused)],
+            "decode_attention": decode[dec_shapes[0]]}
+
+
 def _trees_equal(torch, a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_trees_equal(torch, a[k], b[k]) for k in a)
@@ -3551,6 +4102,10 @@ def main() -> None:
                     help="build, then run only phase 10 (HF weights written and loaded, "
                          "async checkpoint saves, a failed write, resume, export, the RM) "
                          "and the holds of the kernels at the shapes it gives them")
+    ap.add_argument("--r1", action="store_true",
+                    help="build, then run only phase 11 (sparse GRPO through the R1-Zero "
+                         "launcher at 8,000-token responses) and the holds of the kernels "
+                         "at the shapes it gives them")
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
                          "gives the kernels, and phase 9 (one update of each of RLOO, "
@@ -3623,6 +4178,17 @@ def main() -> None:
                                {"fwd": set(), "bwd": set(), "fused": set(), "decode": set()})
         log(f"io: every check passed; total wall {time.perf_counter() - t_all:.1f} s; "
             f"card: {card}")
+        return
+    if args.r1:
+        log("phase 11: sparse GRPO and the R1-Zero launcher, 8,000-token responses, "
+            "Qwen2-1.5B width, full depth")
+        r1_seen = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        counts11 = r1_zero(torch, r1_seen)
+        log("  the kernels at the shapes phase 11 gave them, against their plain versions")
+        r1 = hold_r1_shapes(torch, F, r1_seen)
+        log(json.dumps({"r1_kernels": r1_entries(r1, counts11)}))
+        log(f"r1: every hold and check passed; total wall {time.perf_counter() - t_all:.1f} "
+            f"s; card: {card}")
         return
     log("phase 2: kernels against their plain versions (bf16)")
     # phases 3, 4, 5, 6 and 7b run shorter responses than the launcher's 1500
@@ -3802,6 +4368,13 @@ def main() -> None:
         "fwd": {fwd_long} | fwd_shapes | fwd9, "bwd": bwd_shapes | bwd9,
         "fused": fused_shapes | fused9, "decode": set(decode_shapes)})
 
+    log("phase 11: sparse GRPO and the R1-Zero launcher, 8,000-token responses, "
+        "Qwen2-1.5B width, full depth")
+    r1_seen = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    counts11 = r1_zero(torch, r1_seen)
+    log("  the kernels at the shapes phase 11 gave them, against their plain versions")
+    r1 = r1_entries(hold_r1_shapes(torch, F, r1_seen), counts11)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
     # paged update (phase 5), the int8 rollouts (phase 6), the speculative
@@ -3823,6 +4396,7 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"r1": r1[name]} if name in r1 else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Reward-function builders — the port of `nanorlhf_tpu/rewards/builders.py`
-(the rule-based builder, the decoder RM with a score head, and the
-host-side torch RM).
+(the rule-based builder, r1's binary math reward, the decoder RM with a
+score head, and the host-side torch RM).
 
 Protocol: `reward_func(pmt_and_responses: list[str], eos_token: str) ->
 array[B]`, host-side.
@@ -19,6 +19,34 @@ def make_rule_reward(fn: Callable[[str, str], float]):
 
     def reward_func(pmt_and_responses, eos_token):
         return np.asarray([fn(s, eos_token) for s in pmt_and_responses], np.float32)
+
+    return reward_func
+
+
+def make_binary_math_reward(
+    question_to_answer: dict,
+    extract_question: Callable[[str], str],
+    extract_solution: Callable[[str, str], str],
+    timeout: float = 0.05,
+    use_subprocess: bool = True,
+):
+    """r1-style binary reward: 1 if the boxed answer grades correct, else 0.
+    `question_to_answer` maps a question to its answer; the extractors
+    recover the question and the model's solution from the concatenated
+    prompt+response string."""
+    from nanorlhf_tpu_torch.rewards.math_grader import get_boxed, is_correct
+
+    def reward_func(pmt_and_responses, eos_token):
+        rewards = np.zeros(len(pmt_and_responses), np.float32)
+        for i, s in enumerate(pmt_and_responses):
+            question = extract_question(s)
+            gt = question_to_answer.get(question)
+            if gt is None:
+                continue
+            solution = get_boxed(extract_solution(s, eos_token))
+            if is_correct(solution, gt, timeout=timeout, use_subprocess=use_subprocess):
+                rewards[i] = 1.0
+        return rewards
 
     return reward_func
 

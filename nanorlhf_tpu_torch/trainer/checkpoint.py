@@ -212,9 +212,9 @@ class CheckpointManager:
             self._last_saved_step = data.get("last_saved_step")
         # the history is written while the tree streams, so a crash mid-save
         # can leave it naming a checkpoint that never committed: clamp to
-        # what is on disk
+        # what is on disk (a step that was never set stays unset)
         committed = {self._step_of(d) for d in self._ckpt_dirs}
-        if self._last_saved_step not in committed:
+        if self._last_saved_step is not None and self._last_saved_step not in committed:
             self._last_saved_step = max(committed) if committed else None
         self._metric_by_step = {k: v for k, v in self._metric_by_step.items()
                                 if k in committed}

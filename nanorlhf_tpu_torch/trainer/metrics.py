@@ -5,7 +5,8 @@
 during the update pass. Each row is one JSON line in
 `<output_dir>/metrics.jsonl` (`report_to="jsonl"`; "none" writes nothing),
 stamped with the step, the episode, the wall time (`time`, provenance) and
-a monotonic clock (`t_mono`, for durations). A short sample table prints
+a monotonic clock (`t_mono`, for durations); `log_event` rows carry no
+episode. A short sample table prints
 to the console.
 """
 
@@ -28,16 +29,26 @@ class MetricsLogger:
             os.makedirs(output_dir, exist_ok=True)
             self._fh = open(os.path.join(output_dir, "metrics.jsonl"), "a")
 
-    def log(self, step: int, episode: int, metrics: dict):
-        record = {"step": step, "episode": episode, "time": time.time(),
+    def _emit(self, prefix: str, x: int, extra: dict, metrics: dict):
+        record = {"step": x, **extra, "time": time.time(),
                   "t_mono": time.perf_counter()}
         record.update({k: float(v) for k, v in metrics.items()})
-        print(f"[step {step}] " + " ".join(
+        print(f"[{prefix} {x}] " + " ".join(
             f"{k}={record[k]:.4g}" for k in sorted(metrics)[:8]), flush=True)
         self._latest = record
         if self._fh:
             self._fh.write(json.dumps(record) + "\n")
             self._fh.flush()
+
+    def log(self, step: int, episode: int, metrics: dict):
+        self._emit("step", step, {"episode": episode}, metrics)
+
+    def log_event(self, index: int, metrics: dict):
+        """An out-of-band row (a sparse-filter skip): stamped with the
+        caller's index and the clocks but no `episode` — a training-step
+        row is one that carries `episode`, and consecutive skips at a frozen
+        global step need distinct indices."""
+        self._emit("event", index, {}, metrics)
 
     def latest(self) -> dict:
         return dict(self._latest)

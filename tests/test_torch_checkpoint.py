@@ -196,6 +196,31 @@ def test_truncate_after_matches_jax(tmp_path):
     jax_mgr.close()
 
 
+def test_directory_without_metric_history_keeps_no_saved_step(tmp_path):
+    """Committed checkpoints 1 and 2 and no `best_metric_history.json`: both
+    managers open the directory with no last saved step, so the next
+    save's `metric_old` is dropped on both sides, not recorded against
+    step 2."""
+    port = CheckpointManager(str(tmp_path / "port"))
+    jax_mgr = JaxCheckpointManager(str(tmp_path / "jax"), async_save=False)
+    for step in (1, 2):
+        port.save(step, _tree(step))
+        jax_mgr.save(step, {"w": np.full((2,), float(step))})
+    port.close()
+    jax_mgr.close()
+    for sub in ("port", "jax"):
+        os.remove(tmp_path / sub / "best_metric_history.json")
+    port = CheckpointManager(str(tmp_path / "port"))
+    jax_mgr = JaxCheckpointManager(str(tmp_path / "jax"), async_save=False)
+    assert _steps(port) == _steps(jax_mgr) == [1, 2]
+    assert port._last_saved_step is None and jax_mgr._last_saved_step is None
+    port.save(3, _tree(3), metric_old=0.4)
+    jax_mgr.save(3, {"w": np.full((2,), 3.0)}, metric_old=0.4)
+    assert port._metric_by_step == jax_mgr._metric_by_step == {}
+    port.close()
+    jax_mgr.close()
+
+
 def test_earlier_synchronous_tree_still_restores(tmp_path):
     """A checkpoint as the synchronous manager wrote it (`torch.save` of
     CPU copies, then the rename) restores through the async manager."""

@@ -4,8 +4,10 @@ policy/ref logprobs of the kept rows within 1e-5), plus the port's import
 hygiene: no JAX, nothing of nanorlhf_tpu, and no kernel launch for CPU
 tensors."""
 
+import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -278,3 +280,65 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 25  # every module of the port was imported
+
+
+_JAX_MODULE = re.compile(r"(jax|nanorlhf_tpu)(\.\w+)*")
+_QUOTED_JAX_MODULE = re.compile(r"""["'](nanorlhf_tpu\.|jax["'.])""")
+
+
+def jax_imports(source: str) -> list[str]:
+    """What a source file takes from JAX or the JAX package, in any scope:
+    `import` and `from` statements (lazy ones inside functions included),
+    and quoted module names (`"nanorlhf_tpu.x"`, `"jax"`: forkserver
+    preloads, `importlib.import_module`, `__import__`)."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _JAX_MODULE.fullmatch(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0 \
+                and _JAX_MODULE.fullmatch(node.module):
+            found.append(node.module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _JAX_MODULE.fullmatch(node.value.strip()):
+            found.append(repr(node.value))
+    found += [m.group(0) for m in _QUOTED_JAX_MODULE.finditer(source)]
+    return found
+
+
+@pytest.mark.parametrize("snippet", [
+    "import jax",
+    "import jax.numpy as jnp",
+    "from jax import numpy",
+    "def f():\n    from nanorlhf_tpu.resilience import reap_process\n",
+    "def f():\n    import nanorlhf_tpu.utils.logging as lg\n",
+    "import nanorlhf_tpu",
+    "ctx.set_forkserver_preload(['sympy', 'nanorlhf_tpu.rewards.math_grader'])",
+    "importlib.import_module('jax')",
+    "__import__(\"nanorlhf_tpu.rewards\")",
+])
+def test_static_scan_refuses_jax_imports(snippet):
+    assert jax_imports(snippet)
+
+
+@pytest.mark.parametrize("snippet", [
+    "import nanorlhf_tpu_torch.rewards",
+    "from nanorlhf_tpu_torch.resilience.procs import reap_process",
+    "x = 'nanorlhf_tpu_torch.rewards.math_grader'",
+    "'''The port of `nanorlhf_tpu/trainer/sparse_grpo.py`.'''",
+])
+def test_static_scan_allows_the_ports_own_names(snippet):
+    assert not jax_imports(snippet)
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package_in_any_scope():
+    """A static scan of every `.py` file of the port and of `chip_smoke.py`:
+    no import of jax or the JAX package at any depth (a lazy import inside
+    a function never runs at import time, so the import test above cannot
+    see it) and no quoted module name of either."""
+    pkg = os.path.join(REPO, "nanorlhf_tpu_torch")
+    files = [os.path.join(root, f) for root, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) >= 60
+    bad = {os.path.relpath(f, REPO): hits for f in files
+           if (hits := jax_imports(open(f, encoding="utf-8").read()))}
+    assert not bad, bad
