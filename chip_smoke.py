@@ -18,6 +18,8 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --r1            # build, then only phase 11 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --routes        # build, then only phase 12 (and the
+                                          # holds at its shapes)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -161,7 +163,30 @@ Phases (any failure exits non-zero):
      K2/K3, K4 and K10 (known only after the run: EOS and the kept rows
      decide them) are then held against the plain versions as in phase 2,
      the plain attention by batch rows where its scores would pass
-     PLAIN_SCORE_BYTES, and reported in the kernels line under `r1`.
+     PLAIN_SCORE_BYTES, and reported in the kernels line under `r1`;
+ 12. the update's and the rollout's other routes, on phase 4's config
+     (one-card cut, 512 tokens), one GRPO update each through
+     `build_trainer` + `train(num_updates=1)` from the same seeded state:
+     (a) remat_policy "full" against "dots" — update seconds, peak GB,
+     K1/K2/K3/K10 launches (equal), the trained LoRA leaves, and at one
+     microbatch the LoRA gradients (bit for bit, else within R1_GRAD_TOL)
+     and the peak above resting memory of each policy; (b) the naive
+     update branch (fused_logprob=False) — K10 launched neither in scoring
+     nor in the update, the fused and the naive logprobs of one microbatch
+     against the f32 logprobs of the same hidden states (the fused within
+     FUSED_TOL, the naive within its bf16 logits' rounding), then phase
+     11's fixed 8k batch on the sparse trainer: the 8,021-token bucket's
+     gradients naive against fused (R1_GRAD_TOL), seconds and peak; (c)
+     int8 rollout weights — phase 3's rollout (4 prompts x 4 samples) with
+     bf16 and with int8 weights in turns (decode ms a step, tokens/s, peak
+     GB, the int8 bytes, K4's launches equal), the 2-layer small input's
+     decode logits (int8 within INT8_WEIGHT_FACTOR of the exact bf16
+     route's error against f32, and within 2x of it against f32 over its
+     own dequantized weights), one update with int8 weights whose scoring
+     equals the exact weights' bit for bit. The shapes phase 12 gave the
+     kernels that no earlier phase held are then held as in phase 2, and
+     each kernel's launches in each route's update are reported in the
+     kernels line under `routes`.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -3013,6 +3038,15 @@ def recording_decode_shapes(seen):
         tm.decode_attention = fn
 
 
+@contextlib.contextmanager
+def recording_all_shapes(seen: dict):
+    """The four shape recorders at once, into `seen` ({"fwd", "bwd",
+    "fused", "decode"} counters)."""
+    with recording_forward_shapes(seen["fwd"]), recording_backward_shapes(seen["bwd"]), \
+            recording_fused_shapes(seen["fused"]), recording_decode_shapes(seen["decode"]):
+        yield
+
+
 def _io_dir(*parts) -> str:
     import os
 
@@ -3871,8 +3905,7 @@ def r1_train(torch, tr, seen: dict) -> dict:
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording_forward_shapes(seen["fwd"]), recording_backward_shapes(seen["bwd"]), \
-            recording_fused_shapes(seen["fused"]), recording_decode_shapes(seen["decode"]):
+    with recording_all_shapes(seen):
         state = tr.train(2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3991,6 +4024,561 @@ def _trees_equal(torch, a, b) -> bool:
     return a == b
 
 
+# --------------------------------------------------------------------------
+# phase 12: the update's and the rollout's other routes
+# --------------------------------------------------------------------------
+
+# the routes, each an RLConfig change to phase 4's config (the launcher's,
+# one-card cut, responses of at most 512 tokens): the default ("full":
+# full remat, the fused logprob op, bf16 rollout weights), remat_policy
+# "dots", the naive update branch, int8 rollout weights
+ROUTES = {"full": {}, "dots": {"remat_policy": "dots"},
+          "naive": {"fused_logprob": False}, "int8": {"rollout_quant": "int8"}}
+# the kernels each route's update must launch (the naive branch never K10)
+ROUTE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+                 "fused_logprob")
+# int8 weights round each weight to within 1/254 of its output channel's
+# absmax (at fan-in 1,536 about 0.0077 sigma rms, against bf16's 2^-9
+# relative, about 0.0011 sigma): the int8 route's decode logits may sit
+# this many times further from the exact f32 ones than the exact bf16
+# route's (the activations round alike on both)
+INT8_WEIGHT_FACTOR = 16.0
+
+
+def _routes_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_routes", *parts)
+
+
+@contextlib.contextmanager
+def recording_rollouts(out: dict):
+    """Keep the rollout (`rollout_and_score`'s result, "ro") and the update
+    batch (`assemble_batch`'s, "batch") the trainer passes on."""
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+
+    ro_fn, asm_fn = trainer_mod.rollout_and_score, trainer_mod.assemble_batch
+
+    def ro(*a, **k):
+        out["ro"] = ro_fn(*a, **k)
+        return out["ro"]
+
+    def asm(*a, **k):
+        out["batch"], info = asm_fn(*a, **k)
+        return out["batch"], info
+
+    trainer_mod.rollout_and_score, trainer_mod.assemble_batch = ro, asm
+    try:
+        yield
+    finally:
+        trainer_mod.rollout_and_score, trainer_mod.assemble_batch = ro_fn, asm_fn
+
+
+def _free(torch, trainer) -> None:
+    import gc
+
+    trainer.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def route_update(torch, name: str, max_tokens: int, seen: dict, card: str) -> dict:
+    """One GRPO update through `build_trainer` + `train(num_updates=1)` on
+    phase 4's config with the route's knobs (no checkpoint), the kernel
+    counts reset just before `train` and read just after. Fails unless the
+    update half launched what its route dictates (K1 twice a layer and
+    microbatch, K2/K3 once, K10 once a microbatch except on the naive
+    branch, which never launches it, in scoring either) and gave a finite
+    loss and a non-zero gradient. Returns the open trainer, its launch
+    counts, timings, peak GB, metric row, rollout and update batch."""
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    cfg = one_card_cut(build_config())
+    cfg.response_length = max_tokens
+    cfg.save_steps = 0
+    cfg.output_dir = _routes_dir(name)
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    for k, v in ROUTES[name].items():
+        setattr(cfg, k, v)
+    tr = build_trainer(cfg, device="cuda")
+    got: dict = {"trainer": tr}
+    if name == "int8":
+        got["before"] = {p: t.detach().clone() for p, t in flatten(tr.trainable).items()}
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_rollouts(got), recording_all_shapes(seen):
+        tr.train(num_updates=1)
+    torch.cuda.synchronize()
+    got.update(counts=_build.launch_counts(), peak=torch.cuda.max_memory_allocated() / 1e9,
+               timings=tr.last_timings, metrics=tr.logger.latest())
+    t, m, launches = got["timings"], got["metrics"], tr.last_launches
+    L, micro = tr.mcfg.num_hidden_layers, tr.state["opt_steps"] * cfg.gradient_accumulation_steps
+    short = {k: v for k, v in got["counts"].items() if v}
+    log(f"  {name} {ROUTES[name] or '(the defaults)'}: rollout_s={t['generate_s']:.3f} "
+        f"(decode {t['decode_s'] / t['decode_steps'] * 1e3:.3f} ms/step) "
+        f"scoring_s={t['score_s']:.3f} update_s={t['update_s']:.3f} "
+        f"peak_mem_gb={got['peak']:.2f} (card: {card}); loss "
+        f"{m['loss/policy_avg_new']:.6e}, grad_norm {m['policy/grad_norm_new']:.6e}, "
+        f"entropy {m['policy/entropy_avg_new']:.4f}; launches {short}; scoring "
+        f"{_nonzero(launches['score'])}; update {_nonzero(launches['update'])}")
+    fused = 0 if name == "naive" else micro
+    want = {"flash_fwd": 2 * L * micro, "flash_bwd_dq": L * micro, "flash_bwd_dkv": L * micro,
+            "fused_logprob": fused, "decode_attention": 0}
+    for kname, n in want.items():
+        if launches["update"][kname] != n:
+            fail(f"{name}: the update launched {kname} {launches['update'][kname]} times, "
+                 f"expected {n}")
+    if name == "naive" and launches["score"]["fused_logprob"]:
+        fail("naive: the scoring pass launched fused_logprob")
+    if got["counts"]["decode_attention"] != L * t["graph_steps_run"]:
+        fail(f"{name}: decode_attention {got['counts']['decode_attention']} launches, "
+             f"expected {L} x {t['graph_steps_run']}")
+    for kname in ROUTE_KERNELS:
+        if got["counts"][kname] <= 0 and not (name == "naive" and kname == "fused_logprob"):
+            fail(f"{name}: kernel {kname} was never launched on the route")
+    if not (math.isfinite(m["loss/policy_avg_new"]) and m["policy/grad_norm_new"] > 0):
+        fail(f"{name}: loss not finite or a zero gradient")
+    check_graph_steps(name, t)
+    return got
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _lora_grads(torch, tr, mb, ctx: int, policy: str):
+    """The LoRA gradients of one microbatch's loss under `policy` (full
+    remat otherwise as the trainer runs it), its seconds and the peak GB
+    above what was allocated before."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+    from nanorlhf_tpu_torch.trainer.update import microbatch_loss
+
+    lora = flatten(tr.params["lora"])
+    mcfg = dataclasses.replace(tr.mcfg, remat_policy=policy)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = microbatch_loss(tr.params, mcfg, tr.cfg, mb, ctx, tr.tokenizer.pad_token_id,
+                              tr.lora_scale, remat=True)
+    grads = torch.autograd.grad(loss, list(lora.values()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return dict(zip(lora, grads)), secs, extra
+
+
+def _grads_agree(torch, what: str, got: dict, want: dict, tol: float) -> None:
+    """Bit for bit, or every leaf within `tol` (per leaf ||diff|| / ||want||)."""
+    if all(torch.equal(got[p], w) for p, w in want.items()):
+        log(f"  {what}: equal bit for bit ({len(want)} leaves)")
+        return
+    _hold_leaves(what, _leaf_errors(torch, got, want), tol)
+
+
+def dots_and_naive_at_one_microbatch(torch, tr, batch: dict, card: str) -> None:
+    """On the "full" trainer after its update, one microbatch of its batch
+    (rows 0-3, the update's microbatch shape): the LoRA gradients, seconds
+    and peak above the resting memory under remat_policy "full" and
+    "dots" (equal bit for bit expected: the same cuBLAS GEMMs at the same
+    shapes; else each leaf within R1_GRAD_TOL); then the response logprobs
+    of the fused branch (K10) and of the naive one (bf16 logits) against
+    the f32 logprobs of the same final hidden states: the fused within
+    FUSED_TOL, the naive within its logits' bf16 rounding (2 * 2^-9 of the
+    row's largest |logit|, over the temperature) + FUSED_TOL."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core.model import (padded_forward_hidden, padded_forward_logits,
+                                               unembedding)
+    from nanorlhf_tpu_torch.ops.masking import guard_temperature, logprobs_from_logits
+    from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
+
+    cfg = tr.cfg
+    rows = cfg.per_device_train_batch_size
+    mb = {k: torch.as_tensor(v[:rows], device="cuda") for k, v in batch.items()}
+    ctx = mb["query_responses"].shape[1] - mb["responses"].shape[1]
+    pad = tr.tokenizer.pad_token_id
+    # in turns (full, dots, dots, full): the seconds of each policy, the
+    # mean of its two turns
+    turns = [(p, *_lora_grads(torch, tr, mb, ctx, p)) for p in ("full", "dots", "dots", "full")]
+    secs = {p: [s_ for q, _, s_, _ in turns if q == p] for p in ("full", "dots")}
+    peak = {p: max(x for q, _, _, x in turns if q == p) for p in ("full", "dots")}
+    mean = {p: sum(v) / len(v) for p, v in secs.items()}
+    log(f"  one microbatch ({rows} x {mb['query_responses'].shape[1]} tokens, "
+        f"{tr.mcfg.num_hidden_layers} layers), loss + LoRA gradients in turns full, dots, "
+        f"dots, full: full remat {secs['full'][0]:.3f} / {secs['full'][1]:.3f} s, dots "
+        f"{secs['dots'][0]:.3f} / {secs['dots'][1]:.3f} s (dots - full "
+        f"{mean['dots'] - mean['full']:+.3f} s, x{mean['dots'] / mean['full']:.3f}); peak "
+        f"above resting full {peak['full']:.2f} GB, dots {peak['dots']:.2f} GB (dots - full "
+        f"{peak['dots'] - peak['full']:+.2f} GB) (card: {card})")
+    g_full, g_dots, g_again = turns[0][1], turns[1][1], turns[3][1]
+    _grads_agree(torch, "LoRA gradients, full remat run to run", g_again, g_full,
+                 R1_GRAD_TOL)
+    _grads_agree(torch, "LoRA gradients, dots against full remat", g_dots, g_full,
+                 R1_GRAD_TOL)
+    del turns, g_full, g_dots, g_again
+
+    naive_cfg = dataclasses.replace(cfg, fused_logprob=False)
+    qr, resp = mb["query_responses"], mb["responses"]
+    with torch.no_grad():
+        fused = fused_response_logprobs(tr.params, tr.mcfg, qr, resp, pad, ctx, cfg,
+                                        lora_scale=tr.lora_scale, with_entropy=True)[0]
+        logits = padded_forward_logits(tr.params, tr.mcfg, qr, pad, lora_scale=tr.lora_scale,
+                                       response_context_length=ctx)
+        naive = logprobs_from_logits(logits, resp, naive_cfg.temperature)
+        del logits
+        hidden = padded_forward_hidden(tr.params, tr.mcfg, qr, pad, lora_scale=tr.lora_scale,
+                                       response_context_length=ctx)
+        z = hidden.float() @ unembedding(tr.mcfg, tr.params)[0].float().t()
+        want = logprobs_from_logits(z, resp, cfg.temperature)
+        bound = 2.0 ** -8 * z.abs().amax(-1) / guard_temperature(cfg.temperature) + FUSED_TOL
+        del z, hidden
+    real = ~mb["padding_mask"]
+    e_fused = float((fused - want).abs()[real].max())
+    e_naive = (naive - want).abs()
+    d = float((naive - fused).abs()[real].max())
+    log(f"  response logprobs of that microbatch: max|naive - fused| {d:.3e}; against the "
+        f"f32 logprobs of the same hidden states: fused {e_fused:.3e} (tol {FUSED_TOL}), "
+        f"naive {float(e_naive[real].max()):.3e} (bf16 logits: tol up to "
+        f"{float(bound.max()):.3e} a row) (card: {card})")
+    if e_fused > FUSED_TOL:
+        fail("the fused branch's logprobs are off the f32 ones beyond FUSED_TOL")
+    if bool((e_naive > bound)[real].any()):
+        fail("the naive branch's logprobs are off the f32 ones beyond the bf16 rounding "
+             "of their logits")
+
+
+def r1_bucket_naive(torch, seen: dict, card: str) -> None:
+    """The sparse trainer at `r1_card_cut` (Qwen2-1.5B, full depth), phase
+    11 (b)'s fixed batch (8 rows ending at 200-8,000 tokens), its
+    bucketed scoring, then the backward bucket of the 8,000-token row
+    (8,021 tokens: a bucket of its own under both branches' budgets)
+    through `bucket_grads` on the fused branch and on the naive one: each
+    one's seconds and peak above the resting memory; the gradients held
+    within R1_GRAD_TOL per leaf."""
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.entrypoints import grpo_r1
+    from nanorlhf_tpu_torch.trainer.bucketing import create_batches
+
+    shutil.rmtree(_routes_dir("r1"), ignore_errors=True)
+    cfg = grpo_r1.r1_card_cut(grpo_r1.build_config())
+    cfg.output_dir = _routes_dir("r1", "run")
+    cfg.dataset_cache_dir = _routes_dir("r1", "token_cache")
+    cfg.finalize(1)
+    tr = grpo_r1.build_trainer(cfg, device="cuda")
+    try:
+        tok = tr.tokenizer
+        rng = np.random.default_rng(R1_SEED + 1)
+        rows, R = 8, cfg.response_length
+        lengths = rng.permutation(np.linspace(200, R, rows).astype(int))
+        responses = rng.integers(3, tok.vocab_size, (rows, R)).astype(np.int32)
+        responses[np.arange(rows), lengths - 1] = tok.eos_token_id
+        scores = rng.normal(size=rows).astype(np.float32)
+        with recording_all_shapes(seen):
+            batch = tr.kept_batch(tr.dataset.input_ids[:rows], responses, scores)
+            ctx, qr_len = batch["context_length"], batch["qr_len"]
+            sel = np.array([int(np.argmax(qr_len))])
+            budgets = {}
+            out = {}
+            for fused in (True, False):
+                cfg.fused_logprob = fused
+                budgets[fused] = tr.backward_budget()
+                if [list(b) for b in create_batches(qr_len, budgets[fused])
+                        if sel[0] in b] != [[int(sel[0])]]:
+                    fail(f"the {qr_len[sel[0]]}-token row is not a bucket of its own "
+                         f"under the budget {budgets[fused]}")
+                mb, blen = tr.bucket_batch(batch, sel)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                grads, aux = tr.bucket_grads(mb, ctx, 1 / rows)
+                torch.cuda.synchronize()
+                out[fused] = (grads, time.perf_counter() - t0,
+                              (torch.cuda.max_memory_allocated() - base) / 1e9, aux)
+        (gf, sf, xf, af), (gn, sn, xn, an) = out[True], out[False]
+        log(f"  the {blen}-token bucket (1 row, context {ctx}; backward budgets fused "
+            f"{budgets[True]}, naive {budgets[False]}): fused {sf:.3f} s, peak {xf:.2f} GB "
+            f"above resting, entropy {af['entropy']:.4f}; naive {sn:.3f} s, peak "
+            f"{xn:.2f} GB above resting, entropy {an['entropy']:.4f} (card: {card})")
+        if not all(math.isfinite(a["pg_loss"]) for a in (af, an)):
+            fail("the 8k bucket's loss is not finite")
+        _hold_leaves("the 8k bucket's gradients, naive against fused",
+                     _leaf_errors(torch, gn, gf), R1_GRAD_TOL)
+    finally:
+        cfg.fused_logprob = True
+        _free(torch, tr)
+        shutil.rmtree(_routes_dir("r1"), ignore_errors=True)
+
+
+def int8_weight_rollouts(torch, max_tokens: int, seen: dict, card: str) -> None:
+    """`run_rollout` at phase 3's size (4 prompts x 4 samples, at most 512
+    tokens) with bf16 and with int8 rollout weights, in turns (bf16, int8,
+    int8, bf16): decode ms a step, tokens/s, peak GB, the int8 view's bytes;
+    K4's launches equal in all four, the decode loop replayed as a CUDA
+    graph with the int8 leaves in the tree; then the small-input logits."""
+    import gc
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.core.quant import QUANT_PROJS
+    from nanorlhf_tpu_torch.entrypoints.common import run_rollout
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    k4 = set()
+    steps_ms: dict = {"bf16": [], "int8": []}
+    for label in ("bf16", "int8", "int8", "bf16"):
+        cfg = build_config()
+        cfg.response_length = max_tokens
+        cfg.rollout_quant = "int8" if label == "int8" else "none"
+        timings: dict = {}
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_all_shapes(seen):
+            out = run_rollout(cfg, device="cuda", num_prompts=4, timings=timings)
+        torch.cuda.synchronize()
+        counts, peak = _build.launch_counts(), torch.cuda.max_memory_allocated() / 1e9
+        check_graph_steps(f"rollout, {label} weights", timings)
+        mcfg, steps = out["mcfg"], timings["decode_steps"]
+        L, rows = mcfg.num_hidden_layers, out["responses"].shape[0] * cfg.sample_n
+        if counts["decode_attention"] != L * timings["graph_steps_run"]:
+            fail(f"{label} rollout: decode_attention {counts['decode_attention']} launches")
+        k4.add(counts["decode_attention"])
+        ms = timings["decode_s"] / steps * 1e3
+        steps_ms[label].append(ms)
+        view = out["rollout_params"]
+        extra = ""
+        if view is not None:
+            q_bytes = sum(view["layers"][n]["kernel_q"].numel() for n in QUANT_PROJS)
+            s_bytes = sum(4 * view["layers"][n]["kernel_scale"].numel() for n in QUANT_PROJS)
+            extra = (f"; int8 projections {q_bytes / 1e9:.3f} GB + f32 scales "
+                     f"{s_bytes / 1e6:.3f} MB (bf16 {2 * q_bytes / 1e9:.3f} GB)")
+        if not np.isfinite(out["logprobs"]).all():
+            fail(f"{label} rollout: non-finite logprobs")
+        log(f"  rollout, {label} weights: {rows} rows x {max_tokens} tokens, {steps} decode "
+            f"steps, {ms:.3f} ms/step, {rows * steps / timings['decode_s']:.2f} tokens/s, "
+            f"capture {timings['graph_capture_s']:.3f} s, peak_mem_gb={peak:.2f}, K4 "
+            f"{counts['decode_attention']} launches{extra} (card: {card})")
+        queries, pad_id = out["queries"], out["tokenizer"].pad_token_id
+        # the next run's peak must not hold this one's model
+        del out, view
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(k4) != 1:
+        fail(f"K4 launches differ between the bf16 and int8 rollouts: {sorted(k4)}")
+    b, q = (sum(v) / len(v) for v in (steps_ms["bf16"], steps_ms["int8"]))
+    log(f"  decode step, mean of two turns: bf16 {b:.3f} ms, int8 weights {q:.3f} ms "
+        f"({q - b:+.3f} ms, x{q / b:.3f}) (card: {card})")
+    int8_weight_small_reference(torch, mcfg, queries, pad_id, card)
+
+
+def int8_weight_small_reference(torch, mcfg, queries, pad_id: int, card: str) -> None:
+    """Prefill + 15 teacher-forced decode steps on the 2-layer full-width
+    model through the kernels: the exact bf16 weights, the int8 weights,
+    against the exact f32 plain route, and the int8 route against the f32
+    plain route over its own dequantized weights. The int8 route must stay
+    within INT8_WEIGHT_FACTOR x the exact bf16 route's error against exact
+    f32, and within 2x that error against its own dequantized weights (what
+    is left there is the activations' bf16 rounding, as for exact bf16)."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.core.quant import (QUANT_PROJS, dequantize_kernel,
+                                               quantize_layers, rollout_view)
+
+    small, params = _small_model(torch, mcfg, seed=5)
+    qlayers = quantize_layers(params["layers"])
+    qview = rollout_view(params, qlayers)
+    f32 = _tree_map(lambda t: t.float(), params)
+    deq = _tree_map(lambda t: t.float(), params)
+    for n in QUANT_PROJS:
+        deq["layers"][n]["kernel"] = dequantize_kernel(qlayers[n]["kernel_q"],
+                                                       qlayers[n]["kernel_scale"],
+                                                       torch.float32)
+    plain = dataclasses.replace(small, attention_impl="xla")
+    q = torch.as_tensor(queries, device="cuda").long()
+    mask = q != pad_id
+    B, Tp = q.shape
+    n_steps = 16
+    toks = torch.randint(3, 4096, (B, n_steps),
+                         generator=torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    T = Tp + n_steps
+    routes = {"f32": (plain, f32), "f32 dequantized": (plain, deq),
+              "exact bf16": (small, params), "int8 weights": (small, qview)}
+    logits = {}
+    with torch.no_grad():
+        for name, (c, p) in routes.items():
+            caches = tm.init_kv_cache(c, B, T, dtype=p["embed_tokens"].dtype, device="cuda")
+            first, caches = tm.prefill(p, c, q, mask, caches)
+            key_mask = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+            key_mask[:, :Tp] = mask
+            plen = mask.sum(1)
+            steps = [first]
+            for s in range(1, n_steps):
+                key_mask[:, Tp + s - 1] = True
+                lg, caches = tm.decode_step(p, c, toks[:, s - 1], plen + s - 1, Tp + s - 1,
+                                            key_mask, caches)
+                steps.append(lg)
+            logits[name] = torch.stack(steps, 1).float()
+    err = {k: float((logits[k] - logits["f32"]).abs().max())
+           for k in ("exact bf16", "int8 weights", "f32 dequantized")}
+    own = float((logits["int8 weights"] - logits["f32 dequantized"]).abs().max())
+    log(f"  int8 weights, small input (2 layers, full width, {B} rows, prefill + "
+        f"{n_steps - 1} decode steps), max|logits - exact f32|: exact bf16 "
+        f"{err['exact bf16']:.3e}, int8 weights {err['int8 weights']:.3e} "
+        f"(x{err['int8 weights'] / err['exact bf16']:.2f}; tol x{INT8_WEIGHT_FACTOR}), "
+        f"f32 over the dequantized weights {err['f32 dequantized']:.3e}; int8 weights "
+        f"against f32 over their own dequantized weights {own:.3e} (tol 2 x "
+        f"{err['exact bf16']:.3e}) (card: {card})")
+    if not all(math.isfinite(v) for v in (*err.values(), own)) \
+            or err["int8 weights"] > INT8_WEIGHT_FACTOR * err["exact bf16"] \
+            or own > 2 * err["exact bf16"]:
+        fail("the int8-weight route is off its references")
+
+
+def int8_update_scoring(torch, got: dict, card: str) -> None:
+    """The int8 route's update: its rollout's logprobs equal, bit for bit,
+    the exact weights' scoring of the same rows (scoring never sees int8),
+    and policy == ref at the zero-init LoRA."""
+    import numpy as np
+
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+    from nanorlhf_tpu_torch.trainer.scoring import score_chunk
+
+    tr, ro = got["trainer"], got["ro"]
+    live = flatten(tr.trainable)
+    with torch.no_grad():
+        for p, t in got["before"].items():  # the weights the rollout was scored with
+            live[p].copy_(t)
+        ctx = ro["context_length"]
+        qr = torch.as_tensor(np.concatenate([ro["queries"], ro["responses"]], 1),
+                             device="cuda")
+        lp, rlp = score_chunk(tr.params, tr.ref_params, tr.mcfg, tr.cfg, qr, ctx,
+                              tr.tokenizer.pad_token_id, tr.lora_scale)
+    same = (np.array_equal(lp.float().cpu().numpy(), ro["logprobs"])
+            and np.array_equal(rlp.float().cpu().numpy(), ro["ref_logprobs"]))
+    d_pr = float(np.abs(ro["logprobs"] - ro["ref_logprobs"]).max())
+    log(f"  int8: the rollout's logprobs against the exact weights' scoring of its "
+        f"{qr.shape[0]} rows: {'equal bit for bit' if same else 'DIFFERENT'}; policy vs ref "
+        f"(zero-init LoRA) max|diff| {d_pr:.3e} (card: {card})")
+    if not same:
+        fail("int8: scoring did not run the exact weights")
+    if d_pr > 1e-3:
+        fail("int8: policy and ref logprobs differ at the zero-init LoRA")
+
+
+def other_routes(torch, max_tokens: int, seen: dict, card: str, cold: bool = False) -> dict:
+    """Phase 12. (a) dots: one GRPO update under remat_policy "full" and
+    one under "dots" from the same initial state (and rollout: the same
+    seeds), their update seconds, peaks, K1/K2/K3/K10 launches (equal), the
+    trained LoRA leaves (equal bit for bit, else within R1_GRAD_TOL), and
+    at one microbatch the gradients and peak of each policy; (b) naive:
+    one update with fused_logprob=False (no K10 in scoring or update), its
+    logprobs against the fused branch's, and the 8k bucket of phase 11's
+    fixed batch on both branches; (c) int8: rollouts with bf16 and int8
+    weights, the small-input logits, one update with int8 weights. Returns
+    each route's launch counts. `cold`: this process has run no update
+    before (phase 12 alone), so the first route's update seconds include
+    the process's warm-up."""
+    import numpy as np
+
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    t0 = time.perf_counter()
+    counts = {}
+    if cold:
+        log("  (the full route's update is this process's first: its seconds include "
+            "the warm-up; the dots / full comparison in turns below is not)")
+    full = route_update(torch, "full", max_tokens, seen, card)
+    counts["full"] = full["counts"]
+    tr = full["trainer"]
+    lora_full = {p: t.detach().clone() for p, t in flatten(tr.params["lora"]).items()}
+    responses, upd_full = full["ro"]["responses"], tr.last_launches["update"]
+    log("  (a)/(b) at one microbatch of the full route's batch, on its trained weights")
+    dots_and_naive_at_one_microbatch(torch, tr, full["batch"], card)
+    _free(torch, tr)
+    del full, tr
+
+    log("  (a) remat_policy='dots'")
+    dots = route_update(torch, "dots", max_tokens, seen, card)
+    counts["dots"] = dots["counts"]
+    tr = dots["trainer"]
+    same_ro = np.array_equal(dots["ro"]["responses"], responses)
+    upd = tr.last_launches["update"]
+    log(f"  dots vs full: the same rollout: {same_ro}; update launches equal: "
+        f"{upd == upd_full}")
+    if {k: upd[k] for k in ROUTE_KERNELS} != {k: upd_full[k] for k in ROUTE_KERNELS}:
+        fail(f"dots launched {upd} in the update, full {upd_full}")
+    if same_ro:
+        _grads_agree(torch, "trained LoRA leaves, dots against full",
+                     flatten(tr.params["lora"]), lora_full, R1_GRAD_TOL)
+    _free(torch, tr)
+    del dots, tr, lora_full
+
+    log("  (b) the naive update branch, fused_logprob=False")
+    naive = route_update(torch, "naive", max_tokens, seen, card)
+    counts["naive"] = naive["counts"]
+    log(f"  naive vs full: the same rollout: "
+        f"{np.array_equal(naive['ro']['responses'], responses)}")
+    _free(torch, naive["trainer"])
+    del naive
+    r1_bucket_naive(torch, seen, card)
+
+    log("  (c) int8 rollout weights, rollout_quant='int8'")
+    int8_weight_rollouts(torch, max_tokens, seen, card)
+    q8 = route_update(torch, "int8", max_tokens, seen, card)
+    counts["int8"] = q8["counts"]
+    int8_update_scoring(torch, q8, card)
+    _free(torch, q8["trainer"])
+    del q8
+    log(f"  phase 12's routes: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def hold_new_shapes(torch, F, seen: dict, held: dict, max_tokens: int) -> None:
+    """Phase 2's holds at the shapes phase 12 gave K1, K2/K3, K10 and K4
+    that no earlier phase held (`held`)."""
+    fwd_new = sorted(set(seen["fwd"]) - held["fwd"], key=lambda s: (-s[3], -s[0]))
+    bwd_new = {s[1:6] for s in seen["bwd"]} - held["bwd"]
+    fused_new = set(seen["fused"]) - held["fused"]
+    dec_new = sorted(set(seen["decode"]) - held["decode"], key=lambda s: (-s[1], s[0]))
+    log(f"  shapes phase 12 gave the kernels: K1 {dict(seen['fwd'])}; K2/K3 "
+        f"{dict(seen['bwd'])}; K10 {dict(seen['fused'])}; K4 {dict(seen['decode'])}; not "
+        f"held before: K1 {fwd_new}, K2/K3 {sorted(bwd_new)}, K10 {sorted(fused_new)}, "
+        f"K4 {dec_new}")
+    if fwd_new:
+        check_flash(torch, F, fwd_new)
+    if bwd_new:
+        check_flash_bwd(torch, F, bwd_new)
+    if fused_new:
+        check_fused_at(torch, fused_new)
+    if dec_new:
+        check_decode(torch, F, min(T for _, T in dec_new) - max_tokens, dec_new)
+
+
+def routes_entries(counts: dict) -> dict:
+    """The kernels line's `routes` entry of each kernel phase 12 ran: its
+    launches in each route's update (counts reset just before its `train`,
+    read just after)."""
+    return {name: {route: c[name] for route, c in counts.items()}
+            for name in ROUTE_KERNELS}
+
+
 # --holds: the kernel source each hold set builds
 HOLDS = {"K1": "flash_fwd", "K4": "decode_attention", "K6": "decode_attention",
          "K10": "fused_logprob"}
@@ -4106,6 +4694,10 @@ def main() -> None:
                     help="build, then run only phase 11 (sparse GRPO through the R1-Zero "
                          "launcher at 8,000-token responses) and the holds of the kernels "
                          "at the shapes it gives them")
+    ap.add_argument("--routes", action="store_true",
+                    help="build, then run only phase 12 (remat_policy='dots', the naive "
+                         "update branch and int8 rollout weights) and the holds of the "
+                         "kernels at the shapes it gives them")
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
                          "gives the kernels, and phase 9 (one update of each of RLOO, "
@@ -4189,6 +4781,17 @@ def main() -> None:
         log(json.dumps({"r1_kernels": r1_entries(r1, counts11)}))
         log(f"r1: every hold and check passed; total wall {time.perf_counter() - t_all:.1f} "
             f"s; card: {card}")
+        return
+    if args.routes:
+        log("phase 12: the update's and the rollout's other routes (remat_policy='dots', "
+            "the naive update branch, int8 rollout weights), Qwen2.5-1.5B width")
+        seen12 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        counts12 = other_routes(torch, min(resp, 512), seen12, card, cold=True)
+        log("  the kernels at the shapes phase 12 gave them, against their plain versions")
+        hold_new_shapes(torch, F, seen12, {k: set() for k in seen12}, min(resp, 512))
+        log(json.dumps({"routes_kernels": routes_entries(counts12)}))
+        log(f"routes: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     log("phase 2: kernels against their plain versions (bf16)")
     # phases 3, 4, 5, 6 and 7b run shorter responses than the launcher's 1500
@@ -4375,6 +4978,19 @@ def main() -> None:
     log("  the kernels at the shapes phase 11 gave them, against their plain versions")
     r1 = r1_entries(hold_r1_shapes(torch, F, r1_seen), counts11)
 
+    log("phase 12: the update's and the rollout's other routes (remat_policy='dots', "
+        "the naive update branch, int8 rollout weights), Qwen2.5-1.5B width")
+    seen12 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    counts12 = other_routes(torch, short, seen12, card)
+    log("  the kernels at the shapes phase 12 gave them that no earlier phase held, "
+        "against their plain versions")
+    hold_new_shapes(torch, F, seen12, {
+        "fwd": {fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]),
+        "bwd": bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]},
+        "fused": fused_shapes | fused9 | set(r1_seen["fused"]),
+        "decode": set(decode_shapes) | set(r1_seen["decode"])}, short)
+    routes = routes_entries(counts12)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
     # paged update (phase 5), the int8 rollouts (phase 6), the speculative
@@ -4397,6 +5013,7 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"r1": r1[name]} if name in r1 else {}),
+            **({"routes": routes[name]} if name in routes else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

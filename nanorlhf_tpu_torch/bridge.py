@@ -6,7 +6,9 @@ projection kernels `[L, in, out]` (x @ W), `lm_head` `[D, V]`, and LoRA
 stacked layout in torch's nn.Linear orientation: kernels `[L, out, in]`,
 `lm_head` `[V, D]`, `a: [L, r, in]`, `b: [L, out, r]`. Everything else
 (embeddings, norms, biases, and a value model's score head `score`, kept
-`[D, num_labels]` as in JAX) is laid out identically.
+`[D, num_labels]` as in JAX) is laid out identically. An int8 rollout
+tree's `kernel_q` transposes like a kernel; its `kernel_scale` is
+`[L, 1, out]` in both (`core/quant.py`).
 
 Both functions take and return nested dicts: parameters, or any tree laid
 out like them by leaf name (gradients, the optimizer's Adam moments), so
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 # leaves whose last two axes swap between the two layouts
-_TRANSPOSED = ("kernel", "lm_head", "a", "b")
+_TRANSPOSED = ("kernel", "kernel_q", "lm_head", "a", "b")
 
 
 def _convert(tree, fn, name=None):

@@ -1,6 +1,7 @@
 """Qwen2-family decoder over a stacked-layer parameter dict — the port of
 `nanorlhf_tpu/core/model.py` (contiguous and paged KV caches, exact or
-int8, and the k-token speculative verify; no int8 weights yet).
+int8, the k-token speculative verify, int8 weight-only projections, and
+both remat policies of the training forward).
 
 Parameters keep the JAX tree's names and its stacked `[L, ...]` layout, in
 torch's nn.Linear orientation: every projection `kernel` is `[L, out, in]`
@@ -41,11 +42,16 @@ does, so the scratch page is never read.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.ops.attention import flash_attention
@@ -198,12 +204,18 @@ def gqa_attention(q, k, v, mask, impl: str = "xla",
 # ---------------------------------------------------------------------------
 
 def _proj(h, layer, lora_layer, name, lora_scale):
-    """x @ Wᵀ (+ bias) (+ LoRA ((x @ Aᵀ) @ Bᵀ) · scale)."""
+    """x @ Wᵀ (+ bias) (+ LoRA ((x @ Aᵀ) @ Bᵀ) · scale).
+
+    The int8 weight-only form (`kernel_q` [out, in] + `kernel_scale`
+    [1, out], core/quant.py) in JAX's order: the upcast int8 kernel feeds
+    the product, the per-output-channel scale multiplies its f32 output,
+    then bias and LoRA."""
     p = layer[name]
     if "kernel_q" in p:
-        raise NotImplementedError(
-            "int8 weight-only projections (kernel_q) are not ported yet")
-    y = F.linear(h, p["kernel"])
+        y = F.linear(h, p["kernel_q"].to(h.dtype))
+        y = (y.float() * p["kernel_scale"]).to(h.dtype)
+    else:
+        y = F.linear(h, p["kernel"])
     if "bias" in p:
         y = y + p["bias"]
     if lora_layer is not None and name in lora_layer:
@@ -419,6 +431,31 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     return x + ff
 
 
+_GEMMS_2D = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for remat_policy="dots": keep the
+    output of every 2-D GEMM — the base projections and both LoRA products
+    (`F.linear` over [B, T, in] folds to `mm`) — and recompute the rest.
+    That is JAX's `dots_with_no_batch_dims_saveable`: the attention's
+    batched products (`bmm`, from the plain route's einsums) are not kept,
+    and neither is the flash kernel, which no aten op launches."""
+    if op in _GEMMS_2D:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str) -> dict:
+    """`checkpoint`'s keyword arguments for a remat policy."""
+    if policy == "full":
+        return {}
+    if policy == "dots":
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+    raise ValueError(f"remat_policy={policy!r}: must be 'full' or 'dots'")
+
+
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
                 cache_index=0, lora_scale=1.0, decode_bounds=None,
                 remat: bool = False, paged=None, verify_bounds=None):
@@ -427,18 +464,12 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
     None; `paged=(table, page_size)` when it is a page pool.
 
     `remat=True` (the training path, `gradient_checkpointing`) checkpoints
-    each layer: only its input is kept for the backward, which re-runs the
-    layer's forward (`torch.utils.checkpoint`, non-reentrant) — the
-    counterpart of JAX's `jax.checkpoint` around the scan body with
-    `remat_policy="full"`. It changes memory, not values."""
-    if remat:
-        if config.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' (keep the weight-projection outputs) is "
-                "not ported yet: use remat_policy='full'")
-        if config.remat_policy != "full":
-            raise ValueError(f"remat_policy={config.remat_policy!r}: must be "
-                             "'full' or 'dots'")
+    each layer (`torch.utils.checkpoint`, non-reentrant), the counterpart
+    of JAX's `jax.checkpoint` around the scan body. `remat_policy="full"`
+    keeps only the layer's input, and the backward re-runs its forward;
+    `"dots"` also keeps the outputs of its 2-D GEMMs (`_remat_context`).
+    Either changes memory, not values."""
+    remat_kw = _remat_context(config.remat_policy) if remat else {}
     if paged is not None and kv_caches is not None:
         # where this forward's K/V land in the pool: resolved once, not
         # per layer and cache
@@ -454,7 +485,7 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
         if remat and kv is None:
             x = checkpoint(_layer_body, config, x, layer, cos, sin, mask, None,
                            cache_index, lora_layer, lora_scale,
-                           use_reentrant=False)
+                           use_reentrant=False, **remat_kw)
         else:
             x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
                             lora_layer, lora_scale, decode_bounds=decode_bounds,

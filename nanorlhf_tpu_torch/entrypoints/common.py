@@ -21,6 +21,7 @@ import torch
 from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.core.model import init_params
 from nanorlhf_tpu_torch.core.params import load_hf_checkpoint
+from nanorlhf_tpu_torch.core.quant import quantize_layers, rollout_view
 from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
 from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer, load_tokenizer
 from nanorlhf_tpu_torch.rewards.builders import make_rule_reward, make_torch_rm_reward
@@ -160,7 +161,9 @@ def run_rollout(cfg: RLConfig, *, device="cuda", num_prompts: int | None = None,
                 rollout_index: int = 0, timings: dict | None = None) -> dict:
     """Build model, data and reward from `cfg` and run one rollout-and-score
     (`trainer/rollout.py`) on `num_prompts` prompts (default: the config's
-    batch size). Returns the rollout dict plus `mcfg` and `params`."""
+    batch size). Returns the rollout dict plus `mcfg`, `params` and the
+    int8 view generation sampled from (`rollout_params`, None unless
+    `rollout_quant="int8"`)."""
     device = _device(device, "run_rollout")
     if cfg.batch_size == 0:
         cfg.finalize(1)
@@ -170,12 +173,15 @@ def run_rollout(cfg: RLConfig, *, device="cuda", num_prompts: int | None = None,
                    else cfg.kl_coef != 0.0)
     batch = num_prompts or cfg.batch_size
     queries = next(dataset.loader(batch, cfg.seed))
+    rollout_params = None
+    if cfg.rollout_quant == "int8":
+        rollout_params = rollout_view(policy, quantize_layers(policy["layers"]))
     out = rollout_and_score(
         policy, None if kl_free else ref, mcfg, cfg, tokenizer, queries,
         reward_func, rollout_generator(cfg.seed, rollout_index, device),
         lora_scale, stream_generator(cfg.seed, KEEP_STREAM, rollout_index),
         ctx_menu=shape_menu(dataset.input_ids.shape[1], min_value=16),
-        timings=timings)
+        timings=timings, rollout_params=rollout_params)
     out.update(mcfg=mcfg, params=policy, ref_params=ref, tokenizer=tokenizer,
-               lora_scale=lora_scale)
+               lora_scale=lora_scale, rollout_params=rollout_params)
     return out

@@ -17,6 +17,9 @@ Per-token `log softmax(hidden @ W / T)[labels]` (+ entropy) without the
   C entry computes the splits itself (`fused_logprob_split_count_on_card`
   reads them, and sizes the partial states the wrapper passes in).
 - `fused_logprob_reference` is the naive full-logits oracle.
+- `chunked_entropy` is the naive update branch's entropy stat
+  (`fused_logprob=False`): per-position entropy of logits that already
+  exist, cast to f32 one time-axis block at a time.
 
 `fused_logprob(..., impl=)` routes: "auto" → the kernel for CUDA tensors and
 the chunked path for CPU tensors; "pallas" → the kernel (a CPU tensor takes
@@ -94,6 +97,26 @@ def fused_logprob_reference(hidden, unembed, labels, temperature: float = 1.0,
         top2 = torch.topk(logits.float() / t, 2, dim=-1).values
         out += ((top2[..., 0] - top2[..., 1]).detach(),)
     return out[0] if len(out) == 1 else out
+
+
+def chunked_entropy(logits, temperature: float = 1.0, chunk: int | None = None,
+                    bytes_budget: int | None = None) -> torch.Tensor:
+    """Per-position entropy [..., T] f32 of temperature-scaled logits
+    [..., T, V] without an f32 copy of the whole tensor: blocks along the
+    time axis (the second to last) are cast to f32 one at a time. The row
+    budget `chunk` (default `fused_chunk_rows` at 4 bytes an entry: only
+    the f32 block and its softmax count, the logits exist already) becomes
+    a block width of `chunk // (rows / T)` positions, JAX's rule. Carries
+    no gradient."""
+    t = guard_temperature(temperature)
+    T, V = logits.shape[-2], logits.shape[-1]
+    rows = int(np.prod(logits.shape[:-1]))
+    if chunk is None:
+        chunk = fused_chunk_rows(V, rows, dtype_bytes=4, bytes_budget=bytes_budget)
+    t_chunk = max(1, min(T, int(chunk) // max(1, rows // T)))
+    with torch.no_grad():
+        return torch.cat([entropy_from_logits(logits[..., i:i + t_chunk, :].float() / t)
+                          for i in range(0, T, t_chunk)], dim=-1)
 
 
 def fused_logprob_chunked(hidden, unembed, labels, temperature, chunk: int,

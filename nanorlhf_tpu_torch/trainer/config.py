@@ -4,7 +4,9 @@
 Same field names and defaults as the JAX `RLConfig`/`AlgoName` (a test pins
 them), so a launcher literal reads the same in both packages. The comments
 on each knob live in the JAX module. The paged cache with continuous
-batching, speculative decode and the int8 KV cache are ported; the knobs
+batching, speculative decode, the int8 KV cache, int8 rollout weights
+(`rollout_quant`), both remat policies (`remat_policy`) and the naive
+update branch (`fused_logprob=False`) are ported; the knobs
 that select paths this port has not ported yet (compaction, the
 orchestrator, env multi-turn, sequence parallelism, ...) are carried for
 parity and make the port's sampler/trainer raise NotImplementedError when

@@ -12,6 +12,10 @@ reward, GRPO's group advantage and keep-1-of-N, and scoring steps
     policy (with LoRA) and ref logprobs → stop-token truncation, padding
     masks, INVALID_LOGPROB fill → the algorithm's batch.
 
+With `rollout_quant="int8"` generation samples from the trainer's int8
+view of the base projections (`rollout_params`); scoring runs the exact
+weights, as in JAX.
+
 GRPO drops its N−1 other samples per prompt BEFORE the logprob pass (only
 `batch_size` rows are scored); RLOO and RAFT score all B·N rows and select
 after batch assembly, as in JAX.
@@ -70,10 +74,13 @@ def check_supported(cfg: RLConfig) -> None:
     (compaction, chunked prefill) reach `sampler.compose_check` through
     `sampling_params(cfg)`, which raises for them; the paged cache and
     continuous batching (`rollout_page_size`, `rollout_decode_rows`), the
-    int8 KV cache (`kv_cache_quant`) and speculative decode
-    (`rollout_spec_k`, `rollout_spec_ngram`) are ported."""
+    int8 KV cache (`kv_cache_quant`), speculative decode (`rollout_spec_k`,
+    `rollout_spec_ngram`) and int8 rollout weights (`rollout_quant`) are
+    ported."""
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
+    if cfg.rollout_quant not in ("none", "int8"):
+        raise ValueError(f"rollout_quant={cfg.rollout_quant!r}")
     unported = {
         "rollout_orchestrator": cfg.rollout_orchestrator,
         "rollout_workers > 1 (fleet)": cfg.rollout_workers > 1,
@@ -82,7 +89,6 @@ def check_supported(cfg: RLConfig) -> None:
         "env multi-turn (env_max_turns > 1)": bool(cfg.env_name) and cfg.env_max_turns > 1,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
         "rollout_prefix_cache": cfg.rollout_prefix_cache,
-        "rollout_quant='int8'": cfg.rollout_quant != "none",
         "sampler_logprob_capture": cfg.sampler_logprob_capture,
     }
     on = [what for what, flag in unported.items() if flag]
@@ -130,7 +136,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       ctx_menu: list[int] | None = None,
                       timings: dict | None = None,
                       sampling: SamplingParams | None = None,
-                      launches: dict | None = None) -> dict:
+                      launches: dict | None = None,
+                      rollout_params: dict | None = None) -> dict:
     """Roll out `queries` ([B, T] left-padded prompt ids), score each
     sample with `reward_func`, and run the logprob pass. Returns numpy
     arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
@@ -151,7 +158,9 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     sampler's stats dicts). `launches`, when given, receives the kernel
     launches of the generation (`generate`, both of ReMax's: each
     CUDA-graph replay of the decode loop counts what it launched) and of
-    the scoring pass (`score`)."""
+    the scoring pass (`score`). `rollout_params` is the tree generation
+    samples from (default `params`): the trainer's int8 rollout view
+    (`core/quant.rollout_view`); scoring always runs `params`."""
     check_supported(cfg)
     device = params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
@@ -167,7 +176,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     spec_stats: list = []
     counts0 = launch_counts()
     gen_mcfg = rollout_model_config(mcfg, cfg)
-    responses = generate(params, gen_mcfg, queries_t, prompt_mask, generator,
+    gen_params = params if rollout_params is None else rollout_params
+    responses = generate(gen_params, gen_mcfg, queries_t, prompt_mask, generator,
                          sampling or sampling_params(cfg),
                          eos_token_id=eos_id, pad_token_id=pad_id,
                          lora_scale=lora_scale, timings=t,
@@ -178,7 +188,7 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         # the greedy rollout of the same prompts: ReMax's baseline
         tg: dict = {}
         greedy_np = generate(
-            params, gen_mcfg, queries_t, prompt_mask, generator,
+            gen_params, gen_mcfg, queries_t, prompt_mask, generator,
             SamplingParams(greedy=True, max_tokens=cfg.response_length),
             eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
             timings=tg).cpu().numpy()

@@ -20,9 +20,14 @@ card, step for step as the JAX loop (`sparse_grpo.py:325-867`):
    over the minibatch's, the gradients summed, one optimizer step per
    minibatch.
 
-Scoring runs the existing fused `score_chunk` (K1 and K10; ref-free when
+Scoring runs the existing `score_chunk` (K1 and K10; ref-free when
 kl_coef is 0, as in r1), the update `update.microbatch_loss` (K1, K2/K3,
-K10 with entropy). Host-side numpy does the ragged filtering and packing.
+K10 with entropy), on either remat policy. With `fused_logprob=False` both
+take the naive full-logits branch (no K10; the forward budget then has
+JAX's vocab cap, and the backward budget half of it, so a row wider than
+the budget is a bucket of its own). The rollout samples from the
+trainer's rollout view (int8 base projections under `rollout_quant`).
+Host-side numpy does the ragged filtering and packing.
 
 The draws: keep-1-of-N from (seed, KEEP_STREAM, rollout index), each
 epoch's permutation from (seed, PERM_STREAM, rollout index, epoch), the
@@ -31,8 +36,7 @@ resume after a skipped update replays the same streams.
 
 Not ported (raise NotImplementedError): sequence parallelism (the SP
 score and grad functions), rollout_ahead and the orchestrator, sampler
-logprob capture, environments, the naive full-logits branch
-(`fused_logprob=False`) and `remat_policy="dots"`. The JAX loop's lineage,
+logprob capture and environments. The JAX loop's lineage,
 tracer, health, latency and preemption calls have no counterpart in the
 port yet.
 """
@@ -70,6 +74,7 @@ from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM,
     PERM_STREAM,
     rollout_generator,
+    rollout_model_config,
     sampling_params,
     stream_generator,
 )
@@ -87,19 +92,6 @@ def epoch_permutation(seed: int, rollout_index: int, epoch: int, n: int) -> np.n
     from (seed, PERM_STREAM, rollout index, epoch)."""
     gen = stream_generator(seed, PERM_STREAM, rollout_index, epoch)
     return torch.randperm(n, generator=gen).numpy()
-
-
-def check_sparse_supported(cfg) -> None:
-    """The knobs the sparse trainer adds to `check_trainer_supported`'s:
-    the routes the port's update does not have yet."""
-    unported = {
-        "the naive update branch (fused_logprob=False)": not cfg.fused_logprob,
-        "remat_policy='dots'": cfg.remat_policy == "dots",
-    }
-    on = [what for what, flag in unported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
 
 
 class SparseGRPOTrainer(RLTrainer):
@@ -120,7 +112,6 @@ class SparseGRPOTrainer(RLTrainer):
 
     def __init__(self, *args, accuracy_func=None, **kwargs):
         super().__init__(*args, **kwargs)
-        check_sparse_supported(self.cfg)
         self.accuracy_func = accuracy_func
         self._len_menu = shape_menu(
             self.cfg.response_length + self.dataset.input_ids.shape[1], min_value=32)
@@ -299,7 +290,8 @@ class SparseGRPOTrainer(RLTrainer):
             queries = depad_queries(np.asarray(next(self._iter)), pad_id, self._len_menu)
             q_t = torch.as_tensor(queries, dtype=torch.int64, device=self.device)
             responses = generate(
-                self.params, self.mcfg, q_t, q_t != pad_id,
+                self._rollout_params(), rollout_model_config(self.mcfg, cfg), q_t,
+                q_t != pad_id,
                 rollout_generator(cfg.seed, index, self.device), sampling,
                 eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=self.lora_scale,
                 timings=t).cpu().numpy()
@@ -404,9 +396,12 @@ class SparseGRPOTrainer(RLTrainer):
                 "sec_per_episode": (time.perf_counter() - t_start) / cfg.batch_size,
                 "mem/peak_bytes_in_use": float(torch.cuda.max_memory_allocated(self.device))
                 if self.device.type == "cuda" else 0.0,
+                # the logits block the fused path does not hold (0 on the
+                # naive branch, which holds it)
                 "mem/logits_bytes_saved": float(
                     max(1, self.backward_budget() // (context_length + max_resp))
-                    * max_resp * self.mcfg.vocab_size * itemsize),
+                    * max_resp * self.mcfg.vocab_size * itemsize)
+                if cfg.fused_logprob else 0.0,
                 "episode": self.state["episode"],
                 "time/rollout_s": t["generate_s"],
                 "time/reward_s": t["reward_s"],

@@ -15,7 +15,11 @@ LoRA subtree, the frozen ref, PPO's value tree (its own LoRA, a copy that
 shares no storage with the policy), the trainable-leaf partition (the
 LoRA adapters and, as PEFT's `modules_to_save`, the embeddings — JAX's
 `LoraConfig` defaults; the value tree's score head too), the optimizer's
-two groups, the checkpoint manager and the metrics logger. The random
+two groups, the checkpoint manager and the metrics logger; with
+`rollout_quant="int8"` the int8 view of the base projections that
+generation samples from (`_rollout_params`: quantized once under LoRA,
+before each rollout under full fine-tuning, and again after a resume or
+`load_best_model_at_end`). The random
 draws JAX takes by splitting its trainer key (keep-1-of-N, RAFT's random
 selection, the per-epoch permutation, the LoRA inits) come from
 generators seeded from (seed, stream, index): same distributions, other
@@ -43,6 +47,7 @@ from nanorlhf_tpu_torch.core.lora import (
     value_trainable_mask,
 )
 from nanorlhf_tpu_torch.core.params import export_hf_checkpoint
+from nanorlhf_tpu_torch.core.quant import quantize_layers, rollout_view
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
 from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
@@ -182,6 +187,11 @@ class RLTrainer:
             t.requires_grad_(True)
         self.optimizer = build_optimizer(config)
         self.opt_state = self.optimizer.init(groups)
+        # int8 rollout weights (core/quant.py): the frozen base quantized
+        # once under LoRA; full fine-tuning re-quantizes at each rollout
+        self._quant_layers = None
+        if config.rollout_quant == "int8":
+            self._refresh_quant_layers()
 
         self.ckpt = CheckpointManager(config.output_dir, config.save_total_limit,
                                       config.greater_is_better,
@@ -230,6 +240,20 @@ class RLTrainer:
         self.value_trainable = _trainable_leaves(
             self.value_params, value_trainable_mask(self.value_params,
                                                     self.value_lora_cfg))
+
+    def _refresh_quant_layers(self) -> None:
+        self._quant_layers = quantize_layers(self.params["layers"])
+
+    def _rollout_params(self) -> dict:
+        """The tree generation samples from: the live policy, with int8
+        base projections when `rollout_quant` is on (LoRA, embeddings and
+        norms stay the live tensors). Under full fine-tuning the base moved
+        since the last rollout, so it is quantized anew."""
+        if self._quant_layers is None:
+            return self.params
+        if not self.cfg.use_lora:
+            self._refresh_quant_layers()
+        return rollout_view(self.params, self._quant_layers)
 
     def _groups(self) -> dict:
         """The trainable leaves by optimizer group."""
@@ -283,7 +307,8 @@ class RLTrainer:
                 self.params, self.ref_params, self.mcfg, cfg, tok, queries,
                 self.reward_func, rollout_generator(cfg.seed, index, self.device),
                 self.lora_scale, keep_gen,
-                ctx_menu=self.ctx_menu, timings=t, launches=ro_launches)
+                ctx_menu=self.ctx_menu, timings=t, launches=ro_launches,
+                rollout_params=self._rollout_params())
             self._snapshot_pages(ro.get("paged_stats"))
             context_length = ro["context_length"]
             t0 = time.perf_counter()
@@ -338,6 +363,8 @@ class RLTrainer:
             best = self.ckpt.best_step()
             if best is not None and best != self.state["global_step"]:
                 self._load_trainable(self.ckpt.restore(best, self.device))
+                if self._quant_layers is not None:
+                    self._refresh_quant_layers()
                 print(f"loaded best checkpoint (step {best})")
         if cfg.export_hf_dir and num_updates is None:
             # after load_best: the exported policy is the one the run deploys
@@ -515,6 +542,8 @@ class RLTrainer:
         if latest is not None and step < latest:
             self.ckpt.truncate_after(step)
         self._load_trainable(tree)
+        if self._quant_layers is not None:
+            self._refresh_quant_layers()  # the restored base
         for group, opt in tree.get("opt_state", {}).items():
             st = self.opt_state[group]
             for name in ("mu", "nu"):

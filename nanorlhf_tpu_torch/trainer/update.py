@@ -3,23 +3,25 @@
 microbatch loss and the gradient-accumulated minibatch step, as plain
 functions over the trainer's tensors.
 
-- `microbatch_loss`: the policy's response logprobs (the fused path, with
-  per-layer remat when `gradient_checkpointing`) → `INVALID_LOGPROB` at
+- `microbatch_loss`: the policy's response logprobs (with per-layer remat
+  when `gradient_checkpointing`) → `INVALID_LOGPROB` at
   pads → the algorithm's loss: GRPO `grpo_loss`; RLOO the sequence-level
   PPO-clip on `advantages_seq`; RAFT `sft_loss`; REINFORCE and ReMax the
   token-level PPO-clip; PPO the token-level PPO-clip + `vf_coef` · the
   clipped value loss of the value tree's `score_forward` (with remat).
-  The entropy stat is the detached, unmasked mean of the fused op's
-  per-token entropy.
+  The logprobs come from the fused hidden→logprob op (`fused_logprob`,
+  the default) or, on the naive branch, from the full [rows, T, V] logits
+  (`padded_forward_logits`, then `logprobs_from_logits`). The entropy stat
+  is the detached, unmasked mean of the per-token entropy: the fused op's,
+  or `chunked_entropy` of the naive branch's logits.
 - `update_minibatch`: microbatch g is the strided row set {g, G+g, …} (the
   JAX `reshape(-1, grad_accum)`); gradients of every group's trainable
   leaves accumulate in f32, are divided by `grad_accum`, and each group's
   AdamW steps its leaves in place. Stats are means over the microbatches,
   plus the pre-clip `grad_norm` over both groups' gradients.
 
-Not ported (raise): the naive full-logits branch (`fused_logprob=False`),
-sequence parallelism, the env `loss_mask`, behavior logprobs and
-in-flight-swap segment ages.
+Not ported (raise): sequence parallelism, the env `loss_mask`, behavior
+logprobs and in-flight-swap segment ages.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ from nanorlhf_tpu_torch.algos.losses import (
     sft_loss,
     value_loss_clipped,
 )
-from nanorlhf_tpu_torch.core.model import score_forward
-from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB
+from nanorlhf_tpu_torch.core.model import padded_forward_logits, score_forward
+from nanorlhf_tpu_torch.ops.fused_logprob import chunked_entropy
+from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB, logprobs_from_logits
 from nanorlhf_tpu_torch.trainer.config import AlgoName
 from nanorlhf_tpu_torch.trainer.optim import MultiAdamW, flatten, global_norm, unflatten
 from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
@@ -49,7 +52,6 @@ _KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
 def check_update_supported(cfg, minibatch: dict) -> None:
     unported = {
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
-        "the naive update branch (fused_logprob=False)": not cfg.fused_logprob,
     }
     extra = sorted(set(minibatch) - _KEYS)
     if extra:
@@ -66,10 +68,17 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                     value: dict | None = None, value_lora_scale: float = 1.0):
     """(loss, aux) of one microbatch; aux holds the detached stats of the
     algorithm's loss and `entropy`. `value` is PPO's value tree."""
-    new_logprobs, ent_tok = fused_response_logprobs(
-        policy, mcfg, mb["query_responses"], mb["responses"], pad_id,
-        context_length, cfg, lora_scale=lora_scale, with_entropy=True,
-        remat=remat)
+    if cfg.fused_logprob:
+        new_logprobs, ent_tok = fused_response_logprobs(
+            policy, mcfg, mb["query_responses"], mb["responses"], pad_id,
+            context_length, cfg, lora_scale=lora_scale, with_entropy=True,
+            remat=remat)
+    else:
+        logits = padded_forward_logits(
+            policy, mcfg, mb["query_responses"], pad_id, lora_scale=lora_scale,
+            response_context_length=context_length, remat=remat)
+        ent_tok = chunked_entropy(logits, cfg.temperature, chunk=cfg.fused_logprob_chunk)
+        new_logprobs = logprobs_from_logits(logits, mb["responses"], cfg.temperature)
     entropy = ent_tok.mean().detach()
     new_logprobs = torch.where(mb["padding_mask"],
                                torch.full_like(new_logprobs, INVALID_LOGPROB),

@@ -178,3 +178,30 @@ def test_backward_skips_dw_for_a_frozen_weight(rng, monkeypatch):
     torch.autograd.grad(tf.fused_logprob(th, torch.as_tensor(w), lab, 0.9,
                                          transposed=True).sum(), th)
     assert calls == [False]
+
+
+@pytest.mark.parametrize("shape,chunk,budget", [
+    ((3, 11, 97), 5, None),        # several time blocks, a ragged last one
+    ((2, 7, 130), None, 4096),     # the row budget from fused_chunk_rows
+    ((9, 64), 4, None),            # no batch axis
+    ((2, 5, 40), 1000, None),      # one block
+])
+@pytest.mark.parametrize("temp", [1.0, 0.7])
+def test_chunked_entropy_matches_jax_and_full_entropy(shape, chunk, budget, temp, rng):
+    """The naive update branch's entropy stat: time-axis blocks of the
+    logits against JAX's `chunked_entropy` and against the entropy of the
+    whole f32 tensor at once (f32: 1e-5); no gradient; a bf16 input gives
+    the entropy of its f32 values."""
+    logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+    got = tf.chunked_entropy(torch.as_tensor(logits).requires_grad_(True), temp,
+                             chunk=chunk, bytes_budget=budget)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:-1]
+    assert not got.requires_grad
+    want = jf.chunked_entropy(jnp.asarray(logits), temp, chunk=chunk, bytes_budget=budget)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    full = tf.entropy_from_logits(torch.as_tensor(logits) / temp)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), atol=ATOL, rtol=0)
+    bf16 = torch.as_tensor(logits).to(torch.bfloat16)
+    np.testing.assert_allclose(
+        tf.chunked_entropy(bf16, temp, chunk=chunk, bytes_budget=budget).numpy(),
+        tf.entropy_from_logits(bf16.float() / temp).numpy(), atol=ATOL, rtol=0)

@@ -178,16 +178,17 @@ UNPORTED = [
     dict(rollout_orchestrator=True), dict(rollout_workers=2),
     dict(rollout_prefix_cache=True), dict(kv_cache_quant="int8"),
     dict(env_name="python_tool", env_max_turns=2), dict(sampler_logprob_capture=True),
+    dict(rollout_quant="int8"),
 ]
 UNPORTED_SAMPLER = [
     dict(rollout_page_size=128), dict(rollout_decode_rows=8), dict(rollout_spec_k=4),
     dict(rollout_compaction_segments=2),
 ]
-# knobs that raised until the paged / int8 and speculative slices ported
-# them: their cases now hold the rollout through the knob against the
-# contiguous exact rollout
+# knobs that raised until the paged / int8, speculative and int8-weight
+# slices ported them: their cases now hold the rollout through the knob
+# against the contiguous exact rollout
 PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows",
-                "rollout_spec_k")
+                "rollout_spec_k", "rollout_quant")
 
 
 def _greedy_rollout(monkeypatch, knobs):
@@ -217,6 +218,21 @@ def _assert_ported_knob_matches(monkeypatch, knobs):
         paged = _greedy_rollout(monkeypatch, dict(knobs, rollout_page_size=4))
         np.testing.assert_array_equal(paged["responses"], got["responses"])
         np.testing.assert_array_equal(paged["logprobs"], got["logprobs"])
+    elif "rollout_quant" in knobs:
+        # int8 weights sample another stream from the same contract; scoring
+        # sees the exact weights: the int8 rollout's responses rescored
+        # through the exact tree give its logprobs bit for bit
+        assert got["responses"].shape == want["responses"].shape
+        assert np.isfinite(got["logprobs"]).all()
+        assert got["rollout_params"]["layers"]["q_proj"]["kernel_q"].dtype == torch.int8
+        assert want["rollout_params"] is None
+        qr = np.concatenate([got["queries"], got["responses"]], axis=1)
+        cfg = build_config()
+        exact = trollout.score_chunk(got["params"], got["ref_params"], got["mcfg"], cfg,
+                                     torch.as_tensor(qr), got["context_length"],
+                                     got["tokenizer"].pad_token_id, got["lora_scale"])
+        np.testing.assert_array_equal(exact[0].numpy(), got["logprobs"])
+        np.testing.assert_array_equal(exact[1].numpy(), got["ref_logprobs"])
     else:
         np.testing.assert_array_equal(got["responses"], want["responses"])
         np.testing.assert_array_equal(got["logprobs"], want["logprobs"])

@@ -12,7 +12,8 @@ logprobs and advantages (1e-5), the loss scale, the metric row (1e-5)
 and the trainable leaves after the update (1e-5). Then the skip path, a
 resume after a skipped update, the greedy accuracy eval's texts,
 `build_config` literal by literal, the knobs that raise, and the CPU
-only when asked."""
+only when asked. The sparse update is also held on its other routes: the
+naive full-logits branch and remat_policy="dots"."""
 
 import dataclasses
 import json
@@ -221,8 +222,35 @@ def _trained_pair(monkeypatch, tmp_path, rollouts, updates=1, **over):
 
 
 def test_sparse_update_matches_jax(monkeypatch, tmp_path):
+    _check_sparse_update(monkeypatch, tmp_path)
+
+
+# the update's other routes: the naive full-logits branch in scoring and in
+# the bucket gradients (JAX's `_bucket_score_fn` / `_bucket_grad_fn`
+# non-fused branches), and remat_policy="dots"
+ROUTES = {
+    "naive": dict(fused_logprob=False),
+    "naive_remat": dict(fused_logprob=False, gradient_checkpointing=True),
+    "dots": dict(remat_policy="dots", gradient_checkpointing=True),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_sparse_update_routes_match_jax(route, monkeypatch, tmp_path):
+    from nanorlhf_tpu_torch.trainer import update as tupdate
+
+    entropies = []
+    real = tupdate.chunked_entropy
+    monkeypatch.setattr(tupdate, "chunked_entropy",
+                        lambda *a, **k: entropies.append(1) or real(*a, **k))
+    _check_sparse_update(monkeypatch, tmp_path, **ROUTES[route])
+    # the bucket gradients took the naive branch exactly when asked
+    assert bool(entropies) == (not ROUTES[route].get("fused_logprob", True))
+
+
+def _check_sparse_update(monkeypatch, tmp_path, **over):
     tr, jtr, rec, jrec, ps, js = _trained_pair(
-        monkeypatch, tmp_path, [(_responses(0), _rewards(0, zero_groups=(1, 5)))])
+        monkeypatch, tmp_path, [(_responses(0), _rewards(0, zero_groups=(1, 5)))], **over)
     # the same prompts (the port de-pads before generating; the tokens are
     # the same)
     assert [list(r[r != 0]) for r in ps.queries[0]] == \
@@ -397,6 +425,70 @@ def test_greedy_accuracy_eval_matches_jax(monkeypatch):
     assert acc == acc_j
 
 
+def test_rollout_samples_from_the_int8_view_and_the_rollout_config(monkeypatch, tmp_path):
+    """With rollout_quant="int8" and kv_cache_quant="int8" the sparse
+    trainer's rollout samples from the int8 view of the base (its LoRA the
+    live adapters) under the int8-cache model config, as JAX's
+    `_rollout_params()` / `_rollout_mcfg`; scoring and the update keep the
+    exact weights and config."""
+    _, cfg = _configs(tmp_path, rollout_quant="int8", kv_cache_quant="int8")
+    jmodel = jax_config("qwen_tied", vocab_size=V)
+    _, tparams = make_params(jmodel, seed=3)
+    tok = ToyTokenizer(V)
+    _, ds = _dataset(JaxToyTokenizer(V), tok)
+    script = _Script([(_responses(6), _rewards(6))])
+    seen = []
+
+    def gen(params, config, ids, *a, **k):
+        seen.append((params, config))
+        return torch.as_tensor(script.tokens(ids))
+
+    monkeypatch.setattr(tsg, "generate", gen)
+    real_score = tsg.score_chunk
+    scored = []
+    monkeypatch.setattr(tsg, "score_chunk", lambda params, ref, mcfg, *a, **k:
+                        scored.append((params, mcfg)) or real_score(params, ref, mcfg,
+                                                                    *a, **k))
+    tr = tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds, script.reward)
+    try:
+        tr.train(1)
+        (params, config), = seen
+        assert params["layers"]["q_proj"]["kernel_q"].dtype == torch.int8
+        assert params["lora"] is tr.params["lora"]
+        assert config.kv_cache_quant == "int8" and tr.mcfg.kv_cache_quant == "none"
+        assert scored and all(p is tr.params and m is tr.mcfg for p, m in scored)
+        assert tr.update_log[0]["kept"] > 0 and not tr.update_log[0]["skipped"]
+    finally:
+        tr.close()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_budgets_at_8k_rows_match_jax(fused):
+    """The scoring and backward token budgets at Qwen2's 151,936-token
+    vocabulary on both branches, and the buckets they cut from 8,000-token
+    rows: on the naive branch the vocab cap (7,067 tokens) and the backward
+    budget (half of it) are narrower than one 8,021-token row, which then
+    makes a bucket of its own, as in JAX."""
+    from types import SimpleNamespace
+
+    from nanorlhf_tpu.trainer.bucketing import create_batches as jax_create_batches
+
+    vocab = 151936
+    fwd = tsg.forward_token_budget(vocab, fused_logprob=fused)
+    assert fwd == jsg.forward_token_budget(vocab, fused_logprob=fused)
+    fake = SimpleNamespace(mcfg=SimpleNamespace(vocab_size=vocab),
+                           cfg=SimpleNamespace(fused_logprob=fused))
+    bwd = tsg.SparseGRPOTrainer.backward_budget(fake)
+    assert bwd == min(jsg.BACKWARD_BUDGET, fwd // 2)
+    assert (fwd, bwd) == ((22 * 2316, 4 * 2316) if fused else (7067, 3533))
+    lengths = np.array([8021, 2100, 8021, 1300, 5000, 221, 8021, 700])
+    for budget in (fwd, bwd):
+        got = tsg.create_batches(lengths, budget)
+        assert got == jax_create_batches(lengths, budget)
+        assert sorted(i for b in got for i in b) == list(range(len(lengths)))
+        assert all(len(b) == 1 for b in got if lengths[b].max() > budget)
+
+
 def test_build_config_matches_jax():
     def norm(cfg):
         d = dataclasses.asdict(cfg)
@@ -418,8 +510,6 @@ def test_build_config_matches_jax():
     ("rollout_orchestrator", True),
     ("sampler_logprob_capture", True),
     ("env_name", "python_tool"),
-    ("fused_logprob", False),
-    ("remat_policy", "dots"),
 ])
 def test_unported_knobs_raise(knob, value, tmp_path):
     _, cfg = _configs(tmp_path)

@@ -3,24 +3,32 @@ versions of every kernel): one whole update through the launcher's entry
 points, the checkpoint it writes and restores, the metrics rows, the two
 faults this slice repaired (scoring every sample instead of the kept one;
 a ref model that moved with the policy when LoRA was off), checkpoint
-rotation against the JAX `CheckpointManager`, and the knobs that raise."""
+rotation against the JAX `CheckpointManager`, the knobs that raise, and the
+update's other routes: the naive branch trains, and both remat policies
+keep the values and gradients (remat_policy="dots" against JAX's)."""
 
+import dataclasses
 import json
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_parity import LORA, jax_config, make_params, port_config
+from nanorlhf_tpu.core import model as jm
 from nanorlhf_tpu.trainer.checkpoint import CheckpointManager as JaxCheckpointManager
 from nanorlhf_tpu_torch import _build
+from nanorlhf_tpu_torch.bridge import params_to_numpy
 from nanorlhf_tpu_torch.core import model as tm
-from nanorlhf_tpu_torch.core.config import ModelConfig
 from nanorlhf_tpu_torch.entrypoints import common
 from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
 from nanorlhf_tpu_torch.trainer import rollout as trollout
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
-from nanorlhf_tpu_torch.trainer.optim import flatten
+from nanorlhf_tpu_torch.trainer.optim import flatten, unflatten
 from nanorlhf_tpu_torch.trainer.trainer import check_trainer_supported
 
 torch.set_num_threads(1)
@@ -172,20 +180,96 @@ def test_unported_trainer_knobs_raise(knob, value):
         check_trainer_supported(cfg)
 
 
-def test_naive_update_branch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="fused_logprob=False"):
-        _trainer(tmp_path, fused_logprob=False)
+def test_naive_update_branch_raises(tmp_path, monkeypatch):
+    """The naive update branch (`fused_logprob=False`: full logits, then
+    `chunked_entropy`) raised until it was ported: it now trains an update,
+    scoring and update both without the fused op, and its metric row
+    agrees with the fused branch's on the same rollout."""
+    calls = []
+    real = trollout.score_chunk
+
+    def spy(params, ref, mcfg, cfg, *a, **kw):
+        calls.append(cfg.fused_logprob)
+        return real(params, ref, mcfg, cfg, *a, **kw)
+
+    monkeypatch.setattr(trollout, "score_chunk", spy)
+    rows = {}
+    for fused in (True, False):
+        tr = _trainer(tmp_path / str(fused), fused_logprob=fused)
+        check_trainer_supported(tr.cfg)
+        try:
+            tr.train(num_updates=1)
+        finally:
+            tr.close()
+        rows[fused] = tr.logger.latest()
+    assert calls and set(calls) == {True, False}
+    assert rows[False]["mem/logits_bytes_saved"] == 0.0
+    assert rows[True]["mem/logits_bytes_saved"] > 0.0
+    # bf16 on the CPU: the branches round the logits differently
+    for key in ("policy/entropy_avg_new", "loss/policy_avg_new",
+                "objective/kl_rollout_old", "policy/grad_norm_new"):
+        assert np.isfinite(rows[False][key]), key
+        assert rows[False][key] == pytest.approx(rows[True][key], rel=5e-2, abs=5e-3), key
+    assert rows[False]["policy/grad_norm_new"] > 0
 
 
 def test_remat_dots_policy_raises_and_full_keeps_values():
-    mcfg = ModelConfig.qwen2_tiny(vocab_size=64)
-    params = tm.init_params(mcfg, seed=0, dtype=torch.float32, device="cpu")
-    ids = torch.randint(1, 64, (2, 9))
-    plain = tm.padded_forward_hidden(params, mcfg, ids, 0)
-    torch.testing.assert_close(tm.padded_forward_hidden(params, mcfg, ids, 0, remat=True),
-                               plain, atol=0, rtol=0)
-    import dataclasses
+    """Both remat policies keep the forward's values and the gradients of
+    no remat bit for bit, through the plain attention and the flash route
+    (its plain version); "dots" equals JAX's "dots" gradients (the
+    counterpart of tests/test_model_pallas.py's policy test); "dots"
+    recomputes no 2-D GEMM in the backward but does recompute the
+    attention's batched products; an unknown policy raises ValueError."""
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
 
-    dots = dataclasses.replace(mcfg, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        tm.padded_forward_hidden(params, dots, ids, 0, remat=True)
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            for name, op in (("mm", torch.ops.aten.mm.default),
+                             ("bmm", torch.ops.aten.bmm.default)):
+                self.n[name] += func is op
+            return func(*args, **(kwargs or {}))
+
+    ids = np.random.default_rng(5).integers(1, 64, (2, 9)).astype(np.int32)
+    for impl in ("xla", "pallas"):
+        jcfg = jax_config("qwen_tied", vocab_size=64, attention_impl=impl)
+        mcfg = port_config(jcfg)
+        jparams, tparams = make_params(jcfg, seed=2)
+        plain = tm.padded_forward_logits(tparams, mcfg, torch.as_tensor(ids), 0,
+                                         lora_scale=LORA.scale)
+        leaves = flatten(tparams)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        grads, ops = {}, {}
+        for policy, remat in (("none", False), ("full", True), ("dots", True)):
+            c = dataclasses.replace(mcfg, remat_policy="full" if policy == "none" else policy)
+            lg = tm.padded_forward_logits(tparams, c, torch.as_tensor(ids), 0,
+                                          lora_scale=LORA.scale, remat=remat)
+            torch.testing.assert_close(lg, plain, atol=0, rtol=0)
+            with CountOps() as counter:
+                g = torch.autograd.grad((lg.float() ** 2).mean(), list(leaves.values()))
+            grads[policy] = dict(zip(leaves, g))
+            ops[policy] = counter.n
+        for policy in ("full", "dots"):
+            for p, g in grads[policy].items():
+                assert torch.equal(g, grads["none"][p]), (impl, policy, p)
+        # "full" re-runs every GEMM of the layers, "dots" none of them;
+        # both re-run the attention's batched products
+        assert ops["dots"]["mm"] == ops["none"]["mm"] < ops["full"]["mm"]
+        assert ops["dots"]["bmm"] == ops["full"]["bmm"] > ops["none"]["bmm"]
+
+        jdots = dataclasses.replace(jcfg, remat_policy="dots")
+        want = jax.grad(lambda p: (jm.padded_forward_logits(
+            p, jdots, jnp.asarray(ids), 0, lora_scale=LORA.scale, remat=True)
+            .astype(jnp.float32) ** 2).mean())(jparams)
+        want = flatten(jax.tree.map(np.asarray, want))
+        got = flatten(params_to_numpy(unflatten(grads["dots"])))
+        assert got.keys() == want.keys()
+        for p, g in got.items():
+            np.testing.assert_allclose(g, want[p], rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{impl} {'/'.join(p)}")
+    with pytest.raises(ValueError, match="remat_policy"):
+        tm.padded_forward_hidden(tparams, dataclasses.replace(mcfg, remat_policy="bogus"),
+                                 torch.as_tensor(ids), 0, remat=True)
+

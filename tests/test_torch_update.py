@@ -6,9 +6,12 @@ the schedule's second value). Held: the new trainable leaves (LoRA and the
 embeddings, which `LoraConfig` trains by default), the Adam moments, the
 grad norm and the loss stats; with and without gradient checkpointing, and
 through the flash-attention route (the Pallas kernels in interpret mode
-against the port's autograd Function with its plain backward). Plus the
-learning-rate schedule against optax."""
+against the port's autograd Function with its plain backward); under
+remat_policy="dots" (selective checkpointing) and on the naive update
+branch (`fused_logprob=False`: full logits, `chunked_entropy`), each held
+to the same tolerances. Plus the learning-rate schedule against optax."""
 
+import collections
 import dataclasses
 
 import jax
@@ -27,9 +30,11 @@ from nanorlhf_tpu.trainer import AlgoName as JaxAlgoName
 from nanorlhf_tpu.trainer import RLConfig as JaxRLConfig
 from nanorlhf_tpu.trainer import RLTrainer as JaxRLTrainer
 from nanorlhf_tpu_torch.bridge import params_to_numpy
+from nanorlhf_tpu_torch.core import model as tm
 from nanorlhf_tpu_torch.core.lora import LoraConfig, trainable_mask
 from nanorlhf_tpu_torch.trainer.config import RLConfig
 from nanorlhf_tpu_torch.trainer.optim import build_optimizer, flatten, lr_schedule
+from nanorlhf_tpu_torch.trainer import update as tupdate
 from nanorlhf_tpu_torch.trainer.trainer import _trainable_leaves
 from nanorlhf_tpu_torch.trainer.update import update_minibatch
 
@@ -103,14 +108,55 @@ CASES = {
     "untied_remat": ("llama_untied", "xla", True, None),
     "tied_remat_flash": ("qwen_tied", "pallas", True, None),
 }
+# the update's other routes, each a case: (model kind, attention_impl,
+# gradient_checkpointing, the RLConfig knobs of the route)
+ROUTES = {
+    "dots_tied": ("qwen_tied", "xla", True, dict(remat_policy="dots")),
+    "dots_untied": ("llama_untied", "xla", True, dict(remat_policy="dots")),
+    "dots_flash": ("qwen_tied", "pallas", True, dict(remat_policy="dots")),
+    "naive_tied_remat": ("qwen_tied", "xla", True, dict(fused_logprob=False)),
+    "naive_untied_no_remat": ("llama_untied", "xla", False, dict(fused_logprob=False)),
+    "naive_dots_flash": ("qwen_tied", "pallas", True,
+                         dict(fused_logprob=False, remat_policy="dots")),
+}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_update_minibatch_matches_jax_update_fn(case, tmp_path):
     kind, impl, remat, clip = CASES[case]
-    jcfg, cfg = _configs(tmp_path, gradient_checkpointing=remat, max_grad_norm=clip)
+    _check_update_against_jax(tmp_path, kind, impl, gradient_checkpointing=remat,
+                              max_grad_norm=clip)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_update_routes_match_jax_update_fn(route, tmp_path, monkeypatch):
+    kind, impl, remat, knobs = ROUTES[route]
+    # f32 on the CPU cannot tell the routes apart by their values: count
+    # which branch and which policy the port's update took
+    calls = collections.Counter()
+
+    def counting(name, fn):
+        return lambda *a, **k: calls.update([name]) or fn(*a, **k)
+
+    monkeypatch.setattr(tupdate, "chunked_entropy",
+                        counting("naive", tupdate.chunked_entropy))
+    monkeypatch.setattr(tupdate, "fused_response_logprobs",
+                        counting("fused", tupdate.fused_response_logprobs))
+    monkeypatch.setattr(tm, "_dots_policy", counting("dots", tm._dots_policy))
+    _check_update_against_jax(tmp_path, kind, impl, gradient_checkpointing=remat,
+                              **knobs)
+    naive = not knobs.get("fused_logprob", True)
+    assert (calls["naive"] > 0, calls["fused"] > 0) == (naive, not naive)
+    assert (calls["dots"] > 0) == (knobs.get("remat_policy") == "dots")
+
+
+def _check_update_against_jax(tmp_path, kind, impl, **knobs):
+    """Two `update_minibatch` steps against two steps of the JAX trainer's
+    `_update_fn` on the same bridged weights and minibatches."""
+    jcfg, cfg = _configs(tmp_path, **knobs)
     jmodel = jax_config(kind, vocab_size=64, attention_impl=impl)
-    mcfg = port_config(jmodel)
+    # the trainer gives the model its run's remat policy (both packages)
+    mcfg = dataclasses.replace(port_config(jmodel), remat_policy=cfg.remat_policy)
     jparams, tparams = make_params(jmodel, seed=11)
     tok = JaxToyTokenizer(vocab_size=64)
     jtr = JaxRLTrainer(jcfg, jmodel, tok, jparams, jax_load_dataset("synthetic:64", tok),
