@@ -20,6 +20,8 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --routes        # build, then only phase 12 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --host          # build, then only phase 13 (and the
+                                          # holds at its shapes)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -143,7 +145,8 @@ Phases (any failure exits non-zero):
      launched are held at the shapes they gave them that phase 2 did not;
  11. sparse GRPO and the R1-Zero launcher at 8,000-token responses —
      `grpo_r1.build_trainer` at `r1_card_cut`, then `train` (`grpo_r1.
-     main`'s two steps; 8 prompts x 4 samples, Qwen2-1.5B
+     main`'s two steps with `--r1`, one in the full script, a cut that
+     keeps it inside its time limit; 8 prompts x 4 samples, Qwen2-1.5B
      geometry at full depth, random weights, the synthetic arithmetic
      corpus): the greedy accuracy eval (16 questions, 1,024 tokens) before
      training and after each of two updates; (a) each rollout graded by the
@@ -186,7 +189,30 @@ Phases (any failure exits non-zero):
      equals the exact weights' bit for bit. The shapes phase 12 gave the
      kernels that no earlier phase held are then held as in phase 2, and
      each kernel's launches in each route's update are reported in the
-     kernels line under `routes`.
+     kernels line under `routes`;
+ 13. the host planes on the GRPO main path, on phase 4's config with
+     telemetry, lineage, an ephemeral status port, a profile window at
+     update 3, a checkpoint every update and `update.step:at=2,action=nan`
+     (health, latency, the sentinel, graceful preemption and reward
+     retries at their defaults), three updates: (a) one rollback,
+     quarantine {1}, checkpoint 3 the latest, `blackbox_2.json` a sentinel
+     trip; (b) `trace.json` valid, three `train.update` spans and one
+     tagged quarantined, the ckpt, reward and phase spans; (c) the lineage
+     chains of rollouts 0, 2, 3 closed by `outcome`, rollout 1's by a
+     `sentinel_quarantine` drop; (d) /metrics, /healthz, /statusz over
+     loopback while the run is live; (e) the profile window's Chrome trace
+     names K1, K2, K3 and K10's device kernels (and whether K4's replayed
+     launches show); (f) `perf/mfu` in (0, 1) with the peak known, the
+     rows' keys HOST_ROW_KEYS; (g) the traced speculative rollout (16
+     rows, greedy, 64 tokens) equal to the graph loop, a draft/verify
+     span pair an iteration; (h) one TTFT record per admitted row of a
+     queued rollout at phase 5's config; (i) SIGTERM to a child running
+     phase 4's trainer (save_steps=0) during update 2's reward: `Preempted`
+     and checkpoint 2 committed, which a fresh trainer resumes; then that
+     trainer (every plane off) and the phase's (every plane on) train in
+     turns: update seconds and decode ms a step, and the phase's wall. The
+     shapes phase 13 gave the kernels that no earlier phase held are held
+     as in phase 2, and its launches reported under `host`.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -3826,9 +3852,10 @@ def r1_buckets(torch, tr) -> None:
         fail("(b) a planted fault reads inside R1_GRAD_TOL: the hold would not catch it")
 
 
-def r1_zero(torch, seen: dict) -> dict:
+def r1_zero(torch, seen: dict, updates: int = 2) -> dict:
     """Phase 11: `grpo_r1.build_trainer` at `r1_card_cut` on the card, then
-    `train` (`grpo_r1.main`'s two steps) — 8 prompts x
+    `train` (`grpo_r1.main`'s two steps; the full script cuts them to
+    `updates` = 1 to stay inside its time limit, `--r1` runs both) — 8 prompts x
     4 samples of 8,000 tokens, random weights in the Qwen2-1.5B geometry at
     full depth, the synthetic arithmetic corpus, the greedy accuracy eval
     (16 questions, 1,024 tokens) before training and after each update,
@@ -3853,13 +3880,13 @@ def r1_zero(torch, seen: dict) -> dict:
         f"(per_device_train_batch_size={cfg.per_device_train_batch_size}, "
         f"num_mini_batches={cfg.num_mini_batches}, gradient_accumulation_steps="
         f"{cfg.gradient_accumulation_steps}; the launcher's batch is 512 prompts), "
-        f"2 updates, eval_steps={cfg.eval_steps} on 16 questions; response_length "
+        f"{updates} updates, eval_steps={cfg.eval_steps} on 16 questions; response_length "
         f"{cfg.response_length}, widths and budgets the launcher's")
     t0 = time.perf_counter()
     tr = grpo_r1.build_trainer(cfg, device="cuda")
     log(f"  grpo_r1.build_trainer: {time.perf_counter() - t0:.3f} s")
     try:
-        counts = r1_train(torch, tr, seen)
+        counts = r1_train(torch, tr, seen, updates)
         log("  (b) buckets at spread lengths, full depth and width")
         r1_buckets(torch, tr)
     finally:
@@ -3868,14 +3895,14 @@ def r1_zero(torch, seen: dict) -> dict:
     return counts
 
 
-def r1_train(torch, tr, seen: dict) -> dict:
+def r1_train(torch, tr, seen: dict, updates: int = 2) -> dict:
     """Phase 11 (a): the launcher's trainer `tr` with its reward wrapped
     (graded, then replaced by the planted one) and its accuracy eval on
-    the first 16 questions, trained 2 updates with the kernel counts reset
-    just before; then the forked grader probed while a checkpoint write is
-    in flight. Fails unless each update kept rows, launched K2/K3 and K10
-    and gave a finite loss, and the checkpoints committed. Returns the
-    launch counts of the 2 updates."""
+    the first 16 questions, trained `updates` updates with the kernel
+    counts reset just before; then the forked grader probed while a
+    checkpoint write is in flight. Fails unless each update kept rows,
+    launched K2/K3 and K10 and gave a finite loss, and the checkpoints
+    committed. Returns the launch counts of the updates."""
     import math
 
     import numpy as np
@@ -3906,13 +3933,14 @@ def r1_train(torch, tr, seen: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with recording_all_shapes(seen):
-        state = tr.train(2)
+        state = tr.train(updates)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     latest, writer_s = tr.ckpt.latest_step(), tr.ckpt.last_write_s
-    log(f"  (a) SparseGRPOTrainer.train: {wall:.3f} s for 2 updates and 3 evals; state "
+    log(f"  (a) SparseGRPOTrainer.train: {wall:.3f} s for {updates} updates and "
+        f"{updates + 1} evals; state "
         f"{state}; launches {counts}; peak {peak:.2f} GB")
     rows = cfg.batch_size * cfg.sample_n
     for rec in tr.update_log:
@@ -3952,9 +3980,10 @@ def r1_train(torch, tr, seen: dict) -> dict:
         for name in ("flash_bwd_dq", "flash_bwd_dkv", "fused_logprob", "flash_fwd"):
             if upd[name] <= 0:
                 fail(f"update {rec['index'] + 1}: {name} never launched by the update")
-    if len(tr.update_log) != 2 or latest != 2:
+    if len(tr.update_log) != updates or latest != updates:
         fail(f"{len(tr.update_log)} updates, latest checkpoint {latest}")
-    log(f"  checkpoint-2 committed; the last write took {writer_s:.3f} s on the writer")
+    log(f"  checkpoint-{updates} committed; the last write took {writer_s:.3f} s on the "
+        f"writer")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
                  "decode_attention"):
         if counts[name] <= 0:
@@ -4550,14 +4579,15 @@ def other_routes(torch, max_tokens: int, seen: dict, card: str, cold: bool = Fal
     return counts
 
 
-def hold_new_shapes(torch, F, seen: dict, held: dict, max_tokens: int) -> None:
-    """Phase 2's holds at the shapes phase 12 gave K1, K2/K3, K10 and K4
+def hold_new_shapes(torch, F, seen: dict, held: dict, max_tokens: int,
+                    phase: int = 12) -> None:
+    """Phase 2's holds at the shapes `phase` gave K1, K2/K3, K10 and K4
     that no earlier phase held (`held`)."""
     fwd_new = sorted(set(seen["fwd"]) - held["fwd"], key=lambda s: (-s[3], -s[0]))
     bwd_new = {s[1:6] for s in seen["bwd"]} - held["bwd"]
     fused_new = set(seen["fused"]) - held["fused"]
     dec_new = sorted(set(seen["decode"]) - held["decode"], key=lambda s: (-s[1], s[0]))
-    log(f"  shapes phase 12 gave the kernels: K1 {dict(seen['fwd'])}; K2/K3 "
+    log(f"  shapes phase {phase} gave the kernels: K1 {dict(seen['fwd'])}; K2/K3 "
         f"{dict(seen['bwd'])}; K10 {dict(seen['fused'])}; K4 {dict(seen['decode'])}; not "
         f"held before: K1 {fwd_new}, K2/K3 {sorted(bwd_new)}, K10 {sorted(fused_new)}, "
         f"K4 {dec_new}")
@@ -4577,6 +4607,485 @@ def routes_entries(counts: dict) -> dict:
     read just after)."""
     return {name: {route: c[name] for route, c in counts.items()}
             for name in ROUTE_KERNELS}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the host planes on the GRPO main path
+# --------------------------------------------------------------------------
+
+# phase 13's knobs on top of phase 4's config (health, latency, the
+# sentinel, graceful preemption and reward_retries at their defaults)
+HOST_KNOBS = dict(telemetry=True, lineage=True, status_port=-1, profile_at_step=3,
+                  save_steps=1, fault_spec="update.step:at=2,action=nan")
+HOST_UPDATES = 3
+# every plane off: the other side of the overhead reading
+PLANES_OFF = dict(telemetry=False, lineage=False, status_port=0, health=False,
+                  latency=False, sentinel=False, graceful_preemption=False,
+                  reward_retries=0, save_steps=1)
+# the metric row's keys at phase 13's config, the set
+# tests/test_torch_observability.py pins on the CPU for the same config
+HOST_ROW_KEYS = frozenset(
+    ["step", "episode", "time", "t_mono", "eps", "lr", "sec_per_episode",
+     "eval_objective/rlhf_reward_old", "eval_objective/scores_old",
+     "objective/entropy_old", "objective/kl_old", "objective/kl_rollout_old",
+     "objective/non_score_reward_old", "loss/policy_avg_new",
+     "policy/approxkl_avg_new", "policy/clipfrac_avg_new", "policy/entropy_avg_new",
+     "policy/grad_norm_new", "val/num_eos_tokens_old", "val/ratio_new",
+     "val/ratio_var_new", "mem/logits_bytes_saved", "mem/peak_bytes_in_use",
+     "time/rollout_s", "time/reward_s", "time/logprob_s", "time/update_s",
+     "time/rollout_overlap_frac", "telemetry/spans_dropped"]
+    + [f"perf/{k}" for k in ("mfu", "model_flops_per_step", "peak_flops_known",
+                             "recompile_seconds", "recompiles", "tokens_per_sec_rollout",
+                             "tokens_per_sec_step", "tokens_per_sec_update")]
+    + [f"resilience/{k}" for k in ("ckpt_fallbacks", "ckpt_retries", "degraded_mode",
+                                   "producer_restarts", "rollbacks")]
+    + [f"health/{k}" for k in ("rules_crit", "rules_warn", "trips", "verdict")]
+    + [f"health/rule_{k}" for k in (
+        "draft_acceptance_degradation", "entropy_collapse", "fleet_quarantine_rate",
+        "fleet_reassignment_rate", "heartbeat_miss_rate", "kl_blowup",
+        "queue_starvation", "recompile_storm", "reward_collapse", "reward_drift",
+        "rpc_error_rate", "slo_queue_wait_p99", "slo_rpc_rtt_p95", "slo_ttft_p95")])
+# the device kernels of K1, K2, K3, K10 and K4 as torch.profiler names them
+PROFILED_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                    "fused_logprob": "fused_partial_kernel",
+                    "decode_attention": "decode_kernel"}
+HOST_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                "decode_attention", "decode_verify_attention", "paged_decode_attention")
+
+
+def _host_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_host", *parts)
+
+
+def _host_cfg(max_tokens: int, out: str, **knobs):
+    """Phase 4's config (the one-card cut, `max_tokens` responses) writing
+    to `out`, with `knobs` on top."""
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+
+    cfg = one_card_cut(build_config())
+    cfg.response_length = max_tokens
+    cfg.output_dir = out
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _scrape(port: int) -> dict:
+    import urllib.request
+
+    out = {}
+    for ep in ("/metrics", "/healthz", "/statusz"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{ep}", timeout=30) as r:
+            out[ep] = (r.status, r.read().decode())
+    return out
+
+
+def _decode_ms(t: dict) -> float:
+    return t["decode_s"] / max(t["decode_steps"], 1) * 1e3
+
+
+def _trace_kernel_counts(path: str) -> tuple[collections.Counter, int]:
+    """(device kernel events by PROFILED_KERNELS name, all events) of a
+    torch.profiler Chrome trace, read in blocks: a profiled update's trace
+    runs to GBs, too large to load as one JSON document."""
+    pat = re.compile(rb'"cat":\s*"kernel",\s*"name":\s*"([^"\n]*)"')
+    counts: collections.Counter = collections.Counter()
+    events, tail = 0, b""
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(1 << 26)
+            buf = tail + block
+            # a match starts at a "cat" key: keep the last one for the next
+            # block, it may be cut
+            cut = buf.rfind(b'"cat"') if block else len(buf)
+            cut = len(buf) if cut < 0 else cut
+            for m in pat.finditer(buf, 0, cut):
+                name = m.group(1).decode(errors="replace")
+                for kname, fn in PROFILED_KERNELS.items():
+                    if fn in name:
+                        counts[kname] += 1
+            events += buf.count(b'"ph"', 0, cut)
+            tail = buf[cut:]
+            if not block:
+                return counts, events
+
+
+def host_main_train(torch, max_tokens: int, seen: dict) -> dict:
+    """Phase 4's config with HOST_KNOBS for HOST_UPDATES updates, the kernel
+    counts reset just before `train` and read just after; the exporter
+    scraped while the run is live (during update 2's replay). Returns the
+    open trainer and what (a)-(f) check."""
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+
+    out = _host_dir("planes")
+    shutil.rmtree(_host_dir(), ignore_errors=True)
+    tr = build_trainer(_host_cfg(max_tokens, out, **HOST_KNOBS), device="cuda")
+    log(f"  planes: {HOST_KNOBS}; health={tr.cfg.health} latency={tr.cfg.latency} "
+        f"sentinel={tr.cfg.sentinel} graceful_preemption={tr.cfg.graceful_preemption} "
+        f"reward_retries={tr.cfg.reward_retries}; status port {tr.exporter.port}")
+    real_reward, calls, scraped = tr.reward_func, [0], {}
+
+    def reward(texts, eos):
+        calls[0] += 1
+        if calls[0] == 3:   # the replayed update 2: rows exist, the run is live
+            scraped.update(_scrape(tr.exporter.port))
+        return real_reward(texts, eos)
+
+    tr.reward_func = reward
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_all_shapes(seen):
+        state = tr.train(num_updates=HOST_UPDATES)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"  {HOST_UPDATES} updates (and the rolled-back one) in "
+        f"{time.perf_counter() - t0:.1f} s, the profiled update's trace export "
+        f"included; launches {_nonzero(counts)}")
+    return dict(trainer=tr, out=out, state=state, counts=counts, scraped=scraped,
+                k4_profiled=tr.last_launches["generate"]["decode_attention"])
+
+
+def host_main_checks(run: dict) -> None:
+    """(a)-(f) on the main run's files, rows and scrape (host work only: the
+    SIGTERM child starts its trainer meanwhile)."""
+    import json
+    import os
+
+    from nanorlhf_tpu_torch.telemetry import (
+        read_ledger,
+        validate_prometheus_text,
+        validate_trace_file,
+    )
+
+    tr, out, state, counts, scraped = (run[k] for k in ("trainer", "out", "state",
+                                                        "counts", "scraped"))
+    # (a) the rollback
+    bb_path = os.path.join(out, "blackbox_2.json")
+    bb = json.load(open(bb_path)) if os.path.isfile(bb_path) else {}
+    log(f"  (a) state {state}; rollbacks {tr.sentinel.rollbacks}, quarantined "
+        f"{sorted(tr.sentinel.quarantined)}, latest checkpoint {tr.ckpt.latest_step()}, "
+        f"blackbox_2 {bb.get('reason')} {bb.get('extra')}")
+    if (state["global_step"] != HOST_UPDATES or tr.sentinel.rollbacks != 1
+            or tr.sentinel.quarantined != {1} or tr.ckpt.latest_step() != HOST_UPDATES
+            or bb.get("reason") != "sentinel_trip"):
+        fail("(a) the sentinel's rollback did not go as planned")
+    # (b) the trace
+    trace_path = os.path.join(out, "trace.json")
+    errors = validate_trace_file(trace_path)
+    events = json.load(open(trace_path))["traceEvents"]
+    names = collections.Counter(e["name"] for e in events if e["ph"] != "M")
+    updates = [e["args"] for e in events if e["name"] == "train.update"]
+    tagged = [u for u in updates if u.get("quarantined")]
+    log(f"  (b) trace.json: {len(events)} events, schema errors {errors[:3]}; spans "
+        f"{dict(sorted(names.items()))}")
+    if errors or len(updates) - len(tagged) != HOST_UPDATES or len(tagged) != 1:
+        fail(f"(b) trace.json: errors {errors[:3]}, train.update {len(updates)} spans, "
+             f"{len(tagged)} tagged quarantined")
+    want = {"ckpt.save", "ckpt.write", "ckpt.restore", "reward.dispatch",
+            "trainer.rollout", "trainer.reward", "trainer.logprob", "trainer.update"}
+    if not want <= set(names):
+        fail(f"(b) trace.json lacks the spans {sorted(want - set(names))}")
+    # (c) the lineage ledger
+    chains: dict = {}
+    for e in read_ledger(out):
+        if e.get("rollout_index") is not None and e["type"] != "sample":
+            kind = e["type"] + (":" + e["reason"] if e["type"] == "drop" else "")
+            chains.setdefault(e["rollout_index"], []).append(kind)
+    log(f"  (c) lineage chains: { {i: c for i, c in sorted(chains.items())} }")
+    if any(chains.get(i, [""])[-1] != "outcome" for i in (0, 2, 3)) or \
+            chains.get(1, [""])[-1] != "drop:sentinel_quarantine":
+        fail("(c) the lineage chains do not end as planned")
+    # (d) the exporter, scraped during update 3
+    if not scraped:
+        fail("(d) the exporter was not scraped during the run")
+    problems = validate_prometheus_text(scraped["/metrics"][1])
+    statusz = json.loads(scraped["/statusz"][1])
+    log(f"  (d) /metrics {scraped['/metrics'][0]} ({len(scraped['/metrics'][1])} bytes, "
+        f"problems {problems[:3]}); /healthz {scraped['/healthz']}; /statusz "
+        f"{scraped['/statusz'][0]} keys {sorted(statusz)}")
+    if scraped["/metrics"][0] != 200 or problems or scraped["/healthz"][0] != 200 \
+            or scraped["/statusz"][0] != 200:
+        fail("(d) the status endpoints did not answer as they should")
+    # (e) the profile window's Chrome trace of update 3
+    prof_paths = tr.profile_window.paths
+    if len(prof_paths) != 1 or not os.path.isfile(prof_paths[0]):
+        fail(f"(e) the profile window wrote {prof_paths}")
+    t0 = time.perf_counter()
+    kernel_events, n_events = _trace_kernel_counts(prof_paths[0])
+    log(f"  (e) {os.path.basename(prof_paths[0])}: {os.path.getsize(prof_paths[0]) / 1e6:.1f} "
+        f"MB, {n_events} events (read in {time.perf_counter() - t0:.1f} s); device kernel "
+        f"events {dict(kernel_events)}; K4's graph-replayed launches in that update "
+        f"{run['k4_profiled']}, shown: {kernel_events['decode_attention'] > 0}")
+    missing = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob")
+               if kernel_events[k] == 0]
+    if missing:
+        fail(f"(e) the profile window's trace names no device kernel of {missing}")
+    # (f) the metric rows
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    steps = [r for r in rows if "episode" in r]
+    m = steps[-1]
+    log(f"  (f) perf/mfu {[round(r['perf/mfu'], 6) for r in steps]} (peak known "
+        f"{m['perf/peak_flops_known']}), perf/recompiles {m['perf/recompiles']}, "
+        f"time/rollout_overlap_frac {m['time/rollout_overlap_frac']:.4f}, health/verdict "
+        f"{m['health/verdict']}, resilience/rollbacks {m['resilience/rollbacks']}")
+    if len(steps) != HOST_UPDATES or any(set(r) != HOST_ROW_KEYS for r in steps):
+        fail(f"(f) the rows' keys differ from HOST_ROW_KEYS: "
+             f"{sorted(set(m) ^ HOST_ROW_KEYS)}")
+    if not all(0 < r["perf/mfu"] < 1 for r in steps) or m["perf/peak_flops_known"] != 1.0:
+        fail("(f) perf/mfu outside (0, 1) or the peak not known")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                 "decode_attention"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on phase 13's main run")
+
+
+def host_traced_spec(torch, tr, prompts, pad_id: int, seen_verify) -> dict:
+    """(g): the traced speculative rollout (spec_k 4, greedy, 64 tokens, 16
+    prompts) against the compiled loop's tokens, on the trainer's policy;
+    the counts reset just before the traced run and read just after."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+    from nanorlhf_tpu_torch.telemetry import SpanTracer
+
+    q = torch.as_tensor(prompts, device="cuda").long()
+    sp = SamplingParams(greedy=True, max_tokens=64, spec_k=4, n=1)
+    kw = dict(eos_token_id=tr.tokenizer.eos_token_id, pad_token_id=pad_id,
+              lora_scale=tr.lora_scale)
+    t_graph, st_graph = {}, []
+    graph_out = generate(tr.params, tr.mcfg, q, q != pad_id, torch.Generator(device="cuda"),
+                         sp, timings=t_graph, spec_stats_out=st_graph, **kw)
+    tracer, t_traced, st_traced = SpanTracer(enabled=True), {}, []
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with recording_verify_shapes(seen_verify):
+        traced_out = generate(tr.params, tr.mcfg, q, q != pad_id,
+                              torch.Generator(device="cuda"), sp, timings=t_traced,
+                              spec_stats_out=st_traced, tracer=tracer, **kw)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    spans = [e for e in tracer.trace_events() if e["ph"] == "X"]
+    steps = int(st_traced[0]["verify_steps"])
+    verify_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "rollout.verify"]
+    draft_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "rollout.draft"]
+    pairs = [(e["name"], e["args"]["iteration"]) for e in spans]
+    same = torch.equal(traced_out, graph_out)
+    log(f"  (g) traced speculative rollout, 16 rows greedy 64 tokens: tokens equal to the "
+        f"graph loop's: {same}; verify steps {steps} (graph loop "
+        f"{int(st_graph[0]['verify_steps'])}); verify step {sum(verify_ms) / len(verify_ms):.3f} "
+        f"ms mean (min {min(verify_ms):.3f}, max {max(verify_ms):.3f}), draft "
+        f"{sum(draft_ms) / len(draft_ms):.3f} ms; graph loop "
+        f"{_decode_ms(t_graph):.3f} ms a verify step (its capture included); launches "
+        f"{_nonzero(counts)}")
+    if not same or pairs != [(n, i) for i in range(steps)
+                             for n in ("rollout.draft", "rollout.verify")]:
+        fail("(g) the traced speculative loop: tokens differ from the graph loop's, or "
+             "not one draft/verify span pair an iteration")
+    if counts["decode_verify_attention"] <= 0:
+        fail("kernel decode_verify_attention was never launched in phase 13 (g)")
+    return counts
+
+
+def host_queued_ttft(torch, tr, queries, pad_id: int, max_tokens: int) -> dict:
+    """(h): a queued-session rollout at phase 5's config (page size 128, 32
+    resident rows, 16 prompts x 4 samples, sampled) with a latency hub: one
+    `latency/ttft_s` per admitted row; the counts reset just before it and
+    read just after."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.sampler.sampler import generate
+    from nanorlhf_tpu_torch.telemetry import LatencyHub
+    from nanorlhf_tpu_torch.trainer.rollout import rollout_generator, sampling_params
+
+    cfg = _host_cfg(max_tokens, _host_dir("queued"), rollout_page_size=128,
+                    rollout_decode_rows=32)
+    hub = LatencyHub()
+    q = torch.as_tensor(queries, device="cuda").long()
+    stats, t = [], {}
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    generate(tr.params, tr.mcfg, q, q != pad_id, rollout_generator(cfg.seed, 0, "cuda"),
+             sampling_params(cfg), eos_token_id=tr.tokenizer.eos_token_id,
+             pad_token_id=pad_id, lora_scale=tr.lora_scale, timings=t,
+             paged_stats_out=stats, latency=hub)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    snap = hub.snapshot()
+    ttft, gap = snap["latency/ttft_s"], snap.get("latency/intertoken_s", {})
+    rows = q.shape[0] * cfg.sample_n
+    log(f"  (h) queued session, {q.shape[0]} prompts x {cfg.sample_n}, 32 resident rows: "
+        f"latency/ttft_s count {ttft['count']} (rows {rows}, admitted mid-loop "
+        f"{stats[0]['admitted_midloop']}), p50 {ttft['p50_s'] * 1e3:.2f} ms, p95 "
+        f"{ttft['p95_s'] * 1e3:.2f} ms; latency/intertoken_s count {gap.get('count')}, "
+        f"p50 {gap.get('p50_s', 0) * 1e3:.3f} ms, p95 {gap.get('p95_s', 0) * 1e3:.3f} ms; "
+        f"decode {_decode_ms(t):.3f} ms a step; launches {_nonzero(counts)}")
+    if ttft["count"] != rows:
+        fail(f"(h) {ttft['count']} TTFT records for {rows} admitted rows")
+    if counts["paged_decode_attention"] <= 0:
+        fail("kernel paged_decode_attention was never launched in phase 13 (h)")
+    return counts
+
+
+def sigterm_child(out: str, max_tokens: int) -> None:
+    """The child of (i): phase 4's trainer with save_steps=0; on update 2's
+    reward it leaves a marker beside `out` and waits for the SIGTERM (the
+    guard's flag) before scoring. Prints one JSON line: the `Preempted`
+    message, the step and the latest committed checkpoint."""
+    import json
+    import os
+
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.resilience import Preempted
+
+    tr = build_trainer(_host_cfg(max_tokens, out, save_steps=0), device="cuda")
+    try:
+        real, calls = tr.reward_func, [0]
+
+        def reward(texts, eos):
+            calls[0] += 1
+            if calls[0] == 2:
+                open(out + ".reward2", "w").close()
+                deadline = time.monotonic() + 300
+                while not tr._preemption.triggered:
+                    if time.monotonic() > deadline:
+                        fail("child: no SIGTERM arrived during update 2's reward")
+                    time.sleep(0.05)
+            return real(texts, eos)
+
+        tr.reward_func = reward
+        try:
+            tr.train(num_updates=3)
+        except Preempted as e:
+            print(json.dumps({"preempted": str(e), "global_step": tr.state["global_step"],
+                              "latest": tr.ckpt.latest_step(),
+                              "files": sorted(os.listdir(out))}), flush=True)
+            return
+        fail("child: trained through the SIGTERM")
+    finally:
+        tr.close()
+
+
+@contextlib.contextmanager
+def sigterm_child_process(max_tokens: int):
+    """(i), started: a child process running phase 4's trainer with
+    save_steps=0 (`sigterm_child`), killed on the way out if it is still
+    running. Yields (the Popen, its output directory, its log, the start)."""
+    import os
+
+    out = _host_dir("sigterm")
+    log_path = _host_dir("sigterm_child.log")
+    os.makedirs(_host_dir(), exist_ok=True)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sigterm-child", out,
+             "--max-tokens", str(max_tokens)], stdout=logf, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            yield child, out, log_path, t0
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+
+def host_sigterm(child, out: str, log_path: str, t0: float) -> None:
+    """(i): SIGTERM to the child during update 2's reward: it raises
+    `Preempted` with checkpoint 2 committed."""
+    import json
+    import os
+    import signal
+
+    deadline = time.monotonic() + 400
+    while not os.path.exists(out + ".reward2"):
+        if child.poll() is not None or time.monotonic() > deadline:
+            fail(f"(i) the child ended (rc {child.returncode}) or stalled before "
+                 f"update 2's reward; its log ends: {open(log_path).read()[-2000:]}")
+        time.sleep(0.2)
+    t_kill = time.perf_counter()
+    os.kill(child.pid, signal.SIGTERM)
+    rc = child.wait(timeout=400)
+    tail = open(log_path).read().splitlines()
+    result = next((json.loads(line) for line in reversed(tail) if line.startswith("{")), {})
+    log(f"  (i) child rc {rc}: SIGTERM after {t_kill - t0:.1f} s, the child done "
+        f"{time.perf_counter() - t_kill:.1f} s later: {result}")
+    if rc != 0 or result.get("latest") != 2 or result.get("global_step") != 2 \
+            or "emergency checkpoint" not in result.get("preempted", ""):
+        fail(f"(i) the child did not commit its emergency checkpoint; its log ends: "
+             f"{tail[-20:]}")
+
+
+def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card: str,
+                seen: dict, seen_verify) -> dict:
+    """Phase 13 (module docstring). Returns each kernel's launches in the
+    run of phase 13 that ran it."""
+    import shutil
+
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+
+    t_phase = time.perf_counter()
+    run = host_main_train(torch, max_tokens, seen)
+    on, counts = run["trainer"], run["counts"]
+    # the child builds its trainer and trains while this process checks
+    # the main run's files; nothing here is timed until the child is done
+    with sigterm_child_process(max_tokens) as (child, sig_out, log_path, t0):
+        host_main_checks(run)
+        host_sigterm(child, sig_out, log_path, t0)
+    counts_g = host_traced_spec(torch, on, prompts16, pad_id, seen_verify)
+    counts_h = host_queued_ttft(torch, on, queries16, pad_id, max_tokens)
+    # a fresh trainer, every plane off, resumes the child's emergency
+    # checkpoint, then serves as the planes-off side of the overhead reading
+    off = build_trainer(_host_cfg(max_tokens, sig_out, **PLANES_OFF), device="cuda")
+    state = off.resume_from_checkpoint()
+    log(f"  (i) a fresh trainer resumed the child's checkpoint at step "
+        f"{state['global_step']} (rollouts {state['rollouts']})")
+    if state["global_step"] != 2:
+        fail(f"(i) the fresh trainer resumed at step {state['global_step']}, not 2")
+    # its first update warms up (the staging buffers' first allocation)
+    off.train(num_updates=1)
+    log(f"  planes off, warm-up: update_s={off.last_timings['update_s']:.3f} "
+        f"checkpoint_blocking_s={off.last_save_s:.3f}")
+    readings = {"off": [], "on": []}
+    for side in ("off", "on", "off", "on"):
+        tr = off if side == "off" else on
+        tr.train(num_updates=1)
+        t = tr.last_timings
+        readings[side].append((t["update_s"], _decode_ms(t)))
+        log(f"  planes {side}: update_s={t['update_s']:.3f} decode {_decode_ms(t):.3f} "
+            f"ms/step rollout_s={t['generate_s']:.3f} checkpoint_blocking_s="
+            f"{tr.last_save_s:.3f} (card: {card})")
+    mean = {s: [sum(x[i] for x in r) / len(r) for i in (0, 1)] for s, r in readings.items()}
+    log(f"  overhead of the planes: update_s {mean['off'][0]:.3f} -> {mean['on'][0]:.3f} "
+        f"({mean['on'][0] / mean['off'][0]:.3f}x), decode {mean['off'][1]:.3f} -> "
+        f"{mean['on'][1]:.3f} ms/step ({mean['on'][1] / mean['off'][1]:.3f}x), in turns "
+        f"off/on/off/on (card: {card})")
+    _free(torch, off)
+    _free(torch, on)
+    shutil.rmtree(_host_dir(), ignore_errors=True)
+    log(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s (card: {card})")
+    out = {name: counts[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                           "fused_logprob", "decode_attention")}
+    out["decode_verify_attention"] = counts_g["decode_verify_attention"]
+    out["paged_decode_attention"] = counts_h["paged_decode_attention"]
+    return out
+
+
+def hold_host_verify(torch, seen_verify, held: set, pad_max: int) -> None:
+    """K6 at the verify shapes phase 13 (g) gave it that no earlier phase
+    held, as phase 2 holds it."""
+    new = sorted(set(seen_verify) - held)
+    log(f"  verify shapes phase 13 gave K6 (name, B, H, Tq, hd, KV, T): {dict(seen_verify)}; "
+        f"not held before: {new}")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name, B, H, Tq, hd, KV, T in new:
+        _hold_verify(torch, f"phase 13 B={B} T={T}",
+                     _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max))
 
 
 # --holds: the kernel source each hold set builds
@@ -4698,6 +5207,11 @@ def main() -> None:
                     help="build, then run only phase 12 (remat_policy='dots', the naive "
                          "update branch and int8 rollout weights) and the holds of the "
                          "kernels at the shapes it gives them")
+    ap.add_argument("--host", action="store_true",
+                    help="build, then run only phase 13 (the host planes on the GRPO "
+                         "main path) and the holds of the kernels at the shapes it "
+                         "gives them")
+    ap.add_argument("--sigterm-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
                          "gives the kernels, and phase 9 (one update of each of RLOO, "
@@ -4712,6 +5226,45 @@ def main() -> None:
         sys.exit(2)
     # the port lives beside this script; with nothing else of the repo
     # present the import fails here, before any result is printed
+    from nanorlhf_tpu_torch import _build  # noqa: F401
+
+    if args.sigterm_child:
+        # phase 13 (i)'s child: the kernels are built, this only loads them
+        sigterm_child(args.sigterm_child, min(args.max_tokens, 512))
+        return
+    with closing_trainers():
+        run(args, torch, F)
+
+
+@contextlib.contextmanager
+def closing_trainers():
+    """Close every trainer built inside (each holds a SIGTERM guard, maybe a
+    status port and a checkpoint writer), also when a phase fails; a
+    trainer's close() is idempotent. The trainers are held weakly: a phase
+    that drops its trainer frees its device memory."""
+    import weakref
+
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+
+    built, real_init = weakref.WeakSet(), trainer_mod.RLTrainer.__init__
+
+    def init(self, *a, **k):
+        built.add(self)
+        real_init(self, *a, **k)
+
+    trainer_mod.RLTrainer.__init__ = init
+    try:
+        yield
+    finally:
+        trainer_mod.RLTrainer.__init__ = real_init
+        for tr in list(built):
+            try:
+                tr.close()
+            except Exception as e:
+                print(f"closing a trainer: {type(e).__name__}: {e}", file=sys.stderr)
+
+
+def run(args, torch, F) -> None:
     from nanorlhf_tpu_torch import _build
     from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
     from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
@@ -4749,6 +5302,8 @@ def main() -> None:
     resp = args.max_tokens
     phase8_prompts = depad_queries(next(ds.loader(16, 4)), tok.pad_token_id,
                                    shape_menu(ds.input_ids.shape[1], 16))
+    phase5_queries = depad_queries(next(ds.loader(16, 2)), tok.pad_token_id,
+                                   shape_menu(ds.input_ids.shape[1], 16))
     if args.graph_loops:
         log("phase 8: the compiled decode loop, graph replay against the per-step body")
         graph_loops(torch, phase8_prompts, tok.pad_token_id)
@@ -4781,6 +5336,21 @@ def main() -> None:
         log(json.dumps({"r1_kernels": r1_entries(r1, counts11)}))
         log(f"r1: every hold and check passed; total wall {time.perf_counter() - t_all:.1f} "
             f"s; card: {card}")
+        return
+    if args.host:
+        short = min(resp, 512)
+        log("phase 13: the host planes on the GRPO main path, Qwen2.5-1.5B width")
+        seen13 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        seen13v: collections.Counter = collections.Counter()
+        counts13 = host_planes(torch, short, phase8_prompts, phase5_queries,
+                               tok.pad_token_id, card, seen13, seen13v)
+        log("  the kernels at the shapes phase 13 gave them, against their plain versions")
+        hold_new_shapes(torch, F, seen13, {k: set() for k in seen13}, short, phase=13)
+        hold_host_verify(torch, seen13v, set(), prompt_width)
+        check_paged(torch, F, prompt_width, short)
+        log(json.dumps({"host_kernels": counts13}))
+        log(f"host: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.routes:
         log("phase 12: the update's and the rollout's other routes (remat_policy='dots', "
@@ -4908,10 +5478,7 @@ def main() -> None:
     log("phase 5: one GRPO update over continuous batching (paged KV cache, "
         "page size 128, 32 resident rows), Qwen2.5-1.5B width")
     counts5 = paged_update(torch, short)
-    staggered_queue(torch, _demo_config(),
-                    depad_queries(next(ds.loader(16, 2)), tok.pad_token_id,
-                                  shape_menu(ds.input_ids.shape[1], 16)),
-                    tok.pad_token_id)
+    staggered_queue(torch, _demo_config(), phase5_queries, tok.pad_token_id)
 
     log("phase 6: GRPO rollout-and-score with the int8 KV cache (contiguous, "
         "then paged + queued), Qwen2.5-1.5B width")
@@ -4974,7 +5541,9 @@ def main() -> None:
     log("phase 11: sparse GRPO and the R1-Zero launcher, 8,000-token responses, "
         "Qwen2-1.5B width, full depth")
     r1_seen = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
-    counts11 = r1_zero(torch, r1_seen)
+    log("CUT: phase 11 trains 1 update here (`--r1` trains the launcher's 2), so "
+        "that the whole script stays inside its time limit with phase 13")
+    counts11 = r1_zero(torch, r1_seen, updates=1)
     log("  the kernels at the shapes phase 11 gave them, against their plain versions")
     r1 = r1_entries(hold_r1_shapes(torch, F, r1_seen), counts11)
 
@@ -4990,6 +5559,22 @@ def main() -> None:
         "fused": fused_shapes | fused9 | set(r1_seen["fused"]),
         "decode": set(decode_shapes) | set(r1_seen["decode"])}, short)
     routes = routes_entries(counts12)
+
+    log("phase 13: the host planes on the GRPO main path, Qwen2.5-1.5B width")
+    seen13 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    seen13v: collections.Counter = collections.Counter()
+    host = host_planes(torch, short, phase8_prompts, phase5_queries, tok.pad_token_id,
+                       card, seen13, seen13v)
+    log("  the kernels at the shapes phase 13 gave them that no earlier phase held, "
+        "against their plain versions")
+    hold_new_shapes(torch, F, seen13, {
+        "fwd": {fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"]),
+        "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
+                | {s[1:6] for s in seen12["bwd"]}),
+        "fused": fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"]),
+        "decode": set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])},
+        short, phase=13)
+    hold_host_verify(torch, seen13v, {("decode_verify_attention",) + k6_shape}, prompt_width)
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
@@ -5014,6 +5599,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"r1": r1[name]} if name in r1 else {}),
             **({"routes": routes[name]} if name in routes else {}),
+            **({"host": host[name]} if name in host else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -19,6 +19,10 @@ ran. Several kernels may share one source (the flash backward's `dq` and
 `dkv` live in `flash_bwd.cu`, the four decode and two verify kernels in
 `decode_attention.cu`): each keeps its own counter, the source is built
 once.
+
+A build and a library load each report their seconds to the listeners
+registered with `on_compile` (the trainer's `perf/recompiles` counter,
+`telemetry/mfu.py`): the port's counterpart of XLA's backend compiles.
 """
 
 from __future__ import annotations
@@ -77,6 +81,20 @@ def nvcc_path() -> str:
         "from csrc/ at first use and cannot run without the CUDA toolkit")
 
 
+_compile_listeners: list = []
+
+
+def on_compile(listener) -> None:
+    """Call `listener(what, seconds)` after every nvcc build and every
+    library load of this process from now on."""
+    _compile_listeners.append(listener)
+
+
+def _notify_compile(what: str, seconds: float) -> None:
+    for listener in list(_compile_listeners):
+        listener(what, seconds)
+
+
 class Kernel:
     """One CUDA source, its shared library, and its launch counter."""
 
@@ -113,25 +131,29 @@ class Kernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         proc = subprocess.Popen(self.compile_command(tmp),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        return proc, tmp
+        return proc, tmp, t0
 
     def finish_build(self, started) -> None:
-        proc, tmp = started
+        proc, tmp, t0 = started
         out, _ = proc.communicate()
         self.build_log = out
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
         os.replace(tmp, self.library_path())
+        _notify_compile(f"nvcc {self.source_name}", time.perf_counter() - t0)
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
             started = self.start_build()
             if started is not None:
                 self.finish_build(started)
+            t0 = time.perf_counter()
             self._lib = ctypes.CDLL(str(self.library_path()))
+            _notify_compile(f"load {self.name}", time.perf_counter() - t0)
         return self._lib
 
     def function(self, symbol: str, argtypes: list) -> ctypes._CFuncPtr:

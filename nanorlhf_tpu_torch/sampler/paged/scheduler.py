@@ -44,7 +44,7 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                            decode_loop: str = "chunked",
                            paged_stats_out: list | None = None,
                            spec_stats_out: list | None = None,
-                           timings: dict | None = None):
+                           timings: dict | None = None, latency=None):
     """The `generate_tokens` contract over the whole queue ([Q, Tp]
     left-padded prompts → [Q, max_tokens] in queue order, or (tokens,
     logprobs)), with only `decode_rows` rows resident at a time.
@@ -65,7 +65,11 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
     `decode_steps` (decode iterations that ran with a live row),
     `admissions`, and the session loop's `graph_capture_s`,
     `graph_steps_run`, `graph_replays` and `graph_pool_bytes` — wall seconds,
-    device-synchronized."""
+    device-synchronized.
+
+    `latency` (an enabled `telemetry.LatencyHub`): the session records one
+    `latency/ttft_s` per request and one `latency/intertoken_s` per chunk
+    (`DecodeSession`)."""
     Q, Tp = prompt_ids.shape
     R = min(int(decode_rows), Q)
     device = prompt_ids.device
@@ -76,7 +80,7 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
         temperature=temperature, top_p=top_p, greedy=greedy, top_k=top_k,
         approx_top_k=approx_top_k, capture_logprobs=capture_logprobs,
         lora_scale=lora_scale, spec_k=spec_k, spec_ngram=spec_ngram,
-        sync_every=sync_every, decode_loop=decode_loop)
+        sync_every=sync_every, decode_loop=decode_loop, latency=latency)
     prompt_np = prompt_ids.cpu().numpy()
     pmask_np = prompt_mask.bool().cpu().numpy()
 

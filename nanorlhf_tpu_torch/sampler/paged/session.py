@@ -45,6 +45,12 @@ Choices where the port differs from JAX's jitted chunk:
     lands on the scratch page, past `max_tokens`, where the emission clamp
     cuts it.
 
+With an enabled `latency` hub (`telemetry.LatencyHub`) the session records,
+as JAX's does, one `latency/ttft_s` per admitted request (the bootstrap's
+rows: the batched prefill's wall; a mid-loop admission: from the `admit`
+call to its first token, synchronized) and one `latency/intertoken_s` per
+chunk (the chunk's wall over the iterations it advanced).
+
 The serving mode (`per_row`), the radix prefix cache (and with it the
 drafter's seed window) and chunked prefill are not ported: asking for them
 raises NotImplementedError.
@@ -52,6 +58,7 @@ raises NotImplementedError.
 
 from __future__ import annotations
 
+import time
 
 import numpy as np
 import torch
@@ -70,6 +77,7 @@ from nanorlhf_tpu_torch.sampler.sampler import (
     _sample_token,
     _token_logprob,
     stream_generator,
+    sync_device,
 )
 from nanorlhf_tpu_torch.sampler.speculative import (
     _draft_fn,
@@ -91,7 +99,8 @@ class DecodeSession:
                  temperature=1.0, top_p=0.95, greedy=False, top_k=64,
                  approx_top_k=True, capture_logprobs=False, lora_scale=1.0,
                  per_row=False, spec_k=0, spec_ngram=3, prefix_cache=None,
-                 prefill_chunk=0, sync_every=SYNC_EVERY, decode_loop="chunked"):
+                 prefill_chunk=0, sync_every=SYNC_EVERY, decode_loop="chunked",
+                 latency=None):
         unported = {"per_row (serving mode)": per_row,
                     "prefix_cache (radix prefix cache)": prefix_cache is not None,
                     "prefill_chunk > 0 (chunked prefill)": prefill_chunk > 0}
@@ -117,6 +126,8 @@ class DecodeSession:
         self.capture_logprobs = bool(capture_logprobs)
         self.generator = generator
         self.device = params["embed_tokens"].device
+        self._hub = latency if getattr(latency, "enabled", False) else None
+        self._it_prev = 0
         self._sample_kw = dict(temperature=temperature, top_p=top_p,
                                greedy=greedy, top_k=top_k,
                                approx_top_k=approx_top_k)
@@ -151,6 +162,7 @@ class DecodeSession:
         monolithic paged prefill), first tokens drawn from the session
         generator."""
         R = self.rows
+        t0 = time.perf_counter()
         st = _prefill_state(
             self.params, self.config, prompt_ids[:R], prompt_mask[:R],
             self.generator, max_tokens=self.max_tokens,
@@ -162,6 +174,14 @@ class DecodeSession:
         self.state = _spec_state(st)
         # the resident prompts, the drafter's lookup buffer
         self.prompt_res = prompt_ids[:R].clone()
+        if self._hub is not None:
+            # every initial row's first token exists once this prefill
+            # lands: one TTFT observation per admitted request
+            sync_device(self.device)
+            ttft0 = time.perf_counter() - t0
+            for _ in range(R):
+                self._hub.record("latency/ttft_s", ttft0)
+        self._it_prev = 0
 
     def admit(self, r: int, toks_np, mask_np, admit_index: int) -> None:
         """Admit one prompt ([Tp] ids and mask, left-padded) into resident
@@ -169,6 +189,7 @@ class DecodeSession:
         through its table row into the shared pool, draw its first token
         from the admission generator of `admit_index` (the queue index),
         and re-initialise the row's carry."""
+        t0 = time.perf_counter()
         self._pstate, ok = alloc_row(self._pstate, r, self.nb)
         if not ok:
             raise RuntimeError("allocator underflow: full-budget rows recycle "
@@ -188,6 +209,9 @@ class DecodeSession:
         self.launches += 1
         self.dispatch_tokens += self.Tp
         self.prompt_res[r] = ids[0]
+        if self._hub is not None:
+            sync_device(self.device)  # this request's first token exists
+            self._hub.record("latency/ttft_s", time.perf_counter() - t0)
         self._install_row(r, tok0[0], lp0[0], mask[0], mask[0].sum())
 
     def admission_generator(self, admit_index: int) -> torch.Generator:
@@ -283,6 +307,7 @@ class DecodeSession:
         """One chunk of `sync_every` decode (or draft + verify) iterations,
         no host read inside (graph replay on the card); per step, a host
         check before each iteration. Returns the host done flags [rows]."""
+        t0 = time.perf_counter()
         if self.decode_loop == "chunked":
             self._loop.run_chunk()
         else:
@@ -292,7 +317,14 @@ class DecodeSession:
                         self._skip_draws()
                     break
                 self._loop.body()
-        return self.state["done"].cpu().numpy()
+        done_h = self.state["done"].cpu().numpy()  # the chunk's device sync
+        if self._hub is not None:
+            it_now = self.iterations()
+            self._hub.record("latency/intertoken_s",
+                             (time.perf_counter() - t0)
+                             / max(1, it_now - self._it_prev))
+            self._it_prev = it_now
+        return done_h
 
     def loop_stats(self) -> dict:
         """graph_capture_s, graph_steps_run, graph_replays and

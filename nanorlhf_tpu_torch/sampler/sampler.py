@@ -368,7 +368,7 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              generator: torch.Generator, sampling: SamplingParams,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
              timings: dict | None = None, paged_stats_out: list | None = None,
-             spec_stats_out: list | None = None):
+             spec_stats_out: list | None = None, tracer=None, latency=None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
     see `generate_tokens`.
@@ -383,7 +383,14 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
     (no shared-prompt fan-out there, as in JAX). `paged_stats_out` (paged
     paths only) receives one stats dict per call: page_utilization,
     pages_recycled, admitted_midloop (+ the scheduler's session counters).
-    `decode_rows > 0` with `page_size == 0` is ignored, as in JAX."""
+    `decode_rows > 0` with `page_size == 0` is ignored, as in JAX.
+
+    `tracer` (an enabled `telemetry.SpanTracer`) switches the monolithic
+    speculative path to its traced loop (per-iteration `rollout.draft` /
+    `rollout.verify` spans); `latency` (an enabled `telemetry.LatencyHub`)
+    gets the queued path's per-request `latency/ttft_s` and per-chunk
+    `latency/intertoken_s` records. The other paths ignore both, as in
+    JAX."""
     compose_check(sampling)
     total_rows = prompt_ids.shape[0] * sampling.n
     queued = (sampling.page_size > 0 and sampling.decode_rows > 0
@@ -409,7 +416,8 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
             params, config, prompt_ids, prompt_mask, generator,
             page_size=sampling.page_size, decode_rows=sampling.decode_rows,
             spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
-            paged_stats_out=paged_stats_out, spec_stats_out=spec_stats_out, **kw)
+            paged_stats_out=paged_stats_out, spec_stats_out=spec_stats_out,
+            latency=latency, **kw)
     if sampling.spec_k > 0:
         from nanorlhf_tpu_torch.sampler.speculative import generate_spec
 
@@ -417,7 +425,7 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
             params, config, prompt_ids, prompt_mask, generator,
             spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
             prompt_fanout=fanout, page_size=sampling.page_size,
-            spec_stats_out=spec_stats_out, **kw)
+            spec_stats_out=spec_stats_out, tracer=tracer, **kw)
         _monolithic_paged_stats(result, sampling, prompt_mask, fanout,
                                 pad_token_id, paged_stats_out)
         return result

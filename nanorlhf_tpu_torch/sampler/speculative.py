@@ -34,9 +34,15 @@ generator — u, then the residual categorical, per iteration — so it
 matches JAX in distribution, not bit for bit; greedy streams and their
 statistics match exactly.
 
+With an enabled `tracer` (a `telemetry.SpanTracer`) `generate_spec` runs
+the traced loop instead (JAX `_generate_spec_instrumented`): the same draft
+and verify bodies, one iteration per host step, eagerly (no graph), with a
+`rollout.draft` and a `rollout.verify` span per iteration on the "rollout"
+track and one device sync after each — the observability trade; its greedy
+tokens equal the compiled loop's.
+
 Not ported: the radix-seeded drafter window (JAX `_draft_fn`'s
-`seed_rep`, which serves only the radix prefix cache) and the
-tracer-instrumented loop (an enabled `tracer` raises).
+`seed_rep`, which serves only the radix prefix cache).
 """
 
 from __future__ import annotations
@@ -303,6 +309,62 @@ def generate_tokens_spec(params, config, prompt_ids, prompt_mask,
     return state["out"], state["lp_out"], spec_stats(state, steps)
 
 
+@torch.no_grad()
+def generate_tokens_spec_traced(params, config, prompt_ids, prompt_mask,
+                                generator: torch.Generator, tracer, *,
+                                max_tokens: int, eos_token_id: int,
+                                pad_token_id: int, spec_k: int,
+                                spec_ngram: int = 3, temperature: float = 1.0,
+                                top_p: float = 0.95, greedy: bool = False,
+                                lora_scale: float = 1.0, top_k: int = 64,
+                                capture_logprobs: bool = False,
+                                approx_top_k: bool = True,
+                                prompt_fanout: int = 1, page_size: int = 0,
+                                timings: dict | None = None):
+    """The speculative loop driven from the host, one draft + verify per
+    iteration, each in its own span on the "rollout" track
+    (`rollout.draft` / `rollout.verify`, arg `iteration`) and ended by a
+    device sync; the loop stops when every row is done (a host read before
+    each iteration) or after `max_tokens` iterations, JAX's condition.
+    Same contract as `generate_tokens_spec`; `timings` gets prefill_s,
+    decode_s, decode_steps and emitted_tokens."""
+    Tp = prompt_ids.shape[1]
+    dev = prompt_ids.device
+    kw = dict(max_tokens=max_tokens, eos_token_id=eos_token_id,
+              temperature=temperature, top_p=top_p, greedy=greedy,
+              lora_scale=lora_scale, top_k=top_k,
+              capture_logprobs=capture_logprobs, approx_top_k=approx_top_k)
+    t0 = time.perf_counter()
+    base = _prefill_state(params, config, prompt_ids, prompt_mask, generator,
+                          pad_token_id=pad_token_id, prompt_fanout=prompt_fanout,
+                          cache_extra=spec_k, page_size=page_size, **kw)
+    if timings is not None:
+        sync_device(dev)
+        timings["prefill_s"] = time.perf_counter() - t0
+    prompt_rep = (prompt_ids.repeat_interleave(prompt_fanout, dim=0)
+                  if prompt_fanout > 1 else prompt_ids)
+    state = _spec_state(base)
+    t0 = time.perf_counter()
+    for it in range(max_tokens):
+        if bool(state["done"].all()):
+            break
+        with tracer.span("rollout.draft", track="rollout", iteration=it):
+            drafts = _draft_fn(prompt_rep, state, Tp=Tp, spec_k=spec_k,
+                               spec_ngram=spec_ngram, pad_token_id=pad_token_id)
+            sync_device(dev)
+        with tracer.span("rollout.verify", track="rollout", iteration=it):
+            _verify_fn(params, config, state, drafts, Tp=Tp, spec_k=spec_k,
+                       generator=generator, page_table=state["table"],
+                       page_size=page_size, **kw)
+            sync_device(dev)
+    steps = int(state["it"]) - 1
+    if timings is not None:
+        timings["decode_s"] = time.perf_counter() - t0
+        timings["decode_steps"] = steps
+        timings["emitted_tokens"] = int(state["n_emitted"])
+    return state["out"], state["lp_out"], spec_stats(state, steps)
+
+
 def generate_spec(params, config, prompt_ids, prompt_mask,
                   generator: torch.Generator, *, max_tokens: int,
                   eos_token_id: int, pad_token_id: int, spec_k: int,
@@ -316,20 +378,22 @@ def generate_spec(params, config, prompt_ids, prompt_mask,
                   decode_loop: str = "chunked"):
     """`generate`-contract entry of the speculative path: tokens, or
     (tokens, logprobs) with capture; the stats dict goes to
-    `spec_stats_out` when given."""
+    `spec_stats_out` when given. An enabled `tracer` runs the traced loop
+    (`generate_tokens_spec_traced`; `sync_every` and `decode_loop` then do
+    not apply)."""
+    kw = dict(max_tokens=max_tokens, eos_token_id=eos_token_id,
+              pad_token_id=pad_token_id, spec_k=spec_k, spec_ngram=spec_ngram,
+              temperature=temperature, top_p=top_p, greedy=greedy,
+              lora_scale=lora_scale, top_k=top_k,
+              capture_logprobs=capture_logprobs, approx_top_k=approx_top_k,
+              prompt_fanout=prompt_fanout, page_size=page_size, timings=timings)
     if tracer is not None and getattr(tracer, "enabled", False):
-        raise NotImplementedError(
-            "the tracer-instrumented speculative loop is not ported to "
-            "nanorlhf_tpu_torch (the port has no tracer)")
-    out, lp, stats = generate_tokens_spec(
-        params, config, prompt_ids, prompt_mask, generator,
-        max_tokens=max_tokens, eos_token_id=eos_token_id,
-        pad_token_id=pad_token_id, spec_k=spec_k, spec_ngram=spec_ngram,
-        temperature=temperature, top_p=top_p, greedy=greedy,
-        lora_scale=lora_scale, top_k=top_k, capture_logprobs=capture_logprobs,
-        approx_top_k=approx_top_k, prompt_fanout=prompt_fanout,
-        page_size=page_size, timings=timings, sync_every=sync_every,
-        decode_loop=decode_loop)
+        out, lp, stats = generate_tokens_spec_traced(
+            params, config, prompt_ids, prompt_mask, generator, tracer, **kw)
+    else:
+        out, lp, stats = generate_tokens_spec(
+            params, config, prompt_ids, prompt_mask, generator,
+            sync_every=sync_every, decode_loop=decode_loop, **kw)
     if spec_stats_out is not None:
         spec_stats_out.append(stats)
     return (out, lp) if capture_logprobs else out

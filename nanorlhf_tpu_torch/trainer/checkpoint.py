@@ -27,13 +27,25 @@ write has joined), issuing the copies on the current stream and recording
 an event after them — the optimizer steps the live leaves in place, so the
 write must never read them. A writer thread waits on that event, writes
 `tree.pt.tmp` and commits by `os.replace`. The next save, `restore`,
-`latest_step`, `truncate_after` and `close` join the writer first. The
-fault sites and tracer spans of JAX's manager are not ported.
+`latest_step`, `truncate_after` and `close` join the writer first.
+
+Fault sites and spans (with `faults`, a `resilience.FaultInjector`, and
+`tracer`, a `telemetry.SpanTracer`), at the port's counterparts of JAX's:
+`ckpt.save` fires inside each write attempt on the writer (a fire is a
+retried attempt, counted in `retry_count` once the writer joins),
+`ckpt.restore` inside each read attempt, and `ckpt.corrupt` once per
+restore candidate outside the retries (a checkpoint that reads back torn:
+restore goes straight to the next older one). The "ckpt" track gets a
+`ckpt.save` span over the blocking part of a save (staging and the
+trainer state), a `ckpt.write` span over the writer's write, and a
+`ckpt.restore` span over each candidate's read; each starts after the
+previous write has joined, so the track's spans never overlap.
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import shutil
@@ -42,6 +54,7 @@ import time
 
 import torch
 
+from nanorlhf_tpu_torch.resilience.faults import InjectedFault
 from nanorlhf_tpu_torch.resilience.retry import retry_with_backoff
 
 _TREE = "tree.pt"
@@ -75,8 +88,11 @@ def read_tree(path: str, device=None) -> dict:
 class CheckpointManager:
     def __init__(self, output_dir: str, save_total_limit: int = 8,
                  greater_is_better: bool = True, async_save: bool = True,
-                 io_retries: int = 2, retry_backoff: float = 0.5):
+                 io_retries: int = 2, retry_backoff: float = 0.5,
+                 faults=None, tracer=None):
         self.output_dir = os.path.abspath(output_dir)
+        self._faults = faults
+        self._tracer = tracer
         self.save_total_limit = save_total_limit
         self.greater_is_better = greater_is_better
         self.async_save = async_save
@@ -102,10 +118,18 @@ class CheckpointManager:
         self._writer: threading.Thread | None = None
         # set by the writer, read by the main thread only after the join
         self._write_error: BaseException | None = None
-        self._writer_retries = 0
         # exit barrier: a process that returns right after the last step
         # must not abandon the in-flight write; close() unregisters it
         atexit.register(self.wait)
+
+    def _span(self, name: str, **args):
+        """A span on the "ckpt" track; a null context when untraced."""
+        if self._tracer is None or not self._tracer.enabled:
+            return contextlib.nullcontext({})
+        return self._tracer.span(name, track="ckpt", **args)
+
+    def _fire(self, point: str):
+        return None if self._faults is None else self._faults.fire(point)
 
     # ------------------------------------------------------------------ #
     # the writer
@@ -116,8 +140,6 @@ class CheckpointManager:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
-        self.retry_count += self._writer_retries
-        self._writer_retries = 0
         err, self._write_error = self._write_error, None
         if err is not None:
             raise err
@@ -172,29 +194,34 @@ class CheckpointManager:
             events.append(ev)
         return _rebuild(tree, bufs), events
 
-    def _write(self, staged: dict, events: list, path: str) -> None:
+    def _write(self, staged: dict, events: list, path: str, step: int) -> None:
         """The writer's body: wait for the staging copies, write, commit;
-        each attempt retried `io_retries` times."""
+        each attempt (the `ckpt.save` fault site) retried `io_retries`
+        times."""
         t0 = time.perf_counter()
-        retries = 0
 
         def on_retry(_attempt, _exc):
-            nonlocal retries
-            retries += 1
+            # counted as it happens (the main thread reads the counter for
+            # its metric rows, and writes it only while no writer runs)
+            self.retry_count += 1
+
+        def attempt():
+            self._fire("ckpt.save")
+            write_tree(staged, os.path.join(path, _TREE))
 
         try:
-            for ev in events:
-                ev.synchronize()
-            retry_with_backoff(lambda: write_tree(staged, os.path.join(path, _TREE)),
-                               attempts=self.io_retries + 1,
-                               backoff_base=self.retry_backoff, on_retry=on_retry)
+            with self._span("ckpt.write", step=step):
+                for ev in events:
+                    ev.synchronize()
+                retry_with_backoff(attempt, attempts=self.io_retries + 1,
+                                   backoff_base=self.retry_backoff,
+                                   on_retry=on_retry)
         finally:
-            self._writer_retries += retries
             self.last_write_s = time.perf_counter() - t0
 
-    def _run_writer(self, staged, events, path) -> None:
+    def _run_writer(self, staged, events, path, step) -> None:
         try:
-            self._write(staged, events, path)
+            self._write(staged, events, path, step)
         except BaseException as e:  # handed to the main thread at the join
             self._write_error = e
 
@@ -255,22 +282,19 @@ class CheckpointManager:
             tree["opt_state"] = opt_state
         if value is not None:
             tree["value"] = value
-        staged, events = self._stage(tree)
-        shutil.rmtree(path, ignore_errors=True)
-        os.makedirs(path)
-        with open(os.path.join(path, "trainer_state.json"), "w") as f:
-            json.dump({"step": step, **(extra_state or {})}, f)
+        with self._span("ckpt.save", step=step):
+            staged, events = self._stage(tree)
+            shutil.rmtree(path, ignore_errors=True)
+            os.makedirs(path)
+            with open(os.path.join(path, "trainer_state.json"), "w") as f:
+                json.dump({"step": step, **(extra_state or {})}, f)
         if self.async_save:
             self._writer = threading.Thread(target=self._run_writer,
-                                            args=(staged, events, path),
+                                            args=(staged, events, path, step),
                                             name=f"ckpt-write-{step}", daemon=True)
             self._writer.start()
         else:
-            try:
-                self._write(staged, events, path)
-            finally:
-                self.retry_count += self._writer_retries
-                self._writer_retries = 0
+            self._write(staged, events, path, step)
         if path in self._ckpt_dirs:  # re-saving a step after a resume
             self._ckpt_dirs.remove(path)
         self._ckpt_dirs.append(path)
@@ -303,7 +327,9 @@ class CheckpointManager:
         every retry counts as corrupt: with `fallback` the newest EARLIER
         committed one is tried next (`fallback_count` counts the skipped
         steps, `last_restored_step` names the one that loaded — a resume
-        must adopt it)."""
+        must adopt it); so is one the `ckpt.corrupt` site tears. With no
+        intact candidate left the last read error raises, or an
+        InjectedFault when every candidate was torn."""
         self.wait()
         candidates = [step]
         if fallback:
@@ -315,11 +341,22 @@ class CheckpointManager:
             self.retry_count += 1
 
         for i, cand in enumerate(candidates):
+            def attempt(cand=cand):
+                self._fire("ckpt.restore")
+                return read_tree(os.path.join(self.path(cand), _TREE), device)
+
+            # a torn read is not retried: the same bytes read back torn
             try:
-                tree = retry_with_backoff(
-                    lambda: read_tree(os.path.join(self.path(cand), _TREE), device),
-                    attempts=self.io_retries + 1, backoff_base=self.retry_backoff,
-                    on_retry=on_retry)
+                corrupt = self._fire("ckpt.corrupt")
+            except InjectedFault as e:
+                corrupt = e
+            if corrupt is not None:
+                continue
+            try:
+                with self._span("ckpt.restore", step=cand):
+                    tree = retry_with_backoff(
+                        attempt, attempts=self.io_retries + 1,
+                        backoff_base=self.retry_backoff, on_retry=on_retry)
             except Exception as e:
                 last_exc = e
                 continue
@@ -329,7 +366,10 @@ class CheckpointManager:
                 print(f"[checkpoint] checkpoint {step} corrupt/unreadable — fell "
                       f"back to checkpoint {cand}")
             return tree
-        raise last_exc
+        if last_exc is not None:
+            raise last_exc
+        raise InjectedFault("ckpt.corrupt",
+                            detail=f"no intact checkpoint at or below {step}")
 
     def truncate_after(self, step: int) -> None:
         """Drop the checkpoints and metric history newer than `step` — on a

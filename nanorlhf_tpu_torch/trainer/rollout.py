@@ -19,10 +19,19 @@ weights, as in JAX.
 GRPO drops its N−1 other samples per prompt BEFORE the logprob pass (only
 `batch_size` rows are scored); RLOO and RAFT score all B·N rows and select
 after batch assembly, as in JAX.
+
+The reward goes through `dispatch_reward` (JAX `_dispatch_reward`): the
+`reward.exec` fault site and `reward_retries` retries with backoff, a
+`reward.dispatch` span on the "reward" track, `latency/reward_s` and the
+lineage `reward` event. The host planes come from `planes` (the trainer:
+its `faults`, `tracer`, `latency`, `lineage` and `timer`, each optional):
+generation gets the tracer and the latency hub, and the three phases run
+inside the timer's `rollout`, `reward` and `logprob` phases.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -40,6 +49,7 @@ from nanorlhf_tpu_torch.algos.advantages import (
     rloo_advantage,
     sparse_terminal_rewards,
 )
+from nanorlhf_tpu_torch.resilience.retry import retry_with_backoff
 from nanorlhf_tpu_torch.ops.masking import (
     INVALID_LOGPROB,
     first_true_indices,
@@ -128,6 +138,52 @@ def sampling_params(cfg: RLConfig) -> SamplingParams:
     )
 
 
+def _plane(planes, name: str):
+    """`planes.<name>` when it is there and enabled, else None."""
+    obj = getattr(planes, name, None)
+    return obj if obj is not None and getattr(obj, "enabled", True) else None
+
+
+def _phase(planes, name: str):
+    timer = getattr(planes, "timer", None)
+    return timer.phase(name) if timer is not None else contextlib.nullcontext()
+
+
+def dispatch_reward(reward_func, texts: list[str], eos_token: str, retries: int,
+                    planes=None, rollout_index: int | None = None,
+                    step: int | None = None) -> np.ndarray:
+    """Score `texts` with `reward_func(texts, eos_token)` — JAX's
+    `_dispatch_reward`: each attempt fires the `reward.exec` fault site,
+    and a failed attempt is retried `retries` times with backoff (base
+    0.1 s); the dispatch is one `reward.dispatch` span on the "reward"
+    track, its wall (backoff included) one `latency/reward_s` record, and,
+    with a `rollout_index`, one lineage `reward` event (scores, the attempt
+    that landed, the wall)."""
+    faults, tracer = getattr(planes, "faults", None), _plane(planes, "tracer")
+    latency, lineage = _plane(planes, "latency"), getattr(planes, "lineage", None)
+    attempts_used = [0]
+
+    def attempt():
+        attempts_used[0] += 1
+        if faults is not None:
+            faults.fire("reward.exec")
+        return np.asarray(reward_func(texts, eos_token), dtype=np.float32)
+
+    span = (tracer.span("reward.dispatch", track="reward", rows=len(texts))
+            if tracer is not None else contextlib.nullcontext())
+    with span:
+        t0 = time.perf_counter()
+        scores = retry_with_backoff(attempt, attempts=retries + 1, backoff_base=0.1)
+    if latency is not None:
+        latency.record("latency/reward_s", time.perf_counter() - t0)
+    if rollout_index is not None and lineage is not None:
+        lineage.reward(rollout_index, step=step,
+                       scores=[round(float(x), 6) for x in scores.tolist()],
+                       attempt=attempts_used[0],
+                       wall_s=round(time.perf_counter() - t0, 6))
+    return scores
+
+
 @torch.no_grad()
 def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       queries: np.ndarray, reward_func,
@@ -137,7 +193,9 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       timings: dict | None = None,
                       sampling: SamplingParams | None = None,
                       launches: dict | None = None,
-                      rollout_params: dict | None = None) -> dict:
+                      rollout_params: dict | None = None, planes=None,
+                      rollout_index: int | None = None,
+                      step: int | None = None, on_generated=None) -> dict:
     """Roll out `queries` ([B, T] left-padded prompt ids), score each
     sample with `reward_func`, and run the logprob pass. Returns numpy
     arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
@@ -160,7 +218,12 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     CUDA-graph replay of the decode loop counts what it launched) and of
     the scoring pass (`score`). `rollout_params` is the tree generation
     samples from (default `params`): the trainer's int8 rollout view
-    (`core/quant.rollout_view`); scoring always runs `params`."""
+    (`core/quant.rollout_view`); scoring always runs `params`. `planes`,
+    `rollout_index` and `step`: the host planes (module docstring), and
+    the rollout index and global step the lineage events carry.
+    `on_generated(payload, generate_s)`, when given, is called once the
+    tokens are on the host, before the reward: `payload` holds the
+    rollout's `paged_stats` and `spec_stats`."""
     check_supported(cfg)
     device = params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
@@ -177,26 +240,33 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     counts0 = launch_counts()
     gen_mcfg = rollout_model_config(mcfg, cfg)
     gen_params = params if rollout_params is None else rollout_params
-    responses = generate(gen_params, gen_mcfg, queries_t, prompt_mask, generator,
-                         sampling or sampling_params(cfg),
-                         eos_token_id=eos_id, pad_token_id=pad_id,
-                         lora_scale=lora_scale, timings=t,
-                         paged_stats_out=paged_stats, spec_stats_out=spec_stats)
-    responses_np = responses.cpu().numpy()
-    greedy_np = None
-    if cfg.algo == AlgoName.REMAX:
-        # the greedy rollout of the same prompts: ReMax's baseline
-        tg: dict = {}
-        greedy_np = generate(
-            gen_params, gen_mcfg, queries_t, prompt_mask, generator,
-            SamplingParams(greedy=True, max_tokens=cfg.response_length),
-            eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
-            timings=tg).cpu().numpy()
-        t.update({f"greedy_{k}": v for k, v in tg.items()})
-        if "graph_capture_s" in tg:
-            t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
+    tracer, latency = _plane(planes, "tracer"), _plane(planes, "latency")
+    with _phase(planes, "rollout"):
+        responses = generate(gen_params, gen_mcfg, queries_t, prompt_mask, generator,
+                             sampling or sampling_params(cfg),
+                             eos_token_id=eos_id, pad_token_id=pad_id,
+                             lora_scale=lora_scale, timings=t,
+                             paged_stats_out=paged_stats, spec_stats_out=spec_stats,
+                             tracer=tracer, latency=latency)
+        responses_np = responses.cpu().numpy()
+        greedy_np = None
+        if cfg.algo == AlgoName.REMAX:
+            # the greedy rollout of the same prompts: ReMax's baseline
+            tg: dict = {}
+            greedy_np = generate(
+                gen_params, gen_mcfg, queries_t, prompt_mask, generator,
+                SamplingParams(greedy=True, max_tokens=cfg.response_length),
+                eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
+                timings=tg).cpu().numpy()
+            t.update({f"greedy_{k}": v for k, v in tg.items()})
+            if "graph_capture_s" in tg:
+                t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
     t["generate_s"] = time.perf_counter() - t_start
     counts1 = launch_counts()
+    if on_generated is not None:
+        on_generated({"paged_stats": paged_stats[0] if paged_stats else None,
+                      "spec_stats": spec_stats[0] if spec_stats else None},
+                     t["generate_s"])
 
     # ---- reward (host-side, user callable) ----
     t0 = time.perf_counter()
@@ -204,16 +274,18 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                         for q in tokenizer.batch_decode(queries)]
     question_n = [q for q in question_strings for _ in range(n)]
     responses_decoded = tokenizer.batch_decode(responses_np)
-    scores = np.asarray(reward_func(
-        [q + r for q, r in zip(question_n, responses_decoded)],
-        tokenizer.eos_token), dtype=np.float32)
+    with _phase(planes, "reward"):
+        scores = dispatch_reward(
+            reward_func, [q + r for q, r in zip(question_n, responses_decoded)],
+            tokenizer.eos_token, cfg.reward_retries, planes,
+            rollout_index=rollout_index, step=step)
     batch = queries.shape[0]
     out = {"queries": queries, "scores": scores, "keep": None}
     if greedy_np is not None:
-        out["greedy_scores"] = np.asarray(reward_func(
-            [q + r for q, r in zip(question_strings,
-                                   tokenizer.batch_decode(greedy_np))],
-            tokenizer.eos_token), dtype=np.float32)
+        out["greedy_scores"] = dispatch_reward(
+            reward_func, [q + r for q, r in zip(question_strings,
+                                                tokenizer.batch_decode(greedy_np))],
+            tokenizer.eos_token, cfg.reward_retries, planes)
     if cfg.algo == AlgoName.GRPO:
         advantages = grpo_group_advantage(torch.as_tensor(scores), n).numpy()
         # keep 1 of N per prompt BEFORE scoring (the reference's
@@ -238,13 +310,14 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         // (context_length + cfg.response_length))
     chunk = max(1, min(total, chunk))
     lps, rlps = [], []
-    for i in range(0, total, chunk):
-        n_real = min(chunk, total - i)
-        rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
-        lp, rlp = score_chunk(params, ref_params, mcfg, cfg, rows,
-                              context_length, pad_id, lora_scale)
-        lps.append(lp[:n_real].float().cpu().numpy())
-        rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits for the device
+    with _phase(planes, "logprob"):
+        for i in range(0, total, chunk):
+            n_real = min(chunk, total - i)
+            rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
+            lp, rlp = score_chunk(params, ref_params, mcfg, cfg, rows,
+                                  context_length, pad_id, lora_scale)
+            lps.append(lp[:n_real].float().cpu().numpy())
+            rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits for the device
     t["score_s"] = time.perf_counter() - t0
     t["total_s"] = time.perf_counter() - t_start
     if launches is not None:

@@ -34,11 +34,19 @@ epoch's permutation from (seed, PERM_STREAM, rollout index, epoch), the
 rollout from (seed, rollout index) — functions of the rollout cursor, so a
 resume after a skipped update replays the same streams.
 
+The host planes make the JAX loop's calls (`sparse_grpo.py:380-860`):
+the profile-window poll and the `train.update` span, the lineage `lease`,
+`generation`, `reward`, `keep_filter` and per-row `sparse_zero_advantage`
+drops, `outcome` and `sample` events, `latency/reward_s` and the phase
+histograms, `perf/*` and the health plane's rows, a `sparse.skip` instant
+on a skipped update, and the SIGTERM poll on both the skip path and the
+step's end (an emergency checkpoint, then `Preempted`). As in JAX, the
+reward has no retry loop here and the sentinel does not observe the
+sparse loop.
+
 Not ported (raise NotImplementedError): sequence parallelism (the SP
 score and grad functions), rollout_ahead and the orchestrator, sampler
-logprob capture and environments. The JAX loop's lineage,
-tracer, health, latency and preemption calls have no counterpart in the
-port yet.
+logprob capture and environments.
 """
 
 from __future__ import annotations
@@ -276,11 +284,16 @@ class SparseGRPOTrainer(RLTrainer):
         sampling = sampling_params(cfg)
         n_updates = (max(0, cfg.num_total_batches - self.state["global_step"])
                      if num_updates is None else num_updates)
+        self.lineage.rows_hint = cfg.batch_size * n
         for _ in range(n_updates):
             t_start = time.perf_counter()
+            self.profile_window.poll(self.state["global_step"] + 1)
+            span_t0 = self.tracer.now_us() if self.tracer.enabled else 0.0
             self.state["episode"] += cfg.batch_size
             index = self.state["rollouts"]
             self.state["rollouts"] += 1
+            if self.lineage.enabled:
+                self.lineage.lease(index, worker_id=0, cursor=index, length=1)
             record = {"index": index, "skipped": False, "kept": 0}
             self.update_log.append(record)
             t: dict = {}
@@ -289,13 +302,21 @@ class SparseGRPOTrainer(RLTrainer):
             # ---- rollout + reward -----------------------------------------
             queries = depad_queries(np.asarray(next(self._iter)), pad_id, self._len_menu)
             q_t = torch.as_tensor(queries, dtype=torch.int64, device=self.device)
+            tp_call = self.tracer.now_us()
+            paged_stats: list = []
+            spec_stats: list = []
             responses = generate(
                 self._rollout_params(), rollout_model_config(self.mcfg, cfg), q_t,
                 q_t != pad_id,
                 rollout_generator(cfg.seed, index, self.device), sampling,
                 eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=self.lora_scale,
-                timings=t).cpu().numpy()
+                timings=t, paged_stats_out=paged_stats, spec_stats_out=spec_stats,
+                tracer=self.tracer if self.tracer.enabled else None,
+                latency=self.latency).cpu().numpy()
             t["generate_s"] = time.perf_counter() - t_start
+            self._note_rollout({"paged_stats": paged_stats[0] if paged_stats else None,
+                                "spec_stats": spec_stats[0] if spec_stats else None},
+                               index, t_start, tp_call, t["generate_s"])
             counts1 = launch_counts()
             batch_size = queries.shape[0]
             question_strings = [q.replace(tok.pad_token, "")
@@ -306,6 +327,11 @@ class SparseGRPOTrainer(RLTrainer):
             raw_scores = self._call_reward(
                 [q + r for q, r in zip(question_n, decoded)], responses)
             t["reward_s"] = time.perf_counter() - t0
+            if self.latency.enabled:
+                self.latency.record("latency/reward_s", t["reward_s"])
+            self.lineage.reward(index, step=self.state["global_step"],
+                                scores=[round(float(x), 6) for x in raw_scores.tolist()],
+                                attempt=1, wall_s=round(t["reward_s"], 6))
             mean_raw_score = float(raw_scores.mean())
             log_responses_length = float(
                 first_true_indices(torch.as_tensor(responses) == pad_id).float().mean())
@@ -317,19 +343,34 @@ class SparseGRPOTrainer(RLTrainer):
             rows = np.arange(batch_size)
             scores = adv_flat.reshape(batch_size, n)[rows, keep]
             responses = responses.reshape(batch_size, n, -1)[rows, keep]
+            if n > 1:
+                self.lineage.drop(index, "keep_filter", count=batch_size * (n - 1),
+                                  step=self.state["global_step"])
 
             # ---- sparse filter --------------------------------------------
             nz = np.where(scores != 0)[0]
             kept_frac = len(nz) / max(batch_size, 1)
             record.update(kept=len(nz), raw_score_mean=mean_raw_score)
+            if self.lineage.enabled:
+                # one drop event per row the filter excludes
+                raw_kept = raw_scores.reshape(batch_size, n)[rows, keep]
+                for r in np.where(scores == 0)[0]:
+                    self.lineage.drop(index, "sparse_zero_advantage", row=int(r),
+                                      step=self.state["global_step"],
+                                      raw_score=round(float(raw_kept[r]), 6))
             if len(nz) == 0:
                 print(f"[sparse-grpo] rollout {index}: all advantages zero, skipping")
+                self.tracer.instant("sparse.skip", rollout_index=self.state["rollouts"],
+                                    raw_score_mean=mean_raw_score)
                 self.logger.log_event(self.state["rollouts"], {
                     "sparse_skip/raw_score_mean": mean_raw_score,
                     "sparse_skip/rollout_index": self.state["rollouts"],
                 })
                 record.update(skipped=True, timings=t,
                               launches={"generate": _diff(counts1, counts0)})
+                # a streak of skips must not swallow SIGTERM
+                if self._preemption.triggered:
+                    self._preempt(False, {})
                 continue
 
             # ---- de-pad, cut, bucketed logprob pass, advantages -----------
@@ -408,26 +449,71 @@ class SparseGRPOTrainer(RLTrainer):
                 "time/logprob_s": t["score_s"],
                 "time/update_s": t["update_s"],
             }
+            # the dense loop's napkin model over this update's real work:
+            # scoring and the update count only the kept rows
+            score_forwards = 1 if self._ref_free else 2
+            metrics.update(self._perf_metrics(
+                step_wall_s=time.perf_counter() - t_start,
+                decode_tokens=batch_size * n * cfg.response_length,
+                prefill_tokens=batch_size * n * queries.shape[1],
+                score_tokens=score_forwards * local_bs * (context_length + max_resp),
+                train_tokens=cfg.num_ppo_epochs * local_bs * (context_length + max_resp),
+                rollout_s=t["generate_s"], update_s=t["update_s"]))
+            self._record_phases({"time/rollout_s": t["generate_s"],
+                                 "time/update_s": t["update_s"]})
             self.state["global_step"] += 1
             step = self.state["global_step"]
             if self.accuracy_func is not None and cfg.eval_steps and \
                     step % cfg.eval_steps == 0:
                 metrics["eval_accuracy_new"] = float(self.accuracy_func(self))
+            metrics.update(self.health.observe(step, metrics))
+            kept_scores = raw_scores.reshape(batch_size, n)[rows, keep]
+            kept_decoded = [decoded[i * n + j] for i, j in enumerate(keep)]
+            if self.lineage.enabled:
+                self.lineage.outcome(
+                    index, step=step, policy_version=step, kept=int(local_bs),
+                    advantage=round(float(scores[nz].mean()), 6),
+                    scores=[round(float(x), 6) for x in kept_scores.tolist()],
+                    kept_frac=round(kept_frac, 4))
+                for r in nz[:8]:
+                    self.lineage.note_sample(index, step=step,
+                                             score=round(float(kept_scores[r]), 6),
+                                             response_chars=len(kept_decoded[r]),
+                                             kept=True)
             if step % cfg.logging_steps == 0:
                 self.logger.log(step, self.state["episode"], metrics)
-                kept_scores = raw_scores.reshape(batch_size, n)[rows, keep]
                 limit = (cfg.log_samples_limit if cfg.log_samples_limit is not None
                          else cfg.num_printed_samples)
-                self.logger.log_samples(
-                    step, question_strings,
-                    [decoded[i * n + j] for i, j in enumerate(keep)], kept_scores, limit)
+                self.logger.log_samples(step, question_strings, kept_decoded,
+                                        kept_scores, limit)
+                if self.lineage.enabled:
+                    for i, (q, r_txt, sc) in enumerate(zip(
+                            question_strings, kept_decoded, kept_scores.tolist())):
+                        if i >= limit:
+                            break
+                        self.lineage.event("sample", index, step=step, row=i,
+                                           query=q, response=r_txt,
+                                           score=round(float(sc), 6))
             record["metrics"] = metrics
+            saved = False
             if cfg.save_steps and step % cfg.save_steps == 0:
                 t0 = time.perf_counter()
                 self.save_checkpoint(metrics)
                 self.last_save_s = record["save_s"] = time.perf_counter() - t0
+                saved = True
+            if self.tracer.enabled:
+                # staleness is 0 here (no orchestrator); kept_rows is the
+                # sparse loop's own correlation arg
+                self.tracer.add_complete(
+                    "train.update", span_t0, self.tracer.now_us() - span_t0,
+                    step=step, rollout_index=index, staleness=0,
+                    policy_version=step, kept_rows=local_bs)
+            if self._preemption.triggered:
+                self._preempt(saved, metrics)
         # train() returning means every checkpoint is durable
         self.ckpt.wait()
+        self.profile_window.stop()
+        self._write_trace()
         if cfg.export_hf_dir and num_updates is None:
             print(f"exporting HF checkpoint to {cfg.export_hf_dir}")
             self.export_model(cfg.export_hf_dir)

@@ -25,15 +25,27 @@ selection, the per-epoch permutation, the LoRA inits) come from
 generators seeded from (seed, stream, index): same distributions, other
 bits.
 
+The host planes, built in JAX's order and wired through the loop as JAX's
+(`nanorlhf_tpu/trainer/trainer.py:537-745`): fault injection
+(`fault_spec`), the training sentinel (a NaN or spiking update rolls back
+to the last checkpoint and quarantines its rollout index, which the replay
+skips before dispatch), the producer watchdog (journaled only: the
+orchestrator that drives it is not ported), the SIGTERM guard (an
+emergency checkpoint and `Preempted` at the next update boundary), the
+span tracer and its flight recorder (`trace.json`, `blackbox_<step>.json`),
+the MFU accounting (`perf/*`), the lineage ledger, the latency histograms,
+the health plane, the status exporter (`status_port`), the phase timer and
+the torch.profiler window (`profile_at_step`). Their journals ride in
+`trainer_state.json` and come back on resume. `close()` stops the exporter
+and uninstalls the SIGTERM guard: every trainer that is built is closed.
+
 Unported knobs raise (`check_trainer_supported`): the async orchestrator
-and fleet, rollout_ahead, environments, telemetry, lineage, the status
-port, fault injection and profiling windows. The sentinel, the
-health plane and the latency histograms are on by default in JAX but only
-observe a healthy run; the port does not run them yet (ROADMAP).
+and fleet, rollout_ahead, environments and in-flight weight swaps.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -48,6 +60,32 @@ from nanorlhf_tpu_torch.core.lora import (
 )
 from nanorlhf_tpu_torch.core.params import export_hf_checkpoint
 from nanorlhf_tpu_torch.core.quant import quantize_layers, rollout_view
+from nanorlhf_tpu_torch.resilience import (
+    FaultInjector,
+    Preempted,
+    PreemptionGuard,
+    ProducerWatchdog,
+    SentinelConfig,
+    TrainingSentinel,
+    WatchdogConfig,
+    null_guard,
+)
+from nanorlhf_tpu_torch.telemetry import (
+    DEFAULT_RULES,
+    SLO_RULES,
+    HealthConfig,
+    HealthMonitor,
+    LatencyHub,
+    LineageLedger,
+    OverlapMeter,
+    SpanTracer,
+    StatusExporter,
+    flops_param_count,
+    peak_flops_per_chip,
+    recompile_counter,
+    update_flops,
+)
+from nanorlhf_tpu_torch.telemetry.lineage import segments_summary, spec_summary
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
 from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
@@ -64,6 +102,7 @@ from nanorlhf_tpu_torch.trainer.rollout import (
 )
 from nanorlhf_tpu_torch.trainer.scoring import value_pass
 from nanorlhf_tpu_torch.trainer.update import check_update_supported, update_minibatch
+from nanorlhf_tpu_torch.utils.profiling import PhaseTimer, ProfileWindow
 
 # seed streams of the policy's and the value tree's LoRA inits (the JAX
 # trainer splits its key for them)
@@ -77,12 +116,6 @@ def check_trainer_supported(cfg: RLConfig) -> None:
     check_supported(cfg)
     check_update_supported(cfg, {})
     unported = {
-        "telemetry": cfg.telemetry,
-        "lineage": cfg.lineage,
-        "status_port": cfg.status_port != 0,
-        "fault_spec": bool(cfg.fault_spec),
-        "profile_at_step": cfg.profile_at_step is not None,
-        "health_arm_sentinel": cfg.health_arm_sentinel,
         "env_name": bool(cfg.env_name),
         "rollout_inflight_swaps": cfg.rollout_inflight_swaps,
     }
@@ -193,11 +226,7 @@ class RLTrainer:
         if config.rollout_quant == "int8":
             self._refresh_quant_layers()
 
-        self.ckpt = CheckpointManager(config.output_dir, config.save_total_limit,
-                                      config.greater_is_better,
-                                      io_retries=config.ckpt_io_retries,
-                                      retry_backoff=config.ckpt_retry_backoff)
-        self.logger = MetricsLogger(config.output_dir, config.report_to)
+        self._build_planes()
         self.state = {"episode": 0, "global_step": 0, "opt_steps": 0, "rollouts": 0}
         # the latest update's kernel launches per half (and the rollout
         # half split into generate / score; a decode loop's graph replays
@@ -215,6 +244,85 @@ class RLTrainer:
         self.session_status: dict | None = None
         self._iter = dataset.loader(config.batch_size, config.seed)
         self.ctx_menu = shape_menu(dataset.input_ids.shape[1], min_value=16)
+
+    def _build_planes(self) -> None:
+        """The resilience layer, the telemetry planes, the checkpoint manager
+        and the metrics logger, in the JAX trainer's order. A knob that
+        cannot be honoured raises here (a port that will not bind, a
+        tensorboard sink without tensorboard)."""
+        config = self.cfg
+        self.faults = FaultInjector.from_spec(config.fault_spec)
+        self.sentinel = TrainingSentinel(SentinelConfig(
+            enabled=config.sentinel,
+            spike_zscore=config.sentinel_spike_zscore,
+            ewma_alpha=config.sentinel_ewma_alpha,
+            warmup_steps=config.sentinel_warmup_steps,
+            rollback_budget=config.rollback_budget,
+        ))
+        # the jitter de-correlates replicas that share a seed: mix in the
+        # process identity (one process, rank 0, here)
+        self.watchdog = ProducerWatchdog(WatchdogConfig(
+            restart_budget=config.producer_restart_budget,
+            backoff_base=config.producer_backoff_base,
+            backoff_max=config.producer_backoff_max,
+            backoff_jitter=config.producer_backoff_jitter,
+            degrade_to_sync=config.degrade_to_sync,
+        ), seed=(config.seed << 20) ^ os.getpid())
+        self._preemption = (PreemptionGuard() if config.graceful_preemption
+                            else null_guard())
+        try:
+            self._build_observers()
+        except BaseException:
+            self._preemption.uninstall()  # a trainer that failed to build
+            raise
+
+    def _build_observers(self) -> None:
+        """The telemetry planes, the checkpoint manager and the logger (the
+        rest of `_build_planes`)."""
+        config = self.cfg
+        self.tracer = SpanTracer(enabled=config.telemetry,
+                                 max_events=config.telemetry_max_events,
+                                 ring_len=config.flight_recorder_len)
+        self._telemetry_dir = config.telemetry_dir or config.output_dir
+        # the analytic MFU model's inputs (telemetry/mfu.py)
+        self._flops_params = flops_param_count(self.params)
+        self._peak_flops, self._peak_flops_known = peak_flops_per_chip(self.device)
+        self._n_devices = 1
+        self._recompiles = recompile_counter()
+        self.ckpt = CheckpointManager(config.output_dir, config.save_total_limit,
+                                      config.greater_is_better,
+                                      io_retries=config.ckpt_io_retries,
+                                      retry_backoff=config.ckpt_retry_backoff,
+                                      faults=self.faults, tracer=self.tracer)
+        self.logger = MetricsLogger(config.output_dir, config.report_to)
+        self.lineage = LineageLedger(
+            self._telemetry_dir, enabled=config.lineage,
+            sample_rate=config.lineage_sample_rate,
+            key_path="stream_generator(seed, 0x5E11, rollout_index)")
+        self.latency = LatencyHub(enabled=config.latency)
+        self.health = HealthMonitor(
+            HealthConfig(
+                enabled=config.health, fast_alpha=config.health_fast_alpha,
+                slow_alpha=config.health_slow_alpha,
+                warmup=config.health_warmup_steps,
+                window_s=config.health_window_s,
+                max_events=config.health_max_events,
+                blackbox_on_crit=config.health_blackbox_on_crit,
+                rules=DEFAULT_RULES + (SLO_RULES if config.latency else ())),
+            tracer=self.tracer, blackbox_fn=self._health_blackbox,
+            on_crit=self._on_health_crit, latency=self.latency)
+        self.exporter = StatusExporter(
+            config.status_port, host=config.status_host,
+            metrics_fn=self._export_metrics, health=self.health,
+            statusz_fn=self._statusz, latency=self.latency)
+        self.timer = PhaseTimer(tracer=self.tracer)
+        self.profile_window = ProfileWindow(
+            config.profile_dir or os.path.join(config.output_dir, "profile"),
+            at_step=config.profile_at_step, num_steps=config.profile_num_steps,
+            trigger_file=config.profile_trigger_file
+            or os.path.join(config.output_dir, "PROFILE"))
+        # rollout/train overlap over the trainer's lifetime
+        self._rollout_meter = OverlapMeter()
 
     def _build_value(self, value_params: dict | None, ref: dict) -> None:
         """PPO's value tree: its own LoRA subtree (from (seed,
@@ -285,17 +393,78 @@ class RLTrainer:
                 all_stats.append(stats)
         return all_stats
 
+    def _skip_quarantined(self) -> None:
+        """Consume every quarantined rollout index at the cursor without
+        dispatching it (JAX `RolloutStream.skip`): its data batch is drawn
+        and dropped, the cursor advances, and the ledger gets a
+        `sentinel_quarantine` drop."""
+        while self.state["rollouts"] in self.sentinel.quarantined:
+            idx = self.state["rollouts"]
+            next(self._iter)
+            self.state["rollouts"] += 1
+            self.lineage.drop(idx, "sentinel_quarantine",
+                              step=self.state["global_step"], dispatched=False)
+            print(f"[resilience] skipping quarantined rollout {idx} "
+                  "(sentinel rollback; not dispatched)")
+
+    def _note_rollout(self, ro: dict, index: int, t_call: float, tp_call: float,
+                      gen_s: float) -> None:
+        """After a rollout: its generation window into the overlap meter and
+        (as a `rollout.generate` async span) the trace, the lineage
+        `generation` and mid-loop `lease` events, the paged snapshot."""
+        self._rollout_meter.note_gen(t_call, t_call + gen_s)
+        self.tracer.add_async("rollout.generate", tp_call, gen_s * 1e6, aid=index,
+                              track="rollout", rollout_index=index)
+        if self.lineage.enabled:
+            self.lineage.generation(
+                index, policy_version=self.state["global_step"], worker_id=0,
+                spec=spec_summary(ro), segments=segments_summary(ro),
+                swap_wait_s=ro.get("swap_wait_s"))
+            for adm in (ro.get("paged_stats") or {}).get("admissions") or []:
+                self.lineage.event("lease", index, midloop=True, row=adm["row"],
+                                   queue_index=adm["queue_index"],
+                                   iteration=adm["iteration"])
+        self._snapshot_pages(ro.get("paged_stats"))
+
+    def _preempt(self, saved: bool, metrics: dict) -> None:
+        """At an update boundary after SIGTERM: commit an emergency
+        checkpoint (unless this step saved one), flush the writer, dump the
+        flight recorder and the trace, raise `Preempted`."""
+        if not saved:
+            self.save_checkpoint(metrics)
+        self.ckpt.wait()
+        self.tracer.dump_blackbox(self._telemetry_dir, self.state["global_step"],
+                                  "preemption")
+        self._write_trace()
+        raise Preempted(
+            f"SIGTERM at step {self.state['global_step']}: emergency "
+            f"checkpoint committed to {self.cfg.output_dir}")
+
     def train(self, num_updates: int | None = None) -> dict:
         cfg, tok = self.cfg, self.tokenizer
         pad_id, eos_id = tok.pad_token_id, tok.eos_token_id
         stop_id = eos_id if cfg.stop_token == "eos" else None
+        n = cfg.sample_n if cfg.algo in (AlgoName.GRPO, AlgoName.RLOO,
+                                          AlgoName.RAFT) else 1
         n_updates = (max(0, cfg.num_total_batches - self.state["global_step"])
                      if num_updates is None else num_updates)
-        for _ in range(n_updates):
+        self.lineage.rows_hint = cfg.batch_size * n
+        target_step = self.state["global_step"] + n_updates
+        while self.state["global_step"] < target_step:
             t_start = time.perf_counter()
+            # the profile window for the update about to run, and its span
+            # (recorded at the end: a with-block could not survive the
+            # rollback's `continue`)
+            self.profile_window.poll(self.state["global_step"] + 1)
+            span_t0 = self.tracer.now_us() if self.tracer.enabled else 0.0
+            self._skip_quarantined()
             queries = np.asarray(next(self._iter))
             index = self.state["rollouts"]
             self.state["rollouts"] += 1
+            if self.lineage.enabled:
+                # the synchronous loop has no coordinator: the dispatch is
+                # the lease (worker 0, cursor == index)
+                self.lineage.lease(index, worker_id=0, cursor=index, length=1)
             self.state["episode"] += cfg.batch_size
             t: dict = {}
             ro_launches: dict = {}
@@ -303,13 +472,23 @@ class RLTrainer:
             # GRPO draws its keep in the rollout, RLOO and RAFT ("random")
             # theirs in the batch assembly: one stream an update
             keep_gen = stream_generator(cfg.seed, KEEP_STREAM, index)
+            t_call = time.perf_counter()
+            tp_call = self.tracer.now_us()
             ro = rollout_and_score(
                 self.params, self.ref_params, self.mcfg, cfg, tok, queries,
                 self.reward_func, rollout_generator(cfg.seed, index, self.device),
                 self.lora_scale, keep_gen,
                 ctx_menu=self.ctx_menu, timings=t, launches=ro_launches,
-                rollout_params=self._rollout_params())
-            self._snapshot_pages(ro.get("paged_stats"))
+                rollout_params=self._rollout_params(), planes=self,
+                rollout_index=index, step=self.state["global_step"],
+                on_generated=lambda out, gen_s: self._note_rollout(
+                    out, index, t_call, tp_call, gen_s))
+            t_busy0 = t_call + t["generate_s"]
+            if ro["keep"] is not None and n > 1:
+                # the other n−1 completions per prompt left the batch
+                self.lineage.drop(index, "keep_filter",
+                                  count=len(ro["keep"]) * (n - 1),
+                                  step=self.state["global_step"])
             context_length = ro["context_length"]
             t0 = time.perf_counter()
             counts_v = launch_counts()
@@ -319,11 +498,16 @@ class RLTrainer:
                                                context_length, pad_id,
                                                self.value_lora_scale))
             t["assemble_s"] = time.perf_counter() - t0
+            if cfg.algo in (AlgoName.RLOO, AlgoName.RAFT):
+                self.lineage.drop(index, "keep_filter",
+                                  count=len(info["keep"]) * (n - 1),
+                                  step=self.state["global_step"])
 
             t0 = time.perf_counter()
             counts1 = launch_counts()
             lr_step = self.state["opt_steps"]
-            all_stats = self._update(batch, context_length)
+            with self.timer.phase("update"):
+                all_stats = self._update(batch, context_length)
             t["update_s"] = time.perf_counter() - t0
             counts2 = launch_counts()
             self.last_launches = {
@@ -334,31 +518,80 @@ class RLTrainer:
             self.last_timings, self.last_stats = t, all_stats
             agg = {k: float(np.mean([s[k] for s in all_stats]))
                    for k in (all_stats[0] if all_stats else {})}
+
+            # ---- the sentinel: `update.step` poisons the observed stats
+            # (action=nan), the path a real NaN loss takes
+            if self.faults.fire("update.step") == "nan":
+                agg["pg_loss"] = float("nan")
+                agg["grad_norm"] = float("nan")
+            verdict = self.sentinel.observe(agg.get("pg_loss", 0.0),
+                                            agg.get("grad_norm"))
+            if verdict is not None:
+                # the tripped update's span closes BEFORE the rollback dumps
+                # the flight recorder, tagged with the quarantined index
+                self.tracer.add_complete(
+                    "train.update", span_t0, self.tracer.now_us() - span_t0,
+                    step=self.state["global_step"] + 1, rollout_index=index,
+                    staleness=0, policy_version=self.state["global_step"],
+                    sentinel_verdict=verdict, quarantined=True)
+                self._sentinel_rollback(verdict, index)
+                # drop the tripped update's phase splits
+                self.timer.summary()
+                continue
+
             metrics = self._metrics(ro, batch, info, agg, all_stats, lr_step, t,
                                     t_start, context_length)
+            metrics.update(self._host_metrics(
+                t_start, n, context_length, ro, batch))
             self.state["global_step"] += 1
             step = self.state["global_step"]
+            # the health plane folds this row in; its gauges ride along
+            metrics.update(self.health.observe(step, metrics))
+            keep = info["keep"]
+            kept = batch["responses"]
+            scores = ro["scores"] if keep is None else ro["scores"].reshape(
+                -1, cfg.sample_n)[np.arange(kept.shape[0]), keep]
+            kept_decoded = tok.batch_decode(kept)
+            if self.lineage.enabled:
+                self._lineage_outcome(index, batch, info, scores, kept_decoded)
             if step % cfg.logging_steps == 0:
                 self.logger.log(step, self.state["episode"], metrics)
-                kept = batch["responses"]
-                keep = info["keep"]
-                scores = ro["scores"] if keep is None else ro["scores"].reshape(
-                    -1, cfg.sample_n)[np.arange(kept.shape[0]), keep]
                 queries_dec = [q.replace(tok.pad_token, "")
                                for q in tok.batch_decode(ro["queries"])]
                 if keep is None:
                     queries_dec = [q for q in queries_dec for _ in range(cfg.sample_n)]
                 limit = (cfg.log_samples_limit if cfg.log_samples_limit is not None
                          else cfg.num_printed_samples)
-                self.logger.log_samples(step, queries_dec, tok.batch_decode(kept),
-                                        scores, limit)
+                self.logger.log_samples(step, queries_dec, kept_decoded, scores, limit)
+                if self.lineage.enabled:
+                    for i, (q, r, sc) in enumerate(zip(queries_dec, kept_decoded,
+                                                       np.asarray(scores).tolist())):
+                        if i >= limit:
+                            break
+                        self.lineage.event("sample", index, step=step, row=i,
+                                           query=q, response=r,
+                                           score=round(float(sc), 6))
+            saved = False
             if cfg.save_steps and step % cfg.save_steps == 0:
                 t0 = time.perf_counter()
                 self.save_checkpoint(metrics)
                 self.last_save_s = time.perf_counter() - t0
+                saved = True
+            self._rollout_meter.note_busy(t_busy0, time.perf_counter())
+            if self.tracer.enabled:
+                self.tracer.add_complete(
+                    "train.update", span_t0, self.tracer.now_us() - span_t0,
+                    step=step, rollout_index=index, staleness=0,
+                    policy_version=step)
+                self.tracer.counter("staleness", 0)
+            # SIGTERM is polled here, where the state is consistent
+            if self._preemption.triggered:
+                self._preempt(saved, metrics)
         # train() returning means every checkpoint is durable: the final
         # write's failure raises here
         self.ckpt.wait()
+        self.profile_window.stop()
+        self._write_trace()
         if cfg.load_best_model_at_end and num_updates is None:
             best = self.ckpt.best_step()
             if best is not None and best != self.state["global_step"]:
@@ -371,6 +604,184 @@ class RLTrainer:
             print(f"exporting HF checkpoint to {cfg.export_hf_dir}")
             self.export_model(cfg.export_hf_dir)
         return self.state
+
+    def _host_metrics(self, t_start: float, n: int, context_length: int,
+                      ro: dict, batch: dict) -> dict:
+        """The rows the host planes add to an update's metrics, as JAX's
+        loop does: the overlap fraction, the resilience counters,
+        `perf/*` (`_perf_metrics`), the phase splits (`time/*_s`, which also
+        feed the `latency/phase_*_s` histograms)."""
+        cfg = self.cfg
+        local_bs, t_resp = batch["responses"].shape
+        n_rollout_rows = ro["queries"].shape[0] * n
+        score_forwards = 1 if self._ref_free else 2
+        out = {
+            "time/rollout_overlap_frac": self._rollout_meter.overlap_fraction(),
+            "resilience/producer_restarts": float(self.watchdog.restarts_total),
+            "resilience/rollbacks": float(self.sentinel.rollbacks),
+            "resilience/degraded_mode": float(self.watchdog.degraded),
+            "resilience/ckpt_retries": float(self.ckpt.retry_count),
+            "resilience/ckpt_fallbacks": float(self.ckpt.fallback_count),
+        }
+        out.update(self._perf_metrics(
+            step_wall_s=time.perf_counter() - t_start,
+            decode_tokens=n_rollout_rows * cfg.response_length,
+            prefill_tokens=n_rollout_rows * context_length,
+            score_tokens=score_forwards * ro["responses"].shape[0]
+            * (context_length + cfg.response_length),
+            train_tokens=cfg.num_ppo_epochs * local_bs * (context_length + t_resp),
+            rollout_s=self.timer.totals.get("rollout", 0.0),
+            update_s=self.timer.totals.get("update", 0.0)))
+        phase_rows = self.timer.summary()
+        out.update(phase_rows)
+        self._record_phases(phase_rows)
+        return out
+
+    def _record_phases(self, phase_rows: dict) -> None:
+        """Every update's phase seconds into the `latency/phase_*_s`
+        histograms ("time/rollout_s" → "latency/phase_rollout_s")."""
+        if self.latency.enabled:
+            for k, v in phase_rows.items():
+                if k.startswith("time/") and k.endswith("_s"):
+                    self.latency.record(f"latency/phase_{k[5:-2]}_s", float(v))
+
+    def _lineage_outcome(self, index: int, batch: dict, info: dict, scores,
+                         decoded: list[str]) -> None:
+        """The `outcome` event that closes an index's chain, and the first
+        rows' `note_sample` records."""
+        step = self.state["global_step"]
+        adv = np.asarray(batch.get("advantages", batch.get("advantages_seq", scores)),
+                         dtype=np.float32)
+        if adv.ndim > 1:
+            adv = adv.mean(axis=tuple(range(1, adv.ndim)))
+        contain_eos = (info["post"] == self.tokenizer.eos_token_id).any(axis=1)
+        self.lineage.outcome(
+            index, step=step, policy_version=step,
+            kept=int(batch["responses"].shape[0]),
+            advantage=round(float(adv.mean()), 6),
+            scores=[round(float(x), 6) for x in np.asarray(scores).tolist()],
+            eos_frac=round(float(contain_eos.mean()), 4), staleness=0)
+        for i, sc in enumerate(np.asarray(scores).tolist()[:8]):
+            self.lineage.note_sample(
+                index, step=step, score=round(float(sc), 6),
+                response_chars=len(decoded[i]) if i < len(decoded) else None,
+                kept=True)
+
+    def _perf_metrics(self, *, step_wall_s: float, decode_tokens: float,
+                      prefill_tokens: float, score_tokens: float,
+                      train_tokens: float, rollout_s: float,
+                      update_s: float) -> dict:
+        """`perf/*` rows from the analytic model of `telemetry/mfu.py`
+        (JAX `_perf_metrics`): MFU against the card's peak
+        (`perf/peak_flops_known` 0 when the peak is a fallback), tokens per
+        second of the step, the update and the rollout, the model FLOPs, the
+        cumulative kernel builds (`perf/recompiles`, seconds) and the spans
+        the tracer dropped."""
+        flops = update_flops(self._flops_params, decode_tokens=decode_tokens,
+                             prefill_tokens=prefill_tokens,
+                             score_tokens=score_tokens, train_tokens=train_tokens)
+        all_tokens = decode_tokens + prefill_tokens + score_tokens + train_tokens
+        return {
+            "perf/mfu": flops / max(step_wall_s, 1e-9)
+            / (self._peak_flops * self._n_devices),
+            "perf/peak_flops_known": 1.0 if self._peak_flops_known else 0.0,
+            "perf/tokens_per_sec_step": all_tokens / max(step_wall_s, 1e-9),
+            "perf/tokens_per_sec_update": train_tokens / max(update_s, 1e-9),
+            "perf/tokens_per_sec_rollout": (decode_tokens + prefill_tokens)
+            / max(rollout_s, 1e-9),
+            "perf/model_flops_per_step": flops,
+            "perf/recompiles": float(self._recompiles.count),
+            "perf/recompile_seconds": self._recompiles.seconds,
+            "telemetry/spans_dropped": float(self.tracer.dropped),
+        }
+
+    # ------------------------------------------------------------------ #
+    # the health plane, the exporter, the trace, the rollback
+    # ------------------------------------------------------------------ #
+
+    def _health_blackbox(self, step: int, extra: dict):
+        """CRIT hook: the flight recorder with reason "health" (None when
+        the tracer is off)."""
+        return self.tracer.dump_blackbox(self._telemetry_dir, step, "health",
+                                         extra=extra)
+
+    def _on_health_crit(self, step: int, rules: list):
+        """A CRIT verdict arms the sentinel when it was off and
+        `health_arm_sentinel` asks for it."""
+        if self.cfg.health_arm_sentinel and not self.sentinel.cfg.enabled:
+            self.sentinel.cfg.enabled = True
+            print(f"[health] CRIT at step {step} ({', '.join(rules)}): "
+                  "arming training sentinel")
+
+    def _statusz(self) -> dict:
+        """/statusz (on the exporter's threads: everything read here is
+        immutable after __init__ or behind its own lock)."""
+        latest = self.logger.latest()
+        return {
+            "unix_time": time.time(),
+            "algo": self.cfg.algo.value,
+            "step": self.state.get("global_step", 0),
+            "episode": self.state.get("episode", 0),
+            "policy_version": self.state.get("global_step", 0),
+            "devices": self._n_devices,
+            "mfu": latest.get("perf/mfu"),
+            "mfu_trusted": bool(self._peak_flops_known),
+            "peak_flops_per_chip": self._peak_flops,
+            "staleness_avg": latest.get("orchestrator/staleness"),
+            "health": self.health.snapshot(),
+            "lineage": self.lineage.statusz(),
+            "latency": self.latency.snapshot(),
+            "pages": self.pages_status,
+            "prefix_cache": None,
+            "session": self.session_status,
+        }
+
+    def _export_metrics(self) -> dict:
+        """/metrics: the latest metric row and the ledger's drop gauges."""
+        return {**self.logger.latest(), **self.lineage.metric_rows()}
+
+    def _write_trace(self):
+        """Rewrite `<telemetry_dir>/trace.json` from the whole span buffer
+        (nothing when telemetry is off)."""
+        path = self.tracer.write_trace(os.path.join(self._telemetry_dir, "trace.json"))
+        if path is not None:
+            print(f"[telemetry] trace written: {path}")
+        return path
+
+    def _sentinel_rollback(self, verdict: str, rollout_index: int) -> None:
+        """A sentinel trip: the flight recorder first, then charge the
+        budget (raises when spent), quarantine the index and restore the
+        last committed checkpoint through `resume_from_checkpoint`; the
+        trip's accounting (and the watchdog's) survive the restore, the
+        EWMA statistics rewind with it."""
+        step_attempted = self.state["global_step"] + 1
+        last = self.ckpt.latest_step()
+        print(f"[resilience] sentinel tripped ({verdict}) at step "
+              f"{step_attempted} (rollout {rollout_index}) — rolling back to "
+              f"checkpoint {last}")
+        self.tracer.instant("sentinel.trip", verdict=verdict,
+                            rollout_index=rollout_index, step=step_attempted)
+        self.tracer.dump_blackbox(
+            self._telemetry_dir, step_attempted, "sentinel_trip",
+            extra={"verdict": verdict, "rollout_index": int(rollout_index),
+                   "rollback_to_step": last})
+        if last is None:
+            raise RuntimeError(
+                f"sentinel tripped ({verdict}) at step {step_attempted} with "
+                "no committed checkpoint to roll back to — enable save_steps "
+                "or disable cfg.sentinel")
+        self.sentinel.note_rollback(step_attempted, rollout_index, verdict)
+        keep_sentinel = self.sentinel.journal()
+        keep_watchdog = self.watchdog.journal()
+        self.sentinel.steps, self.sentinel.ewma, self.sentinel.var = 0, 0.0, 0.0
+        self.resume_from_checkpoint(last)
+        self.sentinel.restore_accounting(keep_sentinel)
+        self.watchdog.restore(keep_watchdog)
+        self.logger.log_event(rollout_index, {
+            "resilience/rollback": 1.0,
+            "resilience/rollback_to_step": float(last),
+            "resilience/rollbacks": float(self.sentinel.rollbacks),
+        })
 
     def _metrics(self, ro, batch, info, agg, all_stats, lr_step, t, t_start,
                  context_length) -> dict:
@@ -389,7 +800,6 @@ class RLTrainer:
             kl_old = 0.0
         scores_all = float(np.mean(ro["scores"]))
         local_bs, t_resp = batch["responses"].shape
-        train_tokens = cfg.num_ppo_epochs * local_bs * (context_length + t_resp)
         mini = max(1, local_bs // cfg.num_mini_batches)
         micro_rows = max(1, mini // cfg.gradient_accumulation_steps)
         itemsize = self.params["embed_tokens"].element_size()
@@ -418,11 +828,6 @@ class RLTrainer:
             if self.device.type == "cuda" else 0.0,
             "mem/logits_bytes_saved": float(micro_rows * t_resp * self.mcfg.vocab_size
                                             * itemsize) if cfg.fused_logprob else 0.0,
-            "time/rollout_s": t["generate_s"],
-            "time/reward_s": t["reward_s"],
-            "time/logprob_s": t["score_s"],
-            "time/update_s": t["update_s"],
-            "perf/tokens_per_sec_update": train_tokens / max(t["update_s"], 1e-9),
         }
         if "vf_loss" in agg:
             metrics["loss/value_avg_new"] = agg["vf_loss"]
@@ -506,11 +911,19 @@ class RLTrainer:
         value = (self.value_trainable
                  if cfg.save_value_model and self.value_trainable is not None else None)
         metrics = metrics or {}
+        extra = {k: self.state[k] for k in ("episode", "opt_steps", "rollouts")}
+        # the planes' journals: recovery itself resumes (rollback spend,
+        # quarantine, restart counters), and so do the health baselines,
+        # the ledger's event index and the latency histograms
+        extra.update(
+            resilience={"sentinel": self.sentinel.journal(),
+                        "watchdog": self.watchdog.journal()},
+            health=self.health.journal(), lineage=self.lineage.journal(),
+            latency=self.latency.journal())
         return self.ckpt.save(
             self.state["global_step"], self.trainable, opt_state=opt,
             metric_old=metrics.get(cfg.metric_for_best_model),
-            extra_state={k: self.state[k] for k in ("episode", "opt_steps", "rollouts")},
-            value=value)
+            extra_state=extra, value=value)
 
     @torch.no_grad()
     def _load_trainable(self, tree: dict) -> None:
@@ -528,7 +941,9 @@ class RLTrainer:
         """Load the trainable leaves (the value tree's too), the optimizer
         state and the step counters saved at `step` (default: the latest)
         into this trainer, and fast-forward the data stream to the saved
-        rollout cursor. A checkpoint that will not load falls back to an
+        rollout cursor; the host planes' journals come back too (the
+        sentinel's rollback spend and quarantine, the watchdog's counters,
+        the health baselines, the ledger's index, the latency histograms). A checkpoint that will not load falls back to an
         older intact one, whose step is adopted; resuming an earlier step
         than the latest abandons the newer trajectory (`truncate_after`).
         The random streams are functions of (seed, stream, step or rollout
@@ -554,6 +969,14 @@ class RLTrainer:
         state = self.ckpt.load_trainer_state(step)
         self.state.update(global_step=state["step"],
                           **{k: state[k] for k in ("episode", "opt_steps", "rollouts")})
+        res = state.get("resilience")
+        if res:
+            self.sentinel.restore(res.get("sentinel", {}))
+            self.watchdog.restore(res.get("watchdog", {}))
+        for key, plane in (("health", self.health), ("lineage", self.lineage),
+                           ("latency", self.latency)):
+            if state.get(key):
+                plane.restore(state[key])
         self._iter = self.dataset.loader(self.cfg.batch_size, self.cfg.seed)
         for _ in range(self.state["rollouts"]):
             next(self._iter)
@@ -573,7 +996,21 @@ class RLTrainer:
             dtype=dtype, tokenizer=self.tokenizer)
 
     def close(self) -> None:
+        """Stop the exporter (its handlers read the trainer), close an open
+        profile window, write the trace, flush the ledger and the writer,
+        and uninstall the SIGTERM guard — the last two whatever failed
+        before them. A second call does nothing."""
+        if getattr(self, "_closed", False):
+            return
+        self._closed = True
         try:
+            self.exporter.close()
+            self.profile_window.stop()
+            self._write_trace()
+            self.lineage.close()
             self.ckpt.close()
         finally:
-            self.logger.close()
+            try:
+                self.logger.close()
+            finally:
+                self._preemption.uninstall()

@@ -2,10 +2,12 @@
 built by the JAX package, bridged into the port through numpy."""
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nanorlhf_tpu.core.config import ModelConfig as JaxModelConfig
@@ -14,6 +16,7 @@ from nanorlhf_tpu.core.lora import init_lora_params as jax_init_lora_params
 from nanorlhf_tpu.core.model import init_params as jax_init_params
 from nanorlhf_tpu_torch.bridge import params_from_numpy
 from nanorlhf_tpu_torch.core.config import ModelConfig
+from nanorlhf_tpu_torch.trainer import trainer as _port_trainer  # noqa: F401 (closes_trainers)
 
 LORA = JaxLoraConfig(r=4, alpha=8)
 KINDS = ("qwen_tied", "llama_untied")
@@ -72,3 +75,38 @@ def left_pad(rows, T, pad=0):
     for i, r in enumerate(rows):
         ids[i, T - len(r):] = r
     return ids
+
+
+# the trainer classes whose instances `closes_trainers` closes: each
+# installs a SIGTERM guard (and may hold a status port, a writer thread and
+# open files) until its close()
+_TRAINER_CLASSES = (("nanorlhf_tpu_torch.trainer.trainer", "RLTrainer"),
+                    ("nanorlhf_tpu.trainer.trainer", "RLTrainer"))
+
+
+@pytest.fixture(autouse=True)
+def closes_trainers(monkeypatch):
+    """Close every trainer (the port's and the JAX package's, the sparse
+    ones included) that the test built and left open. Import it into a test
+    module that builds trainers; it is autouse there."""
+    built = []
+    for module, name in _TRAINER_CLASSES:
+        if module not in sys.modules:
+            continue
+        cls = getattr(sys.modules[module], name)
+        real_init = cls.__init__
+
+        def recording_init(self, *args, _real=real_init, **kwargs):
+            built.append(self)
+            _real(self, *args, **kwargs)
+
+        monkeypatch.setattr(cls, "__init__", recording_init)
+    yield built
+    for trainer in built:
+        # a trainer whose __init__ raised may lack what close() needs
+        guard = getattr(trainer, "_preemption", None)
+        try:
+            trainer.close()
+        except Exception:
+            if guard is not None:
+                guard.uninstall()

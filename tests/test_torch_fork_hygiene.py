@@ -1,7 +1,8 @@
 """Fork hygiene of the test processes that run the port's tests beside the
 JAX package's.
 
-The JAX `RLTrainer` installs a `PreemptionGuard`: a Python-level SIGTERM
+The JAX `RLTrainer` and the port's install a `PreemptionGuard` (the port's
+is a copy of JAX's, with the same class name): a Python-level SIGTERM
 handler that only sets a flag (the trainer's grace window). Tests that
 build a trainer without closing it leave that handler installed for the
 rest of the worker process. A child forked afterwards (the JAX package's
@@ -38,13 +39,11 @@ def _block_forever(started):
         time.sleep(1.0)
 
 
-def test_forked_child_of_a_guarded_process_still_terminates():
+def _child_terminates_under(guard_cls) -> None:
     """With a live guard in this process, a forked child stops on
     terminate() (without the hook its join would never return), while the
     guard keeps swallowing SIGTERM here."""
-    from nanorlhf_tpu.resilience.preemption import PreemptionGuard
-
-    guard = PreemptionGuard()
+    guard = guard_cls()
     try:
         assert guard.installed
         ctx = multiprocessing.get_context("fork")
@@ -68,3 +67,18 @@ def test_forked_child_of_a_guarded_process_still_terminates():
         assert guard.triggered
     finally:
         guard.uninstall()
+
+
+def test_forked_child_of_a_guarded_process_still_terminates():
+    """Under the JAX trainer's guard."""
+    from nanorlhf_tpu.resilience.preemption import PreemptionGuard
+
+    _child_terminates_under(PreemptionGuard)
+
+
+def test_forked_child_of_a_port_guarded_process_still_terminates():
+    """Under the port's guard, which every port trainer installs by default
+    (`graceful_preemption`)."""
+    from nanorlhf_tpu_torch.resilience.preemption import PreemptionGuard
+
+    _child_terminates_under(PreemptionGuard)

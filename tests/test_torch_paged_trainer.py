@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import closes_trainers  # noqa: F401 (autouse)
 from nanorlhf_tpu_torch import _build
 from nanorlhf_tpu_torch.entrypoints import common
 from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut

@@ -26,7 +26,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import KINDS, LORA, jax_config, left_pad, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    KINDS,
+    LORA,
+    closes_trainers,
+    jax_config,
+    left_pad,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.core import model as jm
 from nanorlhf_tpu.core import quant as jq
 from nanorlhf_tpu.sampler import sampler as js

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import closes_trainers  # noqa: F401 (autouse)
 from nanorlhf_tpu.core.lora import merge_lora as jax_merge_lora
 from nanorlhf_tpu.core.params import load_hf_checkpoint as jax_load_hf_checkpoint
 from nanorlhf_tpu_torch.bridge import params_to_numpy

@@ -24,7 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import LORA, jax_config, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    LORA,
+    closes_trainers,
+    jax_config,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.data import ToyTokenizer as JaxToyTokenizer
 from nanorlhf_tpu.entrypoints import grpo_r1 as jr1
 from nanorlhf_tpu.parallel import MeshConfig as JaxMeshConfig
@@ -278,7 +284,12 @@ def _check_sparse_update(monkeypatch, tmp_path, **over):
     # the metric row
     row = [r for r in _rows(tmp_path / "port" / "metrics.jsonl") if "episode" in r][-1]
     jrow = [r for r in _rows(tmp_path / "jax" / "metrics.jsonl") if "episode" in r][-1]
-    skip = {"time", "t_mono", "sec_per_episode", "mem/peak_bytes_in_use"}
+    # wall-clock rows, and the compile counters (XLA's compiles in JAX,
+    # kernel builds in the port)
+    skip = {"time", "t_mono", "sec_per_episode", "mem/peak_bytes_in_use",
+            "perf/mfu", "perf/tokens_per_sec_step", "perf/tokens_per_sec_update",
+            "perf/tokens_per_sec_rollout", "perf/recompiles",
+            "perf/recompile_seconds"}
     shared = (set(row) & set(jrow)) - skip
     assert {"sparse/kept_frac", "loss/policy_avg_new", "policy/entropy_avg_new",
             "lr", "eval_response_length", "mem/logits_bytes_saved"} <= shared
@@ -399,6 +410,58 @@ def test_resume_after_a_skipped_update_replays_the_run(monkeypatch, tmp_path):
     for p, t in flatten(whole.trainable).items():
         assert torch.equal(t, flatten(resumed.trainable)[p]), p
     assert resumed.update_log[1]["update_buckets"] == whole.update_log[2]["update_buckets"]
+
+
+def test_sparse_trainer_runs_the_host_planes(monkeypatch, tmp_path):
+    """The sparse loop's calls into the host planes (JAX `sparse_grpo.py`
+    from :380): updates trained, skipped, trained with telemetry and the
+    lineage ledger on — the trace validates, each trained update is one
+    `train.update` span with its kept rows and the skip one `sparse.skip`
+    instant, the ledger drops the zero-advantage rows one by one and closes
+    the trained indices with `outcome`, the rows carry `perf/*` and
+    `health/*`; then a SIGTERM on the skip path commits an emergency
+    checkpoint and raises `Preempted`."""
+    from nanorlhf_tpu_torch.resilience import Preempted
+    from nanorlhf_tpu_torch.telemetry import read_ledger, validate_trace_file
+
+    rollouts = [(_responses(3), _rewards(3)),
+                (_responses(4), np.zeros(PROMPTS * N, np.float32)),
+                (_responses(5), _rewards(5)),
+                (_responses(6), np.zeros(PROMPTS * N, np.float32))]
+    _, cfg = _configs(tmp_path, save_steps=0, telemetry=True, lineage=True)
+    jmodel = jax_config("qwen_tied", vocab_size=V)
+    _, tparams = make_params(jmodel, seed=3)
+    tok = ToyTokenizer(V)
+    _, ds = _dataset(JaxToyTokenizer(V), tok)
+    script = _Script(rollouts)
+    monkeypatch.setattr(tsg, "generate", lambda params, config, ids, *a, **k:
+                        torch.as_tensor(script.tokens(ids)))
+    monkeypatch.setattr(tsg, "forward_token_budget", lambda *a, **k: FORWARD_BUDGET)
+    monkeypatch.setattr(tsg, "BACKWARD_BUDGET", BACKWARD_BUDGET)
+    tr = tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds, script.reward)
+    tr.train(3)
+    out = str(tmp_path / "port")
+    assert validate_trace_file(f"{out}/trace.json") == []
+    events = json.load(open(f"{out}/trace.json"))["traceEvents"]
+    updates = [e["args"] for e in events if e["name"] == "train.update"]
+    assert [u["rollout_index"] for u in updates] == [0, 2]
+    assert all(u["kept_rows"] == PROMPTS - 1 for u in updates)
+    assert [e["args"]["rollout_index"] for e in events if e["name"] == "sparse.skip"] == [2]
+    ledger = list(read_ledger(out))
+    zero = [e for e in ledger if e.get("reason") == "sparse_zero_advantage"]
+    assert sorted({e["rollout_index"] for e in zero}) == [0, 1, 2]
+    assert len([e for e in zero if e["rollout_index"] == 1]) == PROMPTS
+    assert [e["rollout_index"] for e in ledger if e["type"] == "outcome"] == [0, 2]
+    row = [r for r in _rows(f"{out}/metrics.jsonl") if "episode" in r][-1]
+    assert row["perf/model_flops_per_step"] > 0 and "health/verdict" in row
+    assert tr.latency.count("latency/reward_s") == 3
+
+    tr.reward_func = lambda *a: (tr._preemption.trigger(), script.reward(*a))[1]
+    with pytest.raises(Preempted, match="emergency checkpoint"):
+        tr.train(1)
+    assert tr.ckpt.latest_step() == 2 and tr.state["rollouts"] == 4
+    assert json.load(open(f"{out}/blackbox_2.json"))["reason"] == "preemption"
+    tr.close()
 
 
 def test_greedy_accuracy_eval_matches_jax(monkeypatch):

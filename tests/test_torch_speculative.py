@@ -27,7 +27,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import LORA, jax_config, left_pad, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    LORA,
+    closes_trainers,
+    jax_config,
+    left_pad,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.core import model as jm
 from nanorlhf_tpu.sampler import sampler as js
 from nanorlhf_tpu.sampler import speculative as jspec
@@ -445,19 +452,34 @@ def test_sampled_spec_keeps_the_contract_and_scores_like_a_rescore(tiny):
 
 
 def test_spec_with_compaction_raises_and_tracer_is_not_ported(tiny):
+    """Spec decode with compaction raises. An enabled tracer, which raised
+    until the telemetry planes were ported, now runs the traced loop: its
+    greedy tokens and stats equal the compiled loop's, with one
+    draft/verify span pair per verify step."""
+    from nanorlhf_tpu_torch.telemetry import SpanTracer
+
     jcfg, jparams, cfg, tparams = tiny
     ids = _prompts((3,), 3)
     with pytest.raises(ValueError, match="compaction"):
         _port(tparams, cfg, ids, spec_k=2, compaction_segments=2)
 
-    class _Tracer:
-        enabled = True
-
-    with pytest.raises(NotImplementedError):
-        tspec.generate_spec(tparams, cfg, torch.as_tensor(ids).long(),
-                            torch.as_tensor(ids != PAD), torch.Generator(),
-                            max_tokens=4, eos_token_id=EOS, pad_token_id=PAD, spec_k=2,
-                            tracer=_Tracer())
+    ids = _prompts((3, 6, 2), 6)
+    args = (tparams, cfg, torch.as_tensor(ids).long(), torch.as_tensor(ids != PAD))
+    kw = dict(max_tokens=9, eos_token_id=EOS, pad_token_id=PAD, spec_k=2,
+              greedy=True, lora_scale=LORA.scale)
+    tracer = SpanTracer(enabled=True)
+    traced_stats, plain_stats = [], []
+    traced = tspec.generate_spec(*args, torch.Generator(), tracer=tracer,
+                                 spec_stats_out=traced_stats, **kw)
+    plain = tspec.generate_spec(*args, torch.Generator(),
+                                spec_stats_out=plain_stats, **kw)
+    assert torch.equal(traced, plain)
+    assert _stats(traced_stats[0]) == _stats(plain_stats[0])
+    spans = [e for e in tracer.trace_events() if e["ph"] == "X"]
+    steps = plain_stats[0]["verify_steps"]
+    assert steps > 0
+    assert [e["name"] for e in spans] == ["rollout.draft", "rollout.verify"] * steps
+    assert [e["args"]["iteration"] for e in spans[1::2]] == list(range(steps))
 
 
 # --------------------------------------------------------------------- #

@@ -18,7 +18,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from _torch_parity import LORA, jax_config, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    LORA,
+    closes_trainers,
+    jax_config,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.core import model as jm
 from nanorlhf_tpu.trainer.checkpoint import CheckpointManager as JaxCheckpointManager
 from nanorlhf_tpu_torch import _build
@@ -168,14 +174,24 @@ def test_checkpoint_rotation_matches_jax(tmp_path):
     assert again.best_step() == 2 and again.latest_step() == 6
 
 
+# the host planes' knobs, ported with the telemetry and resilience layers
+PORTED_TRAINER_KNOBS = {"telemetry", "lineage", "fault_spec", "status_port",
+                        "profile_at_step", "health_arm_sentinel"}
+
+
 @pytest.mark.parametrize("knob,value", [
     ("telemetry", True), ("lineage", True), ("fault_spec", "update.step:at=1"),
-    ("status_port", -1), ("profile_at_step", 1),
-    ("rollout_ahead", True),
+    ("status_port", -1), ("profile_at_step", 1), ("health_arm_sentinel", True),
+    ("rollout_ahead", True), ("env_name", "python_tool"),
+    ("rollout_inflight_swaps", True),
 ])
 def test_unported_trainer_knobs_raise(knob, value):
+    """The knobs of later slices raise; the host planes' are accepted."""
     cfg = build_config()
     setattr(cfg, knob, value)
+    if knob in PORTED_TRAINER_KNOBS:
+        check_trainer_supported(cfg)
+        return
     with pytest.raises(NotImplementedError):
         check_trainer_supported(cfg)
 

@@ -17,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import LORA, jax_config, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    LORA,
+    closes_trainers,
+    jax_config,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.entrypoints import ppo as jax_ppo
 from nanorlhf_tpu.entrypoints import raft as jax_raft
 from nanorlhf_tpu.entrypoints import reinforce as jax_reinforce

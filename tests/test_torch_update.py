@@ -21,7 +21,13 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import LORA, jax_config, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    LORA,
+    closes_trainers,
+    jax_config,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.data import ToyTokenizer as JaxToyTokenizer
 from nanorlhf_tpu.data import load_prompt_dataset as jax_load_dataset
 from nanorlhf_tpu.parallel import MeshConfig as JaxMeshConfig

@@ -15,7 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import KINDS, LORA, jax_config, make_params, port_config
+from _torch_parity import (  # noqa: F401 (closes_trainers: autouse)
+    KINDS,
+    LORA,
+    closes_trainers,
+    jax_config,
+    make_params,
+    port_config,
+)
 from nanorlhf_tpu.core.lora import init_lora_params as jax_init_lora_params
 from nanorlhf_tpu.core.lora import trainable_mask as jax_trainable_mask
 from nanorlhf_tpu.core.model import score_forward as jax_score_forward
