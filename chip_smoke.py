@@ -22,6 +22,8 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --host          # build, then only phase 13 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --serve         # build, then only phase 14 (and the
+                                          # holds at its shapes)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -145,11 +147,13 @@ Phases (any failure exits non-zero):
      launched are held at the shapes they gave them that phase 2 did not;
  11. sparse GRPO and the R1-Zero launcher at 8,000-token responses —
      `grpo_r1.build_trainer` at `r1_card_cut`, then `train` (`grpo_r1.
-     main`'s two steps with `--r1`, one in the full script, a cut that
-     keeps it inside its time limit; 8 prompts x 4 samples, Qwen2-1.5B
+     main`'s two steps with `--r1`; 8 prompts x 4 samples, Qwen2-1.5B
      geometry at full depth, random weights, the synthetic arithmetic
      corpus): the greedy accuracy eval (16 questions, 1,024 tokens) before
-     training and after each of two updates; (a) each rollout graded by the
+     training and after each of two updates. The full script cuts the
+     phase to keep inside its time limit: one update of the model's first
+     R1_CUT_LAYERS layers, no eval (widths, lengths and the kernels'
+     shapes stay the launcher's). (a) each rollout graded by the
      launcher's binary reward (how many correct, whether the sparse filter
      would skip), then trained on a planted, seeded reward that keeps 7 of
      the 8 rows: kept rows, scoring and backward buckets, K2/K3 and K10
@@ -210,9 +214,37 @@ Phases (any failure exits non-zero):
      phase 4's trainer (save_steps=0) during update 2's reward: `Preempted`
      and checkpoint 2 committed, which a fresh trainer resumes; then that
      trainer (every plane off) and the phase's (every plane on) train in
-     turns: update seconds and decode ms a step, and the phase's wall. The
+     turns (two a side with `--host`, one in the full script, a cut):
+     update seconds and decode ms a step, and the phase's wall. The
      shapes phase 13 gave the kernels that no earlier phase held are held
-     as in phase 2, and its launches reported under `host`.
+     as in phase 2, and its launches reported under `host`;
+ 14. serving, on the launcher's model (Qwen2.5-1.5B geometry, 28 layers,
+     random weights from SERVE_SEED): the engine's session holds 32 rows,
+     prompts left-padded to 512, 256 new tokens, pages of 128. (b) Two
+     300-token prompts sharing 200 through a per-row session with the radix
+     cache: the second's first logits (a mid-page hit, its page copied on
+     write, K9 over the unmatched tail) against the f32 plain full prefill,
+     within SUFFIX_FACTOR of the bf16 full prefill's error, and both greedy
+     streams against the monolithic paged sampler's. (c) The serving engine
+     behind its gateway on 127.0.0.1, driven over HTTP by the traffic driver
+     (SERVE_TRAFFIC: 64 Poisson arrivals, 16-480 real tokens, 4 tenants of
+     a 384-token prefix, half greedy, the sampled half at the launcher's
+     temperature and top-p): every request completes, the cache saves
+     prefill tokens and shares pages, /metrics, /healthz and /statusz
+     answer; client and engine TTFT, inter-token gaps, tokens/s, prefill
+     tokens saved and K7/K9 launches printed; each greedy stream against
+     the rollout scheduler's greedy row for its prompt; the same traffic
+     with prefill_chunk=128, and the greedy requests through an engine with
+     spec_k=4, each greedy stream against the first engine's. A stream may
+     differ only from a near tie on (twice (b)'s suffix-vs-full logit
+     difference; each difference printed with its top-2 margin). (d) One
+     GRPO update with rollout_prefix_cache=True and rollout_prefill_chunk=128
+     on phase 5's config: finite rows, the session/* and prefix rows, the
+     trainer's /statusz prefix_cache snapshot. (a) K9 held as in phase 2 at
+     Tq 16, 128, 512 and every shape phase 14 gave it (one row: a mid-page
+     hit and a cold suffix; the spec engine's 32 rows), timed at the
+     engine's, and K7 at the engine's decode shape; the launches and times
+     reported under `serve`.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -1112,16 +1144,6 @@ def check_verify(torch, F, pad_max: int, k6_shape, k9_shape, timed: bool = True)
         return ((pos >= c["start"][:, None, None])
                 & (pos < c["fill"][:, None, None] + qi + 1))[:, None]
 
-    def bound(c, table_bytes=0):
-        B, H, Tq, hd, KV, T = (c[n] for n in ("B", "H", "Tq", "hd", "KV", "T"))
-        start, fill = c["start"], c["fill"]
-        qi = torch.arange(Tq, device="cuda")[None, :]
-        hi = torch.clamp(fill[:, None] + qi + 1, max=T)
-        pairs = float((hi - start[:, None]).clamp(min=0).sum())   # (row, query) x key
-        keys = float((torch.clamp(fill + Tq, max=T) - start).clamp(min=0).sum())
-        nbytes = 2 * (2 * keys * KV * hd) + 2 * 2 * B * H * Tq * hd + 8 * B + table_bytes
-        return bound_ms(nbytes, 4.0 * pairs * H * hd)
-
     B, H, Tq, hd, KV, T = k6_shape
     c6 = _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max, copies=4)
     shape6 = f"B={B} H={H} KV={KV} Tq={Tq} hd={hd} T_max={T}"
@@ -1147,7 +1169,7 @@ def check_verify(torch, F, pad_max: int, k6_shape, k9_shape, timed: bool = True)
     m = mask(c6)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m, enable_gqa=True), 20)
-    b = bound(c6)
+    b = verify_bound(torch, c6)
     t_dev = on_card if on_card is not None else ms
     log(f"  decode_verify_attention {shape6}: kernel {ms:.4f} ms, device time (profiler) "
         f"{fmt_ms(on_card)}; plain {plain:.4f} ms; SDPA (boolean mask, q len {Tq}) "
@@ -1180,7 +1202,7 @@ def check_verify(torch, F, pad_max: int, k6_shape, k9_shape, timed: bool = True)
         q, kg, vg, attn_mask=m, enable_gqa=True), 20)
     gather_ms = time_ms(torch, lambda: (da._gather_pool(kp, table),
                                         da._gather_pool(vp, table)), 10)
-    b = bound(c9, 4 * table.numel())
+    b = verify_bound(torch, c9, 4 * table.numel())
     log(f"  K6 on the same logical caches laid out contiguously ({shape9}): "
         f"{ms6:.4f} ms; K9 through the pages {ms:.4f} ms, device time (profiler) "
         f"{fmt_ms(on_card)}; yardstick (not one call): SDPA over the pre-gathered view "
@@ -3852,14 +3874,39 @@ def r1_buckets(torch, tr) -> None:
         fail("(b) a planted fault reads inside R1_GRAD_TOL: the hold would not catch it")
 
 
-def r1_zero(torch, seen: dict, updates: int = 2) -> dict:
+@contextlib.contextmanager
+def cut_depth(module, layers: int | None):
+    """`module.resolve_model` builds the launcher's model with only its
+    first `layers` layers (None: every layer): the full script's depth cut
+    of a phase whose widths and lengths stay the launcher's."""
+    import dataclasses
+
+    real = module.resolve_model
+
+    def cut(*args, **kwargs):
+        mcfg, params, tok = real(*args, **kwargs)
+        params["layers"] = _tree_map(lambda t: t[:layers].clone(), params["layers"])
+        return dataclasses.replace(mcfg, num_hidden_layers=layers), params, tok
+
+    if layers is not None:
+        module.resolve_model = cut
+    try:
+        yield
+    finally:
+        module.resolve_model = real
+
+
+def r1_zero(torch, seen: dict, updates: int = 2, evals: bool = True,
+            layers: int | None = None) -> dict:
     """Phase 11: `grpo_r1.build_trainer` at `r1_card_cut` on the card, then
     `train` (`grpo_r1.main`'s two steps; the full script cuts them to
     `updates` = 1 to stay inside its time limit, `--r1` runs both) — 8 prompts x
     4 samples of 8,000 tokens, random weights in the Qwen2-1.5B geometry at
     full depth, the synthetic arithmetic corpus, the greedy accuracy eval
     (16 questions, 1,024 tokens) before training and after each update,
-    two updates with a checkpoint each. (a) Each rollout is graded by the
+    two updates with a checkpoint each (`evals` False: no eval, and
+    `layers`: the model's first layers only, the full script's cuts). (a)
+    Each rollout is graded by the
     launcher's binary reward (how many correct; whether the sparse filter
     would skip), then trained on a planted, seeded reward (prompt 0's group
     scores alike, the rest at random, so the filter drops one row and keeps
@@ -3883,10 +3930,12 @@ def r1_zero(torch, seen: dict, updates: int = 2) -> dict:
         f"{updates} updates, eval_steps={cfg.eval_steps} on 16 questions; response_length "
         f"{cfg.response_length}, widths and budgets the launcher's")
     t0 = time.perf_counter()
-    tr = grpo_r1.build_trainer(cfg, device="cuda")
-    log(f"  grpo_r1.build_trainer: {time.perf_counter() - t0:.3f} s")
+    with cut_depth(grpo_r1, layers):
+        tr = grpo_r1.build_trainer(cfg, device="cuda")
+    log(f"  grpo_r1.build_trainer: {time.perf_counter() - t0:.3f} s, "
+        f"{tr.mcfg.num_hidden_layers} layers")
     try:
-        counts = r1_train(torch, tr, seen, updates)
+        counts = r1_train(torch, tr, seen, updates, evals)
         log("  (b) buckets at spread lengths, full depth and width")
         r1_buckets(torch, tr)
     finally:
@@ -3895,7 +3944,12 @@ def r1_zero(torch, seen: dict, updates: int = 2) -> dict:
     return counts
 
 
-def r1_train(torch, tr, seen: dict, updates: int = 2) -> dict:
+# the full script's phase 11 depth (its 8,000-token rollout is a tenth of
+# the script at 28 layers; `--r1` runs them all)
+R1_CUT_LAYERS = 4
+
+
+def r1_train(torch, tr, seen: dict, updates: int = 2, evals: bool = True) -> dict:
     """Phase 11 (a): the launcher's trainer `tr` with its reward wrapped
     (graded, then replaced by the planted one) and its accuracy eval on
     the first 16 questions, trained `updates` updates with the kernel
@@ -3927,7 +3981,7 @@ def r1_train(torch, tr, seen: dict, updates: int = 2) -> dict:
     tr.reward_func = planted
     train_qa, eval_qa = grpo_r1.load_math_datasets("meta-math/MetaMathQA",
                                                    "HuggingFaceH4/MATH-500")
-    tr.accuracy_func = grpo_r1.make_accuracy_func(eval_qa[:16])
+    tr.accuracy_func = grpo_r1.make_accuracy_func(eval_qa[:16]) if evals else None
 
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3940,7 +3994,7 @@ def r1_train(torch, tr, seen: dict, updates: int = 2) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     latest, writer_s = tr.ckpt.latest_step(), tr.ckpt.last_write_s
     log(f"  (a) SparseGRPOTrainer.train: {wall:.3f} s for {updates} updates and "
-        f"{updates + 1} evals; state "
+        f"{updates + 1 if evals else 0} evals; state "
         f"{state}; launches {counts}; peak {peak:.2f} GB")
     rows = cfg.batch_size * cfg.sample_n
     for rec in tr.update_log:
@@ -5022,9 +5076,9 @@ def host_sigterm(child, out: str, log_path: str, t0: float) -> None:
 
 
 def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card: str,
-                seen: dict, seen_verify) -> dict:
-    """Phase 13 (module docstring). Returns each kernel's launches in the
-    run of phase 13 that ran it."""
+                seen: dict, seen_verify, turns=("off", "on", "off", "on")) -> dict:
+    """Phase 13 (module docstring); the planes' overhead read in `turns`.
+    Returns each kernel's launches in the run of phase 13 that ran it."""
     import shutil
 
     from nanorlhf_tpu_torch.entrypoints.common import build_trainer
@@ -5052,7 +5106,7 @@ def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card:
     log(f"  planes off, warm-up: update_s={off.last_timings['update_s']:.3f} "
         f"checkpoint_blocking_s={off.last_save_s:.3f}")
     readings = {"off": [], "on": []}
-    for side in ("off", "on", "off", "on"):
+    for side in turns:
         tr = off if side == "off" else on
         tr.train(num_updates=1)
         t = tr.last_timings
@@ -5064,7 +5118,7 @@ def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card:
     log(f"  overhead of the planes: update_s {mean['off'][0]:.3f} -> {mean['on'][0]:.3f} "
         f"({mean['on'][0] / mean['off'][0]:.3f}x), decode {mean['off'][1]:.3f} -> "
         f"{mean['on'][1]:.3f} ms/step ({mean['on'][1] / mean['off'][1]:.3f}x), in turns "
-        f"off/on/off/on (card: {card})")
+        f"{'/'.join(turns)} (card: {card})")
     _free(torch, off)
     _free(torch, on)
     shutil.rmtree(_host_dir(), ignore_errors=True)
@@ -5086,6 +5140,659 @@ def hold_host_verify(torch, seen_verify, held: set, pad_max: int) -> None:
     for name, B, H, Tq, hd, KV, T in new:
         _hold_verify(torch, f"phase 13 B={B} T={T}",
                      _verify_case(torch, gen, B, H, KV, Tq, hd, T, pad_max))
+
+
+# --------------------------------------------------------------------------
+# phase 14: serving — the radix prefix cache, chunked prefill, the per-row
+# session, the engine behind its HTTP gateway, the traffic driver
+# --------------------------------------------------------------------------
+
+# the engine's shapes on the launcher's model (Qwen2.5-1.5B geometry, 28
+# layers, random weights from SERVE_SEED): 32 resident rows, prompts
+# left-padded to 512, 256 new tokens, pages of 128 (T_max 768, 6 a row)
+PHASE14 = ("phase 14: serving — the radix prefix cache, chunked prefill, the engine behind "
+           "its gateway driven over HTTP, Qwen2.5-1.5B width")
+SERVE = dict(rows=32, prompt_len=512, max_new_tokens=256, page_size=128)
+SERVE_SEED = 14
+# the traffic: 64 Poisson arrivals at 16 a second, 16-480 real prompt
+# tokens, 4 tenants sharing 384 tokens (half the requests), half greedy,
+# the sampled half at the launcher's temperature and top-p
+SERVE_TRAFFIC = dict(seed=0, n_requests=64, rate_rps=16.0, arrival="poisson",
+                     prompt_len_min=16, prompt_len_max=480, token_lo=4, token_hi=4096,
+                     prefix_groups=4, prefix_frac=0.5, prefix_len=384, greedy_frac=0.5,
+                     max_tokens_min=256, max_tokens_max=256)
+# K9 widths held besides the ones the phase gives it: a chunk's, a short
+# suffix's and the prompt width
+SERVE_TQ = (16, 128, 512)
+# (b): the suffix route's logits (a COW admission: K9 over the unmatched
+# tail against cached prefix K/V) against the f32 plain full prefill may
+# err up to this many times the bf16 full prefill's error: both round to
+# bf16 at other places (the suffix's prefix K/V came from another forward),
+# neither is the exact one
+SUFFIX_FACTOR = 3.0
+# a greedy token of one route may sit below the argmax of another route's
+# logits by twice the two routes' logit difference; (c) allows this many
+# times what (b) measured of it over 2 x 256 tokens, the routes there being
+# the ones (c) compares
+NEAR_TIE_FACTOR = 2.0
+
+
+def _serve_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_serve", *parts)
+
+
+def _loopback_only() -> None:
+    """The driver and the scrapes speak HTTP to 127.0.0.1 only: no proxy
+    from the environment may route them elsewhere."""
+    import os
+
+    for name in ("http_proxy", "https_proxy", "all_proxy"):
+        os.environ.pop(name, None)
+        os.environ.pop(name.upper(), None)
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+
+
+def _left_pad(tokens, width: int, pad: int):
+    import numpy as np
+
+    ids = np.full(width, pad, np.int64)
+    ids[width - len(tokens):] = tokens
+    return ids, ids != pad
+
+
+def _cut_at_eos(row, eos: int) -> list:
+    row = [int(t) for t in row]
+    return row[:row.index(eos) + 1] if eos in row else row
+
+
+def _margin_at(torch, mcfg, params, prompt, stream, pos: int, pad: int) -> float:
+    """The top-2 margin of the full forward's logits after `prompt` +
+    stream[:pos] (`full_logits` drops the stand-in last token)."""
+    top2 = full_logits(torch, mcfg, params, prompt, list(stream[:pos]) + [pad],
+                       pad)[-1].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def compare_streams(torch, what: str, mcfg, params, pairs, pad: int, near_tie: float):
+    """Greedy streams, (prompt, reference, got) each: equal, or differing
+    first where the reference's top-2 logit margin is at most `near_tie`
+    (two routes that round bf16 at other places may flip a near tie there,
+    and from it on the streams part). Prints each difference; fails on one
+    past a near tie."""
+    same, far = 0, []
+    for i, (prompt, want, got) in enumerate(pairs):
+        if list(want) == list(got):
+            same += 1
+            continue
+        n = min(len(want), len(got))
+        pos = next((j for j in range(n) if want[j] != got[j]), n)
+        margin = _margin_at(torch, mcfg, params, prompt, want, pos, pad)
+        log(f"    {what} stream {i}: first difference at token {pos} of {len(want)} "
+            f"(reference {want[pos] if pos < len(want) else 'end'}, got "
+            f"{got[pos] if pos < len(got) else 'end'}); the reference's top-2 logit margin "
+            f"there {margin:.4e}")
+        if margin > near_tie:
+            far.append((i, pos, margin))
+    log(f"  {what}: {same}/{len(pairs)} greedy streams equal token for token")
+    if far:
+        fail(f"{what}: streams differ past a near tie (margin > {near_tie:.4e}): {far}")
+
+
+def full_logits(torch, mcfg, params, prompt, stream, pad: int):
+    """The full forward's next-token logits (f32 [n, V]) that predict each
+    token of `stream` after `prompt` (left-padded to the engine's width):
+    one teacher-forced pass, the route of scoring (K1)."""
+    from nanorlhf_tpu_torch.core import model as tm
+
+    ids, _ = _left_pad(list(prompt), SERVE["prompt_len"], pad)
+    seq = torch.as_tensor(list(ids) + list(stream[:-1]), device="cuda")[None]
+    with torch.no_grad():
+        logits = tm.padded_forward_logits(params, mcfg, seq, pad)[0]
+    return logits[SERVE["prompt_len"] - 1:].float()
+
+
+def check_greedy_tokens(torch, what: str, mcfg, params, pairs, pad: int, near_tie: float):
+    """Each greedy stream, (prompt, stream) each, against the full forward
+    over it: every token within `near_tie` of the argmax of the logits that
+    predict it (a route that rounds bf16 elsewhere can pick either side of
+    a near tie, and nothing else); the largest gap and the number of
+    tokens that are not the argmax printed."""
+    worst, off, n = 0.0, 0, 0
+    for prompt, stream in pairs:
+        lg = full_logits(torch, mcfg, params, prompt, stream, pad)
+        tok = torch.as_tensor(stream, device="cuda")
+        gap = lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        off += int((gap > 0).sum())
+        n += len(stream)
+    log(f"  {what}: {n} greedy tokens against the full forward's argmax: {off} not the "
+        f"argmax, the largest gap {worst:.4e} (near tie: at most {near_tie:.4e})")
+    if worst > near_tie:
+        fail(f"{what}: a greedy token {worst:.4e} under the argmax, past a near tie")
+
+
+def serve_suffix(torch, mcfg, params, eos: int, pad: int) -> float:
+    """(b) Two prompts of 300 real tokens sharing their first 200 admitted
+    through a per-row session with the radix cache: the second is a
+    mid-page hit (412 of its 512 slots matched, page 3 copied on write) whose
+    K9 suffix forward gives its first logits. Held against the f32 plain
+    full prefill of the same row (SUFFIX_FACTOR x the bf16 full prefill's
+    error). Both rows then decode greedily, eagerly with each step's logits
+    kept, and the full forward over each stream gives the logits the
+    session's route is compared with at every token: their largest
+    difference, returned, is the route noise the near ties of (c) are
+    measured against; both streams are held against the monolithic paged
+    sampler's (K1 prefill)."""
+    import dataclasses
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.core import model as tm
+    from nanorlhf_tpu_torch.sampler.paged import session as sess_mod
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+    from nanorlhf_tpu_torch.serving import radix as rx
+
+    Tp, M, P = SERVE["prompt_len"], SERVE["max_new_tokens"], SERVE["page_size"]
+    rng = np.random.default_rng(SERVE_SEED)
+    a = rng.integers(4, 4096, 300)
+    b = a.copy()
+    b[200:] = rng.integers(4, 4096, 100)
+    rows = [_left_pad(a, Tp, pad), _left_pad(b, Tp, pad)]
+    suffix, steps = [], []
+    real, real_sample = rx.suffix_logits, sess_mod._serving_sample
+
+    def recording(*args, **kw):
+        logits, caches = real(*args, **kw)
+        suffix.append((args[4], args[2].shape[1], logits.float().clone()))
+        return logits, caches
+
+    def recording_sample(generator, logits, *args, **kw):
+        steps.append(logits.float().clone())
+        return real_sample(generator, logits, *args, **kw)
+
+    rc = rx.RadixCache()
+    sess = sess_mod.DecodeSession(
+        params, mcfg, rows=2, prompt_len=Tp, max_tokens=M, page_size=P,
+        eos_token_id=eos, pad_token_id=pad,
+        generator=torch.Generator(device="cuda").manual_seed(0), per_row=True,
+        prefix_cache=rc, sync_every=8)
+    rx.suffix_logits = recording
+    try:
+        for r, (ids, mask) in enumerate(rows):
+            sess.admit(r, ids, mask, r, budget=M, greedy=True)
+    finally:
+        rx.suffix_logits = real
+    snap = rc.snapshot()
+    (fill_a, tq_a, first_a), (fill_b, tq_b, got) = suffix
+    log(f"  (b) admissions through the radix cache: cold suffix at slot {int(fill_a)} (Tq "
+        f"{tq_a}), then the hit at slot {int(fill_b)} (Tq {tq_b}); cow_splits "
+        f"{snap['cow_splits']}, shared pages acquired {snap['shared_pages_acquired']}, "
+        f"hit tokens {snap['hit_tokens']}")
+    if snap["cow_splits"] != 1 or int(fill_b) != Tp - 300 + 200 or int(fill_b) % P == 0:
+        fail(f"(b) the second admission is not a mid-page COW hit at slot "
+             f"{Tp - 300 + 200}: {snap}, fill {int(fill_b)}")
+    ids = torch.as_tensor(rows[1][0], device="cuda")[None]
+    mask = torch.as_tensor(rows[1][1], device="cuda")[None]
+    nb = -(-(Tp + M) // P)
+    table = torch.arange(nb, device="cuda")[None]
+    plain = dataclasses.replace(mcfg, attention_impl="xla")
+    p32 = _tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        full = tm.prefill(params, mcfg, ids, mask,
+                          tm.init_paged_kv_cache(mcfg, nb, P, torch.bfloat16, "cuda"),
+                          page_table=table, page_size=P, logical_len=Tp + M)[0][0].float()
+        f32 = tm.prefill(p32, plain, ids, mask,
+                         tm.init_paged_kv_cache(plain, nb, P, torch.float32, "cuda"),
+                         page_table=table, page_size=P, logical_len=Tp + M)[0][0]
+    del p32
+    torch.cuda.empty_cache()
+    e_suffix = float((got - f32).abs().max())
+    e_full = float((full - f32).abs().max())
+    log(f"  (b) the hit's first logits (K9 suffix after the COW copy) against the f32 plain "
+        f"full prefill: max|err| {e_suffix:.4e}; the bf16 full prefill's (K1) {e_full:.4e}; "
+        f"suffix against full {float((got - full).abs().max()):.4e} (|logits| up to "
+        f"{float(f32.abs().max()):.3f}); argmax suffix {int(got.argmax())}, full "
+        f"{int(full.argmax())}, f32 {int(f32.argmax())}; tolerance: the suffix's error at "
+        f"most {SUFFIX_FACTOR} x the full prefill's")
+    if not math.isfinite(e_suffix) or e_suffix > SUFFIX_FACTOR * e_full:
+        fail(f"(b) suffix logits err {e_suffix:.4e} against f32, more than {SUFFIX_FACTOR} x "
+             f"the full prefill's {e_full:.4e}")
+    # the greedy decode, eagerly (the same kernels a replay runs), each
+    # step's logits kept
+    sess._loop.use_graph = False
+    sess_mod._serving_sample = recording_sample
+    try:
+        while not sess.step().all():
+            pass
+    finally:
+        sess_mod._serving_sample = real_sample
+    out, n = sess.state["out"].cpu().numpy(), sess.state["n_gen"].cpu().numpy()
+    streams = [out[r, :n[r]].tolist() for r in range(2)]
+    delta = 0.0
+    for r, prompt in enumerate((a, b)):
+        route = torch.stack([(first_a, got)[r]] + [st[r] for st in steps[:n[r] - 1]])
+        delta = max(delta, float((route - full_logits(torch, mcfg, params, prompt,
+                                                       streams[r], pad)).abs().max()))
+    log(f"  (b) the session's logits (K9 suffixes, then K7 decode steps) against the full "
+        f"forward (K1) over the same {int(n.sum())} tokens: max|diff| {delta:.4e}")
+    q = torch.as_tensor(np.stack([r[0] for r in rows]), device="cuda")
+    mono = generate(params, mcfg, q, q != pad, torch.Generator(device="cuda").manual_seed(0),
+                    SamplingParams(greedy=True, max_tokens=M, page_size=P),
+                    eos_token_id=eos, pad_token_id=pad).cpu().numpy()
+    near_tie = NEAR_TIE_FACTOR * 2 * delta
+    compare_streams(torch, "(b) session (radix, K9 suffixes) against the monolithic paged "
+                    "sampler (K1 prefill)", mcfg, params,
+                    [(t, _cut_at_eos(mono[r], eos), streams[r])
+                     for r, t in enumerate((a, b))], pad, near_tie)
+    return delta
+
+
+@contextlib.contextmanager
+def recording_streams(engine, streams: dict):
+    """Tee each request's stream (and its submit's arguments) into
+    `streams` by request id, as the gateway and the driver read them."""
+    submit, stream = engine.submit, engine.stream
+
+    def rec_submit(tokens, **kw):
+        req, reason = submit(tokens, **kw)
+        if req is not None:
+            streams[req.request_id] = (tuple(int(t) for t in tokens), kw, [])
+        return req, reason
+
+    def rec_stream(req, timeout=120.0):
+        for tok in stream(req, timeout=timeout):
+            streams[req.request_id][2].append(tok)
+            yield tok
+
+    engine.submit, engine.stream = rec_submit, rec_stream
+    try:
+        yield
+    finally:
+        engine.submit, engine.stream = submit, stream
+
+
+def serve_run(torch, what: str, mcfg, params, tok, traffic, over_http: bool, **engine_kw):
+    """One engine (SERVE, on the card, a latency hub) under one traffic
+    (a WorkloadSpec or a request list), through its gateway on 127.0.0.1 and
+    the driver over HTTP, or the driver in process; kernel counts reset just
+    before the traffic and read just after. Returns the run's record."""
+    import json as _json
+    import urllib.request
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.loadgen import TrafficDriver
+    from nanorlhf_tpu_torch.serving import ServingEngine, ServingGateway
+    from nanorlhf_tpu_torch.telemetry import LatencyHub
+    from nanorlhf_tpu_torch.telemetry.exporter import validate_prometheus_text
+
+    hub = LatencyHub()
+    eng = ServingEngine(params, mcfg, eos_token_id=tok.eos_token_id,
+                        pad_token_id=tok.pad_token_id, latency=hub, max_queue=64,
+                        seed=SERVE_SEED, device="cuda", **SERVE, **engine_kw)
+    gw = ServingGateway(eng, port=-1, host="127.0.0.1") if over_http else None
+    streams: dict = {}
+    try:
+        driver = (TrafficDriver(base_url=f"http://127.0.0.1:{gw.port}", stream_timeout_s=600)
+                  if over_http else TrafficDriver(engine=eng, stream_timeout_s=600))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with recording_streams(eng, streams):
+            summary = driver.run(traffic)
+        counts = _build.launch_counts()
+        scraped = None
+        if over_http:
+            base = f"http://127.0.0.1:{gw.port}"
+            text = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+            problems = validate_prometheus_text(text)
+            statusz = _json.loads(urllib.request.urlopen(base + "/statusz", timeout=60).read())
+            health = urllib.request.urlopen(base + "/healthz", timeout=60).status
+            if problems or health != 200 or "prefix_cache" not in statusz:
+                fail(f"{what}: /metrics {problems[:3]}, /healthz {health}, /statusz keys "
+                     f"{sorted(statusz)}")
+            scraped = len(text.splitlines())
+    finally:
+        if gw is not None:
+            gw.close()
+        eng.close()
+    snap = eng.snapshot()
+    lat = hub.snapshot()
+    emitted = sum(r.tokens for r in summary.records if r.outcome == "completed")
+    ttft, gap = lat.get("latency/ttft_s", {}), lat.get("latency/intertoken_s", {})
+    radix = snap["prefix_cache"]
+    log(f"  {what}: {summary.completed}/{summary.offered} completed, shed {summary.shed}, "
+        f"errors {summary.errors}, in {summary.duration_s:.3f} s; client TTFT p50 "
+        f"{1e3 * (summary.p50_ttft_s or 0):.2f} ms, p95 {1e3 * (summary.p95_ttft_s or 0):.2f} "
+        f"ms; engine TTFT p50 {1e3 * ttft.get('p50_s', 0):.2f} ms, p95 "
+        f"{1e3 * ttft.get('p95_s', 0):.2f} ms; inter-token p50 "
+        f"{1e3 * gap.get('p50_s', 0):.3f} ms, p95 {1e3 * gap.get('p95_s', 0):.3f} ms; "
+        f"{emitted} tokens emitted, {emitted / summary.duration_s:.1f} tokens/s; prefill "
+        f"tokens dispatched {snap['prefill_token_dispatch']}, saved by the radix cache "
+        f"{radix['hit_tokens']} (hit_frac {radix['hit_frac']:.4f}), cow_splits "
+        f"{radix['cow_splits']}, shared pages acquired {radix['shared_pages_acquired']}; "
+        f"session counters {snap['session']['counters']}; launches {_nonzero(counts)}"
+        + (f"; /metrics {scraped} lines, valid" if scraped else ""))
+    if summary.completed != summary.offered or summary.errors or summary.shed:
+        fail(f"{what}: not every request completed ({summary.shed_reasons})")
+    # K9 admits every request (its suffix forward), and verifies the spec
+    # engine's drafts; K7 decodes the other engines' rows
+    if counts["paged_decode_verify_attention"] <= 0 or (
+            counts["paged_decode_attention"] <= 0) != bool(engine_kw.get("spec_k")):
+        fail(f"{what}: K9 never launched, or K7 launched by the spec engine or never by "
+             f"another")
+    for name in ("decode_attention", "decode_verify_attention", "decode_attention_q8",
+                 "paged_decode_attention_q8", "flash_fwd"):
+        if counts[name]:
+            fail(f"{what}: {name} launched {counts[name]} times: the engine admits through "
+                 "K9 suffixes and decodes through K7 (or K9) only")
+    by_tokens = {}
+    for prompt, kw, got in streams.values():
+        by_tokens[prompt, bool(kw.get("greedy"))] = got
+    return dict(summary=summary, snap=snap, counts=counts, streams=by_tokens,
+                emitted=emitted, ttft=ttft, gap=gap)
+
+
+def serving(torch, card: str, seen_v, seen: dict) -> dict:
+    """Phase 14 (b)-(d) (module docstring): K9's shapes recorded in `seen_v`
+    throughout, (d)'s K1, K2/K3, K10 and K4 shapes in `seen`. Returns each
+    run's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_model
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+    from nanorlhf_tpu_torch.loadgen import WorkloadSpec, sample_requests
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    t_phase = time.perf_counter()
+    _loopback_only()
+    launcher = build_config()
+    mcfg, params, tok = resolve_model(launcher.sft_model_path, SERVE_SEED, device="cuda")
+    eos, pad = tok.eos_token_id, tok.pad_token_id
+    # the launcher's init scales every projection by 1/sqrt(L): rescaled to
+    # N(0, 1/fan_in), as the small-input references are, so that 28 layers
+    # of bf16 keep the logits' rounding small against their spread
+    L = mcfg.num_hidden_layers
+    for entry in params["layers"].values():
+        if isinstance(entry, dict):
+            entry["kernel"].mul_(math.sqrt(L / entry["kernel"].shape[-1]))
+    with recording_verify_shapes(seen_v):
+        delta = serve_suffix(torch, mcfg, params, eos, pad)
+    near_tie = NEAR_TIE_FACTOR * 2 * delta
+    log(f"  near tie below: a top-2 margin or an argmax gap of at most {near_tie:.4e}: "
+        f"{NEAR_TIE_FACTOR} x twice (b)'s route noise (two logits each moved by up to it)")
+
+    spec = WorkloadSpec(**SERVE_TRAFFIC, temp_min=launcher.temperature,
+                        temp_max=launcher.temperature, top_p_min=launcher.top_p,
+                        top_p_max=launcher.top_p)
+    reqs = sample_requests(spec)
+    greedy = [r for r in reqs if r.greedy]
+    log(f"  (c) traffic: {spec.n_requests} requests, Poisson at {spec.rate_rps}/s over "
+        f"{reqs[-1].t_offset:.3f} s, {len(greedy)} greedy, prompts of "
+        f"{min(len(r.tokens) for r in reqs)}-{max(len(r.tokens) for r in reqs)} real tokens, "
+        f"{sum(r.prefix_group >= 0 for r in reqs)} in 4 tenants of a 384-token prefix; "
+        f"engine {SERVE}, sampled at temperature {launcher.temperature}, top-p "
+        f"{launcher.top_p}")
+    with recording_verify_shapes(seen_v):
+        main = serve_run(torch, "(c) the engine behind its gateway, the driver over HTTP",
+                         mcfg, params, tok, spec, over_http=True)
+    radix = main["snap"]["prefix_cache"]
+    if radix["hit_tokens"] <= 0 or radix["shared_pages_acquired"] <= 0:
+        fail(f"(c) the radix cache saved nothing: {radix}")
+    # the rollout scheduler's greedy rows for the greedy requests' prompts
+    q = torch.as_tensor(np.stack([_left_pad(r.tokens, SERVE["prompt_len"], pad)[0]
+                                  for r in greedy]), device="cuda")
+    t0 = time.perf_counter()
+    rollout = generate(params, mcfg, q, q != pad, torch.Generator(device="cuda").manual_seed(0),
+                       SamplingParams(greedy=True, max_tokens=SERVE["max_new_tokens"],
+                                      page_size=SERVE["page_size"],
+                                      decode_rows=SERVE["rows"]),
+                       eos_token_id=eos, pad_token_id=pad).cpu().numpy()
+    log(f"  (c) the rollout scheduler's greedy rows for the {len(greedy)} greedy prompts "
+        f"({SERVE['rows']} resident, P={SERVE['page_size']}): {time.perf_counter() - t0:.3f} s")
+    check_greedy_tokens(torch, "(c) the engine's greedy streams", mcfg, params,
+                        [(r.tokens, main["streams"][r.tokens, True]) for r in greedy], pad,
+                        near_tie)
+    compare_streams(torch, "(c) engine against the rollout scheduler", mcfg, params,
+                    [(r.tokens, _cut_at_eos(rollout[i], eos), main["streams"][r.tokens, True])
+                     for i, r in enumerate(greedy)], pad, near_tie)
+
+    with recording_verify_shapes(seen_v):
+        chunked = serve_run(torch, "(c) prefill_chunk=128, the same traffic over HTTP", mcfg,
+                            params, tok, spec, over_http=True, prefill_chunk=128)
+    if chunked["snap"]["session"]["counters"]["chunked_admissions"] <= 0:
+        fail("(c) prefill_chunk=128: no admission was chunked")
+    check_greedy_tokens(torch, "(c) prefill_chunk=128, the greedy streams", mcfg, params,
+                        [(r.tokens, chunked["streams"][r.tokens, True]) for r in greedy], pad,
+                        near_tie)
+    compare_streams(torch, "(c) prefill_chunk=128 against unchunked", mcfg, params,
+                    [(r.tokens, main["streams"][r.tokens, True],
+                      chunked["streams"][r.tokens, True]) for r in greedy], pad, near_tie)
+
+    greedy_full = [dataclasses.replace(r, greedy=True) for r in greedy]
+    with recording_verify_shapes(seen_v):
+        spec_run = serve_run(torch, "(c) spec_k=4, the greedy requests in process", mcfg,
+                             params, tok, greedy_full, over_http=False, spec_k=4)
+    check_greedy_tokens(torch, "(c) spec_k=4, the greedy streams", mcfg, params,
+                        [(r.tokens, spec_run["streams"][r.tokens, True]) for r in greedy], pad,
+                        near_tie)
+    compare_streams(torch, "(c) spec_k=4 against spec off", mcfg, params,
+                    [(r.tokens, main["streams"][r.tokens, True],
+                      spec_run["streams"][r.tokens, True]) for r in greedy], pad, near_tie)
+    del params
+    torch.cuda.empty_cache()
+
+    log("  (d) one GRPO update with rollout_prefix_cache=True, rollout_prefill_chunk=128 "
+        "on phase 5's config")
+    with recording_verify_shapes(seen_v), recording_all_shapes(seen):
+        counts_d = serve_update(torch, card)
+    log(f"  phase 14 (b)-(d) wall {time.perf_counter() - t_phase:.1f} s (card: {card})")
+    return {"engine": main["counts"], "chunked": chunked["counts"],
+            "spec": spec_run["counts"], "update": counts_d}
+
+
+def serve_update(torch, card: str) -> dict:
+    """(d) `one_card_cut(build_config())` at phase 5's paged, queued config
+    (512 tokens, pages of 128, 32 resident rows) with the radix prefix cache
+    and chunked prefill, through `build_trainer` + `train(1)`: finite rows,
+    the session/* and prefix rows, the trainer's /statusz `prefix_cache`
+    snapshot; the launch counts reset just before and read just after."""
+    import json as _json
+    import os
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+
+    cfg = one_card_cut(build_config())
+    cfg.rollout_page_size, cfg.rollout_decode_rows = 128, 32
+    cfg.rollout_prefix_cache, cfg.rollout_prefill_chunk = True, 128
+    log(f"CUT: response_length {cfg.response_length} -> 512")
+    cfg.response_length = 512
+    cfg.output_dir = _serve_dir("run")
+    shutil.rmtree(_serve_dir(), ignore_errors=True)
+    tr = build_trainer(cfg, device="cuda")
+    try:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        state = tr.train(num_updates=1)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        with open(os.path.join(cfg.output_dir, "metrics.jsonl")) as fh:
+            row = _json.loads(fh.readlines()[-1])
+        keys = ("session/dispatch_events", "session/chunked_admissions",
+                "session/prefill_backlog", "rollout/prefix_hit_frac", "pages/shared",
+                "rollout/page_utilization", "loss/policy_avg_new", "policy/grad_norm_new")
+        status = tr._statusz()
+        snap, t = status["prefix_cache"], tr.last_timings
+        log(f"  (d) update {state['global_step']}: rollout {t['generate_s']:.3f} s, update "
+            f"{t['update_s']:.3f} s; rows {{{', '.join(f'{k}: {row.get(k)}' for k in keys)}}}; "
+            f"/statusz prefix_cache {snap}; session counters "
+            f"{status['session']['counters']}; launches {_nonzero(counts)} (card: {card})")
+        missing = [k for k in keys if not math.isfinite(row.get(k, float("nan")))]
+        if missing or state["global_step"] != 1:
+            fail(f"(d) rows missing or not finite: {missing}")
+        if not snap or snap["lookups"] != cfg.batch_size * cfg.sample_n \
+                or snap["hit_tokens"] <= 0 or row["rollout/prefix_hit_frac"] <= 0:
+            fail(f"(d) the trainer's radix cache: {snap}")
+        if status["session"]["features"] != {
+                "spec_k": 0, "prefix_cache": True, "prefill_chunk": 128,
+                "per_row_sampling": False, "drafter_seed_window": 0}:
+            fail(f"(d) session features {status['session']['features']}")
+        for name in ("paged_decode_attention", "paged_decode_verify_attention", "flash_fwd",
+                     "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob"):
+            if counts[name] <= 0:
+                fail(f"(d) {name} never launched")
+    finally:
+        _free(torch, tr)
+        shutil.rmtree(_serve_dir(), ignore_errors=True)
+    return counts
+
+
+def verify_bound(torch, c, table_bytes: int = 0) -> tuple[float, str]:
+    """The least time of a verify call on case `c`: each valid key's K and V
+    read once, q read and out written once, the bounds (and the table);
+    4 flops a (row, query, key, dim) pair of QK^T and PV."""
+    B, H, Tq, hd, KV, T = (c[n] for n in ("B", "H", "Tq", "hd", "KV", "T"))
+    start, fill = c["start"], c["fill"]
+    qi = torch.arange(Tq, device="cuda")[None, :]
+    hi = torch.clamp(fill[:, None] + qi + 1, max=T)
+    pairs = float((hi - start[:, None]).clamp(min=0).sum())   # (row, query) x key
+    keys = float((torch.clamp(fill + Tq, max=T) - start).clamp(min=0).sum())
+    nbytes = 2 * (2 * keys * KV * hd) + 2 * 2 * B * H * Tq * hd + 8 * B + table_bytes
+    return bound_ms(nbytes, 4.0 * pairs * H * hd)
+
+
+def _serve_verify_case(torch, gen, Tq: int, start: int, fill: int, nb: int, copies: int = 4):
+    """One row of the serving path's K9 call: q [1, 12, Tq, 128], its K/V
+    [1, 2, nb·128, 128] laid out contiguously and through a table of
+    distinct pages scattered through a pool with spare ones; `copies` K/V
+    sets (> L2 where 28 layers would be)."""
+    P, H, KV, hd = SERVE["page_size"], 12, 2, 128
+    T = nb * P
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    N = nb + 7
+    table = torch.randperm(N, generator=gen, device="cuda")[:nb].reshape(1, nb).int()
+    caches = [(randn(1, KV, T, hd), randn(1, KV, T, hd)) for _ in range(copies)]
+    s = torch.tensor([start], device="cuda").int()
+    f = torch.tensor([fill], device="cuda").int()
+    qi = torch.arange(Tq, device="cuda")[None, :]
+    return dict(q=randn(1, H, Tq, hd), caches=caches, B=1, H=H, KV=KV, Tq=Tq, hd=hd, T=T,
+                P=P, nb=nb, N=N, table=table, start=s, fill=f,
+                empty=f[:, None] + qi + 1 <= s[:, None],
+                pools=[(_scatter(torch, k, table, N, P), _scatter(torch, v, table, N, P))
+                       for k, v in caches])
+
+
+def _time_k9(torch, F, c) -> dict:
+    """K9 on case `c`: events over the K/V copies in turns, device time,
+    the plain version, the yardstick (not one call: SDPA with a boolean
+    mask over the pre-gathered view) and the bound."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    q, start, fill, table = c["q"], c["start"], c["fill"], c["table"]
+    kp, vp = c["pools"][0]
+    it = iter(range(10**9))
+
+    def k9():
+        kk, vv = c["pools"][next(it) % len(c["pools"])]
+        da.paged_decode_verify_attention(q, kk, vv, table, start, fill)
+
+    ms = time_ms(torch, k9, 40)
+    on_card = dev_total(device_ms(torch, k9, 20, "verify_kernel"))
+    plain = time_ms(torch, lambda: da.reference_paged_decode_verify_attention(
+        q, kp, vp, table, start, fill), 10)
+    kg, vg = da._gather_pool(kp, table), da._gather_pool(vp, table)
+    pos = torch.arange(c["T"], device="cuda")[None, None, :]
+    qi = torch.arange(c["Tq"], device="cuda")[None, :, None]
+    m = ((pos >= start[:, None, None]) & (pos < fill[:, None, None] + qi + 1))[:, None]
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=m, enable_gqa=True), 20)
+    gather = time_ms(torch, lambda: (da._gather_pool(kp, table), da._gather_pool(vp, table)),
+                     10)
+    b = verify_bound(torch, c, 4 * table.numel())
+    return dict(ms=ms, device_ms=on_card, plain_ms=plain, library_ms=lib, gather_ms=gather,
+                bound_ms=b[0], bound_by=b[1])
+
+
+def hold_serve_verify(torch, F, seen_v, held: set) -> list:
+    """(a) K9 at SERVE_TQ and at every shape phase 14 gave it (recorded in
+    `seen_v`), as phase 2 holds it (`_hold_verify`: within one bf16 ulp of
+    the f32 plain version per element, K9 == K6 on the same logical cache,
+    K6 at Tq = 1 against K4, the split count the rule's): one row's shapes
+    on a mid-page hit (start 37, fill 203: a left-padded prefix, the
+    candidates straddling pages) and a cold suffix (start = fill = 129),
+    rows of the spec engine's shapes as phase 2 holds them. Then each
+    one-row shape's times at the engine's table width. Returns the kernels
+    line's `serve` shape rows."""
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    P = SERVE["page_size"]
+    nb = -(-(SERVE["prompt_len"] + SERVE["max_new_tokens"]) // P)
+    given = {(s[1], s[3], s[7]) for s in seen_v if s[0] == "paged_decode_verify_attention"}
+    shapes = sorted(given | {(1, Tq, nb) for Tq in SERVE_TQ})
+    log(f"  (a) K9 calls by shape (name, B, H, Tq, hd, KV, P, nb) in phase 14: "
+        f"{dict(seen_v)}; held at (B, Tq, nb) {shapes}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for B, Tq, n in shapes:
+        T = n * P
+        if B > 1:
+            if ("paged_decode_verify_attention", B, 12, Tq, 128, 2, P, n) in held:
+                continue
+            _hold_verify(torch, f"phase 14 B={B} Tq={Tq} T_max={T}",
+                         _verify_case(torch, gen, B, 12, 2, Tq, 128, T, 256, P=P))
+            continue
+        fill = min(203, T - Tq)
+        fill -= fill % P == 0
+        cold = min(129, T - Tq)
+        cold -= cold % P == 0
+        for label, s, f in (("hit", min(37, fill), fill), ("cold", cold, cold)):
+            c = _serve_verify_case(torch, gen, Tq, s, f, n)
+            e6, e9 = _hold_verify(torch, f"phase 14 {label} Tq={Tq} start={s} fill={f} "
+                                  f"T_max={T}", c)
+            if label == "hit" and n == nb:       # the engine's shapes are timed
+                t = _time_k9(torch, F, c)
+                shape = (f"B=1 H=12 KV=2 Tq={Tq} hd=128 P={P} nb={n} start={s} fill={f}, "
+                         f"S={da.verify_split_count_on_card(1, 2)}, "
+                         f"{-(-6 * Tq // 32)} row groups a kv head")
+                log(f"  K9 {shape}: kernel {t['ms']:.4f} ms, device time (profiler) "
+                    f"{fmt_ms(t['device_ms'])}; plain {t['plain_ms']:.4f} ms; yardstick (not "
+                    f"one call: SDPA over the pre-gathered view) {t['library_ms']:.4f} ms + "
+                    f"gather {t['gather_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+                    f"({t['bound_by']})")
+                rows.append(dict(shape=shape, max_abs_err=e9, given=(B, Tq, n) in given,
+                                 **{k: t[k] for k in ("ms", "device_ms", "plain_ms",
+                                                      "library_ms", "gather_ms",
+                                                      "bound_ms", "bound_by")}))
+    return rows
+
+
+def serve_entries(torch, F, seen_v, counts: dict, held: set) -> dict:
+    """(a) and the holds of K7 at the engine's decode shape (32 rows,
+    T_max 768, pages of 128, as phase 2 holds K7); the kernels line's
+    `serve` entries of K7 and K9: their launches in each run of phase 14
+    (counts reset just before it) and their times at its shapes."""
+    rows = hold_serve_verify(torch, F, seen_v, held)
+    k7 = check_paged(torch, F, SERVE["prompt_len"], SERVE["max_new_tokens"])
+    k7 = k7["paged_decode_attention"]
+    return {
+        "paged_decode_attention": {
+            "launches": {run: c["paged_decode_attention"] for run, c in counts.items()},
+            **{k: k7[k] for k in ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "max_abs_err")}},
+        "paged_decode_verify_attention": {
+            "launches": {run: c["paged_decode_verify_attention"]
+                         for run, c in counts.items()},
+            "shapes": rows},
+    }
 
 
 # --holds: the kernel source each hold set builds
@@ -5211,6 +5918,11 @@ def main() -> None:
                     help="build, then run only phase 13 (the host planes on the GRPO "
                          "main path) and the holds of the kernels at the shapes it "
                          "gives them")
+    ap.add_argument("--serve", action="store_true",
+                    help="build, then run only phase 14 (the radix prefix cache, chunked "
+                         "prefill, the engine behind its gateway driven over HTTP, one GRPO "
+                         "update through the prefix cache) and the holds of the kernels at "
+                         "the shapes it gives them")
     ap.add_argument("--sigterm-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
@@ -5350,6 +6062,17 @@ def run(args, torch, F) -> None:
         check_paged(torch, F, prompt_width, short)
         log(json.dumps({"host_kernels": counts13}))
         log(f"host: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.serve:
+        log(PHASE14)
+        seen14v: collections.Counter = collections.Counter()
+        seen14 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        counts14 = serving(torch, card, seen14v, seen14)
+        log("  the kernels at the shapes phase 14 gave them, against their plain versions")
+        hold_new_shapes(torch, F, seen14, {k: set() for k in seen14}, 512, phase=14)
+        log(json.dumps({"serve_kernels": serve_entries(torch, F, seen14v, counts14, set())}))
+        log(f"serve: every hold and check passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.routes:
@@ -5541,9 +6264,12 @@ def run(args, torch, F) -> None:
     log("phase 11: sparse GRPO and the R1-Zero launcher, 8,000-token responses, "
         "Qwen2-1.5B width, full depth")
     r1_seen = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
-    log("CUT: phase 11 trains 1 update here (`--r1` trains the launcher's 2), so "
-        "that the whole script stays inside its time limit with phase 13")
-    counts11 = r1_zero(torch, r1_seen, updates=1)
+    log(f"CUT: phase 11 trains 1 update of the model's first {R1_CUT_LAYERS} layers here "
+        f"and runs no accuracy eval (`--r1` trains the launcher's 2 at 28 layers with an "
+        f"eval before and after each), so that the whole script stays inside its time "
+        f"limit with phases 13 and 14; widths, lengths and the kernels' shapes are the "
+        f"launcher's")
+    counts11 = r1_zero(torch, r1_seen, updates=1, evals=False, layers=R1_CUT_LAYERS)
     log("  the kernels at the shapes phase 11 gave them, against their plain versions")
     r1 = r1_entries(hold_r1_shapes(torch, F, r1_seen), counts11)
 
@@ -5563,8 +6289,11 @@ def run(args, torch, F) -> None:
     log("phase 13: the host planes on the GRPO main path, Qwen2.5-1.5B width")
     seen13 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
     seen13v: collections.Counter = collections.Counter()
+    log("CUT: phase 13 reads the planes' overhead in one turn a side here (off/on; "
+        "`--host` takes two), so that the whole script stays inside its time limit with "
+        "phase 14")
     host = host_planes(torch, short, phase8_prompts, phase5_queries, tok.pad_token_id,
-                       card, seen13, seen13v)
+                       card, seen13, seen13v, turns=("off", "on"))
     log("  the kernels at the shapes phase 13 gave them that no earlier phase held, "
         "against their plain versions")
     hold_new_shapes(torch, F, seen13, {
@@ -5575,6 +6304,24 @@ def run(args, torch, F) -> None:
         "decode": set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])},
         short, phase=13)
     hold_host_verify(torch, seen13v, {("decode_verify_attention",) + k6_shape}, prompt_width)
+
+    log(PHASE14)
+    seen14v: collections.Counter = collections.Counter()
+    seen14 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    counts14 = serving(torch, card, seen14v, seen14)
+    log("  the kernels at the shapes phase 14 gave them that no earlier phase held, "
+        "against their plain versions")
+    hold_new_shapes(torch, F, seen14, {
+        "fwd": ({fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"])
+                | set(seen13["fwd"])),
+        "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
+                | {s[1:6] for s in seen12["bwd"]} | {s[1:6] for s in seen13["bwd"]}),
+        "fused": (fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"])
+                  | set(seen13["fused"])),
+        "decode": (set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])
+                   | set(seen13["decode"]))}, 512, phase=14)
+    serve = serve_entries(torch, F, seen14v, counts14,
+                          {("paged_decode_verify_attention",) + k9_shape})
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
@@ -5600,6 +6347,7 @@ def run(args, torch, F) -> None:
             **({"r1": r1[name]} if name in r1 else {}),
             **({"routes": routes[name]} if name in routes else {}),
             **({"host": host[name]} if name in host else {}),
+            **({"serve": serve[name]} if name in serve else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -727,7 +727,14 @@ def decode_verify(params, config, tokens, positions, fill, key_mask, kv_caches,
     qi = torch.arange(Tq, device=x.device)[None, :, None]
     cand = (slot >= fill[:, None, None]) & (slot <= fill[:, None, None] + qi)
     mask = (key_mask[:, None, :] | cand)[:, None, :, :]    # [B, 1, Tq, T_max]
-    start = key_mask.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    # the kernels read [start, fill + qi + 1): a row with no valid slot
+    # before this call (a cold suffix prefill, a first prefill chunk) starts
+    # at its candidates. JAX's argmax alone gives 0 there, where the plain
+    # masked route still sees only the candidates but a kernel would read
+    # the row's pad slots
+    start = torch.where(key_mask.any(dim=1),
+                        key_mask.to(torch.uint8).argmax(dim=1),
+                        fill).to(torch.int32)
     x = _run_layers(config, params, x, cos, sin, mask, kv_caches=kv_caches,
                     cache_index=fill, lora_scale=lora_scale,
                     verify_bounds=(start, fill.to(torch.int32)), paged=paged)

@@ -84,12 +84,16 @@
 // The k-query speculative verify (second kernel body, below the decode one):
 //   K6 `_verify_kernel` (:280)        -> decode_verify_attention_bf16
 //   K9 `_paged_verify_kernel` (:555)  -> paged_decode_verify_attention_bf16
-// q [B, H, Tq, HD] holds Tq = spec_k + 1 candidate queries per head. Row r
-// of kv head kvh is query head kvh * G + r / Tq at candidate qi = r % Tq
-// (JAX's row order); it attends to logical slots start <= t < fill + qi + 1
-// (the candidates' K/V are already written at [fill, fill + Tq)). A block
-// holds up to 32 such rows (R = G * Tq = 30 at G = 6, spec_k = 4; a kv head
-// with more takes ceil(R / 32) row groups, one block each), and that many
+// q [B, H, Tq, HD] holds Tq candidate queries per head: Tq = spec_k + 1 in
+// speculative decode, up to the prompt width for the serving path's suffix
+// prefill and prefill chunks (no cap: nothing in the body is sized by Tq).
+// Row r of kv head kvh is query head kvh * G + r / Tq at candidate
+// qi = r % Tq (JAX's row order); it attends to logical slots
+// start <= t < fill + qi + 1 (the candidates' K/V are already written at
+// [fill, fill + Tq)). A block holds up to 32 such rows (R = G * Tq = 30 at
+// G = 6, spec_k = 4; a kv head with more takes ceil(R / 32) row groups, one
+// block each: 96 at G = 6, Tq = 512, each reading the row's whole key
+// range, the bound `hi` masking what its rows do not see), and that many
 // rows make the products worth the tensor cores: mma.sync m16n8k16 (bf16
 // in, f32 sums) on two m16 row tiles, where wgmma's m64 would be more than
 // half padding. The design:
@@ -528,7 +532,6 @@ constexpr int VSPLIT_BLOCKS_PER_SM = 1; // what the split rule fills
 constexpr int VT = 16;                  // keys of a warp's step: one k16 slice of P·V
 constexpr int VSTAGES = 3;              // a warp's ring of K/V step tiles
 constexpr int VROWS = 32;               // query rows of a block: two m16 tiles
-constexpr int MAXTQ = 8;                // candidates per head (spec_k <= 7)
 constexpr int VMAX_SPLITS = 8;          // key-range splits: the portable cluster size
 
 struct VerifyArgs {
@@ -960,8 +963,7 @@ int launch_verify_hd(const VerifyArgs& a, int B, cudaStream_t s) {
 
 template <bool PAGED>
 int launch_verify(VerifyArgs a, int B, int HD, void* stream) {
-  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG || a.Tq < 1 ||
-      a.Tq > MAXTQ)
+  if (B <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAXG || a.Tq < 1)
     return (int)cudaErrorInvalidValue;
   if (PAGED && (a.P <= 0 || a.N <= 0 || a.nb <= 0 || a.nb > MAX_NB))
     return (int)cudaErrorInvalidValue;
@@ -969,6 +971,9 @@ int launch_verify(VerifyArgs a, int B, int HD, void* stream) {
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   a.S = verify_split_count(B, a.KV, sms);
   a.n_rg = (a.H / a.KV * a.Tq + VROWS - 1) / VROWS;
+  // gridDim.y = KV * n_rg (384 at KV = 2, G = 6, Tq = 1024) and gridDim.z = B
+  // stay within the launch's 65535
+  if ((long long)a.KV * a.n_rg > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   a.scale_l2 = (float)(1.4426950408889634 / sqrt((double)HD));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (HD == 128) return launch_verify_hd<128, PAGED>(a, B, s);
@@ -1067,7 +1072,7 @@ extern "C" int decode_verify_split_count(int B, int KV) {
 
 // K6. q [B, H, Tq, HD], k/v cache [B, KV, T, HD] bf16, start/fill [B] int32
 // (candidate qi attends to [start, fill + qi + 1)); out [B, H, Tq, HD] bf16.
-// Tq <= 8, H / KV <= 8. Each row's keys are split over the S blocks of a
+// any Tq >= 1, H / KV <= 8. Each row's keys are split over the S blocks of a
 // cluster (S = decode_verify_split_count(B, KV)), merged by its rank 0.
 extern "C" int decode_verify_attention_bf16(const void* q, const void* kc,
                                             const void* vc, const void* start,

@@ -83,12 +83,12 @@ def resolve_dataset(cfg: RLConfig, tokenizer, max_prompt_len: int = 256):
                                    max_prompt_len=max_prompt_len)
 
 
-def resolve_rm_reward(reward_model_path: str, batch_size: int = 16):
-    """The host-side torch RM when its directory exists (the reference's
-    deberta path); otherwise a rule-based stand-in so the loop still runs
-    offline."""
+def resolve_rm_reward(reward_model_path: str, batch_size: int = 16, device="cuda"):
+    """The torch RM on `device` (the trainer's: the card unless `--device
+    cpu`) when its directory exists (the reference's deberta path);
+    otherwise a rule-based stand-in so the loop still runs offline."""
     if reward_model_path and os.path.isdir(reward_model_path):
-        return make_torch_rm_reward(reward_model_path, batch_size)
+        return make_torch_rm_reward(reward_model_path, batch_size, device=device)
     print(f"[offline demo] reward model '{reward_model_path}' not found — "
           "rule-based stand-in reward")
 
@@ -124,7 +124,7 @@ def _resolve_all(cfg: RLConfig, device):
         cfg.sft_model_path, cfg.seed, attention_impl=cfg.attention_impl,
         device=device)
     return (mcfg, params, tokenizer, resolve_dataset(cfg, tokenizer),
-            resolve_rm_reward(cfg.reward_model_path))
+            resolve_rm_reward(cfg.reward_model_path, device=device))
 
 
 def build_trainer(cfg: RLConfig, *, device="cuda", value_params_fn=None,

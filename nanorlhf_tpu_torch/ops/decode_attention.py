@@ -28,9 +28,12 @@ padding, its 128-multiple T padding and its [.., 8, T] sublane-expanded
 scale layout are not copied: the port's scale tensors carry no 8-wide
 axis.
 
-The verify kernels take Tq = spec_k + 1 candidate queries per head
-([B, H, Tq, hd]); candidate qi reads the slots [start, fill + qi + 1) (the
-candidates' K/V already written at [fill, fill + Tq)):
+The verify kernels take Tq candidate queries per head ([B, H, Tq, hd]):
+Tq = spec_k + 1 in speculative decode, and any width for the serving
+path's suffix prefill (`serving/radix.suffix_logits`: Tq up to the prompt
+width) and prefill chunks (Tq = `prefill_chunk`). Candidate qi reads the
+slots [start, fill + qi + 1) (the candidates' K/V already written at
+[fill, fill + Tq)):
 
 - `decode_verify_attention` (K6, `_verify_kernel`): cache [B, KV, T, hd];
 - `paged_decode_verify_attention` (K9, `_paged_verify_kernel`): pools and
@@ -76,7 +79,6 @@ _PAGED_VERIFY_ARGS = [_P] * 7 + [_I] * 8 + [_P]
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_GROUP = 8
 _KERNEL_MAX_BLOCKS = 1024  # block-table entries per row the kernel keeps
-_KERNEL_MAX_TQ = 8         # verify candidates per head (spec_k <= 7)
 # the decode kernels' split (csrc/decode_attention.cu MAX_SPLITS,
 # DECODE_BLOCKS_PER_SM): at most the portable cluster size, and enough
 # blocks for one wave of three a SM
@@ -512,9 +514,8 @@ def _check_verify_query(q, KV: int):
         raise ValueError(f"verify kernel takes q [B, H, Tq, hd], got {tuple(q.shape)}")
     B, H, Tq, hd = q.shape
     _check_query(q[:, :, 0], KV)
-    if not 1 <= Tq <= _KERNEL_MAX_TQ:
-        raise ValueError(f"verify kernel takes 1 <= Tq <= {_KERNEL_MAX_TQ} "
-                         f"candidates (spec_k <= {_KERNEL_MAX_TQ - 1}), got {Tq}")
+    if Tq < 1:
+        raise ValueError(f"verify kernel takes Tq >= 1 queries, got {Tq}")
     _check_tensor("q", q, q, torch.bfloat16)
     return B, H, Tq, hd
 
@@ -524,8 +525,9 @@ def decode_verify_attention(q, k_cache, v_cache, start, fill):
     [B, H, Tq, hd] (candidate i of each head reads [start, fill + i + 1)),
     k/v [B, KV, T, hd], start/fill [B]. Returns [B, H, Tq, hd].
 
-    CUDA: the Hopper kernel (bf16, head_dim 64/128, H/KV <= 8, Tq <= 8); a
-    candidate with no valid slot returns zeros, as the Pallas kernel does.
+    CUDA: the Hopper kernel (bf16, head_dim 64/128, H/KV <= 8, any Tq: a
+    kv head's G·Tq query rows go to ceil(G·Tq / 32) row groups, one block
+    each); a candidate with no valid slot returns zeros, as the Pallas kernel does.
     CPU: `reference_decode_verify_attention`."""
     if not q.is_cuda:
         return reference_decode_verify_attention(q, k_cache, v_cache, start, fill)

@@ -83,10 +83,12 @@ def make_rm_reward(rm_params: dict, model_config, tokenizer, batch_size: int = 1
     return reward_func
 
 
-def make_torch_rm_reward(model_path: str, batch_size: int = 16, device: str = "cpu"):
-    """Host-side torch RM (the reference's deberta-v3 path): a local
-    `transformers` sequence classifier with its own tokenizer, scored in
-    batches on `device`. `transformers` is imported only here."""
+def make_torch_rm_reward(model_path: str, batch_size: int = 16, device="cuda"):
+    """Torch RM (the reference's deberta-v3 path): a local `transformers`
+    sequence classifier with its own tokenizer, scored in batches on
+    `device` — the card unless the caller asks for the CPU (JAX scores on
+    the host because a TPU cannot hold a torch model; the reference moves
+    its RM to the GPU to score). `transformers` is imported only here."""
     from transformers import AutoModelForSequenceClassification, AutoTokenizer
 
     model = AutoModelForSequenceClassification.from_pretrained(model_path).eval().to(device)

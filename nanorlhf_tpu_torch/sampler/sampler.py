@@ -24,10 +24,11 @@ exactly rows × blocks-per-row pages with the dense identity table: a pure
 re-layout of the contiguous cache, bit-identical to it on the CPU); with
 `0 < decode_rows < rows` as well, `generate` hands the queue to the
 continuous-batching scheduler (`sampler/paged/scheduler.py`). `spec_k > 0`
-runs speculative decode on either layout and on the queued path. The int8
-KV cache is the model config's `kv_cache_quant`. Knobs that select paths
-not ported yet (compaction, chunked prefill, the radix prefix cache) raise
-NotImplementedError instead of being ignored.
+runs speculative decode on either layout and on the queued path, where the
+radix prefix cache (`prefix_cache`) and chunked prefill (`prefill_chunk`)
+compose with it. The int8 KV cache is the model config's `kv_cache_quant`.
+Compaction, not ported yet, raises NotImplementedError instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -74,32 +75,59 @@ class SamplingParams:
 
 
 def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> None:
-    """The decode-feature gate. The JAX legality matrix (ValueError on
-    illegal combinations) comes first; then every knob that selects a path
-    this port has not ported raises NotImplementedError."""
+    """THE decode-feature composition gate (JAX's matrix): ValueError on
+    every illegal combination, with the reason. The features compose by
+    default — spec decode under the radix prefix cache, chunked prefill
+    under either, serving's per-row sampling on the same loop. What is
+    illegal, and why:
+
+      * compaction_segments > 0 with page_size > 0 — compaction's
+        between-segment row gather assumes per-row [T_max] slabs, which
+        the paged layout's block table does not have;
+      * compaction_segments > 0 with spec_k > 0 — the gather also assumes
+        every live row sits at the same decode step;
+      * prefix_cache without continuous batching (page_size > 0 AND
+        decode_rows > 0) — the radix cache lives at the admission point,
+        which the monolithic paths do not have;
+      * prefill_chunk > 0 without continuous batching — chunked prefill
+        protects resident rows' cadence during a long admission.
+
+    Per-row serving constraints (spec requires static greedy, no logprob
+    capture) are the `DecodeSession` constructor's. Then the one knob
+    this port has not ported, compacting decode, raises
+    NotImplementedError."""
     if sampling.page_size > 0 and sampling.compaction_segments > 0:
-        raise ValueError("page_size > 0 is incompatible with compaction_segments > 0")
+        raise ValueError(
+            "page_size > 0 is incompatible with compaction_segments > 0: "
+            "compaction is the contiguous-layout straggler lever (same-step "
+            "row gathers over per-row slabs), and the paged cache replaces "
+            "it — set decode_rows > 0 for continuous batching instead")
     if sampling.spec_k > 0 and sampling.compaction_segments > 0:
-        raise ValueError("spec_k > 0 is incompatible with compaction_segments > 0")
+        raise ValueError(
+            "spec_k > 0 is incompatible with compaction_segments > 0: "
+            "compacting decode assumes every live row sits at the same "
+            "decode step, which speculative decode's per-row accept "
+            "lengths break — use the paged cache with decode_rows > 0")
     check_decode_loop(sampling.decode_loop, sampling.sync_every)
     queued_capable = sampling.page_size > 0 and sampling.decode_rows > 0
     if prefix_cache and not queued_capable:
-        raise ValueError("prefix_cache requires continuous batching "
-                         "(page_size > 0 and decode_rows > 0)")
+        raise ValueError(
+            "prefix_cache requires continuous batching: set page_size > 0 "
+            "and decode_rows > 0 (rollout_page_size / rollout_decode_rows "
+            "on the trainer) — the monolithic paths have no admission "
+            "point to cache across")
     if sampling.prefill_chunk > 0 and not queued_capable:
-        raise ValueError("prefill_chunk > 0 requires continuous batching "
-                         "(page_size > 0 and decode_rows > 0)")
-    unported = {
-        "compaction_segments > 0 (compacting decode)": sampling.compaction_segments > 0,
-        "prefix_cache (radix prefix cache)": prefix_cache,
-        "prefill_chunk > 0 (chunked prefill)": sampling.prefill_chunk > 0,
-    }
-    for what, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to nanorlhf_tpu_torch yet: the "
-                "monolithic sampler (contiguous or paged), speculative "
-                "decode and the queued paged scheduler are")
+        raise ValueError(
+            "prefill_chunk > 0 requires continuous batching: set "
+            "page_size > 0 and decode_rows > 0 — chunked prefill "
+            "interleaves a long admission with resident rows' decode "
+            "chunks, and the monolithic paths have neither")
+    if sampling.compaction_segments > 0:
+        raise NotImplementedError(
+            "compaction_segments > 0 (compacting decode) is not ported to "
+            "nanorlhf_tpu_torch yet: the monolithic sampler (contiguous or "
+            "paged), speculative decode and the queued paged scheduler "
+            "(radix prefix cache, chunked prefill) are")
 
 
 def stream_generator(seed: int, stream: int, *index: int,
@@ -368,7 +396,8 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              generator: torch.Generator, sampling: SamplingParams,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
              timings: dict | None = None, paged_stats_out: list | None = None,
-             spec_stats_out: list | None = None, tracer=None, latency=None):
+             spec_stats_out: list | None = None, tracer=None, latency=None,
+             prefix_cache=None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
     see `generate_tokens`.
@@ -390,8 +419,13 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
     `rollout.verify` spans); `latency` (an enabled `telemetry.LatencyHub`)
     gets the queued path's per-request `latency/ttft_s` and per-chunk
     `latency/intertoken_s` records. The other paths ignore both, as in
-    JAX."""
-    compose_check(sampling)
+    JAX.
+
+    `prefix_cache` (an enabled `serving.RadixCache`): the queued path
+    admits rows through the cross-request radix prefix cache (reset per
+    call; `sampling.prefill_chunk` chunks long admissions). The non-queued
+    paths ignore both, as in JAX."""
+    compose_check(sampling, prefix_cache=getattr(prefix_cache, "enabled", False))
     total_rows = prompt_ids.shape[0] * sampling.n
     queued = (sampling.page_size > 0 and sampling.decode_rows > 0
               and sampling.decode_rows < total_rows)
@@ -417,7 +451,8 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
             page_size=sampling.page_size, decode_rows=sampling.decode_rows,
             spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
             paged_stats_out=paged_stats_out, spec_stats_out=spec_stats_out,
-            latency=latency, **kw)
+            latency=latency, prefix_cache=prefix_cache,
+            prefill_chunk=sampling.prefill_chunk, **kw)
     if sampling.spec_k > 0:
         from nanorlhf_tpu_torch.sampler.speculative import generate_spec
 

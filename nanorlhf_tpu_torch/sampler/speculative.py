@@ -41,8 +41,9 @@ and verify bodies, one iteration per host step, eagerly (no graph), with a
 track and one device sync after each — the observability trade; its greedy
 tokens equal the compiled loop's.
 
-Not ported: the radix-seeded drafter window (JAX `_draft_fn`'s
-`seed_rep`, which serves only the radix prefix cache).
+Under the radix prefix cache the queued session seeds each row's lookup
+window with the tree's cached continuation of its matched prefix
+(`_draft_fn`'s `seed_rep` / `seed_len`, JAX's `_spec_chunk_seeded`).
 """
 
 from __future__ import annotations
@@ -133,11 +134,29 @@ def accept_candidates(logits, drafts, generator, *, temperature, top_p, top_k,
     return emitted, acc
 
 
-def _draft_fn(prompt_rep, state, *, Tp, spec_k, spec_ngram, pad_token_id):
+def _draft_fn(prompt_rep, state, *, Tp, spec_k, spec_ngram, pad_token_id,
+              seed_rep=None, seed_len=None):
     """Draft step over the state: the prompt+output buffer of every row and
-    its spec_k proposals [B, spec_k]."""
-    buf = torch.cat([prompt_rep, state["out"]], dim=1)
-    drafts, _ = ngram_propose(buf, Tp + state["n_gen"], Tp - state["prompt_len"],
+    its spec_k proposals [B, spec_k].
+
+    `seed_rep` ([B, W], right-aligned) / `seed_len` ([B]), when given,
+    prepend a per-row SEED window to the lookup buffer — the radix-matched
+    cached continuation the decode session installs at admission
+    (`sampler/paged/session.py`), so prefix-heavy traffic drafts from the
+    first generated token. Rows with `seed_len == 0` keep exactly the
+    unseeded valid range (shifted by the constant W, which the match
+    positions are relative to, so their proposals are unchanged). Greedy
+    output is draft-independent either way."""
+    n_gen, prompt_len = state["n_gen"], state["prompt_len"]
+    if seed_rep is None:
+        buf = torch.cat([prompt_rep, state["out"]], dim=1)
+        drafts, _ = ngram_propose(buf, Tp + n_gen, Tp - prompt_len,
+                                  k=spec_k, m=spec_ngram, pad_token_id=pad_token_id)
+        return drafts
+    W = seed_rep.shape[1]
+    buf = torch.cat([seed_rep, prompt_rep, state["out"]], dim=1)
+    valid_start = torch.where(seed_len > 0, W - seed_len, W + Tp - prompt_len)
+    drafts, _ = ngram_propose(buf, W + Tp + n_gen, valid_start,
                               k=spec_k, m=spec_ngram, pad_token_id=pad_token_id)
     return drafts
 

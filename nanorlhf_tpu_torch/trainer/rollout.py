@@ -59,6 +59,7 @@ from nanorlhf_tpu_torch.ops.masking import (
 )
 from nanorlhf_tpu_torch.sampler.sampler import (  # noqa: F401 (re-export)
     SamplingParams,
+    compose_check,
     generate,
     stream_generator,
 )
@@ -80,13 +81,16 @@ PERM_STREAM = 0x9E77
 
 def check_supported(cfg: RLConfig) -> None:
     """Raise NotImplementedError for every trainer knob that selects a path
-    this port has not ported, instead of ignoring it. The sampler knobs
-    (compaction, chunked prefill) reach `sampler.compose_check` through
-    `sampling_params(cfg)`, which raises for them; the paged cache and
-    continuous batching (`rollout_page_size`, `rollout_decode_rows`), the
-    int8 KV cache (`kv_cache_quant`), speculative decode (`rollout_spec_k`,
-    `rollout_spec_ngram`) and int8 rollout weights (`rollout_quant`) are
-    ported."""
+    this port has not ported, instead of ignoring it, and run the decode
+    features' legality matrix (`sampler.compose_check`, ValueError) once, as
+    the JAX trainer does at construction. Compaction reaches
+    `compose_check` through `sampling_params(cfg)`, which raises for it;
+    the paged cache and continuous batching (`rollout_page_size`,
+    `rollout_decode_rows`), the int8 KV cache (`kv_cache_quant`),
+    speculative decode (`rollout_spec_k`, `rollout_spec_ngram`), int8
+    rollout weights (`rollout_quant`), the radix prefix cache
+    (`rollout_prefix_cache`) and chunked prefill (`rollout_prefill_chunk`)
+    are ported."""
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     if cfg.rollout_quant not in ("none", "int8"):
@@ -98,13 +102,17 @@ def check_supported(cfg: RLConfig) -> None:
         "rollout_devices > 0": cfg.rollout_devices > 0,
         "env multi-turn (env_max_turns > 1)": bool(cfg.env_name) and cfg.env_max_turns > 1,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
-        "rollout_prefix_cache": cfg.rollout_prefix_cache,
         "sampler_logprob_capture": cfg.sampler_logprob_capture,
     }
     on = [what for what, flag in unported.items() if flag]
     if on:
         raise NotImplementedError(
             f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
+    compose_check(SamplingParams(page_size=cfg.rollout_page_size,
+                                 decode_rows=cfg.rollout_decode_rows,
+                                 spec_k=cfg.rollout_spec_k,
+                                 prefill_chunk=cfg.rollout_prefill_chunk),
+                  prefix_cache=cfg.rollout_prefix_cache)
 
 
 def rollout_generator(seed: int, rollout_index: int, device) -> torch.Generator:
@@ -195,7 +203,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       launches: dict | None = None,
                       rollout_params: dict | None = None, planes=None,
                       rollout_index: int | None = None,
-                      step: int | None = None, on_generated=None) -> dict:
+                      step: int | None = None, on_generated=None,
+                      prefix_cache=None) -> dict:
     """Roll out `queries` ([B, T] left-padded prompt ids), score each
     sample with `reward_func`, and run the logprob pass. Returns numpy
     arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
@@ -223,8 +232,14 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     the rollout index and global step the lineage events carry.
     `on_generated(payload, generate_s)`, when given, is called once the
     tokens are on the host, before the reward: `payload` holds the
-    rollout's `paged_stats` and `spec_stats`."""
+    rollout's `paged_stats` and `spec_stats`. `prefix_cache` is the
+    trainer's `RadixCache` (`rollout_prefix_cache`; a fresh one when None:
+    the scheduler resets it at every call anyway, the trainer's keeps the
+    cumulative stats)."""
     check_supported(cfg)
+    if cfg.rollout_prefix_cache and prefix_cache is None:
+        from nanorlhf_tpu_torch.serving.radix import RadixCache
+        prefix_cache = RadixCache()
     device = params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
     n = cfg.sample_n
@@ -247,7 +262,8 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                              eos_token_id=eos_id, pad_token_id=pad_id,
                              lora_scale=lora_scale, timings=t,
                              paged_stats_out=paged_stats, spec_stats_out=spec_stats,
-                             tracer=tracer, latency=latency)
+                             tracer=tracer, latency=latency,
+                             prefix_cache=prefix_cache)
         responses_np = responses.cpu().numpy()
         greedy_np = None
         if cfg.algo == AlgoName.REMAX:

@@ -242,6 +242,14 @@ class RLTrainer:
         # the latest paged rollout's pool snapshot and session status
         self.pages_status: dict | None = None
         self.session_status: dict | None = None
+        # the radix prefix cache (rollout_prefix_cache, serving/radix.py):
+        # one long-lived object, so its cumulative stats feed pages/shared
+        # and /statusz "prefix_cache"; the scheduler resets its pool and
+        # tree at every generate call (cached K/V is tied to the weights)
+        self.prefix_cache = None
+        if config.rollout_prefix_cache:
+            from nanorlhf_tpu_torch.serving.radix import RadixCache
+            self.prefix_cache = RadixCache()
         self._iter = dataset.loader(config.batch_size, config.seed)
         self.ctx_menu = shape_menu(dataset.input_ids.shape[1], min_value=16)
 
@@ -482,7 +490,8 @@ class RLTrainer:
                 rollout_params=self._rollout_params(), planes=self,
                 rollout_index=index, step=self.state["global_step"],
                 on_generated=lambda out, gen_s: self._note_rollout(
-                    out, index, t_call, tp_call, gen_s))
+                    out, index, t_call, tp_call, gen_s),
+                prefix_cache=self.prefix_cache)
             t_busy0 = t_call + t["generate_s"]
             if ro["keep"] is not None and n > 1:
                 # the other n−1 completions per prompt left the batch
@@ -732,7 +741,8 @@ class RLTrainer:
             "lineage": self.lineage.statusz(),
             "latency": self.latency.snapshot(),
             "pages": self.pages_status,
-            "prefix_cache": None,
+            "prefix_cache": (self.prefix_cache.snapshot()
+                             if self.prefix_cache is not None else None),
             "session": self.session_status,
         }
 
@@ -860,9 +870,10 @@ class RLTrainer:
         paged rollout's stats (the monolithic paged path reports utilization
         with no recycling or admissions), plus the decode session's
         counters on the continuous-batching path: session/dispatch_events
-        (admission prefills + decode iterations), chunked_admissions and
-        prefill_backlog (0: chunked prefill is not ported). {} when the
-        rollout is not paged."""
+        (admission forwards + decode iterations), chunked_admissions and
+        prefill_backlog (the peak backlog of chunked prefill), and under the
+        radix prefix cache rollout/prefix_hit_frac and pages/shared. {} when
+        the rollout is not paged."""
         if paged_stats is None:
             return {}
         out = {
@@ -870,6 +881,9 @@ class RLTrainer:
             "rollout/pages_recycled": float(paged_stats["pages_recycled"]),
             "rollout/admitted_midloop": float(paged_stats["admitted_midloop"]),
         }
+        if "prefix_hit_frac" in paged_stats:
+            out["rollout/prefix_hit_frac"] = float(paged_stats["prefix_hit_frac"])
+            out["pages/shared"] = float(paged_stats["shared_pages"])
         if "dispatch_events" in paged_stats:
             out["session/dispatch_events"] = float(paged_stats["dispatch_events"])
             out["session/chunked_admissions"] = float(

@@ -16,6 +16,7 @@ from nanorlhf_tpu.rewards.builders import make_rm_reward as jax_make_rm_reward
 from nanorlhf_tpu.rewards.builders import make_torch_rm_reward as jax_make_torch_rm_reward
 from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
 from nanorlhf_tpu_torch.entrypoints import common
+from nanorlhf_tpu_torch.entrypoints.grpo import build_config
 from nanorlhf_tpu_torch.rewards.builders import make_rm_reward, make_torch_rm_reward
 
 torch.set_num_threads(1)
@@ -63,13 +64,47 @@ def rm_dir(tmp_path):
 
 
 def test_torch_rm_reward_matches_jax(rm_dir, capsys):
-    got = make_torch_rm_reward(rm_dir, batch_size=2)(TEXTS, "</s>")
+    # the port's RM defaults to the card; the CPU is asked for
+    got = make_torch_rm_reward(rm_dir, batch_size=2, device="cpu")(TEXTS, "</s>")
     want = jax_make_torch_rm_reward(rm_dir, batch_size=2)(TEXTS, "</s>")
     assert got.shape == (len(TEXTS),) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, want)
     # the launcher takes the RM directory as JAX's does
-    via_port = common.resolve_rm_reward(rm_dir, batch_size=2)(TEXTS, "</s>")
+    via_port = common.resolve_rm_reward(rm_dir, batch_size=2, device="cpu")(TEXTS, "</s>")
     via_jax = jax_common.resolve_rm_reward(rm_dir, batch_size=2)(TEXTS, "</s>")
     np.testing.assert_array_equal(via_port, via_jax)
     np.testing.assert_array_equal(via_port, got)
     assert "not found" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cpu"])
+def test_launcher_builds_the_rm_on_its_device(device, tmp_path, monkeypatch):
+    """The launcher's torch RM goes where the trainer runs: the card by
+    default (the reference scores its RM on the GPU), the CPU only when the
+    caller asks (`--device cpu`). The stubs record `.to(device)`, so no
+    weights load and no card is needed."""
+    import transformers
+
+    moved = []
+
+    class _Model:
+        def eval(self):
+            return self
+
+        def to(self, dev):
+            moved.append(str(dev))
+            return self
+
+    monkeypatch.setattr(transformers.AutoModelForSequenceClassification,
+                        "from_pretrained", staticmethod(lambda path: _Model()))
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        staticmethod(lambda path: object()))
+    cfg = build_config()
+    cfg.reward_model_path = str(tmp_path)
+    monkeypatch.setattr(common, "resolve_model", lambda *a, **kw: (None, None, None))
+    monkeypatch.setattr(common, "resolve_dataset", lambda *a, **kw: None)
+    if device is None:
+        common.resolve_rm_reward(cfg.reward_model_path)
+    else:
+        common._resolve_all(cfg, torch.device(device))
+    assert moved == ["cpu" if device == "cpu" else "cuda"]

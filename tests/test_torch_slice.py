@@ -176,19 +176,23 @@ def test_run_rollout_needs_a_card_unless_asked_for_cpu(monkeypatch):
 
 UNPORTED = [
     dict(rollout_orchestrator=True), dict(rollout_workers=2),
-    dict(rollout_prefix_cache=True), dict(kv_cache_quant="int8"),
+    dict(rollout_prefix_cache=True, rollout_page_size=4, rollout_decode_rows=2),
+    dict(kv_cache_quant="int8"),
     dict(env_name="python_tool", env_max_turns=2), dict(sampler_logprob_capture=True),
     dict(rollout_quant="int8"),
 ]
 UNPORTED_SAMPLER = [
     dict(rollout_page_size=128), dict(rollout_decode_rows=8), dict(rollout_spec_k=4),
     dict(rollout_compaction_segments=2),
+    dict(rollout_prefill_chunk=4, rollout_page_size=4, rollout_decode_rows=2),
 ]
-# knobs that raised until the paged / int8, speculative and int8-weight
-# slices ported them: their cases now hold the rollout through the knob
-# against the contiguous exact rollout
+# knobs that raised until the paged / int8, speculative, int8-weight and
+# serving slices ported them: their cases now hold the rollout through the
+# knob against the contiguous exact rollout (the radix prefix cache and
+# chunked prefill with the continuous batching they need)
 PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows",
-                "rollout_spec_k", "rollout_quant")
+                "rollout_spec_k", "rollout_quant", "rollout_prefix_cache",
+                "rollout_prefill_chunk")
 
 
 def _greedy_rollout(monkeypatch, knobs):

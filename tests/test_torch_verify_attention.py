@@ -104,3 +104,30 @@ def test_paged_verify_plain_matches_jax_kernel_and_oracle(case, rng):
     for b in range(B):
         np.testing.assert_allclose(got[b][:, below[b]], want[b][:, below[b]],
                                    atol=ATOL, rtol=0)
+
+
+# the serving path's widths (K9 at any Tq: suffix prefill up to the prompt
+# width, prefill chunks): Tq past the 8 candidates of speculative decode,
+# G·Tq past one 32-row group of the kernel
+@pytest.mark.parametrize("G", [1, 6, 8])
+@pytest.mark.parametrize("Tq", [9, 16, 33, 64])
+def test_paged_verify_wide_tq_matches_jax_kernel(Tq, G, rng):
+    """Scattered pages, `fill` not page-aligned, a prefix that starts past
+    slot 0 (a left-padded row) and, in row 1, a cold suffix whose window
+    starts at its own candidates (start == fill)."""
+    B, KV, hd, P = 2, 2, 16, 8
+    nb = -(-(13 + Tq + 3) // P)
+    T, N = nb * P, B * nb + 2
+    table = rng.permutation(N)[:B * nb].reshape(B, nb).astype(np.int32)
+    k_log = rng.standard_normal((B, KV, T, hd)).astype(np.float32)
+    v_log = rng.standard_normal((B, KV, T, hd)).astype(np.float32)
+    kp, vp = _scatter(k_log, table, N, P), _scatter(v_log, table, N, P)
+    q = rng.standard_normal((B, KV * G, Tq, hd)).astype(np.float32)
+    s, f = np.asarray([3, 11], np.int32), np.asarray([13, 11], np.int32)
+    args = (q, kp, vp, table, s, f)
+    got = td.paged_decode_verify_attention(*map(torch.as_tensor, args)).numpy()
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got, _jax(jd.paged_decode_verify_attention, *args,
+                                         interpret=True), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, _jax(jd.reference_paged_decode_verify_attention,
+                                         *args), atol=ATOL, rtol=0)

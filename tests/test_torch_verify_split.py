@@ -191,3 +191,37 @@ def test_split_rule_depends_on_the_shape_only():
     # (7a), K9 at B=32 (7b), KV=2; and the edges chip_smoke.py holds
     assert rule(64, 2, 132) == 1 and rule(32, 2, 132) == 2
     assert rule(3, 2, 132) == 8 and rule(133, 8, 132) == 1 and rule(22, 2, 132) == 3
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_case(Tq, G):
+    """The serving path's widths: Tq past spec decode's 8, so a kv head's
+    G·Tq rows span several of the kernel's 32-row groups; scattered pages
+    of 24 (not a multiple of the 16-key tile), `fill` not page-aligned, a
+    left-padded row (start 5) and a cold suffix (start == fill)."""
+    rng = np.random.default_rng(1000 * Tq + G)
+    KV, hd, P = 2, 64, 24
+    start = np.asarray([5, 19], np.int32)
+    fill = np.asarray([29, 19], np.int32)
+    nb = -(-(29 + Tq + 2) // P)
+    B, T = len(start), nb * P
+    N = B * nb + 2
+    table = rng.permutation(N)[:B * nb].reshape(B, nb).astype(np.int32)
+    q = rng.standard_normal((B, KV * G, Tq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, KV, T, hd)).astype(np.float32)
+    v = rng.standard_normal((B, KV, T, hd)).astype(np.float32)
+    kp, vp = _scatter(k, table, N, P), _scatter(v, table, N, P)
+    j = jnp.asarray
+    kernel = jd.paged_decode_verify_attention(j(q), j(kp), j(vp), j(table), j(start),
+                                              j(fill), interpret=True)
+    return (q, kp, vp, table, start, fill), np.asarray(kernel)
+
+
+@pytest.mark.parametrize("S", (1, 8))
+@pytest.mark.parametrize("G", (1, 6, 8))
+@pytest.mark.parametrize("Tq", (9, 16, 33, 64))
+def test_paged_split_wide_tq_matches_jax_kernel(Tq, G, S):
+    args, kernel = _wide_case(Tq, G)
+    got = td.paged_decode_verify_split_reference(*map(torch.as_tensor, args), S).numpy()
+    assert got.shape == args[0].shape
+    np.testing.assert_allclose(got, kernel, atol=ATOL, rtol=0)
