@@ -24,6 +24,10 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --serve         # build, then only phase 14 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --envs          # build, then only phases 15 and 16
+                                          # (and the holds at their shapes)
+    python3 chip_smoke.py --learn         # build, then only the learning-curve
+                                          # harness (not in the default run)
 
 Phases (any failure exits non-zero):
   1. build — compile the Hopper kernels from nanorlhf_tpu_torch/csrc (one
@@ -245,6 +249,53 @@ Phases (any failure exits non-zero):
      hit and a cold suffix; the spec engine's 32 rows), timed at the
      engine's, and K7 at the engine's decode shape; the launches and times
      reported under `serve`.
+ 15. multi-turn GRPO over the python-tool environment:
+     `one_card_cut(build_config(env_name="python_tool", env_max_turns=2))`
+     at 512 tokens (the launcher's rule: turns of 128 tokens, observations
+     of at most 256, pages of 128, all 64 episodes resident), 28 layers,
+     random weights, no checkpoint. Random weights never write a fenced
+     ```python block, so the tool call is planted through PythonToolEnv's
+     own `extractor` (ENV_PROGRAM for every turn); the pooled executor runs
+     it in its spawned child, and its stdout is the observation. (a) One
+     update through `build_trainer` + `train(num_updates=1)`: every
+     episode two turns (64 admissions, pages recycled), the loss mask
+     False exactly on the observation spans (and in the kept batch), the
+     scores the turn rewards' sums, the gradients finite and non-zero, LoRA
+     B moved; K1 launched once a layer for each continuation's single-row
+     paged prefill; rollout, tool, scoring and update seconds and the peak.
+     (b) One more update with ENV_FAULTS injected: the crash one
+     env/tool_errors; the hung call's window (its fire to the end of its
+     delay) holds session beats and admissions: the other episodes went on
+     while it stalled. (c) Two greedy episode runs (the driver called
+     directly), tools answered at once and every other one delayed
+     (ENV_DELAY): streams, masks and turn ends equal. The near-tie
+     allowance is measured on the routes (c) holds, with LoRA at the
+     trainer's scale: turn 1's `generate` on one prompt and an empty-start
+     session's continuation (K1 single-row paged prefill, then K7 steps)
+     on that episode's turn-2 context, eagerly with each step's logits
+     kept, against the full forward (K1) and the f32 plain full forward
+     (each route within ENV_ROUTE_FACTOR x the bf16 full forward's error
+     of f32, and within ENV_ROUTE_SHARE of it from K1, which a continuation
+     admitted without its observation must exceed; the allowance
+     NEAR_TIE_FACTOR x twice the routes' largest difference from K1). Every turn of every 16th episode (and of any
+     episode that parted) is held against the full forward's argmax
+     within it. The shapes phase 15 gave K1, K2/K3 and K10 that no
+     earlier phase held are held as in phase 2, K7 at the session's decode
+     shape (64 rows); launches reported under `envs`;
+ 16. the chaos harness's serving soak (`chaos.soak_serving`) at JAX's
+     sizes — 24 requests at 40/s (time scale 0.02) through an engine of 2
+     rows, pages of 4, 12-token prompts, 8 new tokens, under the composed
+     seed-3 plan of three gw.disconnect waves — on the launcher's geometry
+     (random weights from SOAK_SEED: the kernels take bf16 at head_dim 64
+     or 128): every auditor passes, `tools/inspect_run.py --chaos` rebuilds
+     the run's verdicts and fires from the port's ledger; K9 held at every
+     suffix shape the soak gave it, K7 at the engine's decode shape;
+     launches under `envs`.
+
+`--learn` runs `entrypoints/learning_run.main` on the card (LEARN_KNOBS:
+Qwen2-1.5B geometry at the toy 512 vocab, 30 shaped updates, then 10
+binary ones) and prints its artifact: the reward series, each phase's
+stepped and skipped updates and seconds.
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line `{"ok": true, "device": {...}}`. Without a CUDA device it exits
@@ -852,10 +903,12 @@ def _pools(torch, c, P: int) -> None:
                      for n in ("kq", "ks", "vq", "vs")]
 
 
-def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
+def check_paged(torch, F, prompt_width: int, resp: int, rows: int = 32,
+                page: int = 128) -> dict:
     """K7 (paged bf16), K5 (int8) and K8 (paged int8) at the rollout's
-    decode shape — 32 resident rows, H=12, KV=2, hd=128, T_max = prompt
-    width + response, page size 128 — with the pages scattered through a
+    decode shape — `rows` resident rows (32), H=12, KV=2, hd=128, T_max =
+    prompt width + response, page size `page` (128) — with the pages
+    scattered through a
     pool with spare pages and row 0's last block a sentinel. Each is held
     against its plain version evaluated in f32 on the same bf16 / int8
     inputs (tolerance 2e-2: f32 inside, the bf16 output rounds by up to one
@@ -908,7 +961,7 @@ def check_paged(torch, F, prompt_width: int, resp: int) -> dict:
                 fail(f"{label} {name}: a row with an empty window must return zeros")
         return c, (e7, e5, e8)
 
-    B, H, KV, hd, P = 32, 12, 2, 128, 128
+    B, H, KV, hd, P = rows, 12, 2, 128, page
     c, (e7, e5, e8) = run_case(B, H, KV, hd, P, "rollout shape")
     for (eB, eH, eKV, ehd, eP) in ((4, 12, 2, 128, 16), (4, 12, 2, 128, 48),
                                   (3, 32, 8, 64, 48), (3, 14, 2, 64, 16)):
@@ -5241,28 +5294,32 @@ def compare_streams(torch, what: str, mcfg, params, pairs, pad: int, near_tie: f
         fail(f"{what}: streams differ past a near tie (margin > {near_tie:.4e}): {far}")
 
 
-def full_logits(torch, mcfg, params, prompt, stream, pad: int):
+def full_logits(torch, mcfg, params, prompt, stream, pad: int, width: int | None = None,
+                lora_scale: float = 1.0):
     """The full forward's next-token logits (f32 [n, V]) that predict each
-    token of `stream` after `prompt` (left-padded to the engine's width):
-    one teacher-forced pass, the route of scoring (K1)."""
+    token of `stream` after `prompt` (left-padded to `width`, by default
+    the engine's; LoRA at `lora_scale`): one teacher-forced pass, the route
+    of scoring (K1)."""
     from nanorlhf_tpu_torch.core import model as tm
 
-    ids, _ = _left_pad(list(prompt), SERVE["prompt_len"], pad)
+    width = width or SERVE["prompt_len"]
+    ids, _ = _left_pad(list(prompt), width, pad)
     seq = torch.as_tensor(list(ids) + list(stream[:-1]), device="cuda")[None]
     with torch.no_grad():
-        logits = tm.padded_forward_logits(params, mcfg, seq, pad)[0]
-    return logits[SERVE["prompt_len"] - 1:].float()
+        logits = tm.padded_forward_logits(params, mcfg, seq, pad, lora_scale=lora_scale)[0]
+    return logits[width - 1:].float()
 
 
-def check_greedy_tokens(torch, what: str, mcfg, params, pairs, pad: int, near_tie: float):
+def check_greedy_tokens(torch, what: str, mcfg, params, pairs, pad: int, near_tie: float,
+                        width: int | None = None, lora_scale: float = 1.0):
     """Each greedy stream, (prompt, stream) each, against the full forward
-    over it: every token within `near_tie` of the argmax of the logits that
-    predict it (a route that rounds bf16 elsewhere can pick either side of
-    a near tie, and nothing else); the largest gap and the number of
-    tokens that are not the argmax printed."""
+    over it (prompts left-padded to `width`): every token within `near_tie`
+    of the argmax of the logits that predict it (a route that rounds bf16
+    elsewhere can pick either side of a near tie, and nothing else); the
+    largest gap and the number of tokens that are not the argmax printed."""
     worst, off, n = 0.0, 0, 0
     for prompt, stream in pairs:
-        lg = full_logits(torch, mcfg, params, prompt, stream, pad)
+        lg = full_logits(torch, mcfg, params, prompt, stream, pad, width, lora_scale)
         tok = torch.as_tensor(stream, device="cuda")
         gap = lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0]
         worst = max(worst, float(gap.max()))
@@ -5795,6 +5852,594 @@ def serve_entries(torch, F, seen_v, counts: dict, held: set) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# phases 15 and 16: multi-turn GRPO over the python-tool environment, the
+# chaos harness's serving soak
+# --------------------------------------------------------------------------
+
+PHASE15 = ("phase 15: multi-turn GRPO — the python-tool environment, the pooled executor, "
+           "the episode driver on the paged session, Qwen2.5-1.5B width")
+PHASE16 = ("phase 16: the chaos harness's serving soak on the engine, Qwen2.5-1.5B width")
+# the tool call phase 15 plants (random weights never write a fenced
+# ```python block): the environment's own `extractor` returns it for every
+# turn, and the pooled executor runs it in its spawned child
+ENV_PROGRAM = "print(sum(i * i for i in range(12)))"
+ENV_STDOUT = "506"
+# the two greedy runs of phase 15 (c): tool calls answered at once, and every
+# other call delayed by this many seconds (another completion order)
+ENV_DELAY = "env.hang:every=2,delay=0.05"
+# phase 15 (b): one crashed tool call and one delayed by a second
+ENV_FAULTS = "env.crash:at=1 env.hang:at=2,delay=1.0"
+# (c): each route's logits (turn 1's generate; a continuation's K1 paged
+# prefill and K7 steps) against the f32 plain full forward may err up to
+# this many times the bf16 full forward's error (both round to bf16 at
+# other places; 0.97-1.01 read on an H100)
+ENV_ROUTE_FACTOR = 1.5
+# ... and may differ from the bf16 full forward (K1) by at most this share
+# of the bf16 full forward's error of f32: two roundings of one function
+# (0.13-0.24 read on an H100); a continuation whose context lost
+# its observation must read above it
+ENV_ROUTE_SHARE = 0.5
+# the episodes whose two turns measure (c)'s route noise
+ENV_NOISE_EPISODES = (0, 16)
+# the soak's model: the launcher's geometry, random weights from this seed
+SOAK_SEED = 16
+# the phase-15 kernels whose launches the kernels line reports
+ENV_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+               "paged_decode_attention")
+
+
+def _envs_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_envs", *parts)
+
+
+def env_config():
+    """`one_card_cut(build_config(env_name="python_tool", env_max_turns=2))`
+    cut to 512 tokens, the launcher's rule giving the turn and observation
+    budgets (`grpo.env_budgets`); no checkpoint."""
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, env_budgets, one_card_cut
+
+    cfg = one_card_cut(build_config(env_name="python_tool", env_max_turns=2))
+    log(f"CUT: response_length {cfg.response_length} -> 512 (turns "
+        f"{cfg.env_turn_tokens} -> 128 tokens, observations {cfg.env_obs_budget} -> 256); "
+        f"save_steps {cfg.save_steps} -> 0")
+    cfg.response_length = 512
+    env_budgets(cfg)
+    cfg.save_steps = 0
+    cfg.output_dir = _envs_dir("run")
+    return cfg
+
+
+@contextlib.contextmanager
+def capturing_env_runs(payloads: list, batches: list):
+    """Keep every episode payload the driver returns and every batch the
+    trainer assembles (the driver's and the assembly's code unchanged)."""
+    from nanorlhf_tpu_torch.envs import rollout as envroll
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+
+    run, asm = envroll.run_env_episodes, trainer_mod.assemble_batch
+    envroll.run_env_episodes = lambda *a, **k: payloads.append(run(*a, **k)) or payloads[-1]
+    trainer_mod.assemble_batch = lambda *a, **k: batches.append(asm(*a, **k)) or batches[-1]
+    try:
+        yield
+    finally:
+        envroll.run_env_episodes, trainer_mod.assemble_batch = run, asm
+
+
+def check_episodes(what: str, p: dict, rows: int) -> None:
+    """The episode payload's contract: every episode two turns and one
+    admission, pages recycled, the loss mask False exactly on the recorded
+    observation spans, the scores the turn rewards' sums."""
+    import numpy as np
+
+    st = p["stats"]
+    if st["env/turns_per_episode"] != 2.0 or p["admissions"] != rows \
+            or p["pages_recycled"] <= 0:
+        fail(f"{what}: turns_per_episode {st['env/turns_per_episode']}, admissions "
+             f"{p['admissions']} (want {rows}), pages_recycled {p['pages_recycled']}")
+    want = np.ones_like(p["loss_mask"])
+    for rec in p["turns"]:
+        if rec["obs_range"]:
+            a, b = rec["obs_range"]
+            want[rec["row"], a:b] = False
+    if not np.array_equal(p["loss_mask"], want) or want.all():
+        fail(f"{what}: the loss mask is not False exactly on the observation spans")
+    if not np.array_equal(p["scores"], p["turn_rewards"].sum(1)):
+        fail(f"{what}: scores are not the turn rewards' sums")
+
+
+@contextlib.contextmanager
+def stamping_hangs(inj, hangs: list, beats: list, admits: list):
+    """Record each delayed env.hang fire of `inj` as (episode, start,
+    delay), and the start of every decode session beat and admission."""
+    from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
+
+    fire, step, admit = inj.fire, DecodeSession.step, DecodeSession.admit
+
+    def stamped_fire(point, worker=None):
+        t0 = time.perf_counter()
+        act = fire(point, worker=worker)
+        if point == "env.hang" and act and act.startswith("delay:"):
+            hangs.append((worker, t0, float(act.split(":", 1)[1])))
+        return act
+
+    def stamped_step(self):
+        beats.append(time.perf_counter())
+        return step(self)
+
+    def stamped_admit(self, *a, **kw):
+        admits.append(time.perf_counter())
+        return admit(self, *a, **kw)
+
+    inj.fire, DecodeSession.step, DecodeSession.admit = stamped_fire, stamped_step, stamped_admit
+    try:
+        yield
+    finally:
+        inj.fire, DecodeSession.step, DecodeSession.admit = fire, step, admit
+
+
+@contextlib.contextmanager
+def keeping_logits(kept: list):
+    """Keep the logits of every one-row draw of the sampler and the paged
+    session (the first row's, f32)."""
+    from nanorlhf_tpu_torch.sampler import sampler as smod
+    from nanorlhf_tpu_torch.sampler.paged import session as sess_mod
+
+    real = smod._sample_token
+
+    def keeping(generator, logits, *a, **kw):
+        kept.append(logits[0].float().clone())
+        return real(generator, logits, *a, **kw)
+
+    smod._sample_token = sess_mod._sample_token = keeping
+    try:
+        yield
+    finally:
+        smod._sample_token = sess_mod._sample_token = real
+
+
+def env_route_noise(torch, tr, cfg, queries, run: dict, prompts, width: int) -> float:
+    """(c)'s near-tie allowance, measured on the routes (c) holds (module
+    docstring): for each of ENV_NOISE_EPISODES, turn 1's `generate` on its
+    prompt alone and an empty-start session's continuation on its turn-2
+    context from `run`, greedy and eager (`per_step`), each step's logits
+    kept, against the bf16 full forward (K1) and the f32 plain full
+    forward over the route's own stream. Fails if a route errs more than
+    ENV_ROUTE_FACTOR x the bf16 full forward's error of f32, or differs
+    from the bf16 full forward by more than ENV_ROUTE_SHARE of that error;
+    a planted fault, the first episode's continuation admitted without its
+    observation, must differ by more. Returns the largest difference of
+    the sound routes from the bf16 full forward."""
+    import dataclasses
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
+    from nanorlhf_tpu_torch.sampler.sampler import generate
+    from nanorlhf_tpu_torch.trainer.rollout import env_sampling_params, rollout_model_config
+
+    pad, eos = tr.tokenizer.pad_token_id, tr.tokenizer.eos_token_id
+    sampling = dataclasses.replace(env_sampling_params(cfg), greedy=True, n=1,
+                                   decode_loop="per_step")
+    params, gen_mcfg = tr._rollout_params(), rollout_model_config(tr.mcfg, cfg)
+    Tp_ep = width - sampling.max_tokens
+    routes = []  # (route, context, stream, logits [n, V])
+    with torch.no_grad():
+        for ep in ENV_NOISE_EPISODES:
+            pairs = _episode_pairs(run, prompts, pad, [ep])
+            if len(pairs) != 2:
+                fail(f"(c) episode {ep} cannot measure the route noise: {len(pairs)} held turns")
+            kept: list = []
+            q = torch.as_tensor(queries[ep // cfg.sample_n][None], device="cuda")
+            with keeping_logits(kept):
+                toks = generate(params, gen_mcfg, q, q != pad,
+                                torch.Generator(device="cuda").manual_seed(0), sampling,
+                                eos_token_id=eos, pad_token_id=pad, lora_scale=tr.lora_scale)
+            stream = _cut_at_eos(toks[0].cpu().numpy(), eos)
+            routes.append(("turn 1 (generate)", pairs[0][0], stream,
+                           torch.stack(kept[:len(stream)])))
+            ctx = pairs[1][0]
+            streams = {}
+            obs = next(r["obs_range"] for r in run["turns"] if r["row"] == ep and r["obs_range"])
+            n_obs = obs[1] - obs[0]
+            for what, admitted in (("continuation (K1 paged prefill, K7 steps)", ctx),
+                                   ("planted: the continuation without its observation",
+                                    ctx[:len(ctx) - n_obs])):
+                if what.startswith("planted") and ep != ENV_NOISE_EPISODES[0]:
+                    continue
+                ids = np.full(Tp_ep, pad, np.int64)
+                ids[Tp_ep - len(admitted):] = admitted
+                mask = np.zeros(Tp_ep, bool)
+                mask[Tp_ep - len(admitted):] = True
+                sess = DecodeSession(
+                    params, gen_mcfg, rows=1, prompt_len=Tp_ep, max_tokens=sampling.max_tokens,
+                    page_size=cfg.rollout_page_size, eos_token_id=eos, pad_token_id=pad,
+                    generator=torch.Generator(device="cuda").manual_seed(0),
+                    temperature=sampling.temperature, top_p=sampling.top_p, greedy=True,
+                    top_k=sampling.top_k, approx_top_k=sampling.approx_top_k,
+                    lora_scale=tr.lora_scale, sync_every=sampling.sync_every,
+                    decode_loop="per_step", empty_start=True)
+                kept = []
+                with keeping_logits(kept):
+                    sess.admit(0, ids, mask, 0)
+                    while not sess.step()[0]:
+                        pass
+                n = int(sess.state["n_gen"][0])
+                stream = [int(t) for t in sess.state["out"][0, :n].cpu()]
+                # both are held against the full forward over the true context
+                routes.append((what, ctx, stream, torch.stack(kept[:n])))
+                del sess
+        plain = dataclasses.replace(tr.mcfg, attention_impl="xla")
+        p32 = _tree_map(lambda t: t.float(), tr.params)
+        delta = 0.0
+        for what, ctx, stream, got in routes:
+            if len(got) != len(stream):
+                fail(f"(c) {what}: {len(got)} kept logits for {len(stream)} tokens")
+            full = full_logits(torch, tr.mcfg, tr.params, ctx, stream, pad, width, tr.lora_scale)
+            f32 = full_logits(torch, plain, p32, ctx, stream, pad, width, tr.lora_scale)
+            d = float((got - full).abs().max())
+            e_route, e_full = float((got - f32).abs().max()), float((full - f32).abs().max())
+            log(f"  (c) route noise, {what}, {len(stream)} tokens: max|route - K1 full| "
+                f"{d:.4e} ({d / e_full:.3f} of the bf16 full forward's error, at most "
+                f"{ENV_ROUTE_SHARE}); against the f32 plain full forward: route {e_route:.4e}, "
+                f"bf16 full {e_full:.4e} (at most {ENV_ROUTE_FACTOR} x); |logits| up to "
+                f"{float(f32.abs().max()):.3f}")
+            if what.startswith("planted"):
+                if not d > ENV_ROUTE_SHARE * e_full:
+                    fail(f"(c) {what} differs from the full forward by only {d:.4e}: the "
+                         f"bound {ENV_ROUTE_SHARE} x {e_full:.4e} cannot tell a wrong route")
+                continue
+            if not math.isfinite(e_route) or e_route > ENV_ROUTE_FACTOR * e_full:
+                fail(f"(c) the {what} route errs {e_route:.4e} against f32, more than "
+                     f"{ENV_ROUTE_FACTOR} x the full forward's {e_full:.4e}")
+            if d > ENV_ROUTE_SHARE * e_full:
+                fail(f"(c) the {what} route differs from the full forward by {d:.4e}, more "
+                     f"than {ENV_ROUTE_SHARE} x its error of f32 {e_full:.4e}")
+            delta = max(delta, d)
+    del p32
+    torch.cuda.empty_cache()
+    return delta
+
+
+def _episode_pairs(p: dict, prompts, pad: int, eps) -> list:
+    """(context, model tokens) of each turn of episodes `eps`: the turn's
+    context is the real prompt, the earlier turns and observations. An
+    episode that sampled the pad id is left out (the full forward masks
+    that token as padding; the episode's rows do not)."""
+    pairs = []
+    for ep in eps:
+        if pad in p["tokens"][ep][:p["turn_ends"][ep].max() + 1]:
+            log(f"    episode {ep} sampled the pad id: not held against the full forward")
+            continue
+        prompt = [int(t) for t in prompts[ep] if t != pad]
+        for rec in sorted((r for r in p["turns"] if r["row"] == ep), key=lambda r: r["turn"]):
+            a, b = rec["tok_range"]
+            if b > a:
+                pairs.append((prompt + [int(t) for t in p["tokens"][ep][:a]],
+                              [int(t) for t in p["tokens"][ep][a:b]]))
+    return pairs
+
+
+def multi_turn(torch, card: str, seen: dict) -> dict:
+    """Phase 15 (module docstring): (a) one multi-turn GRPO update, (b) one
+    under injected tool faults, (c) two greedy episode runs with other tool
+    delays; the shapes K1, K2/K3, K10 and K4 were given recorded in `seen`.
+    Returns each update's launch counts, K1's calls by shape and the
+    session's decode shape."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.envs import run_env_episodes
+    from nanorlhf_tpu_torch.resilience import FaultInjector
+    from nanorlhf_tpu_torch.trainer.bucketing import depad_queries
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+    from nanorlhf_tpu_torch.trainer.rollout import env_sampling_params, rollout_model_config
+
+    t_phase = time.perf_counter()
+    cfg = env_config()
+    shutil.rmtree(_envs_dir(), ignore_errors=True)
+    tr = build_trainer(cfg, device="cuda")
+    try:
+        rows = cfg.batch_size * cfg.sample_n
+        tr.env.extractor = lambda text: ENV_PROGRAM
+        log(f"  config: {cfg.batch_size} prompts x {cfg.sample_n} samples = {rows} episodes "
+            f"of {cfg.env_max_turns} turns, {cfg.env_turn_tokens} tokens a turn, observations "
+            f"of at most {cfg.env_obs_budget}, pages of {cfg.rollout_page_size}, "
+            f"{cfg.env_decode_rows or cfg.rollout_decode_rows or rows} resident rows; the tool "
+            f"call planted through PythonToolEnv's extractor: {ENV_PROGRAM!r}")
+        lora_b = {p: t.detach().clone() for p, t in flatten(tr.params).items()
+                  if p[0] == "lora" and p[-1] == "b"}
+
+        # (a) one update
+        payloads, batches = [], []
+        with capturing_env_runs(payloads, batches), recording_all_shapes(seen):
+            _build.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            tr.train(num_updates=1)
+            torch.cuda.synchronize()
+            counts_a = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        (p,), ((batch, _),) = payloads, batches
+        check_episodes("(a)", p, rows)
+        t = tr.last_timings
+        obs = [rec for rec in p["turns"] if rec["obs_range"]]
+        out_text = tr.tokenizer.decode(p["tokens"][0][obs[0]["obs_range"][0]:
+                                                     obs[0]["obs_range"][1]])
+        if ENV_STDOUT not in out_text:
+            fail(f"(a) episode 0's observation {out_text!r} lacks the tool's stdout "
+                 f"{ENV_STDOUT}")
+        bm = batch["loss_mask"]
+        if (~bm).sum() <= 0 or bm.shape != batch["responses"].shape:
+            fail(f"(a) the assembled batch's loss mask {bm.shape}: no observation token")
+        st = tr.last_stats
+        gn = [s["grad_norm"] for s in st]
+        moved = sum(not torch.equal(t_.detach(), lora_b[k])
+                    for k, t_ in flatten(tr.params).items() if k in lora_b)
+        if not all(math.isfinite(g) and g > 0 for g in gn) or moved == 0:
+            fail(f"(a) grad norms {gn}, LoRA B leaves moved {moved}/{len(lora_b)}")
+        launches = tr.last_launches
+        log(f"  (a) update 1: rollout {t['generate_s']:.3f} s (tools {t['tool_s']:.3f} s "
+            f"of tool-thread wall, summed), scoring {t['score_s']:.3f} s, update "
+            f"{t['update_s']:.3f} s, peak {peak:.2f} GB; env rows {p['stats']}; admissions "
+            f"{p['admissions']}, pages recycled {p['pages_recycled']}; {int((~p['loss_mask']).sum())}"
+            f" observation tokens masked, {int((~bm).sum())} in the kept batch; grad norms "
+            f"{[round(g, 6) for g in gn]}, LoRA B leaves moved {moved}/{len(lora_b)}; "
+            f"observation of episode 0: {out_text!r}; launches: rollout "
+            f"{_nonzero(launches['generate'])}, scoring {_nonzero(launches['score'])}, update "
+            f"{_nonzero(launches['update'])} (card: {card})")
+        for name in ENV_KERNELS:
+            if counts_a[name] <= 0:
+                fail(f"(a) {name} never launched")
+        Tp = batch["query_responses"].shape[1] - cfg.response_length
+        Tp_ep = Tp + (cfg.env_max_turns - 1) * (cfg.env_turn_tokens + cfg.env_obs_budget)
+        cont = seen["fwd"][(1, 12, 2, Tp_ep, 128)]
+        if cont != rows * tr.mcfg.num_hidden_layers:
+            fail(f"(a) {cont} K1 calls at the continuation shape (1, 12, 2, {Tp_ep}, 128), "
+                 f"want {rows} admissions x {tr.mcfg.num_hidden_layers} layers")
+
+        # (b) one update under injected tool faults
+        st_a = p["stats"]
+        tr.faults = FaultInjector.from_spec(ENV_FAULTS)
+        payloads.clear()
+        batches.clear()
+        hangs, beats, admits = [], [], []
+        with capturing_env_runs(payloads, batches), \
+                stamping_hangs(tr.faults, hangs, beats, admits):
+            _build.reset_launch_counts()
+            tr.train(num_updates=1)
+            torch.cuda.synchronize()
+            counts_b = _build.launch_counts()
+        (p,) = payloads
+        st = p["stats"]
+        hung = [rec for rec in p["turns"] if (rec["tool_wall_s"] or 0) >= 1.0]
+        during = [(sum(t0 <= b <= t0 + d for b in beats),
+                   sum(t0 <= b <= t0 + d for b in admits)) for _, t0, d in hangs]
+        log(f"  (b) fault_spec {ENV_FAULTS!r}: env rows {st}; turns whose tool took >= 1 s: "
+            f"{[(r['row'], r['turn'], r['tool_wall_s']) for r in hung]}; fires "
+            f"{tr.faults.stats()}; while the hung call stalled (episode, delay: "
+            f"{[(ep, d) for ep, _, d in hangs]}), session beats and admissions {during} of "
+            f"{len(beats)} and {len(admits)}; (a) without faults: stalled rows "
+            f"{st_a['env/stalled_rows']}, overlap {st_a['env/tool_stall_overlap']}")
+        check_episodes("(b)", p, rows)
+        if st["env/tool_errors"] != 1.0:
+            fail(f"(b) env/tool_errors {st['env/tool_errors']}, want the one crash")
+        if len(hangs) != 1 or not hung or not all(b > 0 and a > 0 for b, a in during):
+            fail(f"(b) the hung call: fires {hangs}, turns >= 1 s {len(hung)}, session beats "
+                 f"and admissions while it stalled {during}: the other episodes did not go "
+                 f"on beside it")
+
+        # (c) two greedy runs with other tool delays
+        queries = depad_queries(next(tr.dataset.loader(cfg.batch_size, 17)),
+                                tr.tokenizer.pad_token_id, tr.ctx_menu)
+        q = torch.as_tensor(queries, device="cuda")
+        pad, eos = tr.tokenizer.pad_token_id, tr.tokenizer.eos_token_id
+        sampling = dataclasses.replace(env_sampling_params(cfg), greedy=True)
+        gen_mcfg = rollout_model_config(tr.mcfg, cfg)
+        runs = []
+        for spec in (None, ENV_DELAY):
+            t0 = time.perf_counter()
+            runs.append(run_env_episodes(
+                tr._rollout_params(), gen_mcfg, q, q != pad,
+                torch.Generator(device="cuda").manual_seed(0), sampling, tr.env,
+                eos_token_id=eos, pad_token_id=pad, tokenizer=tr.tokenizer,
+                max_turns=cfg.env_max_turns, turn_tokens=sampling.max_tokens,
+                obs_budget=cfg.env_obs_budget, response_length=cfg.response_length,
+                page_size=cfg.rollout_page_size,
+                decode_rows=cfg.env_decode_rows or cfg.rollout_decode_rows,
+                lora_scale=tr.lora_scale, faults=FaultInjector.from_spec(spec)))
+            check_episodes(f"(c) greedy, tools {spec or 'at once'}", runs[-1], rows)
+            log(f"  (c) greedy episodes, tools {spec or 'answered at once'}: "
+                f"{time.perf_counter() - t0:.3f} s, env rows {runs[-1]['stats']}")
+        a, b = runs
+        prompts = np.repeat(queries, cfg.sample_n, axis=0)
+        differ = [ep for ep in range(rows) if not np.array_equal(a["tokens"][ep], b["tokens"][ep])]
+        same_mask = np.array_equal(a["loss_mask"], b["loss_mask"]) and np.array_equal(
+            a["turn_ends"], b["turn_ends"])
+        log(f"  (c) {rows - len(differ)}/{rows} greedy episode streams equal token for token "
+            f"across the two tool schedules; loss masks and turn ends "
+            f"{'equal' if same_mask else 'differ'}")
+        # every turn of the first episodes, and every episode that parted,
+        # against the full forward's argmax over its context, within the
+        # routes' own measured noise
+        width = Tp_ep + cfg.env_turn_tokens
+        delta = env_route_noise(torch, tr, cfg, queries, a, prompts, width)
+        near_tie = NEAR_TIE_FACTOR * 2 * delta
+        log(f"  (c) near-tie allowance {near_tie:.4e}: {NEAR_TIE_FACTOR} x twice the routes' "
+            f"largest difference from the full forward, {delta:.4e}")
+        pairs = _episode_pairs(a, prompts, pad, sorted(set(range(0, rows, 16)) | set(differ)))
+        if not pairs:
+            fail("(c) no held episode: every one sampled the pad id")
+        check_greedy_tokens(torch, "(c) greedy episode turns", tr.mcfg, tr.params, pairs, pad,
+                            near_tie, width, tr.lora_scale)
+        if differ:
+            pairs = _episode_pairs(b, prompts, pad, differ)
+            if len(pairs) < cfg.env_max_turns * len(differ):
+                fail("(c) an episode that parted sampled the pad id: it cannot be held")
+            check_greedy_tokens(torch, "(c) the delayed schedule's parted episodes", tr.mcfg,
+                                tr.params, pairs, pad, near_tie, width, tr.lora_scale)
+        elif not same_mask:
+            fail("(c) equal streams but the loss masks or turn ends differ")
+    finally:
+        _free(torch, tr)
+        shutil.rmtree(_envs_dir(), ignore_errors=True)
+    log(f"  phase 15 wall {time.perf_counter() - t_phase:.1f} s (card: {card})")
+    return {"update": counts_a, "faults": counts_b,
+            "k7_shape": (rows, Tp_ep, cfg.env_turn_tokens, cfg.rollout_page_size),
+            "k1_calls": dict(seen["fwd"])}
+
+
+def chaos_soak(torch, card: str, seen_v) -> dict:
+    """Phase 16 (module docstring): the serving soak at JAX's sizes on the
+    launcher's geometry, the K9 shapes recorded in `seen_v`. Returns the
+    soak's launch counts."""
+    import json as _json
+    import os
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.chaos import INVARIANTS, compose, soak_serving
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_model
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    t_phase = time.perf_counter()
+    mcfg, params, _ = resolve_model(build_config().sft_model_path, SOAK_SEED, device="cuda")
+    run_dir = _envs_dir("soak")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    plan = compose(3, "serving")
+    log(f"  the soak: plan {plan.spec!r} (digest {plan.digest}); 24 requests at 40/s "
+        f"(time scale 0.02), engine of 2 rows, pages of 4, 12-token prompts, 8 new tokens")
+    try:
+        with recording_verify_shapes(seen_v):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = soak_serving(run_dir, plan, device="cuda", model=(mcfg, params))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _build.launch_counts()
+        log(f"  soak: {wall:.3f} s; summary {rep.summary}; fires {rep.fault_stats}; "
+            f"launches {_nonzero(counts)} (card: {card})")
+        for a in rep.audits:
+            log(f"    [{'ok ' if a.ok else 'FAIL'}] {a.name} (checked={a.checked})"
+                + (f" — {a.detail}" if a.detail else ""))
+        if not rep.ok or {a.name for a in rep.audits} != set(INVARIANTS):
+            fail(f"phase 16: audits failed: {[a.name for a in rep.failed]}")
+        s = rep.summary
+        if rep.fired_sites() != {"gw.disconnect"} or s["offered"] != 24 \
+                or s["completed"] + s["errors"] + s["shed"] != s["offered"] or s["errors"] < 1:
+            fail(f"phase 16: fires {rep.fault_stats}, summary {s}")
+        for name in ("paged_decode_attention", "paged_decode_verify_attention"):
+            if counts[name] <= 0:
+                fail(f"phase 16: {name} never launched")
+        out = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "inspect_run.py"), run_dir, "--chaos",
+            "--json"], capture_output=True, text=True, timeout=120)
+        if out.returncode != 0:
+            fail(f"phase 16: tools/inspect_run.py --chaos exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        rebuilt = _json.loads(out.stdout)
+        fires = sum(v["fires"] for v in rep.fault_stats.values())
+        log(f"  tools/inspect_run.py --chaos on the port's ledger: ok {rebuilt['ok']}, "
+            f"{len(rebuilt['fires'])} fires, {len(rebuilt['audits'])} verdicts, spec "
+            f"{rebuilt['runs'][0]['spec']!r}")
+        if not (rebuilt["ok"] is True and len(rebuilt["fires"]) == fires
+                and rebuilt["runs"][0]["spec_digest"] == plan.digest
+                and {a["name"] for a in rebuilt["audits"]} == set(INVARIANTS)):
+            fail(f"phase 16: the inspector's rebuild disagrees: {rebuilt}")
+    finally:
+        del params
+        torch.cuda.empty_cache()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"  phase 16 wall {time.perf_counter() - t_phase:.1f} s (card: {card})")
+    return counts
+
+
+def hold_soak_verify(torch, seen_v) -> list:
+    """K9 at every shape phase 16 gave it (the engine's suffix forwards:
+    one row, pages of 4), held as phase 2 holds it (`_hold_verify`)."""
+    given = sorted({(s[1], s[3], s[6], s[7]) for s in seen_v
+                    if s[0] == "paged_decode_verify_attention"})
+    log(f"  K9 calls by shape (name, B, H, Tq, hd, KV, P, nb) in phase 16: {dict(seen_v)}")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for B, Tq, P, nb in given:
+        _hold_verify(torch, f"phase 16 B={B} Tq={Tq} P={P} nb={nb}",
+                     _verify_case(torch, gen, B, 12, 2, Tq, 128, nb * P,
+                                  max(0, min(2, nb * P - Tq)), P=P))
+    return [dict(B=B, Tq=Tq, P=P, nb=nb) for B, Tq, P, nb in given]
+
+
+def env_entries(torch, F, counts15: dict, counts16: dict, soak_k9: list) -> dict:
+    """K7 held and timed at phase 15's session shape and at the soak's
+    engine shape; the kernels line's `envs` entries: each kernel's launches
+    in phase 15's update (K1 by the call shapes it was given) and in the
+    soak."""
+    rows, Tp_ep, turn, P = counts15["k7_shape"]
+    k7 = check_paged(torch, F, Tp_ep, turn, rows=rows, page=P)["paged_decode_attention"]
+    k7_soak = check_paged(torch, F, 12, 8, rows=2, page=4)["paged_decode_attention"]
+    keep = ("shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    out = {name: {"launches": {"update": counts15["update"][name],
+                               "faults_update": counts15["faults"][name]}}
+           for name in ENV_KERNELS}
+    out["flash_fwd"]["calls_by_shape"] = {str(k): v for k, v in counts15["k1_calls"].items()}
+    out["paged_decode_attention"].update(
+        {k: k7[k] for k in keep}, soak=dict(launches=counts16["paged_decode_attention"],
+                                            **{k: k7_soak[k] for k in keep}))
+    out["paged_decode_verify_attention"] = {
+        "launches": {"soak": counts16["paged_decode_verify_attention"]}, "shapes": soak_k9}
+    return out
+
+
+def envs_phases(torch, F, card: str, held: dict | None):
+    """Phases 15 and 16, then the holds of the kernels at the shapes they
+    gave them that no earlier phase held (`held`; None: hold them all).
+    Returns phase 15's and 16's counts and the soak's K9 shapes."""
+    log(PHASE15)
+    seen15 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    counts15 = multi_turn(torch, card, seen15)
+    log("  the kernels at the shapes phase 15 gave them that no earlier phase held, "
+        "against their plain versions")
+    hold_new_shapes(torch, F, seen15, held or {k: set() for k in seen15}, 512, phase=15)
+    log(PHASE16)
+    seen16v: collections.Counter = collections.Counter()
+    counts16 = chaos_soak(torch, card, seen16v)
+    soak_k9 = hold_soak_verify(torch, seen16v)
+    return counts15, counts16, soak_k9
+
+
+# `--learn`: the learning harness's knobs on the card (the Qwen2-1.5B
+# geometry at the toy 512 vocab; the binary phase on)
+LEARN_KNOBS = {"LEARN_MODEL": "1_5b", "LEARN_UPDATES": "30", "LEARN_BINARY_UPDATES": "10"}
+
+
+def learn(card: str) -> None:
+    """`--learn`: `entrypoints/learning_run.main` on the card with
+    LEARN_KNOBS (an environment variable already set wins): the reward
+    series, the skip counts of both phases and their seconds printed."""
+    import os
+
+    from nanorlhf_tpu_torch.entrypoints import learning_run
+
+    for k, v in LEARN_KNOBS.items():
+        os.environ.setdefault(k, v)
+    log(f"learn: the learning-curve harness, {learning_run.knobs()}")
+    art = learning_run.main(device="cuda")
+    log(json.dumps({"learning_curve": art}))
+    scores = [s["score"] for s in art["series"]]
+    if art.get("interrupted") or not scores or not all(math.isfinite(x) for x in scores):
+        fail(f"learn: the run was cut or its scores are not finite: {art.get('interrupted')}")
+    log(f"learn: shaped reward {art['reward_first3_avg']} -> {art['reward_last3_avg']} "
+        f"over {art['shaped_phase']} ; binary phase {art.get('binary_phase')} (card: {card})")
+
+
 # --holds: the kernel source each hold set builds
 HOLDS = {"K1": "flash_fwd", "K4": "decode_attention", "K6": "decode_attention",
          "K10": "fused_logprob"}
@@ -5923,6 +6568,14 @@ def main() -> None:
                          "prefill, the engine behind its gateway driven over HTTP, one GRPO "
                          "update through the prefix cache) and the holds of the kernels at "
                          "the shapes it gives them")
+    ap.add_argument("--envs", action="store_true",
+                    help="build, then run only phases 15 (multi-turn GRPO over the python-tool "
+                         "environment) and 16 (the chaos harness's serving soak) and the holds "
+                         "of the kernels at the shapes they give them")
+    ap.add_argument("--learn", action="store_true",
+                    help="build, then run only the learning-curve harness "
+                         "(entrypoints/learning_run: sparse GRPO, shaped then binary reward) "
+                         "at LEARN_MODEL=1_5b; not part of the default run")
     ap.add_argument("--sigterm-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
@@ -6074,6 +6727,16 @@ def run(args, torch, F) -> None:
         log(json.dumps({"serve_kernels": serve_entries(torch, F, seen14v, counts14, set())}))
         log(f"serve: every hold and check passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.envs:
+        counts15, counts16, soak_k9 = envs_phases(torch, F, card, held=None)
+        log(json.dumps({"env_kernels": env_entries(torch, F, counts15, counts16, soak_k9)}))
+        log(f"envs: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.learn:
+        learn(card)
+        log(f"learn: total wall {time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.routes:
         log("phase 12: the update's and the rollout's other routes (remat_policy='dots', "
@@ -6323,6 +6986,18 @@ def run(args, torch, F) -> None:
     serve = serve_entries(torch, F, seen14v, counts14,
                           {("paged_decode_verify_attention",) + k9_shape})
 
+    counts15, counts16, soak_k9 = envs_phases(torch, F, card, held={
+        "fwd": ({fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"])
+                | set(seen13["fwd"]) | set(seen14["fwd"])),
+        "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
+                | {s[1:6] for s in seen12["bwd"]} | {s[1:6] for s in seen13["bwd"]}
+                | {s[1:6] for s in seen14["bwd"]}),
+        "fused": (fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"])
+                  | set(seen13["fused"]) | set(seen14["fused"])),
+        "decode": (set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])
+                   | set(seen13["decode"]) | set(seen14["decode"]))})
+    envs = env_entries(torch, F, counts15, counts16, soak_k9)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
     # paged update (phase 5), the int8 rollouts (phase 6), the speculative
@@ -6348,6 +7023,7 @@ def run(args, torch, F) -> None:
             **({"routes": routes[name]} if name in routes else {}),
             **({"host": host[name]} if name in host else {}),
             **({"serve": serve[name]} if name in serve else {}),
+            **({"envs": envs[name]} if name in envs else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

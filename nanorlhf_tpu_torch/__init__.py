@@ -13,7 +13,10 @@ checkpoint — and the rollout variants: the paged KV cache with continuous
 batching, the int8 KV cache and speculative decode — for all six
 algorithms, with HF weights loaded and exported, async checkpoints with
 retries, fallback and resume, and the launcher's tokenizer, dataset,
-token-cache and reward-model branches. All ten Pallas kernels
+token-cache and reward-model branches; sparse GRPO, the host planes,
+serving, multi-turn environments (`envs/`: the python-tool environment
+over a pooled executor, the episode driver on the paged session) and the
+chaos harness's serving soak (`chaos/`). All ten Pallas kernels
 of the JAX package have a hand-written Hopper counterpart under `csrc/`:
 the flash-attention forward and backward (dQ, dK/dV), the decode attention
 over the contiguous, paged and int8 caches, the k-query verify over the

@@ -1,7 +1,8 @@
 """Advantage estimators of the six algorithms — the port of
 `nanorlhf_tpu/algos/advantages.py`: GRPO's group z-score and keep-1-of-N,
 RLOO's leave-one-out baseline, ReMax's greedy baseline, RAFT's best-of-K,
-the sparse terminal reward, its γ-discounted reversed cumsum (REINFORCE,
+the multi-turn per-turn z-score and per-turn terminal rewards, the sparse
+terminal reward, its γ-discounted reversed cumsum (REINFORCE,
 ReMax; γ=1 broadcasts GRPO's advantage) and PPO's GAE. The random draws
 take an explicit `torch.Generator`: same distributions as JAX's keys,
 other bits."""
@@ -21,6 +22,38 @@ def grpo_group_advantage(scores: torch.Tensor, sample_n: int) -> torch.Tensor:
     adv = (groups - mean) / std
     adv = torch.where(torch.isnan(adv), torch.zeros_like(adv), adv)
     return adv.reshape(-1)
+
+
+def grpo_turn_advantage(turn_rewards: torch.Tensor, sample_n: int) -> torch.Tensor:
+    """Per-turn GRPO advantage: z-score each turn column of [B*N, K]
+    group-major turn rewards within its group (absent turns hold 0; a
+    column that ties within its group z-scores to 0 by the NaN→0 rule).
+    K = 1 is exactly `grpo_group_advantage`."""
+    rows, k = turn_rewards.shape
+    groups = turn_rewards.reshape(-1, sample_n, k).float()
+    mean = groups.mean(dim=1, keepdim=True)
+    std = torch.sqrt(((groups - mean) ** 2).sum(dim=1, keepdim=True) / (sample_n - 1))
+    adv = (groups - mean) / std
+    adv = torch.where(torch.isnan(adv), torch.zeros_like(adv), adv)
+    return adv.reshape(rows, k)
+
+
+def per_turn_terminal_rewards(turn_rewards: torch.Tensor, turn_ends: torch.Tensor,
+                              response_length: int) -> torch.Tensor:
+    """Sparse per-token rewards with one spike at each turn's final model
+    token: `turn_ends` [B, K] holds each turn's last position (−1 for an
+    absent turn, whose reward is dropped — JAX's out-of-range
+    `mode="drop"` scatter). `discounted_returns(γ=1)` over the result
+    gives each turn's credit as reward-to-go."""
+    batch = turn_rewards.shape[0]
+    rewards = torch.zeros((batch, response_length), dtype=torch.float32,
+                          device=turn_rewards.device)
+    ends = turn_ends.long()
+    keep = (ends >= 0) & (ends < response_length)
+    rows = torch.arange(batch, device=turn_rewards.device)[:, None].expand_as(ends)
+    rewards.index_put_((rows[keep], ends[keep]), turn_rewards.float()[keep],
+                       accumulate=True)
+    return rewards
 
 
 def rloo_advantage(rlhf_reward: torch.Tensor, sample_n: int) -> torch.Tensor:

@@ -2,8 +2,10 @@
 
 `build_config` is the JAX launcher's config literal, field for field. The
 knobs that select paths not ported yet (sequence parallelism, the
-orchestrator and fleet, disaggregated rollouts, multi-turn environments)
-are accepted for parity and make `run` raise NotImplementedError.
+orchestrator and fleet, disaggregated rollouts) are accepted for parity
+and make `run` raise NotImplementedError. `env_name="python_tool",
+env_max_turns > 1` trains multi-turn GRPO over the paged cache
+(`env_budgets` splits the response into turns and observations).
 
 Run (one GRPO update on the card, with the batch cut of `one_card_cut`):
     python -m nanorlhf_tpu_torch.entrypoints.grpo [--device cpu]
@@ -91,11 +93,18 @@ def build_config(sequence_parallel: int = 1,
             cfg.rollout_workers = 1
             cfg.sampler_logprob_capture = False
             cfg.rollout_spec_k = 0
-            cfg.env_turn_tokens = cfg.response_length // (2 * env_max_turns)
-            cfg.env_obs_budget = min(
-                256,
-                (cfg.response_length - cfg.env_turn_tokens * env_max_turns)
-                // max(1, env_max_turns - 1))
+            env_budgets(cfg)
+    return cfg
+
+
+def env_budgets(cfg: RLConfig) -> RLConfig:
+    """The launcher's multi-turn budgets from `response_length`: half of it
+    split evenly into `env_max_turns` model turns, the rest into the
+    observations between them, at most 256 tokens each."""
+    turns = cfg.env_max_turns
+    cfg.env_turn_tokens = cfg.response_length // (2 * turns)
+    cfg.env_obs_budget = min(
+        256, (cfg.response_length - cfg.env_turn_tokens * turns) // max(1, turns - 1))
     return cfg
 
 

@@ -34,6 +34,7 @@ chunk's temporaries, held until the loop is dropped.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -128,13 +129,25 @@ class ChunkedLoop:
         t0 = time.perf_counter()
         reserved = self._reserved()
         graph = self.graph_factory()
-        with recording_launches() as rec:
-            try:
-                graph.capture(self._chunk)
-            except Exception as e:
-                at = f"; last kernel launched in the capture: {rec.last}" if rec.last else ""
-                raise RuntimeError(f"CUDA graph capture of the {self.what} chunk failed: "
-                                   f"{type(e).__name__}: {e}{at}") from e
+        # the cyclic collector must not run inside a capture: an unreachable
+        # cycle that holds a CUDA graph (an earlier session's loop) would be
+        # destroyed mid-capture, which CUDA forbids and which invalidates
+        # the capture — collect first (as torch.cuda.graph does) and pause
+        # the collector until the capture ends
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with recording_launches() as rec:
+                try:
+                    graph.capture(self._chunk)
+                except Exception as e:
+                    at = f"; last kernel launched in the capture: {rec.last}" if rec.last else ""
+                    raise RuntimeError(f"CUDA graph capture of the {self.what} chunk failed: "
+                                       f"{type(e).__name__}: {e}{at}") from e
+        finally:
+            if was_enabled:
+                gc.enable()
         self.graph, self.captured = graph, dict(rec)
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes = self._reserved() - reserved

@@ -36,6 +36,10 @@ Modes, as in JAX:
     text extends the tree and later admissions seed their drafter's
     lookup window from the cached continuation (`seed_rep`, `seed_len`).
     The tree resets once, at construction.
+  * **empty start** (`empty_start=True`, rollout mode without the radix
+    cache): every row starts done and every page free, as the multi-turn
+    episode driver (`envs/rollout.py`) needs; rows come in through
+    `admit`, never `bootstrap`.
   * **chunked prefill** (`prefill_chunk > 0`): an admission whose real
     suffix is longer than the chunk is parked (`_PendingPrefill`, the row
     done) and advanced one KV-only `decode_verify(want_logits=False)`
@@ -113,6 +117,7 @@ from nanorlhf_tpu_torch.sampler.paged.pages import (
     alloc_row,
     blocks_per_row,
     full_table,
+    init_page_state,
     release_row,
 )
 from nanorlhf_tpu_torch.sampler.sampler import (
@@ -186,7 +191,7 @@ class DecodeSession:
                  approx_top_k=True, capture_logprobs=False, lora_scale=1.0,
                  per_row=False, spec_k=0, spec_ngram=3, prefix_cache=None,
                  prefill_chunk=0, sync_every=SYNC_EVERY, decode_loop="chunked",
-                 latency=None, admit_seed=None):
+                 latency=None, admit_seed=None, empty_start=False):
         if per_row and capture_logprobs:
             raise ValueError(
                 "capture_logprobs is incompatible with per-row sampling "
@@ -233,6 +238,12 @@ class DecodeSession:
             self._radix.reset(num_pages=self.num_pages, page_size=self.page_size)
             self.table_np = np.full((R, self.nb), self.num_pages, np.int32)
             self._pstate = None
+        elif empty_start:
+            # the multi-turn episode driver's start (JAX `ensure_carry`):
+            # every page free, every table row sentinel, admit() claims rows
+            self.num_pages = R * self.nb
+            self._pstate = init_page_state(self.num_pages, R, self.nb)
+            self.table_np = self._pstate.table
         else:
             self.num_pages = R * self.nb
             # the free stack starts EMPTY: bootstrap() claims the whole pool
@@ -245,9 +256,11 @@ class DecodeSession:
         self.state: dict = {}
         self.prompt_res = torch.full((R, self.Tp), self.pad_token_id,
                                      dtype=torch.int64, device=dev)
-        if self._radix is not None or self.per_row:
+        self._empty_start = self._radix is not None or self.per_row or bool(empty_start)
+        if self._empty_start:
             # the empty carry: every row starts done; admit() installs rows
-            # (the rollout mode without the radix cache bootstraps instead)
+            # (the rollout mode without the radix cache bootstraps instead,
+            # unless it asked for an empty start)
             self.state = self._empty_state()
         # per-row sampling parameters (serving mode), written in place
         self.r_temp = torch.ones((R,), dtype=torch.float32, device=dev)
@@ -318,7 +331,7 @@ class DecodeSession:
         through the identity table (the monolithic paged prefill), first
         tokens drawn from the session generator. Never chunked: chunked
         prefill protects RESIDENT rows' latency, and there are none yet."""
-        assert self._radix is None, "radix mode admits rows individually"
+        assert not self._empty_start, "an empty-start session admits rows individually"
         R = self.rows
         t0 = time.perf_counter()
         st = _prefill_state(

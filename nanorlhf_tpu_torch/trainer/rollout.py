@@ -44,7 +44,9 @@ from nanorlhf_tpu_torch.algos.advantages import (
     discounted_returns,
     gae,
     grpo_group_advantage,
+    grpo_turn_advantage,
     keep_one_of_n_indices,
+    per_turn_terminal_rewards,
     remax_advantage,
     rloo_advantage,
     sparse_terminal_rewards,
@@ -79,8 +81,33 @@ KEEP_STREAM = 0x4EE9
 PERM_STREAM = 0x9E77
 
 
+def check_fleet_values(cfg: RLConfig) -> None:
+    """The JAX trainer's ValueErrors on the rollout fleet's knobs
+    (`nanorlhf_tpu/trainer/trainer.py:390-411`), with its messages: a
+    config JAX refuses is refused here as well, before any unported path
+    raises NotImplementedError."""
+    if cfg.rollout_workers < 1:
+        raise ValueError(f"rollout_workers={cfg.rollout_workers}")
+    if cfg.rollout_workers > 1 and not cfg.rollout_orchestrator:
+        raise ValueError(
+            "rollout_workers > 1 is the fleet generalization of the "
+            "async pipeline — it requires rollout_orchestrator=True "
+            "(docs/FLEET.md)")
+    if cfg.rollout_transport not in ("inprocess", "rpc"):
+        raise ValueError(
+            f"rollout_transport={cfg.rollout_transport!r}: inprocess | rpc")
+    if cfg.rollout_transport == "rpc" and cfg.rollout_workers <= 1:
+        raise ValueError(
+            "rollout_transport='rpc' is the fleet's network seam — it "
+            "requires rollout_workers > 1 (docs/FLEET.md)")
+    if cfg.offpolicy_correction not in ("truncated_is", "none"):
+        raise ValueError(f"offpolicy_correction={cfg.offpolicy_correction!r}")
+
+
 def check_supported(cfg: RLConfig) -> None:
-    """Raise NotImplementedError for every trainer knob that selects a path
+    """The JAX trainer's ValueErrors on the fleet's knobs
+    (`check_fleet_values`) first; then raise NotImplementedError for every
+    trainer knob that selects a path
     this port has not ported, instead of ignoring it, and run the decode
     features' legality matrix (`sampler.compose_check`, ValueError) once, as
     the JAX trainer does at construction. Compaction reaches
@@ -89,8 +116,10 @@ def check_supported(cfg: RLConfig) -> None:
     `rollout_decode_rows`), the int8 KV cache (`kv_cache_quant`),
     speculative decode (`rollout_spec_k`, `rollout_spec_ngram`), int8
     rollout weights (`rollout_quant`), the radix prefix cache
-    (`rollout_prefix_cache`) and chunked prefill (`rollout_prefill_chunk`)
-    are ported."""
+    (`rollout_prefix_cache`), chunked prefill (`rollout_prefill_chunk`) and
+    multi-turn environments (`env_max_turns > 1`, validated by the
+    trainer) are ported."""
+    check_fleet_values(cfg)
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     if cfg.rollout_quant not in ("none", "int8"):
@@ -100,7 +129,6 @@ def check_supported(cfg: RLConfig) -> None:
         "rollout_workers > 1 (fleet)": cfg.rollout_workers > 1,
         "rollout_ahead": cfg.rollout_ahead,
         "rollout_devices > 0": cfg.rollout_devices > 0,
-        "env multi-turn (env_max_turns > 1)": bool(cfg.env_name) and cfg.env_max_turns > 1,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
         "sampler_logprob_capture": cfg.sampler_logprob_capture,
     }
@@ -143,6 +171,19 @@ def sampling_params(cfg: RLConfig) -> SamplingParams:
         spec_k=cfg.rollout_spec_k, spec_ngram=cfg.rollout_spec_ngram,
         page_size=cfg.rollout_page_size, decode_rows=cfg.rollout_decode_rows,
         prefill_chunk=cfg.rollout_prefill_chunk,
+    )
+
+
+def env_sampling_params(cfg: RLConfig) -> SamplingParams:
+    """The first turn's SamplingParams of a multi-turn episode (JAX
+    trainer.py:1702-1713): the per-turn budget `env_turn_tokens` (default
+    the whole response), no logprob capture, no speculative decode."""
+    return SamplingParams(
+        temperature=cfg.temperature, top_p=cfg.top_p, n=cfg.sample_n,
+        max_tokens=cfg.env_turn_tokens or cfg.response_length,
+        top_k=cfg.rollout_top_k, approx_top_k=cfg.rollout_approx_top_k,
+        shared_prompt_prefill=cfg.rollout_shared_prefill,
+        page_size=cfg.rollout_page_size, decode_rows=cfg.rollout_decode_rows,
     )
 
 
@@ -204,7 +245,7 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                       rollout_params: dict | None = None, planes=None,
                       rollout_index: int | None = None,
                       step: int | None = None, on_generated=None,
-                      prefix_cache=None) -> dict:
+                      prefix_cache=None, env=None) -> dict:
     """Roll out `queries` ([B, T] left-padded prompt ids), score each
     sample with `reward_func`, and run the logprob pass. Returns numpy
     arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
@@ -235,7 +276,16 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     rollout's `paged_stats` and `spec_stats`. `prefix_cache` is the
     trainer's `RadixCache` (`rollout_prefix_cache`; a fresh one when None:
     the scheduler resets it at every call anyway, the trainer's keeps the
-    cumulative stats)."""
+    cumulative stats).
+
+    `env` (a multi-turn `Environment`, GRPO only) swaps generation for the
+    episode driver (`envs/rollout.run_env_episodes`, the first turn from
+    `sampling` or `env_sampling_params(cfg)`): the scores are the episodes'
+    summed turn rewards (no reward dispatch; lineage gets the `reward`
+    event and one `turn` event per (episode, turn)), and the kept rows
+    also carry `turn_advantages` (each turn column z-scored in its group
+    before the keep), `turn_ends` and `loss_mask` (False on observation
+    tokens); the result carries the driver's payload as `env`."""
     check_supported(cfg)
     if cfg.rollout_prefix_cache and prefix_cache is None:
         from nanorlhf_tpu_torch.serving.radix import RadixCache
@@ -256,15 +306,30 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     gen_mcfg = rollout_model_config(mcfg, cfg)
     gen_params = params if rollout_params is None else rollout_params
     tracer, latency = _plane(planes, "tracer"), _plane(planes, "latency")
+    payload = None
     with _phase(planes, "rollout"):
-        responses = generate(gen_params, gen_mcfg, queries_t, prompt_mask, generator,
-                             sampling or sampling_params(cfg),
-                             eos_token_id=eos_id, pad_token_id=pad_id,
-                             lora_scale=lora_scale, timings=t,
-                             paged_stats_out=paged_stats, spec_stats_out=spec_stats,
-                             tracer=tracer, latency=latency,
-                             prefix_cache=prefix_cache)
-        responses_np = responses.cpu().numpy()
+        if env is not None:
+            from nanorlhf_tpu_torch.envs.rollout import run_env_episodes
+
+            env_sampling = sampling or env_sampling_params(cfg)
+            payload = run_env_episodes(
+                gen_params, gen_mcfg, queries_t, prompt_mask, generator, env_sampling,
+                env, eos_token_id=eos_id, pad_token_id=pad_id, tokenizer=tokenizer,
+                max_turns=cfg.env_max_turns, turn_tokens=env_sampling.max_tokens,
+                obs_budget=cfg.env_obs_budget, response_length=cfg.response_length,
+                page_size=cfg.rollout_page_size,
+                decode_rows=cfg.env_decode_rows or cfg.rollout_decode_rows,
+                lora_scale=lora_scale, faults=getattr(planes, "faults", None))
+            responses_np = payload["tokens"]
+            t["tool_s"] = payload["stats"]["env/tool_wall_s"]
+        else:
+            responses_np = generate(
+                gen_params, gen_mcfg, queries_t, prompt_mask, generator,
+                sampling or sampling_params(cfg), eos_token_id=eos_id,
+                pad_token_id=pad_id, lora_scale=lora_scale, timings=t,
+                paged_stats_out=paged_stats, spec_stats_out=spec_stats,
+                tracer=tracer, latency=latency,
+                prefix_cache=prefix_cache).cpu().numpy()
         greedy_np = None
         if cfg.algo == AlgoName.REMAX:
             # the greedy rollout of the same prompts: ReMax's baseline
@@ -291,12 +356,26 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     question_n = [q for q in question_strings for _ in range(n)]
     responses_decoded = tokenizer.batch_decode(responses_np)
     with _phase(planes, "reward"):
-        scores = dispatch_reward(
-            reward_func, [q + r for q, r in zip(question_n, responses_decoded)],
-            tokenizer.eos_token, cfg.reward_retries, planes,
-            rollout_index=rollout_index, step=step)
+        if payload is not None:
+            # the episodes' rewards accrued turn by turn in the driver (the
+            # terminal grader already ran per episode): no dispatch
+            scores = payload["scores"]
+            lineage = getattr(planes, "lineage", None)
+            if rollout_index is not None and lineage is not None:
+                lineage.reward(rollout_index, step=step,
+                               scores=[round(float(x), 6) for x in scores.tolist()],
+                               attempt=1, wall_s=payload["stats"]["env/tool_wall_s"])
+                for rec in payload["turns"]:
+                    lineage.turn(rollout_index, step=step, **rec)
+        else:
+            scores = dispatch_reward(
+                reward_func, [q + r for q, r in zip(question_n, responses_decoded)],
+                tokenizer.eos_token, cfg.reward_retries, planes,
+                rollout_index=rollout_index, step=step)
     batch = queries.shape[0]
     out = {"queries": queries, "scores": scores, "keep": None}
+    if payload is not None:
+        out["env"] = payload
     if greedy_np is not None:
         out["greedy_scores"] = dispatch_reward(
             reward_func, [q + r for q, r in zip(question_strings,
@@ -310,6 +389,16 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         prompt = np.arange(batch)
         out["advantages"] = advantages.reshape(batch, n)[prompt, keep]
         out["keep"] = keep
+        if payload is not None:
+            # each turn column z-scored against the FULL group before the
+            # keep drops N−1 siblings; the turn ends and the observation
+            # mask ride the same selection
+            turn_adv = grpo_turn_advantage(torch.as_tensor(payload["turn_rewards"]),
+                                           n).numpy()
+            for key, arr in (("turn_advantages", turn_adv),
+                             ("turn_ends", payload["turn_ends"]),
+                             ("loss_mask", payload["loss_mask"])):
+                out[key] = arr.reshape(batch, n, -1)[prompt, keep]
         responses_np = responses_np.reshape(batch, n, -1)[prompt, keep]
         queries_rep = queries
     else:
@@ -402,8 +491,11 @@ def assemble_batch(ro: dict, cfg: RLConfig, stop_id: int | None, pad_id: int,
     each prompt `keep` (GRPO's from the rollout, RLOO's and RAFT's from
     here; None otherwise), and the two reward metrics."""
     responses = ro["responses"]
+    # multi-turn episodes carry interior per-turn EOS tokens the stop-token
+    # truncation would cut at; the driver packed them left-justified with
+    # pads only at the tail, so the first-pad lengths stay right
     post, seq_lengths, padding_mask, padding_mask_p1 = postprocess_responses(
-        responses, stop_id, pad_id)
+        responses, stop_id if "env" not in ro else None, pad_id)
     logprobs = np.where(padding_mask, INVALID_LOGPROB, ro["logprobs"]).astype(np.float32)
     ref_logprobs = np.where(padding_mask, INVALID_LOGPROB,
                             ro["ref_logprobs"]).astype(np.float32)
@@ -433,13 +525,23 @@ def assemble_batch(ro: dict, cfg: RLConfig, stop_id: int | None, pad_id: int,
     info = {"post": post, "logprobs": logprobs, "ref_logprobs": ref_logprobs,
             "padding_mask": padding_mask, "keep": ro.get("keep")}
     if algo == AlgoName.GRPO:
-        rewards = sparse_terminal_rewards(torch.as_tensor(scores_sel),
-                                          torch.as_tensor(seq_lengths), T)
+        if "turn_advantages" in ro:
+            # multi-turn episodes: one spike at each turn's last model token
+            # instead of one terminal spike; the γ=1 cumsum below makes each
+            # turn's credit reward-to-go over the tokens that produced it
+            rewards = per_turn_terminal_rewards(torch.as_tensor(ro["turn_advantages"]),
+                                                torch.as_tensor(ro["turn_ends"]), T)
+        else:
+            rewards = sparse_terminal_rewards(torch.as_tensor(scores_sel),
+                                              torch.as_tensor(seq_lengths), T)
         if cfg.whiten_rewards:
             rewards = _whiten_rewards(rewards, padding_mask_p1)
         batch["advantages"] = _token_advantages(discounted_returns(rewards, 1.0),
                                                 cfg, padding_mask)
         batch["ref_logprobs"] = ref_logprobs
+        if "loss_mask" in ro:
+            # observation tokens: conditioned on, never scored
+            batch["loss_mask"] = ro["loss_mask"]
         info["non_score_reward_old"] = 0.0
         return batch, info
 

@@ -44,9 +44,12 @@ step's end (an emergency checkpoint, then `Preempted`). As in JAX, the
 reward has no retry loop here and the sentinel does not observe the
 sparse loop.
 
+A single-turn environment runs (the trainer unwraps it into a plain
+reward callable); a multi-turn one raises ValueError, as in JAX.
+
 Not ported (raise NotImplementedError): sequence parallelism (the SP
-score and grad functions), rollout_ahead and the orchestrator, sampler
-logprob capture and environments.
+score and grad functions), rollout_ahead and the orchestrator and sampler
+logprob capture.
 """
 
 from __future__ import annotations
@@ -120,6 +123,14 @@ class SparseGRPOTrainer(RLTrainer):
 
     def __init__(self, *args, accuracy_func=None, **kwargs):
         super().__init__(*args, **kwargs)
+        if self._env_multi_turn:
+            # single-turn environments work (unwrapped into a plain reward
+            # callable); the episode driver is wired into the dense
+            # trainer's rollout only (JAX sparse_grpo.py:84-91)
+            self.close()
+            raise ValueError(
+                "SparseGRPOTrainer does not drive multi-turn environments "
+                "(env_max_turns > 1) — use the dense RLTrainer")
         self.accuracy_func = accuracy_func
         self._len_menu = shape_menu(
             self.cfg.response_length + self.dataset.input_ids.shape[1], min_value=32)

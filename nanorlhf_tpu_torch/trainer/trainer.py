@@ -39,8 +39,17 @@ the torch.profiler window (`profile_at_step`). Their journals ride in
 `trainer_state.json` and come back on resume. `close()` stops the exporter
 and uninstalls the SIGTERM guard: every trainer that is built is closed.
 
+Environments (`env_name`, JAX trainer.py:647-697): a single-turn
+environment unwraps into a plain reward callable (`as_reward_func`), so
+generation and the reward dispatch stay on the non-env path; a multi-turn
+one (`env_max_turns > 1`, GRPO over the paged cache only) swaps the
+rollout for the episode driver (`envs/rollout.py`), scores per turn and
+trains under the observation `loss_mask`. `close()` closes the
+environment (its pooled executor's worker).
+
 Unported knobs raise (`check_trainer_supported`): the async orchestrator
-and fleet, rollout_ahead, environments and in-flight weight swaps.
+and fleet, rollout_ahead and in-flight weight swaps; the JAX trainer's
+ValueErrors on the fleet's and the environments' knobs come first.
 """
 
 from __future__ import annotations
@@ -110,13 +119,49 @@ LORA_STREAM = 0x10AA
 VALUE_LORA_STREAM = 0x7A1E
 
 
+def check_multi_turn_config(cfg: RLConfig) -> None:
+    """The JAX trainer's ValueErrors on a multi-turn environment
+    (`nanorlhf_tpu/trainer/trainer.py:670-697`, with its messages): GRPO
+    only, the paged cache only, none of the knobs the episode driver
+    cannot share the rollout with, and an episode budget that fits the
+    response. `_build_env` runs it when the built environment takes more
+    than one turn, as JAX does."""
+    if cfg.algo != AlgoName.GRPO:
+        raise ValueError(
+            "multi-turn environments (env_max_turns > 1) are "
+            "wired for GRPO only: per-turn advantages ride the "
+            "group z-score path")
+    if cfg.rollout_page_size <= 0:
+        raise ValueError(
+            "env_max_turns > 1 requires rollout_page_size > 0: "
+            "continuation turns are admitted through the paged "
+            "single-row bucketed prefill")
+    if (cfg.rollout_orchestrator or cfg.rollout_workers > 1
+            or cfg.rollout_spec_k > 0 or cfg.sampler_logprob_capture
+            or cfg.rollout_prefix_cache):
+        raise ValueError(
+            "env_max_turns > 1 is incompatible with the "
+            "orchestrator fleet, spec decode, sampler logprob "
+            "capture, and the prefix cache — the episode driver "
+            "owns the rollout phase")
+    tt = cfg.env_turn_tokens or cfg.response_length
+    budget = tt * cfg.env_max_turns + cfg.env_obs_budget * (cfg.env_max_turns - 1)
+    if budget > cfg.response_length:
+        raise ValueError(
+            f"episode budget {budget} (env_turn_tokens={tt} * "
+            f"{cfg.env_max_turns} turns + env_obs_budget="
+            f"{cfg.env_obs_budget} * "
+            f"{cfg.env_max_turns - 1} observations) exceeds "
+            f"response_length={cfg.response_length} — the "
+            "packed episode must fit the scored batch")
+
+
 def check_trainer_supported(cfg: RLConfig) -> None:
-    """`check_supported` (the rollout's knobs), the update's, and the
-    trainer's own."""
+    """`check_supported` (the fleet's ValueErrors, then the rollout's
+    knobs), the update's knobs, and the trainer's own."""
     check_supported(cfg)
     check_update_supported(cfg, {})
     unported = {
-        "env_name": bool(cfg.env_name),
         "rollout_inflight_swaps": cfg.rollout_inflight_swaps,
     }
     on = [what for what, flag in unported.items() if flag]
@@ -192,6 +237,7 @@ class RLTrainer:
         check_trainer_supported(config)
         self.cfg, self.mcfg = config, model_config
         self.tokenizer, self.reward_func, self.dataset = tokenizer, reward_func, dataset
+        self._build_env(reward_func)
         self.device = params["embed_tokens"].device
         if config.total_episodes is None:
             config.total_episodes = int(config.num_train_epochs * len(dataset))
@@ -252,6 +298,27 @@ class RLTrainer:
             self.prefix_cache = RadixCache()
         self._iter = dataset.loader(config.batch_size, config.seed)
         self.ctx_menu = shape_menu(dataset.input_ids.shape[1], min_value=16)
+
+    def _build_env(self, reward_func) -> None:
+        """`env_name` builds an `Environment` around `reward_func` (JAX
+        trainer.py:647-697): a single-turn one unwraps back into a plain
+        reward callable, a multi-turn one drives the rollout
+        (`_env_multi_turn`, after JAX's ValueErrors on its config)."""
+        self.env = None
+        self._env_multi_turn = False
+        if not self.cfg.env_name:
+            return
+        from nanorlhf_tpu_torch.envs import build_env
+
+        self.env = build_env(self.cfg.env_name, reward_func,
+                             max_turns=self.cfg.env_max_turns,
+                             tool_timeout=self.cfg.env_tool_timeout,
+                             eos_token=self.tokenizer.eos_token)
+        if self.env.max_turns == 1:
+            self.reward_func = self.env.as_reward_func()
+        else:
+            check_multi_turn_config(self.cfg)
+            self._env_multi_turn = True
 
     def _build_planes(self) -> None:
         """The resilience layer, the telemetry planes, the checkpoint manager
@@ -491,7 +558,8 @@ class RLTrainer:
                 rollout_index=index, step=self.state["global_step"],
                 on_generated=lambda out, gen_s: self._note_rollout(
                     out, index, t_call, tp_call, gen_s),
-                prefix_cache=self.prefix_cache)
+                prefix_cache=self.prefix_cache,
+                env=self.env if self._env_multi_turn else None)
             t_busy0 = t_call + t["generate_s"]
             if ro["keep"] is not None and n > 1:
                 # the other n−1 completions per prompt left the batch
@@ -844,6 +912,8 @@ class RLTrainer:
             metrics["val/clipfrac_avg_new"] = agg.get("vf_clipfrac", 0.0)
         metrics.update(self._paged_metrics(ro.get("paged_stats")))
         metrics.update(self._spec_decode_metrics(ro.get("spec_stats")))
+        if "env" in ro:
+            metrics.update(ro["env"]["stats"])
         return metrics
 
     @staticmethod
@@ -1010,8 +1080,8 @@ class RLTrainer:
             dtype=dtype, tokenizer=self.tokenizer)
 
     def close(self) -> None:
-        """Stop the exporter (its handlers read the trainer), close an open
-        profile window, write the trace, flush the ledger and the writer,
+        """Stop the exporter (its handlers read the trainer), close the
+        environment (its executor's worker), close an open profile window, write the trace, flush the ledger and the writer,
         and uninstall the SIGTERM guard — the last two whatever failed
         before them. A second call does nothing."""
         if getattr(self, "_closed", False):
@@ -1019,6 +1089,9 @@ class RLTrainer:
         self._closed = True
         try:
             self.exporter.close()
+            env = getattr(self, "env", None)
+            if hasattr(env, "close"):
+                env.close()
             self.profile_window.stop()
             self._write_trace()
             self.lineage.close()

@@ -20,8 +20,12 @@ functions over the trainer's tensors.
   AdamW steps its leaves in place. Stats are means over the microbatches,
   plus the pre-clip `grad_norm` over both groups' gradients.
 
-Not ported (raise): sequence parallelism, the env `loss_mask`, behavior
-logprobs and in-flight-swap segment ages.
+A multi-turn environment's `loss_mask` (False on observation tokens) joins
+the pad mask upstream of every algorithm's loss, as in JAX; the key is
+there only in multi-turn runs.
+
+Not ported (raise): sequence parallelism, behavior logprobs and
+in-flight-swap segment ages.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
 # is an unported path
 _KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
          "advantages", "advantages_seq", "returns", "values",
-         "padding_mask", "padding_mask_p1"}
+         "padding_mask", "padding_mask_p1", "loss_mask"}
 
 
 def check_update_supported(cfg, minibatch: dict) -> None:
@@ -55,8 +59,7 @@ def check_update_supported(cfg, minibatch: dict) -> None:
     }
     extra = sorted(set(minibatch) - _KEYS)
     if extra:
-        unported[f"minibatch keys {extra} (loss_mask, behavior logprobs, "
-                 "segment ages)"] = True
+        unported[f"minibatch keys {extra} (behavior logprobs, segment ages)"] = True
     on = [what for what, flag in unported.items() if flag]
     if on:
         raise NotImplementedError(
@@ -84,6 +87,8 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                                torch.full_like(new_logprobs, INVALID_LOGPROB),
                                new_logprobs)
     mask = ~mb["padding_mask"]
+    if "loss_mask" in mb:
+        mask = mask & mb["loss_mask"]
     algo = cfg.algo
     if algo == AlgoName.GRPO:
         loss, aux = grpo_loss(new_logprobs, mb["logprobs"], mb["ref_logprobs"],

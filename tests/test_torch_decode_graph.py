@@ -22,6 +22,7 @@ they are compared exactly."""
 
 import contextlib
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -357,6 +358,43 @@ def test_a_failed_capture_raises_naming_the_last_kernel(monkeypatch):
     assert k7.launches == 2 and loop.replays == 0   # nothing counted from the capture
     assert not _build._recording
     _build.reset_launch_counts()
+
+
+class _Holder:
+    """Garbage in a reference cycle whose collection must not happen inside
+    a capture (an earlier session's loop holding its graph)."""
+
+    def __init__(self, log):
+        self.log, self.me = log, self
+
+    def __del__(self):
+        self.log.append("collected")
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_capture_runs_with_the_cyclic_collector_paused(fail):
+    """Unreachable cycles are collected before the capture starts, the
+    collector stays off while the chunk is captured, and it is on again
+    after the capture, also after a failed one."""
+    log = []
+
+    class Recording(_StandInGraph):
+        def capture(self, fn):
+            log.append(("capturing, collector on", gc.isenabled()))
+            super().capture(fn)
+
+    loop = tg.ChunkedLoop(lambda: None, sync_every=2, device="cpu", use_graph=True,
+                          graph_factory=lambda: Recording(fail_after=1 if fail else None))
+    loop.run_chunk()
+    _Holder(log)                       # unreachable at once, but in a cycle
+    assert gc.isenabled()
+    if fail:
+        with pytest.raises(RuntimeError, match="capture"):
+            loop.run_chunk()
+    else:
+        loop.run_chunk()
+    assert log == ["collected", ("capturing, collector on", False)]
+    assert gc.isenabled()
 
 
 def test_decode_loop_options_are_checked(tiny):

@@ -35,6 +35,7 @@ from nanorlhf_tpu_torch.entrypoints.grpo import build_config
 from nanorlhf_tpu_torch.sampler.sampler import SamplingParams
 from nanorlhf_tpu_torch.trainer import bucketing
 from nanorlhf_tpu_torch.trainer import rollout as trollout
+from nanorlhf_tpu_torch.trainer.trainer import check_multi_turn_config, check_trainer_supported
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM, check_supported, rollout_and_score, rollout_generator, stream_generator)
 
@@ -175,7 +176,9 @@ def test_run_rollout_needs_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 UNPORTED = [
-    dict(rollout_orchestrator=True), dict(rollout_workers=2),
+    # the fleet as JAX accepts it (a fleet without the orchestrator is JAX's
+    # ValueError, `test_torch_fleet_checks.py`)
+    dict(rollout_orchestrator=True), dict(rollout_workers=2, rollout_orchestrator=True),
     dict(rollout_prefix_cache=True, rollout_page_size=4, rollout_decode_rows=2),
     dict(kv_cache_quant="int8"),
     dict(env_name="python_tool", env_max_turns=2), dict(sampler_logprob_capture=True),
@@ -250,6 +253,16 @@ def test_unported_knobs_raise(knobs, monkeypatch):
     if next(iter(knobs)) in PORTED_KNOBS:
         check_supported(cfg)
         _assert_ported_knob_matches(monkeypatch, knobs)
+        return
+    if "env_name" in knobs:
+        # multi-turn environments are ported: the rollout's and the
+        # trainer's gates accept them, and the multi-turn check the trainer
+        # runs on the built environment raises JAX's ValueError for the
+        # launcher's contiguous cache (continuations are paged admissions)
+        check_supported(cfg)
+        check_trainer_supported(cfg)
+        with pytest.raises(ValueError, match="requires rollout_page_size > 0"):
+            check_multi_turn_config(cfg)
         return
     with pytest.raises(NotImplementedError):
         check_supported(cfg)

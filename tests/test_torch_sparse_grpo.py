@@ -577,13 +577,19 @@ def test_build_config_matches_jax():
 def test_unported_knobs_raise(knob, value, tmp_path):
     _, cfg = _configs(tmp_path)
     setattr(cfg, knob, value)
+    # a multi-turn environment is ported for the dense trainer only: the
+    # sparse one refuses it with JAX's ValueError (the paged cache set, so
+    # that the dense trainer's own checks pass first)
+    refusal = (NotImplementedError, "not ported")
     if knob == "env_name":
-        cfg.env_max_turns = 2
+        cfg.env_max_turns, cfg.rollout_page_size = 2, 4
+        cfg.env_turn_tokens = cfg.env_obs_budget = cfg.response_length // 4
+        refusal = (ValueError, "does not drive multi-turn environments")
     jmodel = jax_config("qwen_tied", vocab_size=V)
     _, tparams = make_params(jmodel, seed=3)
     tok = ToyTokenizer(V)
     _, ds = _dataset(JaxToyTokenizer(V), tok)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(refusal[0], match=refusal[1]):
         tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds,
                               lambda texts, eos: np.zeros(len(texts), np.float32))
 

@@ -174,9 +174,11 @@ def test_checkpoint_rotation_matches_jax(tmp_path):
     assert again.best_step() == 2 and again.latest_step() == 6
 
 
-# the host planes' knobs, ported with the telemetry and resilience layers
+# the host planes' knobs, ported with the telemetry and resilience layers,
+# and env_name (a single-turn python_tool environment here), ported with the
+# environments
 PORTED_TRAINER_KNOBS = {"telemetry", "lineage", "fault_spec", "status_port",
-                        "profile_at_step", "health_arm_sentinel"}
+                        "profile_at_step", "health_arm_sentinel", "env_name"}
 
 
 @pytest.mark.parametrize("knob,value", [
