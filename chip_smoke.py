@@ -26,6 +26,8 @@ toolkit:
                                           # holds at its shapes)
     python3 chip_smoke.py --envs          # build, then only phases 15 and 16
                                           # (and the holds at their shapes)
+    python3 chip_smoke.py --fleet         # build, then only phase 17 (and the
+                                          # holds at its shapes)
     python3 chip_smoke.py --learn         # build, then only the learning-curve
                                           # harness (not in the default run)
 
@@ -290,7 +292,34 @@ Phases (any failure exits non-zero):
      or 128): every auditor passes, `tools/inspect_run.py --chaos` rebuilds
      the run's verdicts and fires from the port's ledger; K9 held at every
      suffix shape the soak gave it, K7 at the engine's decode shape;
-     launches under `envs`.
+     launches under `envs`;
+ 17. the rollout orchestrator and fleet at phase 4's config (16 prompts x
+     4 samples, FLEET_TOKENS-token responses, no checkpoints; 28 layers
+     under `--fleet`, FLEET_CUT_LAYERS in the full script):
+     (a) a synchronous reference run of 2 updates; the orchestrator at
+     staleness 0, whose rollouts 0 and 1 equal the reference's bit for
+     bit; staleness 1 with captured behavior logprobs and truncated IS
+     for 3 updates (overlap, staleness, IS truncation share, update wall,
+     the phase's wall against its generation + update seconds);
+     rollout_ahead for 2; (b) in-flight swaps on the queued paged path
+     (pages of 128, 32 resident rows, staleness 1): an install forced
+     mid-rollout, every row's segments tiling its generation; and a
+     greedy witness (16 prompts, 8 resident rows, 64 new tokens): other
+     weights installed after the graph was captured change the replays
+     exactly as a per-step loop's install, while JAX's install (a
+     rebinding) leaves the replays on the old weights; (c) the fleet, 2
+     workers at staleness 0: worker.crash:at=1 (a lease reassigned), then
+     the loopback RPC transport under net.drop:at=3 (every fetched
+     version bit for bit against the published bf16 snapshot, no disk
+     write), both equal to the reference's rollouts 0 and 1; (d) the
+     trainer soak (`chaos.soak_trainer`, the seed-3 plan) on the
+     launcher's geometry cut to FLEET_SOAK_LAYERS layers: every auditor
+     passes. The shapes K1, K2/K3, K10 and K4 were given that no earlier
+     phase held are held as in phase 2, K7 at the swaps run's and the
+     witness's decode shapes; each kernel's launches on every path under
+     `fleet` — read once the run's producer or workers were joined, so
+     they include the whole rollouts generated ahead and then dropped, and
+     beside them each run's [generations finished, rollouts consumed].
 
 `--learn` runs `entrypoints/learning_run.main` on the card (LEARN_KNOBS:
 Qwen2-1.5B geometry at the toy 512 vocab, 30 shaped updates, then 10
@@ -800,8 +829,11 @@ def check_decode(torch, F, prompt_width: int, shapes) -> dict:
         filled = torch.maximum(filled, start + 1)
         # bounds straddling and sitting on 32-key tile edges, a full row, one
         # key, and (last row) an empty window
-        filled[:7] = torch.tensor([T, 64, 65, min(1024, T), 31, 33, 2], device="cuda")
-        start[:7] = torch.tensor([0, 0, 63, 5, 30, 32, 1], device="cuda")
+        # (clamped into the window for a short T_max: phase 17's soak)
+        filled[:7] = torch.tensor([T, 64, 65, min(1024, T), 31, 33, 2],
+                                  device="cuda").clamp(max=T)
+        start[:7] = torch.minimum(torch.tensor([0, 0, 63, 5, 30, 32, 1], device="cuda"),
+                                  filled[:7] - 1)
         filled[B - 1] = start[B - 1]
         start, filled = start.int(), filled.int()
         live = torch.arange(B, device="cuda") != B - 1
@@ -3196,9 +3228,11 @@ def write_hf_dir(torch, mcfg, path: str, tok) -> tuple[dict, int, float]:
 
 def _instrument(trainer, trainer_mod, saves, writes, rollouts):
     """Record each save's blocking seconds, each write's (start, end) on the
-    writer thread, and each rollout's (start, end, output)."""
+    writer thread, and each rollout's (start of its generation, end of its
+    scoring, the scored rollout)."""
     ckpt, real_save, real_write = trainer.ckpt, trainer.ckpt.save, trainer.ckpt._write
-    real_rollout = trainer_mod.rollout_and_score
+    real_gen, real_score = trainer_mod.generate_rollout, trainer_mod.score_rollout
+    starts: list = []
 
     def save(*a, **k):
         t0 = time.perf_counter()
@@ -3213,15 +3247,21 @@ def _instrument(trainer, trainer_mod, saves, writes, rollouts):
         finally:
             writes.append((t0, time.perf_counter()))
 
-    def rollout(*a, **k):
-        t0 = time.perf_counter()
-        ro = real_rollout(*a, **k)
-        rollouts.append((t0, time.perf_counter(), ro))
+    def gen(*a, **k):
+        starts.append(time.perf_counter())
+        return real_gen(*a, **k)
+
+    def score(*a, **k):
+        ro = real_score(*a, **k)
+        rollouts.append((starts[-1], time.perf_counter(), ro))
         return ro
 
+    def undo():
+        trainer_mod.generate_rollout, trainer_mod.score_rollout = real_gen, real_score
+
     ckpt.save, ckpt._write = save, write
-    trainer_mod.rollout_and_score = rollout
-    return lambda: setattr(trainer_mod, "rollout_and_score", real_rollout)
+    trainer_mod.generate_rollout, trainer_mod.score_rollout = gen, score
+    return undo
 
 
 def _trainable_copy(trainer) -> dict:
@@ -4190,11 +4230,11 @@ def _routes_dir(*parts) -> str:
 
 @contextlib.contextmanager
 def recording_rollouts(out: dict):
-    """Keep the rollout (`rollout_and_score`'s result, "ro") and the update
-    batch (`assemble_batch`'s, "batch") the trainer passes on."""
+    """Keep the scored rollout (`score_rollout`'s result, "ro") and the
+    update batch (`assemble_batch`'s, "batch") the trainer passes on."""
     from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
 
-    ro_fn, asm_fn = trainer_mod.rollout_and_score, trainer_mod.assemble_batch
+    ro_fn, asm_fn = trainer_mod.score_rollout, trainer_mod.assemble_batch
 
     def ro(*a, **k):
         out["ro"] = ro_fn(*a, **k)
@@ -4204,11 +4244,11 @@ def recording_rollouts(out: dict):
         out["batch"], info = asm_fn(*a, **k)
         return out["batch"], info
 
-    trainer_mod.rollout_and_score, trainer_mod.assemble_batch = ro, asm
+    trainer_mod.score_rollout, trainer_mod.assemble_batch = ro, asm
     try:
         yield
     finally:
-        trainer_mod.rollout_and_score, trainer_mod.assemble_batch = ro_fn, asm_fn
+        trainer_mod.score_rollout, trainer_mod.assemble_batch = ro_fn, asm_fn
 
 
 def _free(torch, trainer) -> None:
@@ -6415,6 +6455,539 @@ def envs_phases(torch, F, card: str, held: dict | None):
     return counts15, counts16, soak_k9
 
 
+# --------------------------------------------------------------------------
+# phase 17: the rollout orchestrator and fleet
+# --------------------------------------------------------------------------
+
+PHASE17 = ("phase 17: the rollout orchestrator and fleet — bounded-staleness async GRPO, "
+           "rollout_ahead, captured behavior logprobs with truncated IS, in-flight weight "
+           "swaps inside the replayed decode graph, the leased fleet over both transports, "
+           "the trainer soak; Qwen2.5-1.5B width")
+# the orchestrated runs' response length (phase 4's), their depth in the
+# full script (`--fleet` runs all 28 layers) and the soak's depth cut
+FLEET_TOKENS = 512
+FLEET_CUT_LAYERS = 4
+FLEET_SOAK_LAYERS = 4
+# the kernels phase 17's paths run, and those the kernels line reports
+FLEET_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                 "decode_attention", "paged_decode_attention")
+# the kernels every contiguous orchestrated update must launch
+FLEET_UPDATE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                        "decode_attention")
+# the witness's install point: the third host sync of the queued loop —
+# after the eager warm-up chunk and the chunk that captured the graph, so
+# every later chunk is a replay of that capture
+WITNESS_INSTALL_POLL = 3
+
+
+def _fleet_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_fleet", *parts)
+
+
+@contextlib.contextmanager
+def spying_rollouts(out: dict, generated: list):
+    """Record, by rollout index, what each scored rollout's payload carried:
+    its tokens, its swap segments and its generation seconds; and in
+    `generated` the index of every generation that finished (consumed or
+    not: a producer runs ahead of the trainer)."""
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+
+    real = trainer_mod.score_rollout
+    real_body = trainer_mod.RLTrainer._rollout_body
+
+    def spy(payload, *a, rollout_index=None, **kw):
+        out[rollout_index] = {"responses": payload["responses"].copy(),
+                              "segments": payload.get("segments"),
+                              "generate_s": payload["timings"]["generate_s"]}
+        return real(payload, *a, rollout_index=rollout_index, **kw)
+
+    def body(self, queries, index, *a, **kw):
+        payload = real_body(self, queries, index, *a, **kw)
+        generated.append(index)
+        return payload
+
+    trainer_mod.score_rollout = spy
+    trainer_mod.RLTrainer._rollout_body = body
+    try:
+        yield
+    finally:
+        trainer_mod.score_rollout = real
+        trainer_mod.RLTrainer._rollout_body = real_body
+
+
+def _metric_rows(out_dir: str) -> list:
+    import json as _json
+    import os
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+        return [r for r in (_json.loads(line) for line in fh) if "episode" in r]
+
+
+def fleet_run(torch, name: str, updates: int, seen: dict, *, setup=None,
+              **knobs) -> dict:
+    """One orchestrated (or synchronous) run of `updates` updates at phase
+    4's config (`one_card_cut`, FLEET_TOKENS-token responses, no
+    checkpoints) with `knobs`, counts reset just before its `train` and
+    read after it, once the orchestrator's producer (or its workers) has
+    been joined: the counts then hold whole rollouts only — the consumed
+    ones and those the producer generated ahead, which the run then drops
+    (`generated` counts both). `setup(trainer)`, when given, runs before
+    `train`. Returns its rollouts by index, metric rows, launches, the
+    generations that finished, wall and peak."""
+    import shutil
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+
+    cfg = one_card_cut(build_config())
+    cfg.response_length, cfg.save_steps = FLEET_TOKENS, 0
+    cfg.output_dir = _fleet_dir(name)
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    tr = build_trainer(cfg, device="cuda")
+    rollouts: dict = {}
+    generated: list = []
+    try:
+        if setup is not None:
+            setup(tr)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with spying_rollouts(rollouts, generated), recording_all_shapes(seen):
+            tr.train(num_updates=updates)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # join the producer (the fleet's workers): a rollout generated
+            # ahead is whole before the counts are read
+            tr._close_orchestrator(keep_journal=False)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out = {"rollouts": rollouts, "rows": _metric_rows(cfg.output_dir),
+               "counts": counts, "generated": len(generated), "wall": wall,
+               "peak_gb": peak, "restarts": tr.watchdog.restarts_total,
+               "degraded": tr.watchdog.degraded}
+    finally:
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    rows = out["rows"]
+    log(f"  [{name}] {updates} updates in {wall:.3f} s; peak {peak:.2f} GB; launches "
+        f"{_nonzero(counts)} over {out['generated']} finished generations for {updates} "
+        f"consumed rollouts; losses "
+        f"{[round(r['loss/policy_avg_new'], 6) for r in rows]}")
+    for r in rows:
+        if not all(math.isfinite(v) for v in r.values() if isinstance(v, float)):
+            fail(f"phase 17 [{name}]: a metric row is not finite: {r}")
+    return out
+
+
+def _same_streams(what: str, got: dict, want: dict, indices) -> None:
+    import numpy as np
+
+    for i in indices:
+        a, b = got["rollouts"].get(i), want["rollouts"].get(i)
+        if a is None or b is None or not np.array_equal(a["responses"], b["responses"]):
+            diff = (None if a is None or b is None
+                    else int((a["responses"] != b["responses"]).sum()))
+            fail(f"phase 17 {what}: rollout {i}'s tokens differ from the synchronous "
+                 f"trainer's ({diff} tokens)")
+
+
+def _check_update_kernels(what: str, counts: dict, paged: bool = False) -> None:
+    want = FLEET_UPDATE_KERNELS if not paged else (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+        "paged_decode_attention")
+    for name in want:
+        if counts[name] <= 0:
+            fail(f"phase 17 {what}: kernel {name} never launched")
+    if paged and counts["decode_attention"] != 0:
+        fail(f"phase 17 {what}: K4 launched on the paged path")
+
+
+def _tiles(segs, n: int, full: int) -> bool:
+    """A row's segments tile [0, its generated length) with strictly
+    increasing versions (the length: `full` without EOS)."""
+    if not segs or segs[0]["tok_range"][0] != 0:
+        return False
+    for a, b in zip(segs, segs[1:]):
+        if a["tok_range"][1] != b["tok_range"][0] or \
+                b["policy_version"] <= a["policy_version"]:
+            return False
+    end = segs[-1]["tok_range"][1]
+    return end == n if n < full else end == full
+
+
+@contextlib.contextmanager
+def installing_mid_rollout(box: list):
+    """The second rollout's swap refresh (dispatched from version 0 while
+    update 0 runs) holds its second poll until version 1 is published, so
+    an install lands mid-rollout by construction, not by thread timing."""
+    from nanorlhf_tpu_torch.orchestrator import weight_store
+
+    real = weight_store.make_swap_refresh
+    made = []
+
+    def make(poll, *, have_version=None, **kw):
+        inner = real(poll, have_version=have_version, **kw)
+        made.append(have_version)
+        if len(made) != 2:
+            return inner
+        polls = [0]
+
+        def refresh():
+            polls[0] += 1
+            if polls[0] == 2:
+                box[0]._orchestrator.store.wait_for_version(have_version + 1, timeout=600)
+            return inner()
+        return refresh
+
+    weight_store.make_swap_refresh = make
+    try:
+        yield
+    finally:
+        weight_store.make_swap_refresh = real
+
+
+def swap_witness(torch, prompts, pad_id: int, card: str) -> dict:
+    """Phase 17 (b)'s greedy witness on a queued paged loop (16 prompts,
+    8 resident rows, 64 new tokens, sync every 8): other weights (the
+    embeddings scaled by 1.5) installed at WITNESS_INSTALL_POLL — after
+    the chunk that captured the graph — change every later replay exactly
+    as a per-step loop that installs the same tree at the same step; JAX's
+    install, a rebinding of the session's tree, leaves the replays on the
+    captured old weights (the trap)."""
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_model
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+    from nanorlhf_tpu_torch.sampler.paged import session as sess_mod
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    mcfg, params, tok = resolve_model(build_config().sft_model_path, 17, device="cuda")
+    fresh = {**params, "embed_tokens": params["embed_tokens"] * 1.5}
+    ids = torch.as_tensor(prompts, device="cuda").long()
+
+    def run(loop: str, install: bool):
+        calls = [0]
+
+        def refresh():
+            calls[0] += 1
+            return (1, fresh) if calls[0] == WITNESS_INSTALL_POLL else (
+                int(calls[0] > WITNESS_INSTALL_POLL), None)
+
+        own = {**params, "embed_tokens": params["embed_tokens"].clone()}
+        sp = SamplingParams(greedy=True, max_tokens=64, page_size=128, decode_rows=8,
+                            sync_every=8, decode_loop=loop)
+        stats: list = []
+        out = generate(own, mcfg, ids, ids != pad_id, torch.Generator(device="cuda"), sp,
+                       eos_token_id=tok.eos_token_id, pad_token_id=pad_id,
+                       paged_stats_out=stats, weight_refresh=refresh if install else None)
+        return out.cpu().numpy(), (stats[0].get("swap_installs") if install else 0)
+
+    _build.reset_launch_counts()
+    base, _ = run("chunked", False)
+    swap_c, n_c = run("chunked", True)
+    swap_p, n_p = run("per_step", True)
+    counts = _build.launch_counts()
+    real = sess_mod.DecodeSession.install_params
+
+    def rebind(self, tree):
+        self.params = tree      # JAX's install: a new binding, same tensors captured
+        return 0
+
+    sess_mod.DecodeSession.install_params = rebind
+    try:
+        reb_c, _ = run("chunked", True)
+        reb_p, _ = run("per_step", True)
+    finally:
+        sess_mod.DecodeSession.install_params = real
+    first = 8 * (WITNESS_INSTALL_POLL - 1)
+    log(f"  (b) witness: install at host sync {WITNESS_INSTALL_POLL} (after {first} "
+        f"iterations, the graph captured at the second chunk); installs chunked/per-step "
+        f"{n_c}/{n_p}; tokens differing from the unswapped run: swap chunked "
+        f"{int((swap_c != base).sum())}, swap per-step {int((swap_p != base).sum())}, "
+        f"rebinding chunked {int((reb_c != base).sum())}, rebinding per-step "
+        f"{int((reb_p != base).sum())} of {base.size}; K7 launches {counts['paged_decode_attention']} "
+        f"(card: {card})")
+    if n_c != 1 or n_p != 1:
+        fail(f"phase 17 (b) witness: {n_c}/{n_p} installs, expected one each")
+    if not np.array_equal(swap_c, swap_p):
+        fail(f"phase 17 (b) witness: the replays after the install differ from the per-step "
+             f"loop's ({int((swap_c != swap_p).sum())} tokens): the replayed graph did not "
+             "read the installed weights")
+    if np.array_equal(swap_c, base) or not np.array_equal(swap_c[:8, :first], base[:8, :first]):
+        fail("phase 17 (b) witness: the install did not change the tokens after the swap "
+             "point, or changed those before it")
+    if not np.array_equal(reb_p, swap_p) or np.array_equal(reb_c, swap_c):
+        fail("phase 17 (b) witness: the rebinding's trap did not show (per-step rebinding "
+             "should equal the in-place install, the replayed one should not)")
+    del params, fresh
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rpc_weights_checked(torch, box: list, checks: list, fetching: set):
+    """Wrap the RPC client's weight fetch: every newly fetched version is
+    held bit for bit against the published snapshot of that version (bf16
+    leaves as their 16-bit patterns); `fetching` holds the threads inside
+    a fetch."""
+    import threading
+
+    from nanorlhf_tpu_torch.orchestrator import rpc as rpc_mod
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    real = rpc_mod.RpcClient.fetch_weights
+    seen_versions: set = set()
+
+    def fetch(self, stop=None):
+        fetching.add(threading.get_ident())
+        try:
+            v, tree = real(self, stop=stop)
+        finally:
+            fetching.discard(threading.get_ident())
+        orch = box[0]._orchestrator if box else None
+        if orch is None:
+            return v, tree      # the fleet is still starting: nothing to hold against
+        sv, stree = orch.store.latest()
+        key = (self.worker_id, v)
+        if sv == v and key not in seen_versions:
+            seen_versions.add(key)
+            bad, bf16 = [], 0
+            for p, t in flatten(dict(stree)).items():
+                got = torch.as_tensor(flatten(tree)[p]).to(t.device)
+                if t.dtype == torch.bfloat16:
+                    bf16 += 1
+                    same = got.dtype == torch.bfloat16 and torch.equal(
+                        got.view(torch.int16), t.view(torch.int16))
+                else:
+                    same = torch.equal(got, t)
+                if not same:
+                    bad.append(p)
+            checks.append((self.worker_id, v, bf16, bad))
+        return v, tree
+
+    return rpc_mod, real, fetch
+
+
+def fleet_phase(torch, F, card: str, prompts, pad_id: int, seen: dict,
+                seen_soak: dict) -> dict:
+    """Phase 17 (module docstring): the shapes K1, K2/K3, K10 and K4 were
+    given recorded in `seen` (the orchestrated runs) and `seen_soak` (the
+    soak). Returns each run's launch counts, and for each trainer run
+    [generations finished, rollouts consumed]."""
+    import builtins
+    import dataclasses
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.chaos import INVARIANTS, compose, soak_trainer
+    from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
+    from nanorlhf_tpu_torch.entrypoints.common import resolve_model
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config
+
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    gens: dict = {}
+    log(f"  the orchestrated runs: phase 4's config (16 prompts x 4 samples, "
+        f"{FLEET_TOKENS}-token responses, LoRA), no checkpoints")
+
+    # ---- (a) the orchestrator
+    sync = fleet_run(torch, "sync", 2, seen)
+    orch0 = fleet_run(torch, "orch0", 2, seen, rollout_orchestrator=True, max_staleness=0)
+    _same_streams("(a) staleness 0", orch0, sync, (0, 1))
+    if any(r["orchestrator/staleness"] != 0.0 for r in orch0["rows"]):
+        fail("phase 17 (a): a staleness-0 sample was stale")
+    _check_update_kernels("(a) staleness 0", orch0["counts"])
+    log("  (a) staleness 0: rollouts 0 and 1 equal the synchronous trainer's bit for bit")
+    counts["orch0"] = orch0["counts"]
+    gens["orch0"] = [orch0["generated"], 2]
+    stale = fleet_run(torch, "stale1", 3, seen, rollout_orchestrator=True, max_staleness=1,
+                      sampler_logprob_capture=True, offpolicy_correction="truncated_is")
+    rows = stale["rows"]
+    gen_s = sum(r["generate_s"] for r in stale["rollouts"].values())
+    upd_s = sum(r["time/update_s"] for r in rows)
+    log(f"  (a) staleness 1 + capture + truncated IS: rollout/overlap_frac "
+        f"{rows[-1]['time/rollout_overlap_frac']:.4f}; staleness avg "
+        f"{np.mean([r['orchestrator/staleness'] for r in rows]):.3f} "
+        f"(hist {({k: v for k, v in rows[-1].items() if 'staleness_hist' in k})}); "
+        f"is_trunc_frac {[round(r['offpolicy/is_trunc_frac_new'], 5) for r in rows]}; "
+        f"is_weight_mean {[round(r['offpolicy/is_weight_mean_new'], 5) for r in rows]}; "
+        f"update wall {[round(r['time/update_s'], 3) for r in rows]} s; phase wall "
+        f"{stale['wall']:.3f} s against generation {gen_s:.3f} + update {upd_s:.3f} = "
+        f"{gen_s + upd_s:.3f} s (card: {card})")
+    if max(r["orchestrator/staleness"] for r in rows) != 1.0 or \
+            not rows[-1]["time/rollout_overlap_frac"] > 0.0:
+        fail("phase 17 (a): staleness 1 never reached, or no overlap")
+    _check_update_kernels("(a) staleness 1", stale["counts"])
+    counts["stale1_is"] = stale["counts"]
+    gens["stale1_is"] = [stale["generated"], 3]
+    ahead = fleet_run(torch, "ahead", 2, seen, rollout_ahead=True)
+    _same_streams("(a) rollout_ahead", ahead, sync, (0,))
+    log(f"  (a) rollout_ahead: rollout 0 equals the synchronous one; overlap "
+        f"{ahead['rows'][-1]['time/rollout_overlap_frac']:.4f}; ratio "
+        f"{[round(r['val/ratio_new'], 5) for r in ahead['rows']]}")
+    _check_update_kernels("(a) rollout_ahead", ahead["counts"])
+    counts["ahead"] = ahead["counts"]
+    gens["ahead"] = [ahead["generated"], 2]
+
+    # ---- (b) in-flight swaps on the queued paged path
+    box: list = []
+    with installing_mid_rollout(box):
+        swaps = fleet_run(torch, "swaps", 2, seen, setup=box.append,
+                          rollout_orchestrator=True, max_staleness=1,
+                          rollout_page_size=128, rollout_decode_rows=32,
+                          rollout_inflight_swaps=True, sampler_logprob_capture=True,
+                          offpolicy_correction="truncated_is")
+    rows = swaps["rows"]
+    segs = swaps["rollouts"][1]["segments"]
+    resp = swaps["rollouts"][1]["responses"]
+    eos = ToyTokenizer(4096).eos_token_id
+    lengths = [int(np.argmax(r == eos)) + 1 if (r == eos).any() else r.shape[0] for r in resp]
+    multi = sum(len(s) > 1 for s in segs)
+    log(f"  (b) swaps: installs {[r['rollout/swap_installs'] for r in rows]}, segments per "
+        f"sample {[round(r['rollout/segments_per_sample'], 4) for r in rows]}, swap wait "
+        f"{[round(r['orchestrator/swap_wait_s'], 4) for r in rows]} s; rollout 1: {multi} of "
+        f"{len(segs)} rows in 2+ segments")
+    if rows[1]["rollout/swap_installs"] < 1 or multi < 1:
+        fail("phase 17 (b): no install landed mid-rollout")
+    if not all(_tiles(s, n, FLEET_TOKENS) for s, n in zip(segs, lengths)):
+        fail(f"phase 17 (b): a row's segments do not tile its generation: {segs[:3]}")
+    _check_update_kernels("(b) swaps", swaps["counts"], paged=True)
+    counts["swaps"] = swaps["counts"]
+    gens["swaps"] = [swaps["generated"], 2]
+    counts["witness"] = swap_witness(torch, prompts, pad_id, card)
+
+    # ---- (c) the fleet
+    crash = fleet_run(torch, "fleet_crash", 2, seen, rollout_orchestrator=True,
+                      rollout_workers=2, max_staleness=0, fault_spec="worker.crash:at=1")
+    _same_streams("(c) worker crash", crash, sync, (0, 1))
+    last = crash["rows"][-1]
+    log(f"  (c) fleet, worker.crash:at=1: reassigned {last['fleet/reassigned_leases']}, "
+        f"losses {last['fleet/worker_losses']}, workers {last['fleet/workers']}; rollouts 0 "
+        f"and 1 equal the synchronous trainer's")
+    if last["fleet/reassigned_leases"] < 1:
+        fail("phase 17 (c): no lease was reassigned")
+    _check_update_kernels("(c) fleet", crash["counts"])
+    counts["fleet_crash"] = crash["counts"]
+    gens["fleet_crash"] = [crash["generated"], 2]
+    checks: list = []
+    box = []
+    fetching: set = set()
+    rpc_mod, real_fetch, fetch = rpc_weights_checked(torch, box, checks, fetching)
+    writes: list = []
+    real_open = builtins.open
+
+    def spy_open(file, mode="r", *a, **kw):
+        # a write opened by a thread while it streams weights: a disk spill
+        if any(c in str(mode) for c in "wax+") and threading.get_ident() in fetching:
+            writes.append(str(file))
+        return real_open(file, mode, *a, **kw)
+
+    rpc_mod.RpcClient.fetch_weights = fetch
+    builtins.open = spy_open
+    try:
+        rpc = fleet_run(torch, "fleet_rpc", 2, seen, setup=box.append,
+                        rollout_orchestrator=True, rollout_workers=2, max_staleness=0,
+                        rollout_transport="rpc", fault_spec="net.drop:at=3")
+    finally:
+        builtins.open = real_open
+        rpc_mod.RpcClient.fetch_weights = real_fetch
+    _same_streams("(c) rpc", rpc, sync, (0, 1))
+    last = rpc["rows"][-1]
+    log(f"  (c) rpc + net.drop:at=3: retries {last['fleet/rpc_retries']}, reconnects "
+        f"{last['fleet/rpc_reconnects']}, bytes tx {last['fleet/rpc_bytes_tx']:.0f}, rtt "
+        f"{last['fleet/rpc_rtt_ewma_s']:.4f} s; weight fetches held (worker, version, bf16 "
+        f"leaves, mismatches) {[(w, v, n, len(b)) for w, v, n, b in checks]}; disk writes "
+        f"while streaming weights {writes}; rollouts 0 and 1 equal the synchronous "
+        f"trainer's")
+    if not checks or any(b for *_, b in checks) or any(n == 0 for _, _, n, _ in checks):
+        fail(f"phase 17 (c): the weights did not arrive bit for bit in bf16: {checks}")
+    if writes:
+        fail(f"phase 17 (c): the RPC run wrote to disk: {writes}")
+    if last["fleet/rpc_retries"] + last["fleet/rpc_reconnects"] < 1:
+        fail("phase 17 (c): net.drop never cost a retry or a reconnect")
+    _check_update_kernels("(c) rpc", rpc["counts"])
+    counts["fleet_rpc"] = rpc["counts"]
+    gens["fleet_rpc"] = [rpc["generated"], 2]
+
+    # ---- (d) the trainer soak
+    mcfg, params, _ = resolve_model(build_config().sft_model_path, SOAK_SEED, device="cuda")
+    params["layers"] = _tree_map(lambda t: t[:FLEET_SOAK_LAYERS].clone(), params["layers"])
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(mcfg, num_hidden_layers=FLEET_SOAK_LAYERS)
+    run_dir = _fleet_dir("soak")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    plan = compose(3, "trainer")
+    log(f"CUT: the trainer soak runs the launcher's geometry at its first "
+        f"{FLEET_SOAK_LAYERS} layers, at JAX's sizes otherwise (4 prompts x 2 samples, "
+        f"8-token responses, 12 updates); plan {plan.spec!r}")
+    try:
+        with recording_all_shapes(seen_soak):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = soak_trainer(run_dir, plan, device="cuda", model=(mcfg, params))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts["soak"] = _build.launch_counts()
+    finally:
+        del params
+        torch.cuda.empty_cache()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"  (d) soak: {wall:.3f} s; summary {rep.summary}; fires {rep.fault_stats}; "
+        f"launches {_nonzero(counts['soak'])} (card: {card})")
+    for a in rep.audits:
+        log(f"    [{'ok ' if a.ok else 'FAIL'}] {a.name} (checked={a.checked})"
+            + (f" — {a.detail}" if a.detail else ""))
+    if not rep.ok or {a.name for a in rep.audits} != set(INVARIANTS) \
+            or rep.fired_sites() != {"worker.crash", "worker.slow", "ckpt.save"} \
+            or rep.summary["updates"] < 1:
+        fail(f"phase 17 (d): the soak failed: {[a.name for a in rep.failed]}, fires "
+             f"{rep.fault_stats}, summary {rep.summary}")
+    _check_update_kernels("(d) soak", counts["soak"])
+    log(f"  phase 17 wall {time.perf_counter() - t_phase:.1f} s (card: {card})")
+    return counts, gens
+
+
+def fleet_entries(counts17: dict, gens17: dict) -> dict:
+    """The kernels line's `fleet` entry of each kernel phase 17 ran: its
+    launches on each of its paths (counts reset just before each run's
+    `train`, read once its producer or workers were joined), and for each
+    trainer run [generations finished, rollouts consumed] — the launches
+    include the generations a producer ran ahead of the trainer."""
+    return {name: {"launches": {path: c[name] for path, c in counts17.items()},
+                   "generations_finished_consumed": gens17}
+            for name in FLEET_KERNELS}
+
+
+def fleet_holds(torch, F, seen17: dict, seen_soak: dict, held: dict | None,
+                prompt_width: int, witness_width: int) -> None:
+    """The kernels at the shapes phase 17 gave them that no earlier phase
+    held (`held`; None: hold them all) — the orchestrated runs' and the
+    soak's — and K7 at the swaps run's and the witness's decode shapes."""
+    log("  the kernels at the shapes phase 17 gave them that no earlier phase held, "
+        "against their plain versions")
+    held = held or {k: set() for k in seen17}
+    hold_new_shapes(torch, F, seen17, held, FLEET_TOKENS, phase=17)
+    now = {k: held[k] | set(seen17[k]) for k in held}
+    now["bwd"] = held["bwd"] | {b[1:6] for b in seen17["bwd"]}
+    hold_new_shapes(torch, F, seen_soak, now, 8, phase=17)
+    check_paged(torch, F, prompt_width, FLEET_TOKENS)
+    check_paged(torch, F, witness_width, 64, rows=8)
+
+
 # `--learn`: the learning harness's knobs on the card (the Qwen2-1.5B
 # geometry at the toy 512 vocab; the binary phase on)
 LEARN_KNOBS = {"LEARN_MODEL": "1_5b", "LEARN_UPDATES": "30", "LEARN_BINARY_UPDATES": "10"}
@@ -6572,6 +7145,12 @@ def main() -> None:
                     help="build, then run only phases 15 (multi-turn GRPO over the python-tool "
                          "environment) and 16 (the chaos harness's serving soak) and the holds "
                          "of the kernels at the shapes they give them")
+    ap.add_argument("--fleet", action="store_true",
+                    help="build, then run only phase 17 (the rollout orchestrator and "
+                         "fleet: async GRPO at staleness 0 and 1, rollout_ahead, in-flight "
+                         "swaps and their witness, the fleet over both transports, the "
+                         "trainer soak) and the holds of the kernels at the shapes it "
+                         "gives them")
     ap.add_argument("--learn", action="store_true",
                     help="build, then run only the learning-curve harness "
                          "(entrypoints/learning_run: sparse GRPO, shaped then binary reward) "
@@ -6732,6 +7311,17 @@ def run(args, torch, F) -> None:
         counts15, counts16, soak_k9 = envs_phases(torch, F, card, held=None)
         log(json.dumps({"env_kernels": env_entries(torch, F, counts15, counts16, soak_k9)}))
         log(f"envs: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.fleet:
+        log(PHASE17)
+        seen17 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        seen17s = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+        counts17, gens17 = fleet_phase(torch, F, card, phase8_prompts, tok.pad_token_id,
+                                       seen17, seen17s)
+        fleet_holds(torch, F, seen17, seen17s, None, prompt_width, phase8_prompts.shape[1])
+        log(json.dumps({"fleet_kernels": fleet_entries(counts17, gens17)}))
+        log(f"fleet: every hold and check passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.learn:
@@ -6998,6 +7588,30 @@ def run(args, torch, F) -> None:
                    | set(seen13["decode"]) | set(seen14["decode"]))})
     envs = env_entries(torch, F, counts15, counts16, soak_k9)
 
+    log(PHASE17)
+    seen17 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    seen17s = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
+    log(f"CUT: phase 17 runs the model's first {FLEET_CUT_LAYERS} layers here (`--fleet` "
+        f"runs all 28), so that the whole script stays inside 1100 s of its time limit; "
+        f"widths, lengths and the kernels' shapes are the launcher's")
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+
+    with cut_depth(common_mod, FLEET_CUT_LAYERS):
+        counts17, gens17 = fleet_phase(torch, F, card, phase8_prompts, tok.pad_token_id,
+                                       seen17, seen17s)
+    fleet_holds(torch, F, seen17, seen17s, {
+        "fwd": ({fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"])
+                | set(seen13["fwd"]) | set(seen14["fwd"])),
+        "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
+                | {s[1:6] for s in seen12["bwd"]} | {s[1:6] for s in seen13["bwd"]}
+                | {s[1:6] for s in seen14["bwd"]}),
+        "fused": (fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"])
+                  | set(seen13["fused"]) | set(seen14["fused"])),
+        "decode": (set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])
+                   | set(seen13["decode"]) | set(seen14["decode"]))},
+        prompt_width, phase8_prompts.shape[1])
+    fleet = fleet_entries(counts17, gens17)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
     # paged update (phase 5), the int8 rollouts (phase 6), the speculative
@@ -7024,6 +7638,7 @@ def run(args, torch, F) -> None:
             **({"host": host[name]} if name in host else {}),
             **({"serve": serve[name]} if name in serve else {}),
             **({"envs": envs[name]} if name in envs else {}),
+            **({"fleet": fleet[name]} if name in fleet else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -15,7 +15,9 @@ that the main path really ran on the kernels. A launch made while a CUDA
 graph is captured enqueues nothing: inside `recording_launches()` it is
 recorded instead of counted, and each replay of the graph adds what was
 recorded (`add_launches`), so the counts stay the launches the device
-ran. Several kernels may share one source (the flash backward's `dq` and
+ran. Recording is per thread (a rollout thread capturing its decode chunk
+does not swallow the launches the trainer's thread makes meanwhile), and
+the counters and the library loads are guarded by one lock. Several kernels may share one source (the flash backward's `dq` and
 `dkv` live in `flash_bwd.cu`, the four decode and two verify kernels in
 `decode_attention.cu`): each keeps its own counter, the source is built
 once.
@@ -35,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -148,12 +151,14 @@ class Kernel:
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            started = self.start_build()
-            if started is not None:
-                self.finish_build(started)
-            t0 = time.perf_counter()
-            self._lib = ctypes.CDLL(str(self.library_path()))
-            _notify_compile(f"load {self.name}", time.perf_counter() - t0)
+            with _LOAD_LOCK:  # one build and one load, whichever thread asks
+                if self._lib is None:
+                    started = self.start_build()
+                    if started is not None:
+                        self.finish_build(started)
+                    t0 = time.perf_counter()
+                    self._lib = ctypes.CDLL(str(self.library_path()))
+                    _notify_compile(f"load {self.name}", time.perf_counter() - t0)
         return self._lib
 
     def function(self, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -172,11 +177,13 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}.{symbol} failed to launch: CUDA error {err}")
-        if _recording:
-            _recording[-1][self.name] += 1
-            _recording[-1].last = self.name
+        recording = _stack()
+        if recording:
+            recording[-1][self.name] += 1
+            recording[-1].last = self.name
         else:
-            self.launches += 1
+            with _COUNT_LOCK:
+                self.launches += 1
 
 
 KERNELS = {
@@ -244,34 +251,45 @@ class LaunchRecord(collections.Counter):
     last: str | None = None
 
 
-_recording: list[LaunchRecord] = []
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_tls = threading.local()
+
+
+def _stack() -> list[LaunchRecord]:
+    """This thread's open recordings, innermost last."""
+    return _tls.__dict__.setdefault("items", [])
 
 
 @contextlib.contextmanager
 def recording_launches():
-    """Inside, launches are recorded into the yielded `LaunchRecord`
-    instead of counted (a CUDA-graph capture: nothing runs yet)."""
+    """Inside, this thread's launches are recorded into the yielded
+    `LaunchRecord` instead of counted (a CUDA-graph capture: nothing runs
+    yet)."""
     rec = LaunchRecord()
-    _recording.append(rec)
+    _stack().append(rec)
     try:
         yield rec
     finally:
-        _recording.remove(rec)
+        _stack().remove(rec)
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Count one run of recorded launches (a replay of a graph)."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            KERNELS[name].launches += n
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 def cuda_stream(device) -> ctypes.c_void_p:

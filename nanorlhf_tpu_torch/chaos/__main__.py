@@ -1,6 +1,7 @@
 """Chaos soak CLI — the port of `nanorlhf_tpu/chaos/__main__.py`.
 
     python -m nanorlhf_tpu_torch.chaos --path serving --seed 3
+    python -m nanorlhf_tpu_torch.chaos --path trainer --seed 3
     python -m nanorlhf_tpu_torch.chaos --path serving --seed 3 --shrink
     python -m nanorlhf_tpu_torch.chaos --path serving --seed 3 \\
         --spec "gw.disconnect:every=2,count=2" [--run-dir DIR] [--device cpu]
@@ -12,8 +13,8 @@ invariant fails. With --shrink a failing spec is ddmin-minimized first —
 each probe re-runs the soak in its own subdirectory — and the minimal
 repro command is printed last. The soak runs in `--run-dir`, which must
 hold no ledger yet, or by default in a fresh directory under the
-temporary directory (`TMPDIR`), printed first. `--path trainer` raises
-NotImplementedError: its soak needs the rollout fleet (ROADMAP A12).
+temporary directory (`TMPDIR`), printed first. `--path trainer` soaks a
+GRPO run with the rollout fleet (`runner.soak_trainer`).
 """
 
 from __future__ import annotations
@@ -72,9 +73,7 @@ def main(argv=None) -> int:
     if args.run_dir is None:
         args.run_dir = tempfile.mkdtemp(prefix="chaos_soak_")
     print(f"chaos: run dir {args.run_dir}")
-    soak = SOAKS[args.path]
-    if args.path == "serving":
-        soak = functools.partial(soak, device=args.device)
+    soak = functools.partial(SOAKS[args.path], device=args.device)
     report = soak(args.run_dir, plan)
     _print_report(report)
     if report.ok:

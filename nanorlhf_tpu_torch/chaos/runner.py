@@ -12,9 +12,9 @@ only exists post-close), by reopening the ledger — the ledger resumes by
 appending to its newest rotation file, so the audit tail lands in the
 same replayable stream `tools/inspect_run.py --chaos` reads.
 
-`soak_trainer` runs a GRPO trainer with the rollout fleet (two workers
-under the orchestrator, `nanorlhf_tpu/chaos/runner.py:259-260`), which the
-port does not have yet (ROADMAP A12): it raises NotImplementedError.
+`soak_trainer` drives a GRPO run with the rollout fleet (two workers under
+the orchestrator, strict staleness) under the composed schedule instead
+(`nanorlhf_tpu/chaos/runner.py:225-300`).
 """
 
 from __future__ import annotations
@@ -201,14 +201,149 @@ def soak_serving(run_dir: str, plan: ChaosPlan = None, *, seed: int = 0,
 
 
 def soak_trainer(run_dir: str, plan: ChaosPlan = None, *, seed: int = 0,
-                 n_sites: int = 3, total_episodes: int = 48) -> SoakReport:
-    """Trainer-path soak (JAX: a tiny GRPO run with the rollout fleet — two
-    workers under the orchestrator, strict staleness — under the composed
-    schedule). The port has no orchestrator or fleet yet: raises."""
-    raise NotImplementedError(
-        "chaos soak_trainer runs the GRPO trainer with the rollout fleet "
-        "(rollout_orchestrator=True, rollout_workers=2), which is not ported "
-        "to nanorlhf_tpu_torch yet (ROADMAP A12); soak_serving is")
+                 n_sites: int = 3, total_episodes: int = 48, device="cuda",
+                 model=None) -> SoakReport:
+    """Trainer-path soak: a small GRPO run with the rollout fleet (2
+    workers, strict staleness) on `device` (the card unless the caller
+    asks for the CPU) under the composed schedule. The trainer wires the
+    injector itself from `fault_spec`; the soak only attaches the on_fire
+    observer and audits afterwards. The run's sizes are JAX's (a 256-token
+    toy tokenizer, 12-token prompts, 8-token responses, 2 samples,
+    batches of 4, LoRA r 4); `model` is a `(config, params)` pair on
+    `device`, by default JAX's tiny f32 model (vocab 256, seed 0).
+    `run_dir` must hold no lineage ledger yet (FileExistsError)."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    from nanorlhf_tpu_torch.core.config import ModelConfig
+    from nanorlhf_tpu_torch.core.model import init_params
+    from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
+    from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
+    from nanorlhf_tpu_torch.telemetry.lineage import read_ledger
+    from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
+    from nanorlhf_tpu_torch.trainer.trainer import RLTrainer
+
+    if glob.glob(os.path.join(run_dir, "lineage", "ledger_*.jsonl")):
+        raise FileExistsError(
+            f"{run_dir} already holds a lineage ledger: a soak audits every "
+            "event in its run dir, so it needs a fresh one")
+    if plan is None:
+        plan = compose(seed, "trainer", n_sites=n_sites)
+    os.makedirs(run_dir, exist_ok=True)
+    before = _thread_names()
+    t0 = time.perf_counter()
+
+    tok = ToyTokenizer(vocab_size=256)
+    if model is None:
+        mcfg = ModelConfig.qwen2_tiny(vocab_size=256)
+        model = (mcfg, init_params(mcfg, 0, torch.float32, device))
+    mcfg, params = model
+    cfg = RLConfig(
+        algo=AlgoName.GRPO,
+        output_dir=run_dir,
+        response_length=8,
+        sample_n=2,
+        total_episodes=total_episodes,
+        per_device_train_batch_size=1,
+        gradient_accumulation_steps=2,
+        num_mini_batches=2,
+        num_ppo_epochs=1,
+        learning_rate=1e-4,
+        kl_coef=0.05,
+        use_lora=True,
+        lora_r=4,
+        lora_alpha=8,
+        gradient_checkpointing=False,
+        save_steps=1,
+        report_to="jsonl",
+        lineage=True,
+        rollout_orchestrator=True,
+        rollout_workers=2,
+        max_staleness=0,
+        producer_backoff_base=0.01,
+        producer_backoff_max=0.05,
+        fault_spec=plan.spec or None,
+    )
+    dataset = load_prompt_dataset("synthetic:64", tok, max_prompt_len=12)
+
+    def rule_reward(pmt_and_responses, eos_token):
+        out = [(1.0 if eos_token in s else 0.0) - 0.01 * len(s.split())
+               for s in pmt_and_responses]
+        return np.asarray(out, dtype=np.float32)
+
+    trainer = RLTrainer(cfg, mcfg, tok, params, dataset, rule_reward)
+    trainer.lineage.chaos_run(seed=plan.seed, spec=plan.spec,
+                              spec_digest=plan.digest, path=plan.path,
+                              key_path=plan.key_path)
+    trainer.faults.on_fire = _fault_hook(trainer.lineage, t0)
+    try:
+        trainer.train()
+    finally:
+        rollbacks = trainer.sentinel.rollbacks
+        restarts = trainer.watchdog.restarts_total
+        degraded = trainer.watchdog.degraded
+        fallbacks = trainer.ckpt.fallback_count
+        fault_stats = trainer.faults.stats()
+        trainer.close()
+
+    rows = _metric_rows(run_dir)
+    last = rows[-1] if rows else {}
+    fault_events = sum(1 for e in read_ledger(run_dir) if e.get("type") == "fault")
+    ctx = {
+        "rollbacks": rollbacks,
+        "leaked_threads": _leaked_threads(before),
+        "leaked_procs": max(0, _child_procs()),
+        "honesty": [
+            # in-memory recovery state must be journaled in the final
+            # metrics row — degrading silently fails the audit
+            ("watchdog_degraded", degraded,
+             last.get("resilience/degraded_mode", 0.0)),
+            ("producer_restarts", restarts,
+             last.get("resilience/producer_restarts", 0.0)),
+            ("sentinel_rollbacks", rollbacks,
+             last.get("resilience/rollbacks", 0.0)),
+            ("ckpt_fallbacks", fallbacks,
+             last.get("resilience/ckpt_fallbacks", 0.0)),
+            ("faults_journaled",
+             sum(s.get("fires", 0) for s in fault_stats.values()),
+             fault_events),
+        ],
+    }
+    events = list(read_ledger(run_dir))
+    audits = run_audits(events, ctx)
+    _journal_audits(run_dir, plan, audits)
+    return SoakReport(plan=plan, audits=audits, fault_stats=fault_stats,
+                      summary={"updates": int(last.get("step", 0) or 0),
+                               "rows": len(rows)})
+
+
+def _metric_rows(run_dir: str) -> list:
+    """The per-update rows of the run's metrics.jsonl."""
+    import json
+    import os
+
+    rows = []
+    path = os.path.join(run_dir, "metrics.jsonl")
+    if os.path.exists(path):
+        with open(path) as fh:
+            for line in fh:
+                try:
+                    row = json.loads(line)
+                except ValueError:
+                    continue
+                if "episode" in row:
+                    rows.append(row)
+    return rows
+
+
+def _child_procs() -> int:
+    """Live child processes of this one (multiprocessing's)."""
+    import multiprocessing
+
+    return len(multiprocessing.active_children())
 
 
 SOAKS = {"trainer": soak_trainer, "serving": soak_serving}

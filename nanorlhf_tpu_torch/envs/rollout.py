@@ -42,8 +42,14 @@ an error-text observation, never a dead rollout) fire per tool dispatch
 with `worker=<episode index>` scoping. A tool failure of any kind becomes
 an error observation, as in JAX; no other exception is swallowed.
 
-Not ported: JAX's `weight_refresh` (in-flight weight swaps; the trainer
-refuses `rollout_inflight_swaps`).
+In-flight weight swaps (`weight_refresh`, JAX envs/rollout.py:99-123,
+139-155, 302-326): the callback is polled before turn 1 (the base
+install, not counted) and once per main-loop iteration, before the
+admissions; a newer tree is copied into the driver's parameter tensors in
+place (`paged.session.copy_params`: the continuation session's captured
+chunk reads those tensors), so `params` must own the leaves a swap
+replaces. The payload then also carries per-episode `segments` in packed
+response coordinates, `swap_installs` and `swap_wait_s`.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
-from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
+from nanorlhf_tpu_torch.sampler.paged.scheduler import _finalize_segments
+from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession, copy_params
 from nanorlhf_tpu_torch.sampler.sampler import generate
 
 
@@ -77,7 +84,7 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
                      max_turns: int, turn_tokens: int, obs_budget: int,
                      response_length: int, page_size: int, decode_rows: int,
                      lora_scale: float = 1.0, faults=None,
-                     tool_threads: int = 4) -> dict:
+                     tool_threads: int = 4, weight_refresh=None) -> dict:
     """Run one vectorized batch of multi-turn episodes ([B, Tp] left-padded
     `prompt_ids` / `prompt_mask` on the params' device; `sampling` with
     `max_tokens == turn_tokens`; `generator` draws turn 1's tokens, then the
@@ -93,7 +100,11 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
       obs_range, obs_tokens, reward, tok_range)
     - `stats`       the `env/*` metric rows
     - `pages_recycled` / `admissions` — the continuation loop's paged
-      evidence."""
+      evidence;
+    - with `weight_refresh`: `segments` (per episode, `{policy_version,
+      tok_range}` in packed response coordinates), `swap_installs`,
+      `swap_wait_s`. With no mid-rollout publish the streams equal
+      `weight_refresh=None`'s."""
     if sampling.max_tokens != turn_tokens:
         raise ValueError(
             f"sampling.max_tokens={sampling.max_tokens} != "
@@ -107,6 +118,21 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
     n = sampling.n
     rows_total = B * n
     P = int(page_size)
+
+    # ---- in-flight weight swaps ------------------------------------------
+    swaps = weight_refresh is not None
+    swap_installs = 0
+    swap_wait_s = 0.0
+    seg_bounds: list[list] = [[] for _ in range(rows_total)]
+    if swaps:
+        # base install: the serial refresh's first call returns the store's
+        # latest outright — installed before turn 1, not counted as a swap
+        t0_sw = time.perf_counter()
+        cur_version, fresh = weight_refresh()
+        swap_wait_s += time.perf_counter() - t0_sw
+        if fresh is not None:
+            copy_params(params, fresh)
+        seg_bounds = [[(cur_version, 0)] for _ in range(rows_total)]
 
     # ---- turn 1: the existing pipeline, bit for bit ---------------------
     toks1 = generate(params, config, prompt_ids, prompt_mask, generator, sampling,
@@ -230,6 +256,26 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
         while completed < rows_total:
             for fut in [f for f in list(futures) if f.done()]:
                 harvest(fut)
+            if swaps:
+                # the host sync point, BEFORE admissions: a re-admitted turn
+                # prefills under the freshly installed weights
+                t0_sw = time.perf_counter()
+                version, fresh = weight_refresh()
+                if fresh is not None:
+                    # the boundary in packed response coordinates: committed
+                    # span tokens + the live row's generated-so-far count
+                    committed = [sum(int(t.size) for _, t in spans[ep])
+                                 for ep in range(rows_total)]
+                    if sess is not None:
+                        n_gen_h = sess.state["n_gen"].cpu().numpy()
+                        for r in range(R):
+                            if owner[r] >= 0:
+                                committed[owner[r]] += int(n_gen_h[r])
+                    for ep in range(rows_total):
+                        seg_bounds[ep].append((version, committed[ep]))
+                    copy_params(params, fresh)
+                    swap_installs += 1
+                swap_wait_s += time.perf_counter() - t0_sw
             while pending and any(o < 0 for o in owner):
                 r = owner.index(-1)
                 ep, ids, mask = pending.popleft()
@@ -270,6 +316,7 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
     loss_mask = np.ones((rows_total, response_length), bool)
     turn_ends = np.full((rows_total, max_turns), -1, np.int64)
     turns_records: list[dict] = []
+    totals = [0] * rows_total
     for ep in range(rows_total):
         cur, t_idx = 0, 0
         rec_by_turn: list[dict] = []
@@ -293,6 +340,20 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
                 rec_by_turn[-1]["obs_tokens"] = L
             cur += L
         turns_records.extend(rec_by_turn)
+        totals[ep] = cur
+
+    segments_out = None
+    if swaps:
+        segments_out = []
+        for ep in range(rows_total):
+            bounds, hi = [], 0
+            for v, pos in seg_bounds[ep]:
+                # running max + clip: the EOS trim and the response_length
+                # clip only shorten spans, so the bounds stay a monotone
+                # tiling of [0, total]
+                hi = max(hi, min(int(pos), totals[ep]))
+                bounds.append((v, hi))
+            segments_out.append(_finalize_segments(bounds, totals[ep]))
 
     turns_count = np.asarray(cur_turn, np.float32)
     stats = {
@@ -304,7 +365,7 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
                                    if decode_chunks else 0.0),
         "env/tool_errors": float(tool_errors),
     }
-    return {
+    payload = {
         "tokens": out,
         "loss_mask": loss_mask,
         "scores": turn_rewards.sum(axis=1).astype(np.float32),
@@ -315,3 +376,7 @@ def run_env_episodes(params, config, prompt_ids, prompt_mask,
         "pages_recycled": pages_recycled,
         "admissions": admissions,
     }
+    if swaps:
+        payload.update(segments=segments_out, swap_installs=swap_installs,
+                       swap_wait_s=round(swap_wait_s, 6))
+    return payload

@@ -30,11 +30,23 @@ a chunk's predicated-off tail included. `steps_run` is sync_every × the
 chunks run (the warm-up chunk and every replay); `pool_bytes` is the
 device memory the capture reserved, the graph's private pool of the
 chunk's temporaries, held until the loop is dropped.
+
+Threads: rollout producers and fleet workers capture their decode chunks
+on their own threads while the trainer's thread runs the update. A
+capture begins in CUDA's "thread_local" error mode, so only the capturing
+thread is barred from calls that are unsafe during a capture (an
+allocation, a synchronize, a host read); in the default "global" mode the
+trainer's allocations would fail while any worker captures. The cyclic
+collector is paused across every capture in flight by one shared count
+(`_collector_paused`): the last capture to end re-enables it, and the
+collection before a capture runs only when no other capture is in flight.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 import time
 
 import torch
@@ -43,6 +55,32 @@ from nanorlhf_tpu_torch._build import add_launches, recording_launches
 
 SYNC_EVERY = 8          # iterations between host checks (JAX's default)
 DECODE_LOOPS = ("chunked", "per_step")
+
+
+_GC_LOCK = threading.Lock()
+_gc_pause = {"depth": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Pause the cyclic collector for one capture, counting the captures in
+    flight on every thread: an unreachable cycle holding a CUDA graph (an
+    earlier session's loop) destroyed mid-capture invalidates the capture.
+    The first capture collects (as `torch.cuda.graph` does) and disables
+    the collector; the last to end restores it."""
+    with _GC_LOCK:
+        if _gc_pause["depth"] == 0:
+            gc.collect()
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["depth"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _gc_pause["depth"] -= 1
+            if _gc_pause["depth"] == 0 and _gc_pause["was_enabled"]:
+                gc.enable()
 
 
 def check_decode_loop(decode_loop: str, sync_every: int) -> None:
@@ -74,7 +112,9 @@ class CudaGraphChunk:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            self.graph.capture_begin()
+            # "thread_local": other threads (the trainer, other workers)
+            # may allocate and synchronize while this thread captures
+            self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 fn()
             except BaseException:
@@ -132,22 +172,14 @@ class ChunkedLoop:
         # the cyclic collector must not run inside a capture: an unreachable
         # cycle that holds a CUDA graph (an earlier session's loop) would be
         # destroyed mid-capture, which CUDA forbids and which invalidates
-        # the capture — collect first (as torch.cuda.graph does) and pause
-        # the collector until the capture ends
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with recording_launches() as rec:
-                try:
-                    graph.capture(self._chunk)
-                except Exception as e:
-                    at = f"; last kernel launched in the capture: {rec.last}" if rec.last else ""
-                    raise RuntimeError(f"CUDA graph capture of the {self.what} chunk failed: "
-                                       f"{type(e).__name__}: {e}{at}") from e
-        finally:
-            if was_enabled:
-                gc.enable()
+        # the capture — collected first, paused until every capture ends
+        with _collector_paused(), recording_launches() as rec:
+            try:
+                graph.capture(self._chunk)
+            except Exception as e:
+                at = f"; last kernel launched in the capture: {rec.last}" if rec.last else ""
+                raise RuntimeError(f"CUDA graph capture of the {self.what} chunk failed: "
+                                   f"{type(e).__name__}: {e}{at}") from e
         self.graph, self.captured = graph, dict(rec)
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes = self._reserved() - reserved

@@ -1,7 +1,7 @@
 """Continuous batching over the paged KV cache — the port of
 `nanorlhf_tpu/sampler/paged/scheduler.py` (`generate_tokens_queued`, with
-speculative decode, the radix prefix cache and chunked prefill; without
-in-flight weight swaps).
+speculative decode, the radix prefix cache, chunked prefill and in-flight
+weight swaps).
 
 `decode_rows` rows are resident in a `DecodeSession` over a pool sized for
 exactly those rows. The session runs in chunks of `sync_every` iterations
@@ -22,6 +22,16 @@ a finished row's text extends the tree for later drafters. With
 Greedy queued rows equal the monolithic greedy rows (the carry is exact
 and a row's computation does not depend on its neighbours); sampled rows
 match in distribution only — see `session.py` for the PRNG streams.
+
+In-flight weight swaps (`weight_refresh`, JAX scheduler.py:226-355): the
+callback is polled once before the loop (a returned tree is the base
+install, not counted) and once per host sync; a newer tree is installed
+into the session's tensors IN PLACE (`DecodeSession.install_params`) before
+the next chunk, and every live row gets a segment boundary at its current
+generated length. Install copies each leaf of the fresh tree that is not
+the live tree's own tensor, so the tree `generate` is given must own the
+leaves a swap replaces (the trainer hands it private copies of the
+trainable leaves).
 """
 
 from __future__ import annotations
@@ -35,6 +45,25 @@ from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY
 from nanorlhf_tpu_torch.sampler.paged.session import DecodeSession
 from nanorlhf_tpu_torch.sampler.sampler import sync_device
 from nanorlhf_tpu_torch.sampler.speculative import spec_stats
+
+
+def _finalize_segments(bounds: list, total: int) -> list:
+    """Close one request's `{policy_version, tok_range}` list (JAX's):
+    `bounds` is the chronological [(version, start_tok), ...] recorded at
+    admission and at each swap; each segment ends where the next begins,
+    the last at `total` generated tokens. Empty spans are dropped, so the
+    survivors tile [0, total) with strictly increasing versions."""
+    segs = [
+        {"policy_version": bounds[i][0],
+         "tok_range": [bounds[i][1],
+                       bounds[i + 1][1] if i + 1 < len(bounds) else total]}
+        for i in range(len(bounds))
+        if (bounds[i + 1][1] if i + 1 < len(bounds) else total) > bounds[i][1]
+    ]
+    if not segs:
+        segs = [{"policy_version": bounds[-1][0] if bounds else None,
+                 "tok_range": [0, total]}]
+    return segs
 
 
 @torch.no_grad()
@@ -51,7 +80,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                            paged_stats_out: list | None = None,
                            spec_stats_out: list | None = None,
                            timings: dict | None = None, latency=None,
-                           prefix_cache=None, prefill_chunk: int = 0):
+                           prefix_cache=None, prefill_chunk: int = 0,
+                           weight_refresh=None):
     """The `generate_tokens` contract over the whole queue ([Q, Tp]
     left-padded prompts → [Q, max_tokens] in queue order, or (tokens,
     logprobs)), with only `decode_rows` rows resident at a time.
@@ -78,7 +108,15 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
 
     `latency` (an enabled `telemetry.LatencyHub`): the session records one
     `latency/ttft_s` per request and one `latency/intertoken_s` per chunk
-    (`DecodeSession`)."""
+    (`DecodeSession`).
+
+    `weight_refresh` (`() -> (version, tree|None)`,
+    `orchestrator.weight_store.make_swap_refresh`): in-flight weight swaps
+    (module docstring). The paged-stats entry then also carries `segments`
+    (queue-order per-request `{policy_version, tok_range}` lists tiling
+    `[0, n_generated)` with strictly increasing versions), `swap_installs`
+    and `swap_wait_s`. With no mid-rollout publish every poll returns no
+    tree and the token stream equals `weight_refresh=None`'s."""
     Q, Tp = prompt_ids.shape
     R = min(int(decode_rows), Q)
     device = prompt_ids.device
@@ -104,6 +142,22 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
     util_samples: list[float] = []
     shared_peak = 0
     recycled = 0
+    # in-flight weight swaps: per-queue-index (version, start_tok) bounds
+    swaps = weight_refresh is not None
+    cur_version = None
+    swap_installs = 0
+    swap_wait_s = 0.0
+    seg_bounds: dict[int, list] = {}
+    seg_final: dict[int, list] = {}
+    if swaps:
+        t0 = time.perf_counter()
+        cur_version, fresh = weight_refresh()
+        if fresh is not None:
+            # base install: a publish raced the dispatch — the whole stream
+            # starts on the newer tree (one segment, the newer version)
+            sess.install_params(fresh)
+            swap_wait_s += time.perf_counter() - t0
+
     t0 = time.perf_counter()
     if radix is not None:
         # the first rows admit one by one through the tree, as mid-loop
@@ -116,6 +170,9 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
     t_prefill += time.perf_counter() - t0
     owner = list(range(R))   # resident row → queue index (-1: empty)
     next_q = R
+    if swaps:
+        for q in range(R):
+            seg_bounds[q] = [(cur_version, 0)]
 
     while True:
         t0 = time.perf_counter()
@@ -133,7 +190,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
             out_h = sess.state["out"].cpu().numpy()
             lp_h = sess.state["lp_out"].cpu().numpy() if capture_logprobs else None
             acc_h = sess.state["row_acc"].cpu().numpy() if spec_k else None
-            n_gen_h = sess.state["n_gen"].cpu().numpy() if spec_k else None
+            n_gen_h = (sess.state["n_gen"].cpu().numpy()
+                       if spec_k or swaps else None)
         t0 = time.perf_counter()
         for r in finished:
             q = owner[r]
@@ -144,6 +202,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
             if spec_k:
                 acc_all[q] = acc_h[r]
                 gen = out_h[r][:int(n_gen_h[r])]
+            if swaps:
+                seg_final[q] = _finalize_segments(seg_bounds.pop(q), int(n_gen_h[r]))
             owner[r] = -1
             # radix: drop the request's refs; the tree's survive as cached
             # prefix K/V (and, with spec, the text extends the tree)
@@ -153,6 +213,8 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
                 continue
             sess.admit(r, prompt_np[next_q], pmask_np[next_q], next_q)
             owner[r] = next_q
+            if swaps:
+                seg_bounds[next_q] = [(cur_version, 0)]
             if not sess.is_pending(r):
                 admissions.append({"row": r, "queue_index": next_q,
                                    "iteration": it_now})
@@ -160,6 +222,22 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
         if finished:
             sync_device(device)
             t_prefill += time.perf_counter() - t0
+        if swaps:
+            # the host sync point: one poll a chunk; a newer tree is
+            # installed before the next chunk, and every live row's segment
+            # list gets a boundary at its current generated length (rows
+            # admitted at this sync read 0: an empty segment, dropped)
+            t0 = time.perf_counter()
+            version, fresh = weight_refresh()
+            if fresh is not None:
+                n_gen_now = sess.state["n_gen"].cpu().numpy()
+                for r in range(R):
+                    if owner[r] >= 0:
+                        seg_bounds[owner[r]].append((version, int(n_gen_now[r])))
+                sess.install_params(fresh)
+                cur_version = version
+                swap_installs += 1
+                swap_wait_s += time.perf_counter() - t0
         # pool occupancy AFTER this sync's churn: allocated / total pages
         util_samples.append(sess.utilization())
         shared_peak = max(shared_peak, sess.shared_pages())
@@ -187,6 +265,12 @@ def generate_tokens_queued(params, config, prompt_ids, prompt_mask,
             "prefill_backlog_peak": sess.backlog_peak,
             "session": sess.status(),
         }
+        if swaps:
+            entry.update({
+                "segments": [seg_final[q] for q in range(Q)],
+                "swap_installs": swap_installs,
+                "swap_wait_s": swap_wait_s,
+            })
         if radix is not None:
             lookup_tok = radix.stats["lookup_tokens"] - stats0["lookup_tokens"]
             entry.update({

@@ -84,6 +84,11 @@ Choices where the port differs from JAX's jitted chunk:
     the pool has no slack slots, so a candidate write past a row's pages
     lands on the scratch page, past `max_tokens`, where the emission clamp
     cuts it.
+  * **In-flight weight swaps.** `install_params` copies a fresh tree into
+    the session's parameter tensors in place, on the session's stream,
+    between chunks: a replayed CUDA graph reads the tensors it captured,
+    so rebinding `self.params` (what JAX's scheduler does with its traced
+    argument) would leave every later replay on the old weights.
   * **`status()`** reads host copies (the done flags of the last step), so
     the serving engine's HTTP threads never touch the device.
 
@@ -136,6 +141,28 @@ from nanorlhf_tpu_torch.sampler.speculative import (
     _verify_fn,
     accept_candidates,
 )
+
+@torch.no_grad()
+def copy_params(live: dict, fresh: dict) -> int:
+    """Install `fresh` into `live` IN PLACE: every tensor leaf of `fresh`
+    that is not `live`'s own tensor is copied into it on the current
+    stream; the dict and its tensors stay the objects a captured CUDA graph
+    read (rebinding them would leave every later replay on the old
+    weights). `live` must own each leaf a fresh tree replaces. Returns the
+    leaves copied."""
+    copied = 0
+    for k, v in fresh.items():
+        cur = live[k]
+        if isinstance(v, dict):
+            copied += copy_params(cur, v)
+        elif isinstance(v, torch.Tensor) and v is not cur:
+            if v.shape != cur.shape or v.dtype != cur.dtype:
+                raise ValueError(f"weight swap: leaf {k!r} {tuple(v.shape)} {v.dtype} "
+                                 f"does not fit the live {tuple(cur.shape)} {cur.dtype}")
+            cur.copy_(v)
+            copied += 1
+    return copied
+
 
 # the admission stream, far from any other stream constant of the port (the
 # counterpart of JAX's `_ADMIT_BASE` fold offset)
@@ -315,6 +342,13 @@ class DecodeSession:
         for name in _COUNTERS:
             state[name] = torch.zeros((), dtype=torch.int64, device=dev)
         return state
+
+    def install_params(self, fresh: dict) -> int:
+        """An in-flight weight swap between chunks: `copy_params` of
+        `fresh` into the session's own tree (never a rebinding of
+        `self.params`, which the captured chunk would not see). Returns the
+        leaves copied."""
+        return copy_params(self.params, fresh)
 
     def _upload_table(self) -> None:
         """Copy the host table into the one device buffer the decode chunk

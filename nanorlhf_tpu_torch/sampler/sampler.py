@@ -186,9 +186,12 @@ def filtered_logits_full(logits, temperature, top_p, top_k, approx_top_k):
 
 
 def sync_device(device: torch.device) -> None:
-    """Wait for the device (a no-op on the CPU) — for phase timings."""
+    """Wait for the work queued on this thread's current stream (a no-op on
+    the CPU) — for phase timings. Not a device-wide synchronize: a rollout
+    thread must neither wait for the trainer's stream nor synchronize while
+    another thread captures a CUDA graph."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _categorical(generator, logits):
@@ -397,7 +400,7 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
              timings: dict | None = None, paged_stats_out: list | None = None,
              spec_stats_out: list | None = None, tracer=None, latency=None,
-             prefix_cache=None):
+             prefix_cache=None, weight_refresh=None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
     see `generate_tokens`.
@@ -424,7 +427,13 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
     `prefix_cache` (an enabled `serving.RadixCache`): the queued path
     admits rows through the cross-request radix prefix cache (reset per
     call; `sampling.prefill_chunk` chunks long admissions). The non-queued
-    paths ignore both, as in JAX."""
+    paths ignore both, as in JAX.
+
+    `weight_refresh` (`() -> (version, tree|None)`): in-flight weight swaps
+    on the QUEUED path only, installed in place into `params` between
+    chunks (`paged/scheduler.py`); the monolithic paths have no host sync
+    to swap at and ignore it, as in JAX (the trainer's
+    `rollout_inflight_swaps` requires the queued path)."""
     compose_check(sampling, prefix_cache=getattr(prefix_cache, "enabled", False))
     total_rows = prompt_ids.shape[0] * sampling.n
     queued = (sampling.page_size > 0 and sampling.decode_rows > 0
@@ -452,7 +461,7 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
             spec_k=sampling.spec_k, spec_ngram=sampling.spec_ngram,
             paged_stats_out=paged_stats_out, spec_stats_out=spec_stats_out,
             latency=latency, prefix_cache=prefix_cache,
-            prefill_chunk=sampling.prefill_chunk, **kw)
+            prefill_chunk=sampling.prefill_chunk, weight_refresh=weight_refresh, **kw)
     if sampling.spec_k > 0:
         from nanorlhf_tpu_torch.sampler.speculative import generate_spec
 

@@ -26,6 +26,16 @@ import time
 from nanorlhf_tpu_torch.analysis.lockorder import make_lock
 
 
+def staleness_histogram_metrics(counts: dict, prefix: str = "orchestrator") -> dict:
+    """The orchestrator's sample-staleness histogram as scalar rows
+    (`orchestrator/staleness_hist_K` = cumulative samples consumed at
+    staleness K), JAX's `staleness_histogram_metrics`."""
+    return {
+        f"{prefix}/staleness_hist_{int(k)}": float(v)
+        for k, v in sorted(counts.items(), key=lambda kv: int(kv[0]))
+    }
+
+
 class MetricsLogger:
     def __init__(self, output_dir: str, report_to: str = "jsonl"):
         if report_to not in ("jsonl", "tensorboard", "none"):

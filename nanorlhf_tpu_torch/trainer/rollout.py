@@ -20,6 +20,17 @@ GRPO drops its N−1 other samples per prompt BEFORE the logprob pass (only
 `batch_size` rows are scored); RLOO and RAFT score all B·N rows and select
 after batch assembly, as in JAX.
 
+The half splits where JAX's loop splits it: `generate_rollout` is the
+producer's part (JAX's `rollout_body`: de-pad, generate, ReMax's greedy
+generate, or the episode driver), which the async orchestrator and fleet
+run on their own threads from a published snapshot; `score_rollout` is the
+consumer's (reward, keep, scoring). `rollout_and_score` runs both. With
+`sampler_logprob_capture` the sampler's logprobs replace the policy
+scoring forward (JAX's `score_capture = capture and not use_is`); under
+the truncated-IS correction they are the behavior policy's instead, the
+policy forward still runs, and the kept rows carry `behavior_logprobs`
+(and `segment_ages` when in-flight swaps left segments).
+
 The reward goes through `dispatch_reward` (JAX `_dispatch_reward`): the
 `reward.exec` fault site and `reward_retries` retries with backoff, a
 `reward.dispatch` span on the "reward" track, `latency/reward_s` and the
@@ -82,10 +93,19 @@ PERM_STREAM = 0x9E77
 
 
 def check_fleet_values(cfg: RLConfig) -> None:
-    """The JAX trainer's ValueErrors on the rollout fleet's knobs
-    (`nanorlhf_tpu/trainer/trainer.py:390-411`), with its messages: a
-    config JAX refuses is refused here as well, before any unported path
-    raises NotImplementedError."""
+    """The JAX trainer's ValueErrors on the async orchestrator's and the
+    rollout fleet's knobs (`nanorlhf_tpu/trainer/trainer.py:377-430`),
+    in its order and with its messages."""
+    if cfg.rollout_orchestrator:
+        if cfg.rollout_ahead:
+            raise ValueError(
+                "rollout_orchestrator generalizes rollout_ahead — enable "
+                "one, not both")
+        if cfg.max_staleness < 0:
+            raise ValueError(f"max_staleness={cfg.max_staleness}")
+        if cfg.staleness_policy not in ("wait", "drop"):
+            raise ValueError(
+                f"staleness_policy={cfg.staleness_policy!r}: wait|drop")
     if cfg.rollout_workers < 1:
         raise ValueError(f"rollout_workers={cfg.rollout_workers}")
     if cfg.rollout_workers > 1 and not cfg.rollout_orchestrator:
@@ -102,35 +122,52 @@ def check_fleet_values(cfg: RLConfig) -> None:
             "requires rollout_workers > 1 (docs/FLEET.md)")
     if cfg.offpolicy_correction not in ("truncated_is", "none"):
         raise ValueError(f"offpolicy_correction={cfg.offpolicy_correction!r}")
+    if cfg.rollout_inflight_swaps:
+        if not cfg.rollout_orchestrator:
+            raise ValueError(
+                "rollout_inflight_swaps reads the orchestrator's weight "
+                "store mid-generation — it requires "
+                "rollout_orchestrator=True (docs/ORCHESTRATOR.md)")
+        if cfg.rollout_page_size <= 0 or cfg.rollout_decode_rows <= 0:
+            raise ValueError(
+                "rollout_inflight_swaps swaps weights at chunk boundaries "
+                "of the queued paged scheduler — it requires "
+                "rollout_page_size > 0 and rollout_decode_rows > 0 "
+                "(docs/PAGED_CACHE.md)")
+
+
+def uses_truncated_is(cfg: RLConfig) -> bool:
+    """JAX's `_use_is`: the orchestrator may run stale (max_staleness > 0),
+    the sampler captures the behavior policy's logprobs, and the
+    correction is on."""
+    return bool(cfg.rollout_orchestrator and cfg.max_staleness > 0
+                and cfg.sampler_logprob_capture
+                and cfg.offpolicy_correction == "truncated_is")
 
 
 def check_supported(cfg: RLConfig) -> None:
-    """The JAX trainer's ValueErrors on the fleet's knobs
-    (`check_fleet_values`) first; then raise NotImplementedError for every
-    trainer knob that selects a path
-    this port has not ported, instead of ignoring it, and run the decode
-    features' legality matrix (`sampler.compose_check`, ValueError) once, as
-    the JAX trainer does at construction. Compaction reaches
-    `compose_check` through `sampling_params(cfg)`, which raises for it;
-    the paged cache and continuous batching (`rollout_page_size`,
-    `rollout_decode_rows`), the int8 KV cache (`kv_cache_quant`),
-    speculative decode (`rollout_spec_k`, `rollout_spec_ngram`), int8
-    rollout weights (`rollout_quant`), the radix prefix cache
-    (`rollout_prefix_cache`), chunked prefill (`rollout_prefill_chunk`) and
-    multi-turn environments (`env_max_turns > 1`, validated by the
-    trainer) are ported."""
+    """The JAX trainer's ValueErrors on the orchestrator's and the fleet's
+    knobs (`check_fleet_values`) first; then raise NotImplementedError for
+    every trainer knob that selects a path this port has not ported
+    (disaggregated rollout devices, sequence parallelism), instead of
+    ignoring it, and run the decode features' legality matrix
+    (`sampler.compose_check`, ValueError) once, as the JAX trainer does at
+    construction. Compaction reaches `compose_check` through
+    `sampling_params(cfg)`, which raises for it. Ported: the paged cache
+    and continuous batching, the int8 KV cache, speculative decode, int8
+    rollout weights, the radix prefix cache, chunked prefill, multi-turn
+    environments (validated by the trainer), the async orchestrator and
+    the fleet (`rollout_orchestrator`, `rollout_workers`,
+    `rollout_transport`), `rollout_ahead`, `sampler_logprob_capture` and
+    in-flight weight swaps."""
     check_fleet_values(cfg)
     if cfg.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     if cfg.rollout_quant not in ("none", "int8"):
         raise ValueError(f"rollout_quant={cfg.rollout_quant!r}")
     unported = {
-        "rollout_orchestrator": cfg.rollout_orchestrator,
-        "rollout_workers > 1 (fleet)": cfg.rollout_workers > 1,
-        "rollout_ahead": cfg.rollout_ahead,
         "rollout_devices > 0": cfg.rollout_devices > 0,
         "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
-        "sampler_logprob_capture": cfg.sampler_logprob_capture,
     }
     on = [what for what, flag in unported.items() if flag]
     if on:
@@ -233,121 +270,141 @@ def dispatch_reward(reward_func, texts: list[str], eos_token: str, retries: int,
     return scores
 
 
-@torch.no_grad()
-def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
-                      queries: np.ndarray, reward_func,
-                      generator: torch.Generator, lora_scale: float,
-                      keep_generator: torch.Generator,
-                      ctx_menu: list[int] | None = None,
-                      timings: dict | None = None,
-                      sampling: SamplingParams | None = None,
-                      launches: dict | None = None,
-                      rollout_params: dict | None = None, planes=None,
-                      rollout_index: int | None = None,
-                      step: int | None = None, on_generated=None,
-                      prefix_cache=None, env=None) -> dict:
-    """Roll out `queries` ([B, T] left-padded prompt ids), score each
-    sample with `reward_func`, and run the logprob pass. Returns numpy
-    arrays: `queries` (de-padded, [B, Tq]), `scores` [B·N] (every sample's
-    raw score), `logprobs`, `ref_logprobs` and `responses` [rows, R] f32 /
-    ids. GRPO keeps one sample per prompt before scoring: rows = B,
-    `keep` [B] (drawn from `keep_generator`) and `advantages` [B] (the kept
-    rows' group z-scores). The other algorithms score all rows = B·N
-    (`keep` None); ReMax also rolls out greedily and carries
-    `greedy_scores` [B]. `ref_params=None` is the ref-free run (kl_coef
-    0): ref logprobs then equal the policy's. `timings`, when given,
-    receives the wall seconds of each phase (device-synchronized) and the
-    number of decode steps (and the decode loop's `graph_capture_s`,
-    `graph_steps_run`, `graph_replays`: `sampler/graph.py`; ReMax's greedy
-    generate adds its own under `greedy_*`, and its capture to
-    `graph_capture_s`). `sampling` overrides the trainer's SamplingParams
-    (e.g. greedy, for parity tests). On a paged rollout the result also
-    carries `paged_stats`, on a speculative one `spec_stats` (the
-    sampler's stats dicts). `launches`, when given, receives the kernel
-    launches of the generation (`generate`, both of ReMax's: each
-    CUDA-graph replay of the decode loop counts what it launched) and of
-    the scoring pass (`score`). `rollout_params` is the tree generation
-    samples from (default `params`): the trainer's int8 rollout view
-    (`core/quant.rollout_view`); scoring always runs `params`. `planes`,
-    `rollout_index` and `step`: the host planes (module docstring), and
-    the rollout index and global step the lineage events carry.
-    `on_generated(payload, generate_s)`, when given, is called once the
-    tokens are on the host, before the reward: `payload` holds the
-    rollout's `paged_stats` and `spec_stats`. `prefix_cache` is the
-    trainer's `RadixCache` (`rollout_prefix_cache`; a fresh one when None:
-    the scheduler resets it at every call anyway, the trainer's keeps the
-    cumulative stats).
+def _host(obj):
+    """A payload's device scalars and tensors as host numbers and arrays, so
+    a sample crosses threads and the RPC wire as data."""
+    if isinstance(obj, torch.Tensor):
+        return obj.item() if obj.dim() == 0 else obj.cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_host(v) for v in obj]
+    return obj
 
-    `env` (a multi-turn `Environment`, GRPO only) swaps generation for the
-    episode driver (`envs/rollout.run_env_episodes`, the first turn from
-    `sampling` or `env_sampling_params(cfg)`): the scores are the episodes'
-    summed turn rewards (no reward dispatch; lineage gets the `reward`
-    event and one `turn` event per (episode, turn)), and the kept rows
-    also carry `turn_advantages` (each turn column z-scored in its group
-    before the keep), `turn_ends` and `loss_mask` (False on observation
-    tokens); the result carries the driver's payload as `env`."""
+
+@torch.no_grad()
+def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.ndarray,
+                     generator: torch.Generator, lora_scale: float, *,
+                     ctx_menu: list[int] | None = None,
+                     sampling: SamplingParams | None = None,
+                     timings: dict | None = None, planes=None,
+                     prefix_cache=None, env=None, weight_refresh=None) -> dict:
+    """The producer half of one rollout (JAX's `rollout_body`): de-pad the
+    [B, T] left-padded prompt ids, then generate from `gen_params` (the
+    live policy, its int8 view, or a published snapshot) — ReMax also
+    generates greedily, a multi-turn `env` runs the episode driver instead.
+    Returns the payload, host data only: `queries` (de-padded), `responses`
+    [B·N, R], `captured_logprobs` (the sampler's, with capture; else None),
+    `greedy` (ReMax's [B, R], else None), `paged_stats`, `spec_stats`,
+    `env` (the driver's payload, else None), `timings` (the generate's
+    phases, `generate_s`) and, under `weight_refresh`, `segments`,
+    `swap_installs` and `swap_wait_s` hoisted from the paged stats.
+    `planes` gives generation the tracer, the latency hub and the fault
+    injector."""
     check_supported(cfg)
     if cfg.rollout_prefix_cache and prefix_cache is None:
         from nanorlhf_tpu_torch.serving.radix import RadixCache
         prefix_cache = RadixCache()
-    device = params["embed_tokens"].device
+    device = gen_params["embed_tokens"].device
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
-    n = cfg.sample_n
     t = {} if timings is None else timings
     t_start = time.perf_counter()
-
     if ctx_menu is not None:
         queries = depad_queries(queries, pad_id, ctx_menu)
     queries_t = torch.as_tensor(queries, dtype=torch.int64, device=device)
     prompt_mask = queries_t != pad_id
     paged_stats: list = []
     spec_stats: list = []
-    counts0 = launch_counts()
     gen_mcfg = rollout_model_config(mcfg, cfg)
-    gen_params = params if rollout_params is None else rollout_params
     tracer, latency = _plane(planes, "tracer"), _plane(planes, "latency")
-    payload = None
-    with _phase(planes, "rollout"):
-        if env is not None:
-            from nanorlhf_tpu_torch.envs.rollout import run_env_episodes
+    out = {"queries": queries, "captured_logprobs": None, "greedy": None,
+           "env": None}
+    if env is not None:
+        from nanorlhf_tpu_torch.envs.rollout import run_env_episodes
 
-            env_sampling = sampling or env_sampling_params(cfg)
-            payload = run_env_episodes(
-                gen_params, gen_mcfg, queries_t, prompt_mask, generator, env_sampling,
-                env, eos_token_id=eos_id, pad_token_id=pad_id, tokenizer=tokenizer,
-                max_turns=cfg.env_max_turns, turn_tokens=env_sampling.max_tokens,
-                obs_budget=cfg.env_obs_budget, response_length=cfg.response_length,
-                page_size=cfg.rollout_page_size,
-                decode_rows=cfg.env_decode_rows or cfg.rollout_decode_rows,
-                lora_scale=lora_scale, faults=getattr(planes, "faults", None))
-            responses_np = payload["tokens"]
-            t["tool_s"] = payload["stats"]["env/tool_wall_s"]
-        else:
-            responses_np = generate(
-                gen_params, gen_mcfg, queries_t, prompt_mask, generator,
-                sampling or sampling_params(cfg), eos_token_id=eos_id,
-                pad_token_id=pad_id, lora_scale=lora_scale, timings=t,
-                paged_stats_out=paged_stats, spec_stats_out=spec_stats,
-                tracer=tracer, latency=latency,
-                prefix_cache=prefix_cache).cpu().numpy()
-        greedy_np = None
-        if cfg.algo == AlgoName.REMAX:
-            # the greedy rollout of the same prompts: ReMax's baseline
-            tg: dict = {}
-            greedy_np = generate(
-                gen_params, gen_mcfg, queries_t, prompt_mask, generator,
-                SamplingParams(greedy=True, max_tokens=cfg.response_length),
-                eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
-                timings=tg).cpu().numpy()
-            t.update({f"greedy_{k}": v for k, v in tg.items()})
-            if "graph_capture_s" in tg:
-                t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
+        env_sampling = sampling or env_sampling_params(cfg)
+        payload = run_env_episodes(
+            gen_params, gen_mcfg, queries_t, prompt_mask, generator, env_sampling,
+            env, eos_token_id=eos_id, pad_token_id=pad_id, tokenizer=tokenizer,
+            max_turns=cfg.env_max_turns, turn_tokens=env_sampling.max_tokens,
+            obs_budget=cfg.env_obs_budget, response_length=cfg.response_length,
+            page_size=cfg.rollout_page_size,
+            decode_rows=cfg.env_decode_rows or cfg.rollout_decode_rows,
+            lora_scale=lora_scale, faults=getattr(planes, "faults", None))
+        out.update(responses=payload["tokens"], env=payload)
+        t["tool_s"] = payload["stats"]["env/tool_wall_s"]
+    else:
+        sp = sampling or sampling_params(cfg)
+        result = generate(
+            gen_params, gen_mcfg, queries_t, prompt_mask, generator, sp,
+            eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
+            timings=t, paged_stats_out=paged_stats, spec_stats_out=spec_stats,
+            tracer=tracer, latency=latency, prefix_cache=prefix_cache,
+            weight_refresh=weight_refresh)
+        if sp.capture_logprobs:
+            result, captured = result
+            out["captured_logprobs"] = captured.float().cpu().numpy()
+        out["responses"] = result.cpu().numpy()
+    if cfg.algo == AlgoName.REMAX:
+        # the greedy rollout of the same prompts: ReMax's baseline
+        tg: dict = {}
+        out["greedy"] = generate(
+            gen_params, gen_mcfg, queries_t, prompt_mask, generator,
+            SamplingParams(greedy=True, max_tokens=cfg.response_length),
+            eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
+            timings=tg).cpu().numpy()
+        t.update({f"greedy_{k}": v for k, v in tg.items()})
+        if "graph_capture_s" in tg:
+            t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
     t["generate_s"] = time.perf_counter() - t_start
-    counts1 = launch_counts()
-    if on_generated is not None:
-        on_generated({"paged_stats": paged_stats[0] if paged_stats else None,
-                      "spec_stats": spec_stats[0] if spec_stats else None},
-                     t["generate_s"])
+    out["paged_stats"] = _host(paged_stats[0]) if paged_stats else None
+    out["spec_stats"] = _host(spec_stats[0]) if spec_stats else None
+    if weight_refresh is not None and out["paged_stats"] is not None:
+        # swap provenance at the payload's top level: the lineage ledger and
+        # the per-segment IS assembly read it from here
+        for k in ("segments", "swap_installs", "swap_wait_s"):
+            if k in out["paged_stats"]:
+                out[k] = out["paged_stats"][k]
+    out["timings"] = t
+    return out
+
+
+def segment_ages(segments: list, shape) -> np.ndarray:
+    """Per-token policy ages [rows, R] int32 from each row's swap segments
+    (JAX trainer.py:2034-2048): the newest version in the row minus the
+    token's segment version; rows no swap touched are all zero."""
+    ages = np.zeros(shape, np.int32)
+    for r, segs in enumerate(segments):
+        newest = max(seg["policy_version"] for seg in segs)
+        for seg in segs:
+            lo, hi = seg["tok_range"]
+            if newest > seg["policy_version"]:
+                ages[r, lo:hi] = newest - seg["policy_version"]
+    return ages
+
+
+@torch.no_grad()
+def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokenizer,
+                  reward_func, lora_scale: float, keep_generator: torch.Generator,
+                  timings: dict | None = None, planes=None,
+                  rollout_index: int | None = None, step: int | None = None,
+                  use_is: bool = False, use_seg: bool = False) -> dict:
+    """The consumer half of one rollout (JAX's loop from the reward to the
+    logprob pass): reward, [GRPO: group z-score, keep 1 of N], and the
+    chunked logprob pass of `params` (with LoRA) and the ref. The capture
+    matrix is JAX's: with captured logprobs and no IS correction the
+    sampler's logprobs are the policy's (no policy forward; ref-free: no
+    forward at all); with the IS correction (`use_is`) they are the
+    behavior policy's and ride out as `behavior_logprobs`, with the
+    per-token `segment_ages` when `use_seg` and the payload has segments.
+    Returns what `rollout_and_score` documents."""
+    device = params["embed_tokens"].device
+    pad_id = tokenizer.pad_token_id
+    n = cfg.sample_n
+    t = {} if timings is None else timings
+    queries, responses_np = payload["queries"], payload["responses"]
+    captured = payload["captured_logprobs"]
+    envp = payload["env"]
 
     # ---- reward (host-side, user callable) ----
     t0 = time.perf_counter()
@@ -356,16 +413,16 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
     question_n = [q for q in question_strings for _ in range(n)]
     responses_decoded = tokenizer.batch_decode(responses_np)
     with _phase(planes, "reward"):
-        if payload is not None:
+        if envp is not None:
             # the episodes' rewards accrued turn by turn in the driver (the
             # terminal grader already ran per episode): no dispatch
-            scores = payload["scores"]
+            scores = envp["scores"]
             lineage = getattr(planes, "lineage", None)
             if rollout_index is not None and lineage is not None:
                 lineage.reward(rollout_index, step=step,
                                scores=[round(float(x), 6) for x in scores.tolist()],
-                               attempt=1, wall_s=payload["stats"]["env/tool_wall_s"])
-                for rec in payload["turns"]:
+                               attempt=1, wall_s=envp["stats"]["env/tool_wall_s"])
+                for rec in envp["turns"]:
                     lineage.turn(rollout_index, step=step, **rec)
         else:
             scores = dispatch_reward(
@@ -374,13 +431,16 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
                 rollout_index=rollout_index, step=step)
     batch = queries.shape[0]
     out = {"queries": queries, "scores": scores, "keep": None}
-    if payload is not None:
-        out["env"] = payload
-    if greedy_np is not None:
+    if envp is not None:
+        out["env"] = envp
+    if payload["greedy"] is not None:
         out["greedy_scores"] = dispatch_reward(
             reward_func, [q + r for q, r in zip(question_strings,
-                                                tokenizer.batch_decode(greedy_np))],
+                                                tokenizer.batch_decode(payload["greedy"]))],
             tokenizer.eos_token, cfg.reward_retries, planes)
+    seg_ages = None
+    if use_seg and payload.get("segments") is not None:
+        seg_ages = segment_ages(payload["segments"], responses_np.shape)
     if cfg.algo == AlgoName.GRPO:
         advantages = grpo_group_advantage(torch.as_tensor(scores), n).numpy()
         # keep 1 of N per prompt BEFORE scoring (the reference's
@@ -389,17 +449,21 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         prompt = np.arange(batch)
         out["advantages"] = advantages.reshape(batch, n)[prompt, keep]
         out["keep"] = keep
-        if payload is not None:
+        if envp is not None:
             # each turn column z-scored against the FULL group before the
             # keep drops N−1 siblings; the turn ends and the observation
             # mask ride the same selection
-            turn_adv = grpo_turn_advantage(torch.as_tensor(payload["turn_rewards"]),
+            turn_adv = grpo_turn_advantage(torch.as_tensor(envp["turn_rewards"]),
                                            n).numpy()
             for key, arr in (("turn_advantages", turn_adv),
-                             ("turn_ends", payload["turn_ends"]),
-                             ("loss_mask", payload["loss_mask"])):
+                             ("turn_ends", envp["turn_ends"]),
+                             ("loss_mask", envp["loss_mask"])):
                 out[key] = arr.reshape(batch, n, -1)[prompt, keep]
-        responses_np = responses_np.reshape(batch, n, -1)[prompt, keep]
+
+        def kept(a):
+            return None if a is None else a.reshape(batch, n, -1)[prompt, keep]
+
+        responses_np, captured, seg_ages = kept(responses_np), kept(captured), kept(seg_ages)
         queries_rep = queries
     else:
         queries_rep = np.repeat(queries, n, axis=0)
@@ -414,27 +478,110 @@ def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
         1, forward_token_budget(mcfg.vocab_size, fused_logprob=cfg.fused_logprob)
         // (context_length + cfg.response_length))
     chunk = max(1, min(total, chunk))
+    # the sampler's logprobs stand for the policy's unless they are the
+    # stale behavior policy's (truncated IS)
+    score_capture = captured is not None and not use_is
+    ref_free = ref_params is None
     lps, rlps = [], []
     with _phase(planes, "logprob"):
-        for i in range(0, total, chunk):
-            n_real = min(chunk, total - i)
-            rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
-            lp, rlp = score_chunk(params, ref_params, mcfg, cfg, rows,
-                                  context_length, pad_id, lora_scale)
-            lps.append(lp[:n_real].float().cpu().numpy())
-            rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits for the device
+        if not (ref_free and score_capture):
+            for i in range(0, total, chunk):
+                n_real = min(chunk, total - i)
+                rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
+                lp, rlp = score_chunk(params, ref_params, mcfg, cfg, rows,
+                                      context_length, pad_id, lora_scale,
+                                      score_policy=not score_capture)
+                if lp is not None:
+                    lps.append(lp[:n_real].float().cpu().numpy())
+                rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits
+    logprobs = (captured if score_capture else np.concatenate(lps)).astype(np.float32)
+    ref_logprobs = logprobs.copy() if ref_free else np.concatenate(rlps)
     t["score_s"] = time.perf_counter() - t0
+    out.update(responses=responses_np, logprobs=logprobs, ref_logprobs=ref_logprobs,
+               context_length=context_length, score_capture=score_capture)
+    if use_is:
+        out["behavior_logprobs"] = captured.astype(np.float32)
+    if seg_ages is not None:
+        out["segment_ages"] = seg_ages
+    for key in ("paged_stats", "spec_stats", "segments", "swap_installs",
+                "swap_wait_s"):
+        if payload.get(key) is not None:
+            out[key] = payload[key]
+    return out
+
+
+@torch.no_grad()
+def rollout_and_score(params, ref_params, mcfg, cfg: RLConfig, tokenizer,
+                      queries: np.ndarray, reward_func,
+                      generator: torch.Generator, lora_scale: float,
+                      keep_generator: torch.Generator,
+                      ctx_menu: list[int] | None = None,
+                      timings: dict | None = None,
+                      sampling: SamplingParams | None = None,
+                      launches: dict | None = None,
+                      rollout_params: dict | None = None, planes=None,
+                      rollout_index: int | None = None,
+                      step: int | None = None, on_generated=None,
+                      prefix_cache=None, env=None) -> dict:
+    """Roll out `queries` ([B, T] left-padded prompt ids), score each
+    sample with `reward_func`, and run the logprob pass: `generate_rollout`
+    then `score_rollout`. Returns numpy arrays: `queries` (de-padded, [B,
+    Tq]), `scores` [B·N] (every sample's raw score), `logprobs`,
+    `ref_logprobs` and `responses` [rows, R] f32 / ids. GRPO keeps one
+    sample per prompt before scoring: rows = B, `keep` [B] (drawn from
+    `keep_generator`) and `advantages` [B] (the kept rows' group z-scores).
+    The other algorithms score all rows = B·N (`keep` None); ReMax also
+    rolls out greedily and carries `greedy_scores` [B]. `ref_params=None`
+    is the ref-free run (kl_coef 0): ref logprobs then equal the policy's.
+    `timings`, when given, receives the wall seconds of each phase
+    (device-synchronized) and the number of decode steps (and the decode
+    loop's `graph_capture_s`, `graph_steps_run`, `graph_replays`:
+    `sampler/graph.py`; ReMax's greedy generate adds its own under
+    `greedy_*`, and its capture to `graph_capture_s`). `sampling` overrides
+    the trainer's SamplingParams (e.g. greedy, for parity tests). On a
+    paged rollout the result also carries `paged_stats`, on a speculative
+    one `spec_stats` (the sampler's stats dicts, as host numbers).
+    `launches`, when given, receives the kernel launches of the generation
+    (`generate`, both of ReMax's: each CUDA-graph replay of the decode loop
+    counts what it launched) and of the scoring pass (`score`).
+    `rollout_params` is the tree generation samples from (default
+    `params`): the trainer's int8 rollout view (`core/quant.rollout_view`);
+    scoring always runs `params`. `planes`, `rollout_index` and `step`: the
+    host planes (module docstring), and the rollout index and global step
+    the lineage events carry. `on_generated(payload, generate_s)`, when
+    given, is called once the tokens are on the host, before the reward.
+    `prefix_cache` is the trainer's `RadixCache` (`rollout_prefix_cache`; a
+    fresh one when None: the scheduler resets it at every call anyway, the
+    trainer's keeps the cumulative stats).
+
+    `env` (a multi-turn `Environment`, GRPO only) swaps generation for the
+    episode driver (`envs/rollout.run_env_episodes`, the first turn from
+    `sampling` or `env_sampling_params(cfg)`): the scores are the episodes'
+    summed turn rewards (no reward dispatch; lineage gets the `reward`
+    event and one `turn` event per (episode, turn)), and the kept rows
+    also carry `turn_advantages` (each turn column z-scored in its group
+    before the keep), `turn_ends` and `loss_mask` (False on observation
+    tokens); the result carries the driver's payload as `env`."""
+    t = {} if timings is None else timings
+    t_start = time.perf_counter()
+    counts0 = launch_counts()
+    with _phase(planes, "rollout"):
+        payload = generate_rollout(
+            params if rollout_params is None else rollout_params, mcfg, cfg,
+            tokenizer, queries, generator, lora_scale, ctx_menu=ctx_menu,
+            sampling=sampling, timings=t, planes=planes,
+            prefix_cache=prefix_cache, env=env)
+    counts1 = launch_counts()
+    if on_generated is not None:
+        on_generated(payload, t["generate_s"])
+    out = score_rollout(payload, params, ref_params, mcfg, cfg, tokenizer, reward_func,
+                        lora_scale, keep_generator, timings=t, planes=planes,
+                        rollout_index=rollout_index, step=step)
     t["total_s"] = time.perf_counter() - t_start
     if launches is not None:
         counts2 = launch_counts()
         launches["generate"] = {k: counts1[k] - counts0[k] for k in counts0}
         launches["score"] = {k: counts2[k] - counts1[k] for k in counts0}
-    out.update(responses=responses_np, logprobs=np.concatenate(lps),
-               ref_logprobs=np.concatenate(rlps), context_length=context_length)
-    if paged_stats:
-        out["paged_stats"] = paged_stats[0]
-    if spec_stats:
-        out["spec_stats"] = spec_stats[0]
     return out
 
 
@@ -485,6 +632,9 @@ def assemble_batch(ro: dict, cfg: RLConfig, stop_id: int | None, pad_id: int,
       values, GAE(γ, λ) → advantages, returns; REINFORCE and ReMax: the
       γ-discounted returns.
 
+    The kept rows' `behavior_logprobs` (pads INVALID) and `segment_ages`
+    of an IS run ride into the batch and through every selection.
+
     Returns (batch, info): info holds the post-processed responses `post`,
     the INVALID-filled `logprobs` / `ref_logprobs` and `padding_mask` of
     every scored row (the `_old` metrics read them), the kept sample of
@@ -522,6 +672,13 @@ def assemble_batch(ro: dict, cfg: RLConfig, stop_id: int | None, pad_id: int,
         "padding_mask": padding_mask,
         "padding_mask_p1": padding_mask_p1,
     }
+    if "behavior_logprobs" in ro:
+        # the stale sampling policy's logprobs, masked like `logprobs` so the
+        # IS weight is 1 at the pads; they ride every selection below
+        batch["behavior_logprobs"] = np.where(
+            padding_mask, INVALID_LOGPROB, ro["behavior_logprobs"]).astype(np.float32)
+    if "segment_ages" in ro:
+        batch["segment_ages"] = ro["segment_ages"]
     info = {"post": post, "logprobs": logprobs, "ref_logprobs": ref_logprobs,
             "padding_mask": padding_mask, "keep": ro.get("keep")}
     if algo == AlgoName.GRPO:

@@ -65,34 +65,33 @@ def fused_response_logprobs(tree, mcfg, query_responses, responses, pad_id,
 
 @torch.no_grad()
 def score_chunk(params, ref_params, mcfg, cfg, query_responses,
-                context_length: int, pad_id: int, lora_scale: float = 1.0):
+                context_length: int, pad_id: int, lora_scale: float = 1.0,
+                score_policy: bool = True):
     """(policy logprobs, ref logprobs) [rows, T_resp] f32 for one chunk of
     query+response rows. The policy runs with its LoRA adapters; the ref
     tree has none. `ref_params=None` is the ref-free run (kl_coef 0): no
-    ref forward, the ref logprobs are the policy's."""
+    ref forward, the ref logprobs are the policy's. `score_policy=False`
+    (the sampler captured the policy's logprobs) runs the ref alone and
+    returns (None, ref logprobs)."""
     if cfg.mesh.sp > 1:
         raise NotImplementedError(
             "sequence-parallel scoring (mesh.sp > 1) is not ported yet")
     responses = query_responses[:, context_length:]
-    if cfg.fused_logprob:
-        logprobs = fused_response_logprobs(
-            params, mcfg, query_responses, responses, pad_id, context_length,
-            cfg, lora_scale=lora_scale)
-        if ref_params is None:
-            return logprobs, logprobs
-        ref_logprobs = fused_response_logprobs(
-            ref_params, mcfg, query_responses, responses, pad_id,
-            context_length, cfg)
-        return logprobs, ref_logprobs
-    logits = padded_forward_logits(params, mcfg, query_responses, pad_id,
-                                   lora_scale=lora_scale,
-                                   response_context_length=context_length)
-    logprobs = logprobs_from_logits(logits, responses, cfg.temperature)
+
+    def one(tree, scale):
+        if cfg.fused_logprob:
+            return fused_response_logprobs(tree, mcfg, query_responses, responses,
+                                           pad_id, context_length, cfg,
+                                           lora_scale=scale)
+        logits = padded_forward_logits(tree, mcfg, query_responses, pad_id,
+                                       lora_scale=scale,
+                                       response_context_length=context_length)
+        return logprobs_from_logits(logits, responses, cfg.temperature)
+
+    logprobs = one(params, lora_scale) if score_policy else None
     if ref_params is None:
         return logprobs, logprobs
-    ref_logits = padded_forward_logits(ref_params, mcfg, query_responses, pad_id,
-                                       response_context_length=context_length)
-    return logprobs, logprobs_from_logits(ref_logits, responses, cfg.temperature)
+    return logprobs, one(ref_params, 1.0)
 
 
 @torch.no_grad()

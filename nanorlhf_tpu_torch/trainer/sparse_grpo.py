@@ -47,9 +47,17 @@ sparse loop.
 A single-turn environment runs (the trainer unwraps it into a plain
 reward callable); a multi-turn one raises ValueError, as in JAX.
 
-Not ported (raise NotImplementedError): sequence parallelism (the SP
-score and grad functions), rollout_ahead and the orchestrator and sampler
-logprob capture.
+`rollout_ahead` generates rollout k+1 on a producer thread from a snapshot
+of the pre-update-k weights while update k grades and trains (the dense
+trainer's `RolloutStream`), and `sampler_logprob_capture` takes the
+policy's logprobs from the sampler: the buckets then run the ref forward
+alone (none at all when the run is ref-free, r1's setting), as in JAX
+(`sparse_grpo.py:347-352,437-445,483`). The orchestrator raises JAX's
+ValueError: a skipped update consumes a rollout without publishing a
+version, which would wedge the bounded-staleness gate.
+
+Not ported (raises NotImplementedError): sequence parallelism (the SP
+score and grad functions).
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from nanorlhf_tpu_torch.ops.masking import (
     response_padding_masks,
     truncate_response,
 )
-from nanorlhf_tpu_torch.sampler.sampler import generate, sync_device
+from nanorlhf_tpu_torch.sampler.sampler import sync_device
 from nanorlhf_tpu_torch.trainer.bucketing import (
     create_batches,
     depad_queries,
@@ -84,13 +92,10 @@ from nanorlhf_tpu_torch.trainer.optim import flatten, unflatten
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM,
     PERM_STREAM,
-    rollout_generator,
-    rollout_model_config,
-    sampling_params,
     stream_generator,
 )
 from nanorlhf_tpu_torch.trainer.scoring import forward_token_budget, score_chunk
-from nanorlhf_tpu_torch.trainer.trainer import RLTrainer
+from nanorlhf_tpu_torch.trainer.trainer import RLTrainer, RolloutStream
 from nanorlhf_tpu_torch.trainer.update import microbatch_loss
 
 # the reference's backward budget (`grpo_r1_trainer.py:700`); the forward
@@ -155,19 +160,28 @@ class SparseGRPOTrainer(RLTrainer):
         blen = round_up_to_menu(int(qr_len.max()), self._len_menu)
         return min(max(blen, context_length + 1), cap)
 
+    def _gen_menu(self) -> list[int]:
+        return self._len_menu
+
     def score_buckets(self, qr: np.ndarray, qr_len: np.ndarray, context_length: int,
-                      max_resp: int, buckets: list | None = None):
+                      max_resp: int, buckets: list | None = None,
+                      captured: np.ndarray | None = None):
         """(policy, ref) logprobs [rows, max_resp] f32 (INVALID past each
         bucket's width) of the query+response rows `qr`, bucket by bucket
         under the fused forward budget (the ref's are the policy's when the
-        run is ref-free). `buckets` (when given) receives (real rows,
-        rows_b, width) of each."""
+        run is ref-free). With `captured` (the sampler's logprobs of these
+        rows) the policy's are those and the buckets run the ref alone —
+        none at all when the run is ref-free. `buckets` (when given)
+        receives (real rows, rows_b, width) of each bucket run."""
         cfg, pad_id = self.cfg, self.tokenizer.pad_token_id
         budget = forward_token_budget(self.mcfg.vocab_size,
                                       fused_logprob=cfg.fused_logprob)
         logprobs = np.full((qr.shape[0], max_resp), INVALID_LOGPROB, np.float32)
         ref_logprobs = logprobs.copy()
-        for idxs in create_batches(qr_len, budget):
+        if captured is not None:
+            logprobs = captured[:, :max_resp].astype(np.float32)
+        skip = captured is not None and self._ref_free
+        for idxs in ([] if skip else create_batches(qr_len, budget)):
             blen = self._bucket_len(qr_len[idxs], context_length, qr.shape[1])
             rows_b = round_up_to_menu(len(idxs), self._rows_menu)
             padded = pad_rows({"qr": qr[idxs][:, :blen]}, rows_b, {"qr": pad_id})
@@ -175,9 +189,11 @@ class SparseGRPOTrainer(RLTrainer):
             lp, rlp = score_chunk(
                 self.params, self.ref_params, self.mcfg, cfg,
                 torch.as_tensor(padded["qr"], device=self.device), context_length,
-                pad_id, self.lora_scale)
-            logprobs[idxs, :width] = lp[:len(idxs)].float().cpu().numpy()
-            ref_logprobs[idxs, :width] = rlp[:len(idxs)].float().cpu().numpy()
+                pad_id, self.lora_scale, score_policy=captured is None)
+            if captured is None:
+                logprobs[idxs, :width] = lp[:len(idxs)].float().cpu().numpy()
+            if rlp is not None:
+                ref_logprobs[idxs, :width] = rlp[:len(idxs)].float().cpu().numpy()
             if buckets is not None:
                 buckets.append((len(idxs), rows_b, blen))
         return logprobs, ref_logprobs
@@ -222,7 +238,8 @@ class SparseGRPOTrainer(RLTrainer):
             self.mcfg.vocab_size, fused_logprob=self.cfg.fused_logprob) // 2)
 
     def kept_batch(self, queries: np.ndarray, responses: np.ndarray,
-                   scores: np.ndarray, score_buckets: list | None = None) -> dict:
+                   scores: np.ndarray, score_buckets: list | None = None,
+                   captured: np.ndarray | None = None) -> dict:
         """The update's arrays of the kept rows (prompts [rows, Tq], one
         response each [rows, R], their nonzero z-scored advantages [rows]):
         the prompts de-padded and the responses cut to the longest (EOS
@@ -230,7 +247,8 @@ class SparseGRPOTrainer(RLTrainer):
         padding masks, INVALID-filled logprobs, and each row's advantage
         broadcast over its tokens. Returns numpy arrays `qr`, `responses`,
         `logprobs`, `ref_logprobs`, `advantages`, `padding_mask`, `qr_len`
-        [rows] and the ints `context_length`, `max_resp`."""
+        [rows] and the ints `context_length`, `max_resp`. `captured`: the
+        sampler's logprobs of the kept rows (`score_buckets`)."""
         pad_id, eos_id = self.tokenizer.pad_token_id, self.tokenizer.eos_token_id
         queries = depad_queries(queries, pad_id, self._len_menu)
         context_length = queries.shape[1]
@@ -243,7 +261,7 @@ class SparseGRPOTrainer(RLTrainer):
         qr_len = context_length + resp_len
 
         logprobs, ref_logprobs = self.score_buckets(qr, qr_len, context_length, max_resp,
-                                                    score_buckets)
+                                                    score_buckets, captured)
         if self._ref_free:
             ref_logprobs = logprobs.copy()
         seq_len = first_true_indices(torch.as_tensor(post) == pad_id) - 1
@@ -286,48 +304,51 @@ class SparseGRPOTrainer(RLTrainer):
     # ------------------------------------------------------------------ #
 
     def train(self, num_updates: int | None = None) -> dict:
+        cfg = self.cfg
+        if cfg.rollout_orchestrator:
+            raise ValueError(
+                "rollout_orchestrator is not supported by SparseGRPOTrainer "
+                "yet: the sparse all-zero-advantage skip consumes a rollout "
+                "WITHOUT publishing a policy version, which would wedge the "
+                "bounded-staleness gate (orchestrator/sample_queue.py). Use "
+                "rollout_ahead for overlap on the sparse path.")
+        try:
+            return self._sparse_train(num_updates)
+        finally:
+            self._close_stream()
+
+    def _sparse_train(self, num_updates: int | None) -> dict:
         cfg, tok = self.cfg, self.tokenizer
         pad_id, eos_id = tok.pad_token_id, tok.eos_token_id
         n = cfg.sample_n
         if self.accuracy_func is not None and self.state["global_step"] == 0:
             acc = float(self.accuracy_func(self))
             self.logger.log(0, 0, {"initial_accuracy": acc})
-        sampling = sampling_params(cfg)
         n_updates = (max(0, cfg.num_total_batches - self.state["global_step"])
                      if num_updates is None else num_updates)
         self.lineage.rows_hint = cfg.batch_size * n
-        for _ in range(n_updates):
+        if self._stream is None:
+            self._stream = RolloutStream(self)
+        for update in range(1, n_updates + 1):
             t_start = time.perf_counter()
             self.profile_window.poll(self.state["global_step"] + 1)
             span_t0 = self.tracer.now_us() if self.tracer.enabled else 0.0
             self.state["episode"] += cfg.batch_size
-            index = self.state["rollouts"]
-            self.state["rollouts"] += 1
-            if self.lineage.enabled:
-                self.lineage.lease(index, worker_id=0, cursor=index, length=1)
-            record = {"index": index, "skipped": False, "kept": 0}
-            self.update_log.append(record)
-            t: dict = {}
             counts0 = launch_counts()
 
-            # ---- rollout + reward -----------------------------------------
-            queries = depad_queries(np.asarray(next(self._iter)), pad_id, self._len_menu)
-            q_t = torch.as_tensor(queries, dtype=torch.int64, device=self.device)
-            tp_call = self.tracer.now_us()
-            paged_stats: list = []
-            spec_stats: list = []
-            responses = generate(
-                self._rollout_params(), rollout_model_config(self.mcfg, cfg), q_t,
-                q_t != pad_id,
-                rollout_generator(cfg.seed, index, self.device), sampling,
-                eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=self.lora_scale,
-                timings=t, paged_stats_out=paged_stats, spec_stats_out=spec_stats,
-                tracer=self.tracer if self.tracer.enabled else None,
-                latency=self.latency).cpu().numpy()
+            # ---- rollout (prefetched under rollout_ahead) + reward ----------
+            index, payload, _ = self._stream.fetch_or_dispatch()
+            record = {"index": index, "skipped": False, "kept": 0}
+            self.update_log.append(record)
+            t: dict = dict(payload["timings"])
             t["generate_s"] = time.perf_counter() - t_start
-            self._note_rollout({"paged_stats": paged_stats[0] if paged_stats else None,
-                                "spec_stats": spec_stats[0] if spec_stats else None},
-                               index, t_start, tp_call, t["generate_s"])
+            queries, responses = payload["queries"], payload["responses"]
+            captured = payload["captured_logprobs"]
+            self._note_payload(payload, index, orchestrated=False)
+            if cfg.rollout_ahead and update < n_updates:
+                # the NEXT generation overlaps this update's grading and
+                # training (r1's graders are the dominant host cost)
+                self._stream.prefetch()
             counts1 = launch_counts()
             batch_size = queries.shape[0]
             question_strings = [q.replace(tok.pad_token, "")
@@ -354,6 +375,8 @@ class SparseGRPOTrainer(RLTrainer):
             rows = np.arange(batch_size)
             scores = adv_flat.reshape(batch_size, n)[rows, keep]
             responses = responses.reshape(batch_size, n, -1)[rows, keep]
+            if captured is not None:
+                captured = captured.reshape(batch_size, n, -1)[rows, keep]
             if n > 1:
                 self.lineage.drop(index, "keep_filter", count=batch_size * (n - 1),
                                   step=self.state["global_step"])
@@ -387,7 +410,8 @@ class SparseGRPOTrainer(RLTrainer):
             # ---- de-pad, cut, bucketed logprob pass, advantages -----------
             t0 = time.perf_counter()
             score_buckets: list = []
-            batch = self.kept_batch(queries[nz], responses[nz], scores[nz], score_buckets)
+            batch = self.kept_batch(queries[nz], responses[nz], scores[nz], score_buckets,
+                                    None if captured is None else captured[nz])
             t["score_s"] = time.perf_counter() - t0
             counts2 = launch_counts()
 
@@ -445,6 +469,10 @@ class SparseGRPOTrainer(RLTrainer):
                 "eps": cfg.adam_eps,
                 "sparse/kept_frac": kept_frac,
                 "eval_response_length": log_responses_length,
+                # captured logprobs give an epoch-1 ratio of 1 up to decode
+                # vs scoring numerics
+                **({"sampler_capture/ratio_drift_new": abs(agg.get("ratio_mean", 1.0) - 1.0)}
+                   if captured is not None else {}),
                 "sec_per_episode": (time.perf_counter() - t_start) / cfg.batch_size,
                 "mem/peak_bytes_in_use": float(torch.cuda.max_memory_allocated(self.device))
                 if self.device.type == "cuda" else 0.0,
@@ -461,8 +489,9 @@ class SparseGRPOTrainer(RLTrainer):
                 "time/update_s": t["update_s"],
             }
             # the dense loop's napkin model over this update's real work:
-            # scoring and the update count only the kept rows
-            score_forwards = 1 if self._ref_free else 2
+            # scoring and the update count only the kept rows; captured
+            # logprobs stand for the policy's forward
+            score_forwards = (int(not self._ref_free) + int(captured is None))
             metrics.update(self._perf_metrics(
                 step_wall_s=time.perf_counter() - t_start,
                 decode_tokens=batch_size * n * cfg.response_length,

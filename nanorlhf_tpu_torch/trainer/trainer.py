@@ -29,8 +29,8 @@ The host planes, built in JAX's order and wired through the loop as JAX's
 (`nanorlhf_tpu/trainer/trainer.py:537-745`): fault injection
 (`fault_spec`), the training sentinel (a NaN or spiking update rolls back
 to the last checkpoint and quarantines its rollout index, which the replay
-skips before dispatch), the producer watchdog (journaled only: the
-orchestrator that drives it is not ported), the SIGTERM guard (an
+skips before dispatch), the producer watchdog (restarts a dead rollout
+pipeline, then degrades the run to synchronous rollouts), the SIGTERM guard (an
 emergency checkpoint and `Preempted` at the next update boundary), the
 span tracer and its flight recorder (`trace.json`, `blackbox_<step>.json`),
 the MFU accounting (`perf/*`), the lineage ledger, the latency histograms,
@@ -47,14 +47,34 @@ rollout for the episode driver (`envs/rollout.py`), scores per turn and
 trains under the observation `loss_mask`. `close()` closes the
 environment (its pooled executor's worker).
 
-Unported knobs raise (`check_trainer_supported`): the async orchestrator
-and fleet, rollout_ahead and in-flight weight swaps; the JAX trainer's
-ValueErrors on the fleet's and the environments' knobs come first.
+Rollout sources (JAX trainer.py:854-1001, 1887-2031): the synchronous
+loop generates on the trainer's thread from the live tree; `rollout_ahead`
+generates rollout k+1 on a producer thread, from a snapshot taken before
+update k, while update k runs (`RolloutStream`); `rollout_orchestrator`
+runs the bounded-staleness pipeline (`orchestrator.RolloutOrchestrator`,
+or with `rollout_workers > 1` the leased fleet over the in-process or the
+loopback-RPC transport), fed one published snapshot after every update
+(`_policy_snapshot`: the trainable leaves cloned on the trainer's stream —
+the optimizer steps them in place — the frozen ones aliased, an event
+recorded after the clones). Producer threads run on CUDA streams of their
+own and still launch the kernels; the producer watchdog restarts a dead
+pipeline and, past its budget, degrades the run to synchronous rollouts
+(`resilience/degraded_mode`). With `sampler_logprob_capture` the sampler's
+logprobs replace the policy scoring forward, or, under the truncated-IS
+correction (`max_staleness > 0`, `offpolicy_correction="truncated_is"`),
+weight the losses as the behavior policy's; `rollout_inflight_swaps`
+installs mid-rollout publishes into the queued paged session in place.
+The orchestrator's counters ride in `trainer_state.json`.
+
+Unported knobs raise (`check_trainer_supported`): disaggregated rollout
+devices and sequence parallelism; the JAX trainer's ValueErrors on the
+orchestrator's, the fleet's and the environments' knobs come first.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -98,16 +118,26 @@ from nanorlhf_tpu_torch.telemetry.lineage import segments_summary, spec_summary
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
 from nanorlhf_tpu_torch.trainer.config import AlgoName, RLConfig
-from nanorlhf_tpu_torch.trainer.metrics import MetricsLogger
+from nanorlhf_tpu_torch.orchestrator.orchestrator import (
+    SnapshotTree,
+    adopt_payload,
+    device_ready,
+    producer_stream,
+    reader_wait,
+)
+from nanorlhf_tpu_torch.orchestrator.sample_queue import ProducerFailed
+from nanorlhf_tpu_torch.trainer.metrics import MetricsLogger, staleness_histogram_metrics
 from nanorlhf_tpu_torch.trainer.optim import AdamWState, build_optimizer, flatten
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM,
     PERM_STREAM,
     assemble_batch,
     check_supported,
-    rollout_and_score,
+    generate_rollout,
     rollout_generator,
+    score_rollout,
     stream_generator,
+    uses_truncated_is,
 )
 from nanorlhf_tpu_torch.trainer.scoring import value_pass
 from nanorlhf_tpu_torch.trainer.update import check_update_supported, update_minibatch
@@ -157,17 +187,10 @@ def check_multi_turn_config(cfg: RLConfig) -> None:
 
 
 def check_trainer_supported(cfg: RLConfig) -> None:
-    """`check_supported` (the fleet's ValueErrors, then the rollout's
-    knobs), the update's knobs, and the trainer's own."""
+    """`check_supported` (the orchestrator's and the fleet's ValueErrors,
+    then the rollout's knobs) and the update's knobs."""
     check_supported(cfg)
     check_update_supported(cfg, {})
-    unported = {
-        "rollout_inflight_swaps": cfg.rollout_inflight_swaps,
-    }
-    on = [what for what, flag in unported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
 
 
 def _trainable_leaves(tree: dict, mask: dict) -> dict:
@@ -225,6 +248,118 @@ def _unshared(tree: dict, others) -> dict:
     return walk(tree)
 
 
+class _Prefetch:
+    """One rollout generating on a producer thread (its own CUDA stream):
+    `result()` waits for it and returns its payload, or raises what it
+    raised."""
+
+    def __init__(self, fn, device):
+        self._payload = self._error = None
+
+        def run():
+            try:
+                with producer_stream(device):
+                    self._payload = fn()
+            except BaseException as e:  # surfaces in result()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="rollout-ahead")
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        adopt_payload(self._payload)
+        return self._payload
+
+
+class RolloutStream:
+    """The rollout source of the synchronous and `rollout_ahead` loops (JAX
+    `RolloutStream`, trainer.py:189-274). `fetch_or_dispatch()` returns the
+    prefetched rollout when one is pending, else generates the next one on
+    the calling thread from the live tree; `prefetch()` draws the next
+    batch now and generates it on a producer thread from a snapshot of the
+    current weights (one update stale once the caller steps), while the
+    caller goes on with its update. Either way it records the consumed
+    index in `trainer.state["rollouts"]`. The data cursor advances on the
+    calling thread, in index order."""
+
+    def __init__(self, trainer):
+        self._t = trainer
+        self._idx = trainer.state["rollouts"]
+        self._pending = None   # (index, _Prefetch)
+
+    def _draw(self) -> tuple[int, np.ndarray]:
+        t = self._t
+        queries = np.asarray(next(t._iter))
+        idx = self._idx
+        self._idx += 1
+        if t.lineage.enabled:
+            # no coordinator: the dispatch is the lease (worker 0, cursor ==
+            # index)
+            t.lineage.lease(idx, worker_id=0, cursor=idx, length=1)
+        return idx, queries
+
+    def fetch_or_dispatch(self) -> tuple[int, dict, bool]:
+        """(index, payload, prefetched)."""
+        t = self._t
+        if self._pending is not None:
+            idx, job = self._pending
+            self._pending = None
+            payload, prefetched = job.result(), True
+        else:
+            idx, queries = self._draw()
+            t_call, tp_call = time.perf_counter(), t.tracer.now_us()
+            payload = t._rollout_body(queries, idx)
+            t._note_generation(idx, t_call, tp_call, payload["timings"]["generate_s"])
+            prefetched = False
+        t.state["rollouts"] = idx + 1
+        return idx, payload, prefetched
+
+    def prefetch(self) -> None:
+        t = self._t
+        idx, queries = self._draw()
+        tree = t._policy_snapshot()
+        tp_call = t.tracer.now_us()
+
+        def job():
+            t0 = time.perf_counter()
+            payload = t._rollout_body(queries, idx, tree)
+            device_ready(payload)
+            t._note_generation(idx, t0, tp_call, time.perf_counter() - t0)
+            return payload
+
+        self._pending = (idx, _Prefetch(job, t.device))
+
+    @property
+    def next_index(self) -> int:
+        return self._pending[0] if self._pending is not None else self._idx
+
+    def skip(self) -> int:
+        """Consume the next data batch without generating it (a
+        quarantined index); only with no prefetch pending."""
+        assert self._pending is None
+        t = self._t
+        next(t._iter)
+        idx = self._idx
+        self._idx += 1
+        t.state["rollouts"] = self._idx
+        t.lineage.drop(idx, "sentinel_quarantine",
+                       step=t.state["global_step"], dispatched=False)
+        return idx
+
+    def close(self) -> None:
+        """Wait out a pending prefetch (its thread holds the card)."""
+        if self._pending is not None:
+            try:
+                self._pending[1].result()
+            except BaseException:  # noqa: BLE001 — abandoned with the stream
+                pass
+            self._pending = None
+
+
 class RLTrainer:
     """The trainer on one device. Args mirror the JAX trainer's: config,
     model config, tokenizer, base params (the port's layout, on the device
@@ -235,6 +370,13 @@ class RLTrainer:
     def __init__(self, config: RLConfig, model_config, tokenizer, params: dict,
                  dataset, reward_func, value_params: dict | None = None):
         check_trainer_supported(config)
+        # the rollout source (built by train()) and the orchestrator
+        # journal a resumed checkpoint carried
+        self._orchestrator = self._stream = self._orch_restore_state = None
+        # JAX's `_use_is` / `_use_seg`: static for the run, so the update's
+        # minibatch key set never changes
+        self._use_is = uses_truncated_is(config)
+        self._use_seg = self._use_is and config.rollout_inflight_swaps
         self.cfg, self.mcfg = config, model_config
         self.tokenizer, self.reward_func, self.dataset = tokenizer, reward_func, dataset
         self._build_env(reward_func)
@@ -427,16 +569,279 @@ class RLTrainer:
     def _refresh_quant_layers(self) -> None:
         self._quant_layers = quantize_layers(self.params["layers"])
 
-    def _rollout_params(self) -> dict:
-        """The tree generation samples from: the live policy, with int8
-        base projections when `rollout_quant` is on (LoRA, embeddings and
-        norms stay the live tensors). Under full fine-tuning the base moved
-        since the last rollout, so it is quantized anew."""
+    def _rollout_params(self, tree: dict | None = None) -> dict:
+        """The tree generation samples from: the live policy (or a published
+        snapshot `tree`), with int8 base projections when `rollout_quant`
+        is on (LoRA, embeddings and norms stay the tree's tensors). Under
+        full fine-tuning the base moved since the last rollout, so it is
+        quantized anew (a snapshot's own layers, for a snapshot)."""
         if self._quant_layers is None:
-            return self.params
+            return self.params if tree is None else tree
+        if tree is not None:
+            layers = (self._quant_layers if self.cfg.use_lora
+                      else quantize_layers(tree["layers"]))
+            return rollout_view(tree, layers)
         if not self.cfg.use_lora:
             self._refresh_quant_layers()
         return rollout_view(self.params, self._quant_layers)
+
+    # ------------------------------------------------------------------ #
+    # the async rollout sources
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def _policy_snapshot(self) -> SnapshotTree:
+        """An immutable view of the current policy for the weight store
+        (JAX `_policy_snapshot`): every trainable leaf is CLONED — the
+        optimizer steps those in place — and every frozen leaf aliases the
+        live tensor, which nothing writes. The clones run on this thread's
+        stream; `ready` is the event recorded after them, which a reader's
+        stream waits on. Under LoRA the clone is the adapters and the
+        embeddings."""
+        mask = trainable_mask(self.params, self.lora_cfg)
+
+        def walk(tree, m):
+            return {k: walk(v, m[k]) if isinstance(v, dict)
+                    else (v.detach().clone() if m[k] else v)
+                    for k, v in tree.items()}
+
+        snap = SnapshotTree(walk(self.params, mask))
+        if self.device.type == "cuda":
+            snap.ready = torch.cuda.Event()
+            snap.ready.record(torch.cuda.current_stream(self.device))
+        return snap
+
+    def _frozen_leaf_ids(self) -> set:
+        """The live tensors no update writes: the frozen policy leaves and
+        the int8 base of a LoRA run."""
+        mask = flatten(trainable_mask(self.params, self.lora_cfg))
+        ids = {id(t) for path, t in flatten(self.params).items() if not mask[path]}
+        if self._quant_layers is not None and self.cfg.use_lora:
+            ids |= {id(t) for t in flatten(self._quant_layers).values()}
+        return ids
+
+    def _device_tree(self, tree: dict) -> tuple[dict, set]:
+        """A published tree ready to read on this thread's stream: its copy
+        event waited on, and leaves that crossed the RPC wire (host arrays)
+        uploaded to the trainer's device. Returns (tree, ids of the uploaded
+        leaves — tensors this dispatch alone holds)."""
+        reader_wait(tree)
+        uploaded: set = set()
+
+        def walk(node):
+            out = {}
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    out[k] = walk(v)
+                elif isinstance(v, torch.Tensor) and v.device == self.device:
+                    out[k] = v
+                else:
+                    out[k] = torch.as_tensor(v).to(self.device)
+                    uploaded.add(id(out[k]))
+            return out
+
+        return walk(tree), uploaded
+
+    def _rollout_body(self, queries: np.ndarray, index: int, tree: dict | None = None,
+                      weight_refresh=None) -> dict:
+        """Generate rollout `index` (JAX `rollout_body`): from the live tree
+        on the trainer's thread, or from a published snapshot `tree` on a
+        producer thread, with the index's generation stream, so WHICH thread
+        or worker generates a sample never changes WHAT is generated.
+        `weight_refresh` (in-flight swaps) polls the store between chunks;
+        the dispatch tree then gets private copies of every leaf a publish
+        can replace, because the swap writes into it in place."""
+        cfg = self.cfg
+        keep = set()
+        if tree is not None:
+            tree, keep = self._device_tree(tree)
+        gen_params = self._rollout_params(tree)
+        refresh = None
+        if weight_refresh is not None:
+            keep |= self._frozen_leaf_ids()
+
+            def own(node):
+                return {k: own(v) if isinstance(v, dict)
+                        else (v if id(v) in keep else v.clone())
+                        for k, v in node.items()}
+
+            gen_params = own(gen_params)
+
+            def refresh():
+                version, fresh = weight_refresh()
+                if fresh is None:
+                    return version, None
+                return version, self._rollout_params(self._device_tree(fresh)[0])
+        on_trainer = tree is None
+        return generate_rollout(
+            gen_params, self.mcfg, cfg, self.tokenizer, queries,
+            rollout_generator(cfg.seed, index, self.device), self.lora_scale,
+            ctx_menu=self._gen_menu(), planes=self,
+            # the trainer's radix cache keeps cumulative stats; a producer
+            # thread takes a fresh one (the scheduler resets it per call)
+            prefix_cache=self.prefix_cache if on_trainer else None,
+            env=self.env if self._env_multi_turn else None,
+            weight_refresh=refresh)
+
+    def _gen_menu(self) -> list[int]:
+        """The menu the rollout de-pads its prompts to."""
+        return self.ctx_menu
+
+    def _ensure_orchestrator(self):
+        """Create (once) the rollout pipeline — the single producer thread
+        (rollout_workers == 1) or the N-worker fleet — over published
+        snapshots; it outlives train() calls and is torn down by close(),
+        resume_from_checkpoint() and the watchdog (JAX
+        `_ensure_orchestrator`)."""
+        if self._orchestrator is not None:
+            return self._orchestrator
+        cfg = self.cfg
+        common = dict(
+            initial_params=self._policy_snapshot(), start_index=self.state["rollouts"],
+            max_staleness=cfg.max_staleness, policy=cfg.staleness_policy,
+            meter=self._rollout_meter, restore=self._orch_restore_state,
+            heartbeat=cfg.producer_heartbeat, faults=self.faults, tracer=self.tracer,
+            lineage=self.lineage, latency=self.latency, device=self.device)
+        if cfg.rollout_workers > 1:
+            from nanorlhf_tpu_torch.orchestrator.fleet import FleetConfig, FleetOrchestrator
+
+            rpc_cfg = None
+            if cfg.rollout_transport == "rpc":
+                from nanorlhf_tpu_torch.orchestrator.rpc import RpcConfig
+
+                rpc_cfg = RpcConfig(host=cfg.fleet_rpc_host, port=cfg.fleet_rpc_port,
+                                    call_timeout=cfg.fleet_rpc_timeout,
+                                    attempts=cfg.fleet_rpc_attempts,
+                                    backoff_base=cfg.fleet_rpc_backoff_base)
+
+            def batch_fn():
+                # the COORDINATOR is the sole consumer of the data iterator
+                # (under its lock, in index order); a reassigned lease
+                # replays its cached batches
+                return np.asarray(next(self._iter))
+
+            def fleet_dispatch(index, queries, tree, worker_id, weight_refresh=None):
+                return self._rollout_body(queries, index, tree, weight_refresh)
+
+            self._orchestrator = FleetOrchestrator(
+                dispatch_fn=fleet_dispatch, batch_fn=batch_fn,
+                n_workers=cfg.rollout_workers,
+                fleet=FleetConfig(
+                    lease_size=cfg.fleet_lease_size,
+                    failure_budget=cfg.fleet_failure_budget,
+                    quarantine_base=cfg.fleet_quarantine_base,
+                    quarantine_max=cfg.fleet_quarantine_max,
+                    backoff_jitter=cfg.fleet_backoff_jitter,
+                    straggler_factor=cfg.fleet_straggler_factor,
+                    initial_deadline_s=cfg.fleet_initial_deadline,
+                    worker_timeout_s=cfg.fleet_initial_deadline, seed=cfg.seed),
+                transport=cfg.rollout_transport, rpc=rpc_cfg,
+                inflight_swaps=cfg.rollout_inflight_swaps, **common)
+        else:
+            from nanorlhf_tpu_torch.orchestrator.orchestrator import RolloutOrchestrator
+
+            def dispatch(index, tree, weight_refresh=None):
+                # the producer is the SOLE consumer of the data iterator
+                queries = np.asarray(next(self._iter))
+                return self._rollout_body(queries, index, tree, weight_refresh)
+
+            self._orchestrator = RolloutOrchestrator(
+                dispatch_fn=dispatch, inflight_swaps=cfg.rollout_inflight_swaps, **common)
+        self._orch_restore_state = None
+        return self._orchestrator
+
+    def _close_orchestrator(self, keep_journal: bool) -> None:
+        orch, self._orchestrator = self._orchestrator, None
+        if orch is not None:
+            if keep_journal:
+                self._orch_restore_state = orch.journal()
+            orch.close(join_timeout=5.0 if keep_journal else 30.0)
+
+    def _reset_data_iterator(self) -> None:
+        """Rebuild the deterministic loader at the consumed-rollout cursor
+        (resume, producer restart, degraded fallback: anything a dead or
+        closed producer drew past the cursor is drawn again)."""
+        self._iter = self.dataset.loader(self.cfg.batch_size, self.cfg.seed)
+        for _ in range(self.state["rollouts"]):
+            next(self._iter)
+
+    def _close_stream(self) -> None:
+        if self._stream is not None:
+            self._stream.close()
+            self._stream = None
+
+    def rollout_overlap_frac(self) -> float:
+        """Cumulative rollout/train overlap fraction (every mode)."""
+        return self._rollout_meter.overlap_fraction()
+
+    def _fetch_sample(self, use_orch: bool) -> dict:
+        """One finished rollout, supervised (JAX `fetch_sample`): a dead
+        producer is restarted with backoff up to the watchdog budget, then
+        the run degrades to synchronous rollouts; quarantined indices are
+        skipped before dispatch, or discarded when a producer already made
+        them. Returns {index, payload, prefetched, staleness, queue_depth,
+        version}."""
+        while True:
+            if use_orch:
+                orch = self._ensure_orchestrator()
+                try:
+                    sample = orch.get()
+                except ProducerFailed as e:
+                    extra = {"error": repr(e.__cause__ or e)}
+                    if hasattr(orch, "fleet_stats"):
+                        extra["fleet"] = orch.fleet_stats()
+                    self.tracer.dump_blackbox(self._telemetry_dir,
+                                              self.state["global_step"],
+                                              "producer_failure", extra=extra)
+                    decision, delay = self.watchdog.on_failure()
+                    if decision == ProducerWatchdog.RESTART:
+                        cause = e.__cause__ or e
+                        print(f"[resilience] rollout producer died "
+                              f"({type(cause).__name__}: {cause}) — restart "
+                              f"{self.watchdog.restarts_total} in {delay:.1f}s")
+                        time.sleep(delay)
+                        self._close_orchestrator(keep_journal=True)
+                        self._reset_data_iterator()
+                        continue
+                    if decision == ProducerWatchdog.DEGRADE:
+                        print("[resilience] producer restart budget "
+                              f"({self.cfg.producer_restart_budget}) exhausted — "
+                              "degrading to synchronous rollouts (staleness 0)")
+                        self._close_orchestrator(keep_journal=True)
+                        self._reset_data_iterator()
+                        use_orch = False
+                        continue
+                    raise
+                self.watchdog.on_success()
+                got = {"index": sample.index, "payload": sample.payload,
+                       "prefetched": True, "staleness": orch.version - sample.version,
+                       "queue_depth": orch.queue.depth(), "version": sample.version}
+                self.state["rollouts"] = sample.index + 1
+            else:
+                if self._stream is None:
+                    self._stream = RolloutStream(self)
+                stream = self._stream
+                while (stream._pending is None
+                       and stream.next_index in self.sentinel.quarantined):
+                    idx = stream.skip()
+                    print(f"[resilience] skipping quarantined rollout {idx} "
+                          "(sentinel rollback; not dispatched)")
+                idx, payload, prefetched = stream.fetch_or_dispatch()
+                got = {"index": idx, "payload": payload, "prefetched": prefetched,
+                       "staleness": 0, "queue_depth": 0,
+                       "version": self.state["global_step"]}
+            if got["index"] in self.sentinel.quarantined:
+                # already generated (the pipeline or a prefetch): discard it;
+                # the producer gate gets a skip credit
+                print(f"[resilience] skipping quarantined rollout {got['index']} "
+                      "(sentinel rollback)")
+                self.lineage.drop(got["index"], "sentinel_quarantine",
+                                  step=self.state["global_step"], dispatched=True)
+                if use_orch:
+                    self._orchestrator.consumed_without_update()
+                continue
+            return got
+
 
     def _groups(self) -> dict:
         """The trainable leaves by optimizer group."""
@@ -468,38 +873,30 @@ class RLTrainer:
                 all_stats.append(stats)
         return all_stats
 
-    def _skip_quarantined(self) -> None:
-        """Consume every quarantined rollout index at the cursor without
-        dispatching it (JAX `RolloutStream.skip`): its data batch is drawn
-        and dropped, the cursor advances, and the ledger gets a
-        `sentinel_quarantine` drop."""
-        while self.state["rollouts"] in self.sentinel.quarantined:
-            idx = self.state["rollouts"]
-            next(self._iter)
-            self.state["rollouts"] += 1
-            self.lineage.drop(idx, "sentinel_quarantine",
-                              step=self.state["global_step"], dispatched=False)
-            print(f"[resilience] skipping quarantined rollout {idx} "
-                  "(sentinel rollback; not dispatched)")
-
-    def _note_rollout(self, ro: dict, index: int, t_call: float, tp_call: float,
-                      gen_s: float) -> None:
-        """After a rollout: its generation window into the overlap meter and
-        (as a `rollout.generate` async span) the trace, the lineage
-        `generation` and mid-loop `lease` events, the paged snapshot."""
+    def _note_generation(self, index: int, t_call: float, tp_call: float,
+                         gen_s: float) -> None:
+        """A rollout generated outside the orchestrator (which notes its
+        own): its window into the overlap meter and, as a
+        `rollout.generate` async span, the trace."""
         self._rollout_meter.note_gen(t_call, t_call + gen_s)
         self.tracer.add_async("rollout.generate", tp_call, gen_s * 1e6, aid=index,
                               track="rollout", rollout_index=index)
+
+    def _note_payload(self, payload: dict, index: int, orchestrated: bool) -> None:
+        """A fetched rollout's provenance: the lineage `generation` event
+        (the orchestrator's producer emits its own), one mid-loop `lease`
+        event per queued admission, the paged snapshot."""
         if self.lineage.enabled:
-            self.lineage.generation(
-                index, policy_version=self.state["global_step"], worker_id=0,
-                spec=spec_summary(ro), segments=segments_summary(ro),
-                swap_wait_s=ro.get("swap_wait_s"))
-            for adm in (ro.get("paged_stats") or {}).get("admissions") or []:
+            if not orchestrated:
+                self.lineage.generation(
+                    index, policy_version=self.state["global_step"], worker_id=0,
+                    spec=spec_summary(payload), segments=segments_summary(payload),
+                    swap_wait_s=payload.get("swap_wait_s"))
+            for adm in (payload.get("paged_stats") or {}).get("admissions") or []:
                 self.lineage.event("lease", index, midloop=True, row=adm["row"],
                                    queue_index=adm["queue_index"],
                                    iteration=adm["iteration"])
-        self._snapshot_pages(ro.get("paged_stats"))
+        self._snapshot_pages(payload.get("paged_stats"))
 
     def _preempt(self, saved: bool, metrics: dict) -> None:
         """At an update boundary after SIGTERM: commit an emergency
@@ -525,145 +922,13 @@ class RLTrainer:
                      if num_updates is None else num_updates)
         self.lineage.rows_hint = cfg.batch_size * n
         target_step = self.state["global_step"] + n_updates
-        while self.state["global_step"] < target_step:
-            t_start = time.perf_counter()
-            # the profile window for the update about to run, and its span
-            # (recorded at the end: a with-block could not survive the
-            # rollback's `continue`)
-            self.profile_window.poll(self.state["global_step"] + 1)
-            span_t0 = self.tracer.now_us() if self.tracer.enabled else 0.0
-            self._skip_quarantined()
-            queries = np.asarray(next(self._iter))
-            index = self.state["rollouts"]
-            self.state["rollouts"] += 1
-            if self.lineage.enabled:
-                # the synchronous loop has no coordinator: the dispatch is
-                # the lease (worker 0, cursor == index)
-                self.lineage.lease(index, worker_id=0, cursor=index, length=1)
-            self.state["episode"] += cfg.batch_size
-            t: dict = {}
-            ro_launches: dict = {}
-            counts0 = launch_counts()
-            # GRPO draws its keep in the rollout, RLOO and RAFT ("random")
-            # theirs in the batch assembly: one stream an update
-            keep_gen = stream_generator(cfg.seed, KEEP_STREAM, index)
-            t_call = time.perf_counter()
-            tp_call = self.tracer.now_us()
-            ro = rollout_and_score(
-                self.params, self.ref_params, self.mcfg, cfg, tok, queries,
-                self.reward_func, rollout_generator(cfg.seed, index, self.device),
-                self.lora_scale, keep_gen,
-                ctx_menu=self.ctx_menu, timings=t, launches=ro_launches,
-                rollout_params=self._rollout_params(), planes=self,
-                rollout_index=index, step=self.state["global_step"],
-                on_generated=lambda out, gen_s: self._note_rollout(
-                    out, index, t_call, tp_call, gen_s),
-                prefix_cache=self.prefix_cache,
-                env=self.env if self._env_multi_turn else None)
-            t_busy0 = t_call + t["generate_s"]
-            if ro["keep"] is not None and n > 1:
-                # the other n−1 completions per prompt left the batch
-                self.lineage.drop(index, "keep_filter",
-                                  count=len(ro["keep"]) * (n - 1),
-                                  step=self.state["global_step"])
-            context_length = ro["context_length"]
-            t0 = time.perf_counter()
-            counts_v = launch_counts()
-            batch, info = assemble_batch(
-                ro, cfg, stop_id, pad_id, eos_id, keep_generator=keep_gen,
-                value_fn=lambda qr: value_pass(self.value_params, self.mcfg, qr,
-                                               context_length, pad_id,
-                                               self.value_lora_scale))
-            t["assemble_s"] = time.perf_counter() - t0
-            if cfg.algo in (AlgoName.RLOO, AlgoName.RAFT):
-                self.lineage.drop(index, "keep_filter",
-                                  count=len(info["keep"]) * (n - 1),
-                                  step=self.state["global_step"])
-
-            t0 = time.perf_counter()
-            counts1 = launch_counts()
-            lr_step = self.state["opt_steps"]
-            with self.timer.phase("update"):
-                all_stats = self._update(batch, context_length)
-            t["update_s"] = time.perf_counter() - t0
-            counts2 = launch_counts()
-            self.last_launches = {
-                "rollout_and_score": {k: counts1[k] - counts0[k] for k in counts0},
-                **ro_launches,
-                "value": {k: counts1[k] - counts_v[k] for k in counts0},
-                "update": {k: counts2[k] - counts1[k] for k in counts0}}
-            self.last_timings, self.last_stats = t, all_stats
-            agg = {k: float(np.mean([s[k] for s in all_stats]))
-                   for k in (all_stats[0] if all_stats else {})}
-
-            # ---- the sentinel: `update.step` poisons the observed stats
-            # (action=nan), the path a real NaN loss takes
-            if self.faults.fire("update.step") == "nan":
-                agg["pg_loss"] = float("nan")
-                agg["grad_norm"] = float("nan")
-            verdict = self.sentinel.observe(agg.get("pg_loss", 0.0),
-                                            agg.get("grad_norm"))
-            if verdict is not None:
-                # the tripped update's span closes BEFORE the rollback dumps
-                # the flight recorder, tagged with the quarantined index
-                self.tracer.add_complete(
-                    "train.update", span_t0, self.tracer.now_us() - span_t0,
-                    step=self.state["global_step"] + 1, rollout_index=index,
-                    staleness=0, policy_version=self.state["global_step"],
-                    sentinel_verdict=verdict, quarantined=True)
-                self._sentinel_rollback(verdict, index)
-                # drop the tripped update's phase splits
-                self.timer.summary()
-                continue
-
-            metrics = self._metrics(ro, batch, info, agg, all_stats, lr_step, t,
-                                    t_start, context_length)
-            metrics.update(self._host_metrics(
-                t_start, n, context_length, ro, batch))
-            self.state["global_step"] += 1
-            step = self.state["global_step"]
-            # the health plane folds this row in; its gauges ride along
-            metrics.update(self.health.observe(step, metrics))
-            keep = info["keep"]
-            kept = batch["responses"]
-            scores = ro["scores"] if keep is None else ro["scores"].reshape(
-                -1, cfg.sample_n)[np.arange(kept.shape[0]), keep]
-            kept_decoded = tok.batch_decode(kept)
-            if self.lineage.enabled:
-                self._lineage_outcome(index, batch, info, scores, kept_decoded)
-            if step % cfg.logging_steps == 0:
-                self.logger.log(step, self.state["episode"], metrics)
-                queries_dec = [q.replace(tok.pad_token, "")
-                               for q in tok.batch_decode(ro["queries"])]
-                if keep is None:
-                    queries_dec = [q for q in queries_dec for _ in range(cfg.sample_n)]
-                limit = (cfg.log_samples_limit if cfg.log_samples_limit is not None
-                         else cfg.num_printed_samples)
-                self.logger.log_samples(step, queries_dec, kept_decoded, scores, limit)
-                if self.lineage.enabled:
-                    for i, (q, r, sc) in enumerate(zip(queries_dec, kept_decoded,
-                                                       np.asarray(scores).tolist())):
-                        if i >= limit:
-                            break
-                        self.lineage.event("sample", index, step=step, row=i,
-                                           query=q, response=r,
-                                           score=round(float(sc), 6))
-            saved = False
-            if cfg.save_steps and step % cfg.save_steps == 0:
-                t0 = time.perf_counter()
-                self.save_checkpoint(metrics)
-                self.last_save_s = time.perf_counter() - t0
-                saved = True
-            self._rollout_meter.note_busy(t_busy0, time.perf_counter())
-            if self.tracer.enabled:
-                self.tracer.add_complete(
-                    "train.update", span_t0, self.tracer.now_us() - span_t0,
-                    step=step, rollout_index=index, staleness=0,
-                    policy_version=step)
-                self.tracer.counter("staleness", 0)
-            # SIGTERM is polled here, where the state is consistent
-            if self._preemption.triggered:
-                self._preempt(saved, metrics)
+        try:
+            while self.state["global_step"] < target_step:
+                self._train_step(n, stop_id, pad_id, eos_id, target_step)
+        finally:
+            # a rollout_ahead prefetch lives inside one train() call (the
+            # orchestrator's pipeline outlives it)
+            self._close_stream()
         # train() returning means every checkpoint is durable: the final
         # write's failure raises here
         self.ckpt.wait()
@@ -682,6 +947,207 @@ class RLTrainer:
             self.export_model(cfg.export_hf_dir)
         return self.state
 
+    def _train_step(self, n: int, stop_id, pad_id: int, eos_id: int,
+                    target_step: int) -> None:
+        """One update: fetch a rollout (generated here, prefetched, or from
+        the orchestrator), score it, update, publish, log, save."""
+        cfg, tok = self.cfg, self.tokenizer
+        t_start = time.perf_counter()
+        # the profile window for the update about to run, and its span
+        # (recorded at the end: a with-block could not survive the
+        # rollback's early return)
+        self.profile_window.poll(self.state["global_step"] + 1)
+        span_t0 = self.tracer.now_us() if self.tracer.enabled else 0.0
+        use_orch = cfg.rollout_orchestrator and not self.watchdog.degraded
+        counts0 = launch_counts()
+        with self.timer.phase("rollout"):
+            got = self._fetch_sample(use_orch)
+        use_orch = use_orch and not self.watchdog.degraded
+        index, payload = got["index"], got["payload"]
+        staleness = got["staleness"]
+        t: dict = dict(payload["timings"])
+        t["fetch_s"] = time.perf_counter() - t_start
+        t_busy0 = time.perf_counter()
+        self._note_payload(payload, index, orchestrated=use_orch)
+        self.state["episode"] += cfg.batch_size
+        if (not use_orch and cfg.rollout_ahead
+                and self.state["global_step"] + 1 < target_step):
+            # rollout k+1 generates NOW, from the pre-update-k weights, on a
+            # producer thread, while this thread grades, scores and updates
+            self._stream.prefetch()
+        counts1 = launch_counts()
+        # GRPO draws its keep in the scoring half, RLOO and RAFT ("random")
+        # theirs in the batch assembly: one stream an update
+        keep_gen = stream_generator(cfg.seed, KEEP_STREAM, index)
+        ro = score_rollout(
+            payload, self.params, self.ref_params, self.mcfg, cfg, tok,
+            self.reward_func, self.lora_scale, keep_gen, timings=t, planes=self,
+            rollout_index=index, step=self.state["global_step"],
+            use_is=self._use_is, use_seg=self._use_seg)
+        if ro["keep"] is not None and n > 1:
+            # the other n−1 completions per prompt left the batch
+            self.lineage.drop(index, "keep_filter",
+                              count=len(ro["keep"]) * (n - 1),
+                              step=self.state["global_step"])
+        context_length = ro["context_length"]
+        t0 = time.perf_counter()
+        counts_v = launch_counts()
+        batch, info = assemble_batch(
+            ro, cfg, stop_id, pad_id, eos_id, keep_generator=keep_gen,
+            value_fn=lambda qr: value_pass(self.value_params, self.mcfg, qr,
+                                           context_length, pad_id,
+                                           self.value_lora_scale))
+        t["assemble_s"] = time.perf_counter() - t0
+        if cfg.algo in (AlgoName.RLOO, AlgoName.RAFT):
+            self.lineage.drop(index, "keep_filter",
+                              count=len(info["keep"]) * (n - 1),
+                              step=self.state["global_step"])
+
+        t0 = time.perf_counter()
+        counts_u = launch_counts()
+        lr_step = self.state["opt_steps"]
+        with self.timer.phase("update"):
+            all_stats = self._update(batch, context_length)
+        t["update_s"] = time.perf_counter() - t0
+        counts2 = launch_counts()
+        # under a producer thread the counters also take its concurrent
+        # launches: the process's launches in each window
+        self.last_launches = {
+            "rollout_and_score": {k: counts_v[k] - counts0[k] for k in counts0},
+            "generate": {k: counts1[k] - counts0[k] for k in counts0},
+            "score": {k: counts_v[k] - counts1[k] for k in counts0},
+            "value": {k: counts_u[k] - counts_v[k] for k in counts0},
+            "update": {k: counts2[k] - counts_u[k] for k in counts0}}
+        self.last_timings, self.last_stats = t, all_stats
+        agg = {k: float(np.mean([s[k] for s in all_stats]))
+               for k in (all_stats[0] if all_stats else {})}
+        version = (self._orchestrator.version if use_orch
+                   else self.state["global_step"])
+
+        # ---- the sentinel, before the publish: a tripped update never
+        # feeds poisoned weights to the producer. `update.step` poisons the
+        # observed stats (action=nan), the path a real NaN loss takes
+        if self.faults.fire("update.step") == "nan":
+            agg["pg_loss"] = float("nan")
+            agg["grad_norm"] = float("nan")
+        verdict = self.sentinel.observe(agg.get("pg_loss", 0.0), agg.get("grad_norm"))
+        if verdict is not None:
+            # the tripped update's span closes BEFORE the rollback dumps the
+            # flight recorder, tagged with the quarantined index
+            self.tracer.add_complete(
+                "train.update", span_t0, self.tracer.now_us() - span_t0,
+                step=self.state["global_step"] + 1, rollout_index=index,
+                staleness=staleness, policy_version=version,
+                sentinel_verdict=verdict, quarantined=True)
+            self._sentinel_rollback(verdict, index)
+            # drop the tripped update's phase splits
+            self.timer.summary()
+            return
+        if use_orch:
+            # one version per optimizer update: snapshot the trainable
+            # leaves and open the producer's gate
+            with self.timer.phase("publish"):
+                self._orchestrator.publish(self._policy_snapshot())
+
+        metrics = self._metrics(ro, batch, info, agg, all_stats, lr_step, t,
+                                t_start, context_length)
+        metrics.update(self._pipeline_metrics(ro, agg, staleness, got["queue_depth"],
+                                              use_orch))
+        metrics.update(self._host_metrics(t_start, n, context_length, ro, batch))
+        self.state["global_step"] += 1
+        step = self.state["global_step"]
+        version = self._orchestrator.version if use_orch else step
+        # the health plane folds this row in; its gauges ride along
+        metrics.update(self.health.observe(step, metrics))
+        keep = info["keep"]
+        kept = batch["responses"]
+        scores = ro["scores"] if keep is None else ro["scores"].reshape(
+            -1, cfg.sample_n)[np.arange(kept.shape[0]), keep]
+        kept_decoded = tok.batch_decode(kept)
+        if self.lineage.enabled:
+            self._lineage_outcome(index, batch, info, scores, kept_decoded,
+                                  version=version, staleness=staleness)
+            if self._use_is and agg.get("is_trunc_frac", 0.0) > 0:
+                # truncated-IS rows stay IN the update with a capped weight:
+                # attributed, not excluded
+                n_trunc = int(round(agg["is_trunc_frac"] * kept.shape[0]))
+                if n_trunc:
+                    self.lineage.drop(index, "is_truncated_weight", count=n_trunc,
+                                      step=step, partial=True)
+        if step % cfg.logging_steps == 0:
+            self.logger.log(step, self.state["episode"], metrics)
+            queries_dec = [q.replace(tok.pad_token, "")
+                           for q in tok.batch_decode(ro["queries"])]
+            if keep is None:
+                queries_dec = [q for q in queries_dec for _ in range(cfg.sample_n)]
+            limit = (cfg.log_samples_limit if cfg.log_samples_limit is not None
+                     else cfg.num_printed_samples)
+            self.logger.log_samples(step, queries_dec, kept_decoded, scores, limit)
+            if self.lineage.enabled:
+                for i, (q, r, sc) in enumerate(zip(queries_dec, kept_decoded,
+                                                   np.asarray(scores).tolist())):
+                    if i >= limit:
+                        break
+                    self.lineage.event("sample", index, step=step, row=i,
+                                       query=q, response=r,
+                                       score=round(float(sc), 6))
+        saved = False
+        if cfg.save_steps and step % cfg.save_steps == 0:
+            t0 = time.perf_counter()
+            self.save_checkpoint(metrics)
+            self.last_save_s = time.perf_counter() - t0
+            saved = True
+        # the consumer's busy window: everything since the sample arrived
+        self._rollout_meter.note_busy(t_busy0, time.perf_counter())
+        if self.tracer.enabled:
+            self.tracer.add_complete(
+                "train.update", span_t0, self.tracer.now_us() - span_t0,
+                step=step, rollout_index=index, staleness=staleness,
+                policy_version=version)
+            self.tracer.counter("staleness", staleness)
+        # SIGTERM is polled here, where the state is consistent
+        if self._preemption.triggered:
+            self._preempt(saved, metrics)
+
+    def _pipeline_metrics(self, ro: dict, agg: dict, staleness: int,
+                          queue_depth: int, use_orch: bool) -> dict:
+        """The async pipeline's rows (JAX trainer.py:2400-2470):
+        `orchestrator/*` and the staleness histogram, `fleet/*`,
+        `offpolicy/*` under truncated IS, the in-flight swaps' rows, and
+        `sampler_capture/ratio_drift_new` when captured logprobs stood for
+        the policy's."""
+        cfg = self.cfg
+        out: dict = {}
+        if ro.get("score_capture"):
+            # exact scoring gives an epoch-1 ratio of 1: any drift is decode
+            # vs scoring numerics
+            out["sampler_capture/ratio_drift_new"] = abs(agg.get("ratio_mean", 1.0) - 1.0)
+        if use_orch:
+            orch = self._orchestrator
+            ostats = orch.stats()
+            out.update({
+                "orchestrator/queue_depth": float(queue_depth),
+                "orchestrator/staleness": float(staleness),
+                "orchestrator/dropped_total": float(ostats["dropped"]),
+                "orchestrator/consumer_wait_s": ostats["consumer_wait_s"],
+                "orchestrator/producer_gate_wait_s": ostats["producer_gate_wait_s"],
+            })
+            out.update(staleness_histogram_metrics(ostats["staleness_counts"]))
+            if hasattr(orch, "fleet_stats"):
+                out.update({f"fleet/{k}": v for k, v in orch.fleet_stats().items()})
+        if self._use_is:
+            out["offpolicy/is_weight_mean_new"] = agg.get("is_weight_mean", 1.0)
+            out["offpolicy/is_trunc_frac_new"] = agg.get("is_trunc_frac", 0.0)
+        if cfg.rollout_inflight_swaps:
+            segs = ro.get("segments")
+            out.update({
+                "rollout/swap_installs": float(ro.get("swap_installs", 0) or 0),
+                "rollout/segments_per_sample": (float(np.mean([len(x) for x in segs]))
+                                                if segs else 1.0),
+                "orchestrator/swap_wait_s": float(ro.get("swap_wait_s", 0.0) or 0.0),
+            })
+        return out
+
     def _host_metrics(self, t_start: float, n: int, context_length: int,
                       ro: dict, batch: dict) -> dict:
         """The rows the host planes add to an update's metrics, as JAX's
@@ -691,7 +1157,9 @@ class RLTrainer:
         cfg = self.cfg
         local_bs, t_resp = batch["responses"].shape
         n_rollout_rows = ro["queries"].shape[0] * n
-        score_forwards = 1 if self._ref_free else 2
+        capture = bool(ro.get("score_capture"))
+        score_forwards = (0 if self._ref_free and capture
+                          else 1 if self._ref_free or capture else 2)
         out = {
             "time/rollout_overlap_frac": self._rollout_meter.overlap_fraction(),
             "resilience/producer_restarts": float(self.watchdog.restarts_total),
@@ -723,21 +1191,23 @@ class RLTrainer:
                     self.latency.record(f"latency/phase_{k[5:-2]}_s", float(v))
 
     def _lineage_outcome(self, index: int, batch: dict, info: dict, scores,
-                         decoded: list[str]) -> None:
+                         decoded: list[str], version: int | None = None,
+                         staleness: int = 0) -> None:
         """The `outcome` event that closes an index's chain, and the first
         rows' `note_sample` records."""
         step = self.state["global_step"]
+        version = step if version is None else version
         adv = np.asarray(batch.get("advantages", batch.get("advantages_seq", scores)),
                          dtype=np.float32)
         if adv.ndim > 1:
             adv = adv.mean(axis=tuple(range(1, adv.ndim)))
         contain_eos = (info["post"] == self.tokenizer.eos_token_id).any(axis=1)
         self.lineage.outcome(
-            index, step=step, policy_version=step,
+            index, step=step, policy_version=version,
             kept=int(batch["responses"].shape[0]),
             advantage=round(float(adv.mean()), 6),
             scores=[round(float(x), 6) for x in np.asarray(scores).tolist()],
-            eos_frac=round(float(contain_eos.mean()), 4), staleness=0)
+            eos_frac=round(float(contain_eos.mean()), 4), staleness=staleness)
         for i, sc in enumerate(np.asarray(scores).tolist()[:8]):
             self.lineage.note_sample(
                 index, step=step, score=round(float(sc), 6),
@@ -794,12 +1264,14 @@ class RLTrainer:
         """/statusz (on the exporter's threads: everything read here is
         immutable after __init__ or behind its own lock)."""
         latest = self.logger.latest()
-        return {
+        orch = self._orchestrator  # local ref: the trainer may close it
+        out = {
             "unix_time": time.time(),
             "algo": self.cfg.algo.value,
             "step": self.state.get("global_step", 0),
             "episode": self.state.get("episode", 0),
-            "policy_version": self.state.get("global_step", 0),
+            "policy_version": (orch.version if orch is not None
+                               else self.state.get("global_step", 0)),
             "devices": self._n_devices,
             "mfu": latest.get("perf/mfu"),
             "mfu_trusted": bool(self._peak_flops_known),
@@ -813,6 +1285,9 @@ class RLTrainer:
                              if self.prefix_cache is not None else None),
             "session": self.session_status,
         }
+        if orch is not None:
+            out.update(orch.status_snapshot())
+        return out
 
     def _export_metrics(self) -> dict:
         """/metrics: the latest metric row and the ledger's drop gauges."""
@@ -1004,6 +1479,14 @@ class RLTrainer:
                         "watchdog": self.watchdog.journal()},
             health=self.health.journal(), lineage=self.lineage.journal(),
             latency=self.latency.journal())
+        # the orchestrator's queue (pending indices, cumulative drop and
+        # staleness counters, the fleet's): a resume draws the pending
+        # samples again from the rollout cursor; in degraded mode the closed
+        # pipeline's counters stay journaled
+        orch = self._orchestrator
+        journal = orch.journal() if orch is not None else self._orch_restore_state
+        if journal is not None:
+            extra["orchestrator"] = journal
         return self.ckpt.save(
             self.state["global_step"], self.trainable, opt_state=opt,
             metric_old=metrics.get(cfg.metric_for_best_model),
@@ -1036,6 +1519,11 @@ class RLTrainer:
         step = latest if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.cfg.output_dir}")
+        # queued samples came from pre-restore weights and the producer's
+        # cursor ran ahead: tear the pipeline (and a prefetch) down; train()
+        # rebuilds it from the restored cursor and journal
+        self._close_orchestrator(keep_journal=False)
+        self._close_stream()
         tree = self.ckpt.restore(step, self.device)
         step = self.ckpt.last_restored_step
         if latest is not None and step < latest:
@@ -1061,9 +1549,8 @@ class RLTrainer:
                            ("latency", self.latency)):
             if state.get(key):
                 plane.restore(state[key])
-        self._iter = self.dataset.loader(self.cfg.batch_size, self.cfg.seed)
-        for _ in range(self.state["rollouts"]):
-            next(self._iter)
+        self._orch_restore_state = state.get("orchestrator")
+        self._reset_data_iterator()
         return self.state
 
     def restore_checkpoint(self, step: int | None = None) -> int:
@@ -1080,8 +1567,10 @@ class RLTrainer:
             dtype=dtype, tokenizer=self.tokenizer)
 
     def close(self) -> None:
-        """Stop the exporter (its handlers read the trainer), close the
-        environment (its executor's worker), close an open profile window, write the trace, flush the ledger and the writer,
+        """Stop the exporter (its handlers read the trainer) and the rollout
+        pipeline (its producer threads), close the environment (its
+        executor's worker), close an open profile window, write the trace,
+        flush the ledger and the writer,
         and uninstall the SIGTERM guard — the last two whatever failed
         before them. A second call does nothing."""
         if getattr(self, "_closed", False):
@@ -1089,6 +1578,9 @@ class RLTrainer:
         self._closed = True
         try:
             self.exporter.close()
+            # stop + join the producer threads before the planes they write
+            self._close_orchestrator(keep_journal=False)
+            self._close_stream()
             env = getattr(self, "env", None)
             if hasattr(env, "close"):
                 env.close()

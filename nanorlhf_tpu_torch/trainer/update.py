@@ -22,10 +22,15 @@ functions over the trainer's tensors.
 
 A multi-turn environment's `loss_mask` (False on observation tokens) joins
 the pad mask upstream of every algorithm's loss, as in JAX; the key is
-there only in multi-turn runs.
+there only in multi-turn runs. The truncated-IS correction of the async
+orchestrator rides the same way (JAX trainer.py:1284-1290): the minibatch
+carries `behavior_logprobs` (the sampler-captured logprobs of the policy
+that sampled the tokens) in every minibatch of a run whose trainer uses IS
+and in none otherwise, and `segment_ages` under in-flight weight swaps;
+the PPO-style losses re-weight by them at `offpolicy_is_truncation` (RAFT's
+SFT loss has no ratio to correct).
 
-Not ported (raise): sequence parallelism, behavior logprobs and
-in-flight-swap segment ages.
+Not ported (raises): sequence parallelism.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
 # is an unported path
 _KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
          "advantages", "advantages_seq", "returns", "values",
-         "padding_mask", "padding_mask_p1", "loss_mask"}
+         "padding_mask", "padding_mask_p1", "loss_mask",
+         "behavior_logprobs", "segment_ages"}
 
 
 def check_update_supported(cfg, minibatch: dict) -> None:
@@ -59,7 +65,7 @@ def check_update_supported(cfg, minibatch: dict) -> None:
     }
     extra = sorted(set(minibatch) - _KEYS)
     if extra:
-        unported[f"minibatch keys {extra} (behavior logprobs, segment ages)"] = True
+        unported[f"minibatch keys {extra}"] = True
     on = [what for what, flag in unported.items() if flag]
     if on:
         raise NotImplementedError(
@@ -89,18 +95,26 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
     mask = ~mb["padding_mask"]
     if "loss_mask" in mb:
         mask = mask & mb["loss_mask"]
+    # the stale behavior policy's logprobs (truncated IS) and the tokens'
+    # policy ages (in-flight swaps): absent keys keep the synchronous loss
+    is_kw = dict(behavior_logprobs=mb.get("behavior_logprobs"),
+                 is_truncation=cfg.offpolicy_is_truncation,
+                 segment_ages=mb.get("segment_ages"))
     algo = cfg.algo
     if algo == AlgoName.GRPO:
         loss, aux = grpo_loss(new_logprobs, mb["logprobs"], mb["ref_logprobs"],
-                              mb["advantages"], mask, cfg.cliprange, cfg.kl_coef)
+                              mb["advantages"], mask, cfg.cliprange, cfg.kl_coef,
+                              **is_kw)
     elif algo == AlgoName.RLOO:
         loss, aux = ppo_clip_loss_sequence(new_logprobs, mb["logprobs"],
-                                           mb["advantages_seq"], mask, cfg.cliprange)
+                                           mb["advantages_seq"], mask, cfg.cliprange,
+                                           **is_kw)
     elif algo == AlgoName.RAFT:
         loss, aux = sft_loss(new_logprobs, mask)
     else:  # PPO, REINFORCE, ReMax: token-level PPO-clip
         loss, aux = ppo_clip_loss_token(new_logprobs, mb["logprobs"],
-                                        mb["advantages"], mask, cfg.cliprange)
+                                        mb["advantages"], mask, cfg.cliprange,
+                                        **is_kw)
     if algo == AlgoName.PPO:
         vpred = score_forward(value, mcfg, mb["query_responses"], pad_id,
                               lora_scale=value_lora_scale,

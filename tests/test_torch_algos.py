@@ -77,17 +77,18 @@ def _policy_inputs(seed, B=5, T=7):
     return new, old, mask, rng
 
 
-def _grad_close(port_fn, jax_fn, x):
+def _grad_close(port_fn, jax_fn, x, close=None):
     """Values, aux and d loss / d x of the two implementations."""
+    close = close or _close
     xt = torch.as_tensor(x).requires_grad_(True)
     loss, aux = port_fn(xt)
     (g,) = torch.autograd.grad(loss, xt)
     (jloss, jaux), jg = jax.value_and_grad(jax_fn, has_aux=True)(jnp.asarray(x))
-    _close(loss.detach(), jloss)
-    _close(g, jg)
+    close(loss.detach(), jloss)
+    close(g, jg)
     assert set(aux) == set(jaux)
     for k in jaux:
-        _close(aux[k], jaux[k])
+        close(aux[k], jaux[k])
 
 
 @pytest.mark.parametrize("cliprange", [0.2, 0.02])
@@ -121,9 +122,25 @@ def test_sft_loss():
                 lambda x: jlosses.sft_loss(x, jnp.asarray(mask)), new)
 
 
-def test_truncated_is_still_raises():
-    new, old, mask, _ = _policy_inputs(5)
+@pytest.mark.parametrize("segments", [False, True])
+def test_truncated_is_still_raises(segments):
+    """RLOO's sequence-level IS weight — whole-sequence, or factorized over
+    the runs of constant swap-segment age — against JAX's: loss, aux and
+    the gradient at 1e-6 in f32 (the weight is the exp of a sum of logprob
+    differences; its reduction order moves the last bits)."""
+    new, old, mask, rng = _policy_inputs(5)
+    beh = (old + rng.standard_normal(old.shape) * 0.3).astype(np.float32)
+    ages = np.zeros(old.shape, np.int32)
+    ages[0, :3], ages[0, 3:5], ages[3, :4] = 2, 1, 1
+    seq_adv = rng.standard_normal(old.shape[0]).astype(np.float32)
     t = torch.as_tensor
-    with pytest.raises(NotImplementedError, match="truncated-IS"):
-        losses.ppo_clip_loss_sequence(t(new), t(old), t(new[:, 0]), t(mask), 0.2,
-                                      behavior_logprobs=t(old))
+    kw = dict(behavior_logprobs=t(beh), is_truncation=1.2,
+              segment_ages=t(ages) if segments else None)
+    jkw = dict(behavior_logprobs=jnp.asarray(beh), is_truncation=1.2,
+               segment_ages=jnp.asarray(ages) if segments else None)
+    _grad_close(
+        lambda x: losses.ppo_clip_loss_sequence(x, t(old), t(seq_adv), t(mask), 0.2, **kw),
+        lambda x: jlosses.ppo_clip_loss_sequence(x, jnp.asarray(old), jnp.asarray(seq_adv),
+                                                 jnp.asarray(mask), 0.2, **jkw),
+        new, close=lambda a, b: np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-6))

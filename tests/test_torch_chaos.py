@@ -5,8 +5,9 @@ the composer's plans (the pinned seed-3 plans, and every (seed, path) of a
 sweep, equal to JAX's), `shrink` (the same probes and the same result), the
 auditors (the same verdicts on the same events and snapshots). The serving
 soak runs the port's `ServingEngine` on the CPU here (the card in
-`chip_smoke.py` phase 16); the trainer soak needs the rollout fleet, which
-is not ported, and raises."""
+`chip_smoke.py` phase 16); the trainer soak runs the port's GRPO trainer
+with the rollout fleet (two workers under the orchestrator) on the CPU
+here (the card in `chip_smoke.py` phase 17 (d))."""
 
 import json
 import subprocess
@@ -14,6 +15,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 from nanorlhf_tpu.chaos import auditors as jax_auditors
 from nanorlhf_tpu.chaos import compose as jax_compose
@@ -35,6 +37,10 @@ from nanorlhf_tpu_torch.chaos import (
 from nanorlhf_tpu_torch.chaos import auditors
 from nanorlhf_tpu_torch.chaos.composer import EXCLUDED, _clause, fold_in
 from nanorlhf_tpu_torch.resilience.faults import parse_fault_spec
+
+# the trainer soak's tensors on one thread: its xdist neighbours (the
+# serving soaks' timing windows) keep their cores
+torch.set_num_threads(1)
 
 # --------------------------------------------------------------------- #
 # composer: determinism, registry completeness, clause templates
@@ -240,11 +246,33 @@ def test_serving_soak_green_and_inspectable(tmp_path):
 
 
 def test_trainer_soak_green(tmp_path):
-    """The trainer soak drives the rollout fleet (two workers under the
-    orchestrator), which the port has not got: it refuses, naming A12,
-    instead of passing vacuously."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        soak_trainer(str(tmp_path / "run"), compose(3, "trainer"))
+    """Seed-3 trainer soak (JAX's `test_trainer_soak_green`): a fatal
+    worker crash, straggler slowdowns and a checkpoint-save fault compose
+    in one run of the port's fleet; the fleet recovers and every global
+    invariant holds; the soak's ledger replays through JAX's auditors to
+    the same verdicts."""
+    run_dir = str(tmp_path / "run")
+    plan = compose(3, "trainer")
+    rep = soak_trainer(run_dir, plan, device="cpu")
+    assert rep.ok, rep.failed
+    assert {a.name for a in rep.audits} == set(INVARIANTS)
+    # all three composed sites actually fired — a soak whose schedule never
+    # lands proves nothing
+    assert rep.fired_sites() == {"worker.crash", "worker.slow", "ckpt.save"}
+    assert rep.summary["updates"] >= 1
+    sample = next(a for a in rep.audits if a.name == "chaos.sample_conservation")
+    assert sample.checked > 0
+    lease = next(a for a in rep.audits if a.name == "chaos.lease_epoch_monotonic")
+    assert lease.checked > 0
+    from nanorlhf_tpu_torch.telemetry.lineage import read_ledger
+
+    events = [e for e in read_ledger(run_dir) if e.get("type") != "chaos_audit"]
+    jv = {a.name: (a.ok, a.checked) for a in jax_auditors.run_audits(
+        events, {"leaked_threads": [], "leaked_procs": 0, "rollbacks": 0})}
+    assert jv["chaos.sample_conservation"] == (True, sample.checked)
+    assert jv["chaos.lease_epoch_monotonic"] == (True, lease.checked)
+    with pytest.raises(FileExistsError):
+        soak_trainer(run_dir, plan, device="cpu")
 
 
 def test_injected_violation_caught_and_shrunk(tmp_path, monkeypatch):
@@ -262,7 +290,7 @@ def test_injected_violation_caught_and_shrunk(tmp_path, monkeypatch):
         # a beat long enough that a vanished client's cancel lands while
         # its row still decodes, however loaded the host: the leak (and so
         # every replay of the minimal spec) does not hang on thread timing
-        time.sleep(0.02)
+        time.sleep(0.05)
         return orig_step(self)
 
     def leaky_reap(self, *a, **kw):

@@ -356,7 +356,7 @@ def test_a_failed_capture_raises_naming_the_last_kernel(monkeypatch):
                                            "paged_decode_attention"):
         loop.run_chunk()
     assert k7.launches == 2 and loop.replays == 0   # nothing counted from the capture
-    assert not _build._recording
+    assert not _build._stack()
     _build.reset_launch_counts()
 
 

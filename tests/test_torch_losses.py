@@ -75,13 +75,54 @@ def test_ppo_clip_token_and_k3_match_jax():
            jlosses.k3_kl(jnp.asarray(new), jnp.asarray(ref)))
 
 
-def test_truncated_is_arguments_raise():
-    new, old, ref, adv, mask = map(torch.as_tensor, _loss_inputs(5))
-    with pytest.raises(NotImplementedError, match="truncated-IS"):
-        tlosses.grpo_loss(new, old, ref, adv, mask, 0.2, 0.01, behavior_logprobs=old)
-    with pytest.raises(NotImplementedError, match="truncated-IS"):
-        tlosses.ppo_clip_loss_token(new, old, adv, mask, 0.2,
-                                    segment_ages=torch.zeros_like(mask, dtype=torch.int32))
+def _is_inputs(seed, B=5, T=11):
+    """A behavior policy's logprobs (some far enough from π_old to truncate)
+    and swap-segment ages: row 1 in three segments, row 2 in two, the rest
+    single-segment (all zero)."""
+    new, old, ref, adv, mask = _loss_inputs(seed, B, T)
+    rng = np.random.default_rng(seed + 50)
+    beh = (old + rng.standard_normal((B, T)) * 0.8).astype(np.float32)
+    ages = np.zeros((B, T), np.int32)
+    ages[1, :4], ages[1, 4:7], ages[2, :5] = 2, 1, 1
+    return new, old, ref, adv, mask, beh, ages
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_truncated_is_arguments_raise(segments):
+    """The truncated-IS weights (whole-sequence, or per swap segment)
+    against JAX's: loss, aux (is_weight_mean, is_trunc_frac) and the
+    gradient at 1e-6 in f32; an all-zero age map is the whole-sequence
+    weight bit for bit."""
+    new, old, ref, adv, mask, beh, ages = _is_inputs(6)
+    seg = ages if segments else None
+    t = torch.as_tensor
+    tnew = t(new).requires_grad_(True)
+    kw = dict(behavior_logprobs=t(beh), is_truncation=1.5,
+              segment_ages=None if seg is None else t(seg))
+    jkw = dict(behavior_logprobs=jnp.asarray(beh), is_truncation=1.5,
+               segment_ages=None if seg is None else jnp.asarray(seg))
+    loss, aux = tlosses.grpo_loss(tnew, *map(t, (old, ref, adv, mask)), 0.2, 0.05, **kw)
+    jloss, jaux = jlosses.grpo_loss(*map(jnp.asarray, (new, old, ref, adv, mask)),
+                                    0.2, 0.05, **jkw)
+    _close(loss.detach(), jloss)
+    assert set(aux) == set(jaux) and {"is_weight_mean", "is_trunc_frac"} <= set(aux)
+    for k in jaux:
+        _close(aux[k], jaux[k])
+    assert float(aux["is_trunc_frac"]) > 0
+    g = torch.autograd.grad(loss, tnew)[0]
+    jg = jax.grad(lambda n: jlosses.grpo_loss(n, *map(jnp.asarray, (old, ref, adv, mask)),
+                                              0.2, 0.05, **jkw)[0])(jnp.asarray(new))
+    _close(g, jg)
+    loss, aux = tlosses.ppo_clip_loss_token(*map(t, (new, old, adv, mask)), 0.2, **kw)
+    jloss, jaux = jlosses.ppo_clip_loss_token(*map(jnp.asarray, (new, old, adv, mask)),
+                                              0.2, **jkw)
+    _close(loss, jloss)
+    for k in jaux:
+        _close(aux[k], jaux[k])
+    # single-segment rows: zero ages give the whole-sequence weight exactly
+    w, tr = tlosses.truncated_is_weights(t(old), t(beh), 1.5)
+    sw, str_ = tlosses.segment_is_weights(t(old), t(beh), torch.zeros_like(t(ages)), 1.5)
+    assert torch.equal(w, sw) and torch.equal(tr, str_)
 
 
 def _responses(seed, B=6, T=10, stop=3, pad=0):

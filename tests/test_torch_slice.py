@@ -195,7 +195,8 @@ UNPORTED_SAMPLER = [
 # chunked prefill with the continuous batching they need)
 PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows",
                 "rollout_spec_k", "rollout_quant", "rollout_prefix_cache",
-                "rollout_prefill_chunk")
+                "rollout_prefill_chunk", "rollout_orchestrator", "rollout_workers",
+                "sampler_logprob_capture")
 
 
 def _greedy_rollout(monkeypatch, knobs):
@@ -240,7 +241,16 @@ def _assert_ported_knob_matches(monkeypatch, knobs):
                                      got["tokenizer"].pad_token_id, got["lora_scale"])
         np.testing.assert_array_equal(exact[0].numpy(), got["logprobs"])
         np.testing.assert_array_equal(exact[1].numpy(), got["ref_logprobs"])
+    elif "sampler_logprob_capture" in knobs:
+        # the sampler's logprobs stand for the policy scoring forward (which
+        # does not run): the same rows, the decode path's numbers within
+        # f32 rounding of the scoring pass's, the ref forward still exact
+        np.testing.assert_array_equal(got["responses"], want["responses"])
+        np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got["ref_logprobs"], want["ref_logprobs"])
     else:
+        # the orchestrator and the fleet pick which thread generates, not
+        # what: one rollout through `run_rollout` is the synchronous one
         np.testing.assert_array_equal(got["responses"], want["responses"])
         np.testing.assert_array_equal(got["logprobs"], want["logprobs"])
 

@@ -13,7 +13,8 @@ and the trainable leaves after the update (1e-5). Then the skip path, a
 resume after a skipped update, the greedy accuracy eval's texts,
 `build_config` literal by literal, the knobs that raise, and the CPU
 only when asked. The sparse update is also held on its other routes: the
-naive full-logits branch and remat_policy="dots"."""
+naive full-logits branch and remat_policy="dots", and with
+sampler_logprob_capture (scripted sampler logprobs fed to both)."""
 
 import dataclasses
 import json
@@ -41,6 +42,7 @@ from nanorlhf_tpu.trainer import sparse_grpo as jsg
 from nanorlhf_tpu_torch.bridge import params_to_numpy
 from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer
 from nanorlhf_tpu_torch.entrypoints import grpo_r1
+from nanorlhf_tpu_torch.trainer import rollout as trollout
 from nanorlhf_tpu_torch.trainer import sparse_grpo as tsg
 from nanorlhf_tpu_torch.trainer.config import MeshConfig, RLConfig
 from nanorlhf_tpu_torch.trainer.optim import flatten
@@ -89,21 +91,38 @@ def _rewards(seed: int, zero_groups=(1,)) -> np.ndarray:
     return r.reshape(-1)
 
 
+def _captured(seed: int) -> np.ndarray:
+    """[PROMPTS·N, RESP] seeded sampler logprobs in (-3, 0), distinct in
+    every row and column: a wrong row or a wrong cut cannot match."""
+    rng = np.random.default_rng(seed)
+    return (-0.01 - 3.0 * rng.random((PROMPTS * N, RESP))).astype(np.float32)
+
+
 class _Script:
     """The patched rollout and reward of each update, in call order, and
-    what each trainer asked for."""
+    what each trainer asked for. A rollout with captured logprobs makes
+    the patched `generate` return (tokens, logprobs), as the sampler does
+    under capture."""
 
     def __init__(self, rollouts):
-        self.rollouts = rollouts  # [(responses, rewards)] an update
+        self.rollouts = rollouts  # [(responses, rewards[, captured])] an update
         self.gen_calls = 0
         self.rew_calls = 0
         self.queries = []
 
     def tokens(self, prompt_ids):
         self.queries.append(np.asarray(prompt_ids))
-        out = self.rollouts[self.gen_calls][0]
+        rollout = self.rollouts[self.gen_calls]
         self.gen_calls += 1
-        return out
+        return rollout[0] if len(rollout) == 2 else (rollout[0], rollout[2])
+
+    def generate(self, as_array):
+        """The patched `generate` of one trainer, `as_array` its array type."""
+        def gen(params, config, ids, *a, **k):
+            out = self.tokens(ids)
+            return tuple(map(as_array, out)) if isinstance(out, tuple) else as_array(out)
+
+        return gen
 
     def reward(self, texts, ids, tokenizer):
         out = self.rollouts[self.rew_calls][1]
@@ -119,8 +138,7 @@ def _dataset(jtok, tok):
 
 
 def _run_port(monkeypatch, cfg, tparams, mcfg, tok, ds, script, updates, record):
-    monkeypatch.setattr(tsg, "generate", lambda params, config, ids, *a, **k:
-                        torch.as_tensor(script.tokens(ids)))
+    monkeypatch.setattr(trollout, "generate", script.generate(torch.as_tensor))
     monkeypatch.setattr(tsg, "forward_token_budget", lambda *a, **k: FORWARD_BUDGET)
     monkeypatch.setattr(tsg, "BACKWARD_BUDGET", BACKWARD_BUDGET)
     keep_fn, perm_fn, batches_fn = (tsg.keep_one_of_n_indices, tsg.epoch_permutation,
@@ -161,8 +179,7 @@ def _run_port(monkeypatch, cfg, tparams, mcfg, tok, ds, script, updates, record)
 
 def _run_jax(monkeypatch, jcfg, jparams, jmodel, jtok, jds, script, updates, record,
              port_record):
-    monkeypatch.setattr(jsg, "generate", lambda params, config, ids, *a, **k:
-                        jnp.asarray(script.tokens(ids)))
+    monkeypatch.setattr(jsg, "generate", script.generate(jnp.asarray))
     monkeypatch.setattr(jsg, "forward_token_budget", lambda *a, **k: FORWARD_BUDGET)
     monkeypatch.setattr(jsg, "BACKWARD_BUDGET", BACKWARD_BUDGET)
     keeps, perms = list(port_record["keep"]), list(port_record["perm"])
@@ -254,20 +271,52 @@ def test_sparse_update_routes_match_jax(route, monkeypatch, tmp_path):
     assert bool(entropies) == (not ROUTES[route].get("fused_logprob", True))
 
 
-def _check_sparse_update(monkeypatch, tmp_path, **over):
+@pytest.mark.parametrize("kl", [0.0, 0.05])
+def test_sampler_logprob_capture_matches_jax(kl, monkeypatch, tmp_path):
+    """sampler_logprob_capture: the update's policy logprobs are the
+    sampler's, cut to the kept rows (1 of N, then the sparse filter) and
+    to the response cut. Ref-free (kl 0) no scoring bucket runs; with a
+    KL the buckets run the reference alone. Held as the plain update is,
+    and each real row's logprobs are its own sample's captured ones."""
+    _check_sparse_update(monkeypatch, tmp_path, captured=_captured(0), kl_coef=kl,
+                         sampler_logprob_capture=True)
+
+
+def _check_sparse_update(monkeypatch, tmp_path, captured=None, **over):
+    rollout = (_responses(0), _rewards(0, zero_groups=(1, 5)))
     tr, jtr, rec, jrec, ps, js = _trained_pair(
-        monkeypatch, tmp_path, [(_responses(0), _rewards(0, zero_groups=(1, 5)))], **over)
+        monkeypatch, tmp_path, [rollout if captured is None else (*rollout, captured)],
+        **over)
     # the same prompts (the port de-pads before generating; the tokens are
     # the same)
     assert [list(r[r != 0]) for r in ps.queries[0]] == \
         [list(r[r != 0]) for r in js.queries[0]]
-    # the same buckets: scoring (forward budget), then each minibatch's
-    assert [b[1] for b in rec["batches"]] == [FORWARD_BUDGET, BACKWARD_BUDGET,
-                                              BACKWARD_BUDGET]
-    assert rec["batches"] == jrec["batches"]
+    # the same buckets: scoring (forward budget), then each minibatch's;
+    # ref-free under capture nothing is scored (JAX still cuts the scoring
+    # buckets it then skips)
+    no_scoring = captured is not None and tr._ref_free
+    assert [b[1] for b in rec["batches"]] == \
+        [FORWARD_BUDGET] * (not no_scoring) + [BACKWARD_BUDGET, BACKWARD_BUDGET]
+    assert rec["batches"] == jrec["batches"][int(no_scoring):]
     # 2 groups filtered: 6 kept rows, two minibatches of 4 and 2
-    assert len(rec["batches"][0][0]) == PROMPTS - 2
+    assert sum(len(b[0]) for b in rec["batches"] if b[1] == BACKWARD_BUDGET) == \
+        PROMPTS - 2
     assert len(rec["mb"]) == len(jrec["mb"]) >= 3
+    if captured is not None:
+        # every real row's logprobs are the captured ones of its own
+        # sample: the kept one of its group, at the same response tokens
+        pick = np.arange(PROMPTS), rec["keep"][0]
+        want_lp = captured.reshape(PROMPTS, N, -1)[pick]
+        want_resp = rollout[0].reshape(PROMPTS, N, -1)[pick]
+        for mb, _, _ in rec["mb"]:
+            w = mb["responses"].shape[1]
+            for lp, pm, resp in zip(mb["logprobs"], mb["padding_mask"], mb["responses"]):
+                if pm.all():
+                    continue  # an all-pad row of the rows menu
+                hits = [i for i in range(PROMPTS)
+                        if np.array_equal(lp[~pm], want_lp[i, :w][~pm])]
+                assert len(hits) == 1 and \
+                    np.array_equal(resp[~pm], want_resp[hits[0], :w][~pm])
     for (mb, ctx, scale), (jmb, jctx, jscale) in zip(rec["mb"], jrec["mb"]):
         assert ctx == jctx == tr.update_log[0]["context_length"]
         assert scale == pytest.approx(jscale, abs=1e-7)
@@ -280,7 +329,7 @@ def _check_sparse_update(monkeypatch, tmp_path, **over):
     # one of them padded with all-pad rows
     score_buckets = tr.update_log[0]["score_buckets"]
     assert all(rb in (1, 2, 4, 8) and rb >= n for n, rb, _ in score_buckets)
-    assert any(rb > n for n, rb, _ in score_buckets)
+    assert any(rb > n for n, rb, _ in score_buckets) != no_scoring
     # the metric row
     row = [r for r in _rows(tmp_path / "port" / "metrics.jsonl") if "episode" in r][-1]
     jrow = [r for r in _rows(tmp_path / "jax" / "metrics.jsonl") if "episode" in r][-1]
@@ -293,6 +342,7 @@ def _check_sparse_update(monkeypatch, tmp_path, **over):
     shared = (set(row) & set(jrow)) - skip
     assert {"sparse/kept_frac", "loss/policy_avg_new", "policy/entropy_avg_new",
             "lr", "eval_response_length", "mem/logits_bytes_saved"} <= shared
+    assert ("sampler_capture/ratio_drift_new" in shared) == (captured is not None)
     for k in shared:
         np.testing.assert_allclose(row[k], jrow[k], atol=1e-5, rtol=1e-5, err_msg=k)
     assert row["sparse/kept_frac"] == pytest.approx((PROMPTS - 2) / PROMPTS)
@@ -377,7 +427,7 @@ def _port_run(tmp_path, monkeypatch, name, rollouts, updates, resume=False):
     tok = ToyTokenizer(V)
     _, ds = _dataset(JaxToyTokenizer(V), tok)
     script = _Script(rollouts)
-    monkeypatch.setattr(tsg, "generate", lambda params, config, ids, *a, **k:
+    monkeypatch.setattr(trollout, "generate", lambda params, config, ids, *a, **k:
                         torch.as_tensor(script.tokens(ids)))
     monkeypatch.setattr(tsg, "forward_token_budget", lambda *a, **k: FORWARD_BUDGET)
     monkeypatch.setattr(tsg, "BACKWARD_BUDGET", BACKWARD_BUDGET)
@@ -434,7 +484,7 @@ def test_sparse_trainer_runs_the_host_planes(monkeypatch, tmp_path):
     tok = ToyTokenizer(V)
     _, ds = _dataset(JaxToyTokenizer(V), tok)
     script = _Script(rollouts)
-    monkeypatch.setattr(tsg, "generate", lambda params, config, ids, *a, **k:
+    monkeypatch.setattr(trollout, "generate", lambda params, config, ids, *a, **k:
                         torch.as_tensor(script.tokens(ids)))
     monkeypatch.setattr(tsg, "forward_token_budget", lambda *a, **k: FORWARD_BUDGET)
     monkeypatch.setattr(tsg, "BACKWARD_BUDGET", BACKWARD_BUDGET)
@@ -506,7 +556,7 @@ def test_rollout_samples_from_the_int8_view_and_the_rollout_config(monkeypatch, 
         seen.append((params, config))
         return torch.as_tensor(script.tokens(ids))
 
-    monkeypatch.setattr(tsg, "generate", gen)
+    monkeypatch.setattr(trollout, "generate", gen)
     real_score = tsg.score_chunk
     scored = []
     monkeypatch.setattr(tsg, "score_chunk", lambda params, ref, mcfg, *a, **k:
@@ -575,8 +625,37 @@ def test_build_config_matches_jax():
     ("env_name", "python_tool"),
 ])
 def test_unported_knobs_raise(knob, value, tmp_path):
+    """Sequence parallelism raises; a multi-turn environment is refused with
+    JAX's ValueError (the dense trainer drives it); the orchestrator is
+    refused by `train()` with JAX's ValueError; rollout_ahead and sampler
+    logprob capture are ported and train."""
     _, cfg = _configs(tmp_path)
     setattr(cfg, knob, value)
+    jmodel = jax_config("qwen_tied", vocab_size=V)
+    _, tparams = make_params(jmodel, seed=3)
+    tok = ToyTokenizer(V)
+    _, ds = _dataset(JaxToyTokenizer(V), tok)
+
+    def varied(texts, eos):
+        return np.asarray([len(x) % 3 for x in texts], np.float32)
+
+    if knob in ("rollout_ahead", "sampler_logprob_capture", "rollout_orchestrator"):
+        tr = tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds, varied)
+        if knob == "rollout_orchestrator":
+            with pytest.raises(ValueError, match="^rollout_orchestrator is not supported "
+                               "by SparseGRPOTrainer yet: the sparse all-zero-advantage"):
+                tr.train(num_updates=1)
+            return
+        tr.train(num_updates=2)
+        assert [r["index"] for r in tr.update_log] == [0, 1]
+        assert tr.state["rollouts"] == 2 and tr._stream is None
+        if knob == "sampler_logprob_capture":
+            # the sampler's logprobs stood for the policy forward: ref-free
+            # (r1's kl_coef 0) no scoring bucket runs at all
+            done = [r for r in tr.update_log if not r["skipped"]]
+            assert tr._ref_free and done
+            assert all(r["score_buckets"] == [] for r in done)
+        return
     # a multi-turn environment is ported for the dense trainer only: the
     # sparse one refuses it with JAX's ValueError (the paged cache set, so
     # that the dense trainer's own checks pass first)
@@ -585,13 +664,8 @@ def test_unported_knobs_raise(knob, value, tmp_path):
         cfg.env_max_turns, cfg.rollout_page_size = 2, 4
         cfg.env_turn_tokens = cfg.env_obs_budget = cfg.response_length // 4
         refusal = (ValueError, "does not drive multi-turn environments")
-    jmodel = jax_config("qwen_tied", vocab_size=V)
-    _, tparams = make_params(jmodel, seed=3)
-    tok = ToyTokenizer(V)
-    _, ds = _dataset(JaxToyTokenizer(V), tok)
     with pytest.raises(refusal[0], match=refusal[1]):
-        tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds,
-                              lambda texts, eos: np.zeros(len(texts), np.float32))
+        tsg.SparseGRPOTrainer(cfg, port_config(jmodel), tok, tparams, ds, varied)
 
 
 def test_launcher_needs_a_card_unless_asked_for_cpu(monkeypatch, tmp_path):

@@ -175,10 +175,12 @@ def test_checkpoint_rotation_matches_jax(tmp_path):
 
 
 # the host planes' knobs, ported with the telemetry and resilience layers,
-# and env_name (a single-turn python_tool environment here), ported with the
-# environments
+# env_name (a single-turn python_tool environment here), ported with the
+# environments, and rollout_ahead and in-flight swaps, ported with the
+# orchestrator
 PORTED_TRAINER_KNOBS = {"telemetry", "lineage", "fault_spec", "status_port",
-                        "profile_at_step", "health_arm_sentinel", "env_name"}
+                        "profile_at_step", "health_arm_sentinel", "env_name",
+                        "rollout_ahead", "rollout_inflight_swaps"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -188,9 +190,18 @@ PORTED_TRAINER_KNOBS = {"telemetry", "lineage", "fault_spec", "status_port",
     ("rollout_inflight_swaps", True),
 ])
 def test_unported_trainer_knobs_raise(knob, value):
-    """The knobs of later slices raise; the host planes' are accepted."""
+    """The knobs of later slices raise; the ported ones are accepted (in-flight
+    swaps with JAX's ValueError until the orchestrator and the queued paged
+    path they need are on)."""
     cfg = build_config()
     setattr(cfg, knob, value)
+    if knob == "rollout_inflight_swaps":
+        with pytest.raises(ValueError, match="requires rollout_orchestrator=True"):
+            check_trainer_supported(cfg)
+        cfg.rollout_orchestrator = True
+        with pytest.raises(ValueError, match="rollout_page_size > 0"):
+            check_trainer_supported(cfg)
+        cfg.rollout_page_size, cfg.rollout_decode_rows = 4, 2
     if knob in PORTED_TRAINER_KNOBS:
         check_trainer_supported(cfg)
         return
