@@ -28,6 +28,9 @@ toolkit:
                                           # (and the holds at their shapes)
     python3 chip_smoke.py --fleet         # build, then only phase 17 (and the
                                           # holds at its shapes)
+    python3 chip_smoke.py --compact       # build, then only phase 18 (and the
+                                          # holds at its shapes)
+    python3 chip_smoke.py --sp            # build, then only phase 19
     python3 chip_smoke.py --learn         # build, then only the learning-curve
                                           # harness (not in the default run)
 
@@ -127,7 +130,8 @@ Phases (any failure exits non-zero):
      phase 4 are recorded and must be those phase 2 held and timed;
   8. the compiled decode loop — each loop (contiguous, paged, int8, int8
      paged, speculative on both layouts, queued and queued speculative) at
-     16 rows on the full-depth model, greedy, run by the per-step body and
+     16 rows (the model's first CUT_LAYERS layers in the full
+     script, 28 under `--graph-loops`), greedy, run by the per-step body and
      by graph replay: tokens and counters equal row for row, the loop
      kernel's launches L × graph_steps_run with L × sync_every × replays
      from replays; sampled streams from one seed compared (printed);
@@ -158,7 +162,7 @@ Phases (any failure exits non-zero):
      corpus): the greedy accuracy eval (16 questions, 1,024 tokens) before
      training and after each of two updates. The full script cuts the
      phase to keep inside its time limit: one update of the model's first
-     R1_CUT_LAYERS layers, no eval (widths, lengths and the kernels'
+     CUT_LAYERS layers, no eval (widths, lengths and the kernels'
      shapes stay the launcher's). (a) each rollout graded by the
      launcher's binary reward (how many correct, whether the sparse filter
      would skip), then trained on a planted, seeded reward that keeps 7 of
@@ -200,8 +204,9 @@ Phases (any failure exits non-zero):
      kernels that no earlier phase held are then held as in phase 2, and
      each kernel's launches in each route's update are reported in the
      kernels line under `routes`;
- 13. the host planes on the GRPO main path, on phase 4's config with
-     telemetry, lineage, an ephemeral status port, a profile window at
+ 13. the host planes on the GRPO main path, on phase 4's config (the
+     model's first CUT_LAYERS layers in the full script and in its
+     SIGTERM'd child, 28 under `--host`) with telemetry, lineage, an ephemeral status port, a profile window at
      update 3, a checkpoint every update and `update.step:at=2,action=nan`
      (health, latency, the sentinel, graceful preemption and reward
      retries at their defaults), three updates: (a) one rollback,
@@ -295,7 +300,7 @@ Phases (any failure exits non-zero):
      launches under `envs`;
  17. the rollout orchestrator and fleet at phase 4's config (16 prompts x
      4 samples, FLEET_TOKENS-token responses, no checkpoints; 28 layers
-     under `--fleet`, FLEET_CUT_LAYERS in the full script):
+     under `--fleet`, CUT_LAYERS in the full script):
      (a) a synchronous reference run of 2 updates; the orchestrator at
      staleness 0, whose rollouts 0 and 1 equal the reference's bit for
      bit; staleness 1 with captured behavior logprobs and truncated IS
@@ -320,6 +325,48 @@ Phases (any failure exits non-zero):
      `fleet` — read once the run's producer or workers were joined, so
      they include the whole rollouts generated ahead and then dropped, and
      beside them each run's [generations finished, rollouts consumed].
+
+ 18. compacting decode (`sampler/compaction.py`) at phase 4's width and
+     length (64 prompts, one greedy row each, COMPACT_TOKENS tokens,
+     COMPACT_SEGMENTS segments; 28 layers under `--compact`,
+     CUT_LAYERS in the full script), the launcher's init rescaled
+     as phase 14's: (a) the exact cache — monolithic greedy runs without
+     EOS plant the EOS under which compaction shrinks the batch most
+     often over 64 rows drawn from four batches' 256 (`planted_eos`: a
+     random model's greedy rows fall into a few attractor tokens, so no
+     one token ends most rows of a single batch); the compacting greedy
+     run must compact at least twice (once at the full script's cut
+     depth, whose rows reach their attractor before the first segment
+     ends), every token within COMPACT_NEAR_TIE of the full forward's
+     argmax; the menu (batch, steps, K4 launches) printed, every decoding
+     size launched K4 and only K4; one GRPO update through the trainer
+     with compacting decode must end finite and compact its rollout: its
+     batch COMPACT_SPLIT copies of two prompts at top-k COMPACT_TOP_K,
+     the EOS planted from a sampled monolithic run of the same batch and
+     generator state (`planting_eos`), the rollout's first compaction the
+     one that run predicts; K4 held at every menu size as in phase 2; (b) the same over the int8 cache (its
+     own planted EOS, the compacted rows held against the monolithic int8
+     rows past near ties), K5 held at every menu size; launches, holds and
+     times under `compact`;
+ 19. sequence parallelism at sp = 2: two ranks spawned on the one card
+     (`parallel.distributed.spawn`, gloo, CUDA tensors staged through
+     pinned host memory; 28 layers under `--sp`, CUT_LAYERS in the full
+     script): (a) the flash ring alone (B=4 H=12 KV=2 T=2048 hd=128, rows
+     left-padded so that rank 1's past hop has a row with no key): out and
+     global LSE against K1 over the whole sequence, dQ/dK/dV against K2/K3
+     (SP_OUT_TOL, SP_LSE_TOL, SP_GRAD_TOL), K1 and K2/K3 at the past hop
+     (non-causal, the global out and LSE) against their plain versions,
+     rank r launching r + 1 of each; the ring's time against one
+     process's K1 and the einsum ring's, the hop's transport wait; every
+     ring hop shape of (b) and (c) — local widths off the 64-column
+     tiles — held as phase 2 holds K1 and K2/K3 (`check_ring_hops`); (b)
+     phase 4's GRPO update at sp = 2 against sp = 1 (run in this process
+     first), same seed: rollouts equal (digests), scoring logprobs,
+     loss and grad norm within SP_LOGP_TOL / SP_LOSS_TOL / SP_GNORM_RTOL,
+     the update's K1/K2/K3 launches per hop exactly, no K10, the transport
+     rows; (c) one sparse GRPO update (`r1_card_cut` at SP_R1_TOKENS
+     tokens, a planted crc32 reward) at sp = 2, finite, ranks agreeing;
+     launches per rank under `sp`.
 
 `--learn` runs `entrypoints/learning_run.main` on the card (LEARN_KNOBS:
 Qwen2-1.5B geometry at the toy 512 vocab, 30 shaped updates, then 10
@@ -2700,7 +2747,8 @@ def _loop_counters(st_paged, st_spec, timings) -> dict:
     return c
 
 
-def graph_loops(torch, prompts, pad_id: int, max_tokens: int = 96) -> None:
+def graph_loops(torch, prompts, pad_id: int, max_tokens: int = 96,
+                layers: int | None = None) -> None:
     """Each decode loop — contiguous, paged, int8, int8 paged, speculative
     (spec_k 4) on both layouts, queued and queued speculative (8 of 16 rows
     resident, pages of 128) — at 16 rows on the full-depth Qwen2.5-1.5B
@@ -2715,7 +2763,8 @@ def graph_loops(torch, prompts, pad_id: int, max_tokens: int = 96) -> None:
     sync_every. Prints each loop's decode ms a step and peak memory, eager
     and graph (the graph's private pool holds a chunk's temporaries). Then
     sampled streams from one seed: whether graph and eager give equal
-    tokens is printed, not required."""
+    tokens is printed, not required. `layers`: the model's first layers
+    only (the full script's cut)."""
     import dataclasses
 
     from nanorlhf_tpu_torch import _build
@@ -2724,6 +2773,8 @@ def graph_loops(torch, prompts, pad_id: int, max_tokens: int = 96) -> None:
     from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
 
     base = dataclasses.replace(_demo_config(), attention_impl="auto")
+    if layers is not None:
+        base = dataclasses.replace(base, num_hidden_layers=layers)
     params = tm.init_params(base, seed=8, device="cuda")
     L = base.num_hidden_layers
     ids = torch.as_tensor(prompts, device="cuda").long()
@@ -3967,6 +4018,13 @@ def r1_buckets(torch, tr) -> None:
         fail("(b) a planted fault reads inside R1_GRAD_TOL: the hold would not catch it")
 
 
+# the full script's depth of phases 8, 9, 11, 13, 17, 18 and 19 (their
+# flags, `--graph-loops`, `--algos`, `--r1`, `--host`, `--fleet`,
+# `--compact` and `--sp`, run all 28 layers): widths and lengths stay the
+# launcher's, so every kernel runs at the shapes of the full depth
+CUT_LAYERS = 4
+
+
 @contextlib.contextmanager
 def cut_depth(module, layers: int | None):
     """`module.resolve_model` builds the launcher's model with only its
@@ -4037,9 +4095,6 @@ def r1_zero(torch, seen: dict, updates: int = 2, evals: bool = True,
     return counts
 
 
-# the full script's phase 11 depth (its 8,000-token rollout is a tenth of
-# the script at 28 layers; `--r1` runs them all)
-R1_CUT_LAYERS = 4
 
 
 def r1_train(torch, tr, seen: dict, updates: int = 2, evals: bool = True) -> dict:
@@ -5079,7 +5134,7 @@ def host_queued_ttft(torch, tr, queries, pad_id: int, max_tokens: int) -> dict:
     return counts
 
 
-def sigterm_child(out: str, max_tokens: int) -> None:
+def sigterm_child(out: str, max_tokens: int, layers: int | None = None) -> None:
     """The child of (i): phase 4's trainer with save_steps=0; on update 2's
     reward it leaves a marker beside `out` and waits for the SIGTERM (the
     guard's flag) before scoring. Prints one JSON line: the `Preempted`
@@ -5087,10 +5142,11 @@ def sigterm_child(out: str, max_tokens: int) -> None:
     import json
     import os
 
-    from nanorlhf_tpu_torch.entrypoints.common import build_trainer
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
     from nanorlhf_tpu_torch.resilience import Preempted
 
-    tr = build_trainer(_host_cfg(max_tokens, out, save_steps=0), device="cuda")
+    with cut_depth(common_mod, layers):
+        tr = common_mod.build_trainer(_host_cfg(max_tokens, out, save_steps=0), device="cuda")
     try:
         real, calls = tr.reward_func, [0]
 
@@ -5119,7 +5175,7 @@ def sigterm_child(out: str, max_tokens: int) -> None:
 
 
 @contextlib.contextmanager
-def sigterm_child_process(max_tokens: int):
+def sigterm_child_process(max_tokens: int, layers: int | None = None):
     """(i), started: a child process running phase 4's trainer with
     save_steps=0 (`sigterm_child`), killed on the way out if it is still
     running. Yields (the Popen, its output directory, its log, the start)."""
@@ -5132,7 +5188,9 @@ def sigterm_child_process(max_tokens: int):
     with open(log_path, "w") as logf:
         child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--sigterm-child", out,
-             "--max-tokens", str(max_tokens)], stdout=logf, stderr=subprocess.STDOUT,
+             "--max-tokens", str(max_tokens),
+             *(["--sigterm-layers", str(layers)] if layers is not None else [])],
+            stdout=logf, stderr=subprocess.STDOUT,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
             yield child, out, log_path, t0
@@ -5169,9 +5227,12 @@ def host_sigterm(child, out: str, log_path: str, t0: float) -> None:
 
 
 def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card: str,
-                seen: dict, seen_verify, turns=("off", "on", "off", "on")) -> dict:
-    """Phase 13 (module docstring); the planes' overhead read in `turns`.
-    Returns each kernel's launches in the run of phase 13 that ran it."""
+                seen: dict, seen_verify, turns=("off", "on", "off", "on"),
+                layers: int | None = None) -> dict:
+    """Phase 13 (module docstring); the planes' overhead read in `turns`;
+    `layers`: the model's first layers only, here and in the SIGTERM'd
+    child (the full script's cut). Returns each kernel's launches in the
+    run of phase 13 that ran it."""
     import shutil
 
     from nanorlhf_tpu_torch.entrypoints.common import build_trainer
@@ -5181,7 +5242,7 @@ def host_planes(torch, max_tokens: int, prompts16, queries16, pad_id: int, card:
     on, counts = run["trainer"], run["counts"]
     # the child builds its trainer and trains while this process checks
     # the main run's files; nothing here is timed until the child is done
-    with sigterm_child_process(max_tokens) as (child, sig_out, log_path, t0):
+    with sigterm_child_process(max_tokens, layers) as (child, sig_out, log_path, t0):
         host_main_checks(run)
         host_sigterm(child, sig_out, log_path, t0)
     counts_g = host_traced_spec(torch, on, prompts16, pad_id, seen_verify)
@@ -6466,7 +6527,6 @@ PHASE17 = ("phase 17: the rollout orchestrator and fleet — bounded-staleness a
 # the orchestrated runs' response length (phase 4's), their depth in the
 # full script (`--fleet` runs all 28 layers) and the soak's depth cut
 FLEET_TOKENS = 512
-FLEET_CUT_LAYERS = 4
 FLEET_SOAK_LAYERS = 4
 # the kernels phase 17's paths run, and those the kernels line reports
 FLEET_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
@@ -6988,6 +7048,914 @@ def fleet_holds(torch, F, seen17: dict, seen_soak: dict, held: dict | None,
     check_paged(torch, F, witness_width, 64, rows=8)
 
 
+# --------------------------------------------------------------------------
+# phase 18: compacting decode
+# --------------------------------------------------------------------------
+
+PHASE18 = ("phase 18: compacting decode — the power-of-two batch menu over the contiguous "
+           "cache (K4), then over the int8 cache (K5); Qwen2.5-1.5B width")
+COMPACT_TOKENS = 512     # phase 4's response length
+COMPACT_SEGMENTS = 4
+COMPACT_SEED = 18
+# a greedy token may sit under the full forward's argmax by at most this:
+# the near tie phase 14 allowed (ROADMAP §C "Greedy rows on the card")
+COMPACT_NEAR_TIE = 0.344
+# the trainer's update: a random model's sampled rows share no token at the
+# launcher's top-k of 64 (the policy's entropy 11.55 nats, phase 19's log),
+# and at temperature 0.02 too at the full script's depth; at top-k 1 each
+# row is its prompt's greedy row, so 44 rows of one prompt end together and
+# leave 20 live rows, which a batch of 32 holds with 12 rows of menu padding
+# (the groups' rows are equal, so the advantages, and the update's
+# gradient, are 0). Temperature 1e-3 overflowed the update's ratios: the
+# scoring and update routes' bf16 logits differ by ~0.03, times 1/T
+COMPACT_TOP_K = 1
+COMPACT_SPLIT = (11, 5)
+COMPACT_KERNELS = ("decode_attention", "decode_attention_q8")
+
+
+def _compact_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_compact", *parts)
+
+
+def planted_eos(pool, budget: int, segments: int, rows: int = 64):
+    """The EOS planted in a random model that almost never emits its own,
+    and the prompts it is planted over. A random model's greedy rows fall
+    into a few attractor tokens, so no one token ends most rows of one
+    batch; so for each of the tokens that the most rows of `pool` ((prompt,
+    tokens) of monolithic runs without EOS) emit, each row ends where it
+    first emits it, and `rows` rows are chosen by how many end in each
+    segment (every split is tried; the rows of a window spread over it):
+    the split under which compaction shrinks the batch most often, then
+    the one with the most rows ending, is kept. Returns (eos, the chosen
+    pool indices, the menu they predict)."""
+    import itertools
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.sampler.compaction import predicted_menu
+
+    first = collections.defaultdict(dict)
+    for r, (_, toks) in enumerate(pool):
+        for c, tok in enumerate(toks.tolist()):
+            first[tok].setdefault(r, c)
+    seg = -(-budget // segments)
+    bounds = [min(1 + k * seg, budget) for k in range(1, segments)]
+    best = None
+    for tok in sorted(first, key=lambda t: -len(first[t]))[:6]:
+        # the pool's rows by the segment their EOS falls in (the last: never)
+        windows = [[] for _ in range(len(bounds) + 1)]
+        for r in range(len(pool)):
+            e = first[tok].get(r)
+            k = next((i for i, b in enumerate(bounds) if e is not None and e < b),
+                     len(bounds))
+            windows[k].append(r)
+        for w in windows:
+            w.sort(key=lambda r: first[tok].get(r, budget))
+        for split in itertools.product(*(range(min(len(w), rows) + 1) for w in windows[:-1])):
+            rest = rows - sum(split)
+            if rest < 0 or rest > len(windows[-1]):
+                continue
+            ends = [e for k, x in enumerate(split) for e in [bounds[k] - 1] * x] + [None] * rest
+            key = (len(predicted_menu(ends, budget, segments)), sum(split))
+            if best is None or key > best[0]:
+                best = (key, tok, windows, split, rest)
+    _, tok, windows, split, rest = best
+    pick = []
+    for w, x in zip(windows, (*split, rest)):
+        pick += [w[int(i)] for i in np.linspace(0, len(w) - 1, x)] if x else []
+    ends = [first[tok].get(r) for r in pick]
+    return tok, pick, predicted_menu(ends, budget, segments)
+
+
+def _sampled_eos(tokens, pad: int, max_tokens: int, segments: int):
+    """(eos, menu): of the tokens that at least half the rows of a sampled
+    monolithic run emit, the one under which those rows would compact the
+    batch most often (`predicted_menu`), then the one most rows emit; None
+    when no token would compact it."""
+    from nanorlhf_tpu_torch.sampler.compaction import predicted_menu
+
+    firsts = collections.defaultdict(dict)
+    for r, row in enumerate(tokens.tolist()):
+        for c, tok in enumerate(row):
+            if tok != pad:
+                firsts[tok].setdefault(r, c)
+    best = None
+    for tok, ends in firsts.items():
+        if 2 * len(ends) < len(tokens):
+            continue
+        menu = predicted_menu([ends.get(r) for r in range(len(tokens))], max_tokens, segments)
+        if len(menu) > 1 and (best is None or (len(menu), len(ends)) > best[0]):
+            best = ((len(menu), len(ends)), tok, menu)
+    return (None, None) if best is None else best[1:]
+
+
+@contextlib.contextmanager
+def planting_eos(tr, planted: dict):
+    """The trainer's first compacting rollout with its EOS planted: a
+    monolithic run of the same batch from a copy of the rollout's
+    generator state (`eos_token_id=-1`), then `_sampled_eos` over its rows.
+    Until the first compaction the compacting loop's batch, and so every
+    draw, is the monolithic run's, so its first compaction is `planted`'s
+    predicted menu's exactly. `planted` receives eos and menu; the
+    trainer's tokenizer takes the EOS (scoring cuts at it)."""
+    import dataclasses
+
+    import torch
+
+    from nanorlhf_tpu_torch.trainer import rollout as rollout_mod
+
+    real = rollout_mod.generate
+
+    def plant(params, mcfg, ids, mask, generator, sp, **kw):
+        if not planted:
+            g = torch.Generator(device=generator.device)
+            g.set_state(generator.get_state())
+            mono = real(params, mcfg, ids, mask, g,
+                        dataclasses.replace(sp, compaction_segments=0, capture_logprobs=False),
+                        eos_token_id=-1, pad_token_id=kw["pad_token_id"],
+                        lora_scale=kw["lora_scale"])
+            eos, menu = _sampled_eos(mono.cpu().numpy(), kw["pad_token_id"], sp.max_tokens,
+                                     sp.compaction_segments)
+            if eos is None:
+                fail("no token of the trainer's sampled monolithic rollout would compact its batch")
+            planted.update(eos=eos, menu=menu)
+            tr.tokenizer.eos_token_id = eos
+        return real(params, mcfg, ids, mask, generator, sp,
+                    **{**kw, "eos_token_id": planted["eos"]})
+
+    rollout_mod.generate = plant
+    try:
+        yield
+    finally:
+        rollout_mod.generate = real
+
+
+def _batch_of(prompts: list, pad: int):
+    """Left-padded prompt rows of other widths as one batch, its common left
+    pad stripped."""
+    import numpy as np
+
+    width = max(len(p) for p in prompts)
+    out = np.full((len(prompts), width), pad, np.int64)
+    for i, p in enumerate(prompts):
+        out[i, width - len(p):] = p
+    keep = (out != pad).any(0)
+    return out[:, int(keep.argmax()):]
+
+
+def _rescaled(params, L: int):
+    """Phase 14's rescale of the launcher's init (each projection from
+    N(0, 1/L) to N(0, 1/fan_in)): 28 layers of bf16 then keep the logits'
+    rounding small against their spread."""
+    for entry in params["layers"].values():
+        if isinstance(entry, dict):
+            entry["kernel"].mul_(math.sqrt(L / entry["kernel"].shape[-1]))
+    return params
+
+
+def _greedy(torch, mcfg, params, ids, eos: int, pad: int, **sp):
+    from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
+
+    stats: list = []
+    out = generate(params, mcfg, ids, ids != pad, torch.Generator(device="cuda"),
+                   SamplingParams(greedy=True, max_tokens=COMPACT_TOKENS, **sp),
+                   eos_token_id=eos, pad_token_id=pad, compaction_stats_out=stats)
+    torch.cuda.synchronize()
+    return out.cpu().numpy(), (stats[0] if stats else None)
+
+
+def _streams(tokens, eos: int, pad: int, prompts) -> list:
+    """(prompt, stream) of each row (one a prompt), the stream cut after
+    its EOS, and after a token equal to the pad id: the full forward reads
+    that one as padding, so what follows it is another context."""
+    out = []
+    for prompt, row in zip(prompts, tokens.tolist()):
+        for stop in (eos, pad):
+            row = row[:row.index(stop) + 1] if stop in row else row
+        out.append(([t for t in prompt.tolist() if t != pad], row))
+    return out
+
+
+def compact_rollouts(torch, mcfg, params, batches, pad: int, quant: str):
+    """(a)/(b)'s greedy part on one cache: monolithic greedy runs without
+    EOS of the prompt `batches` (64 prompts each) plant the EOS and pick
+    the 64 prompts (`planted_eos`); then the compacting run and the
+    monolithic run of those, with it, the kernel counts reset just before
+    the compacting run and read after it. Returns (eos, prompts, compact
+    tokens, mono tokens, menu stats, counts)."""
+    import dataclasses
+
+    from nanorlhf_tpu_torch import _build
+
+    mc = dataclasses.replace(mcfg, kv_cache_quant=quant)
+    pool = []
+    for prompts in batches:
+        free, _ = _greedy(torch, mc, params, torch.as_tensor(prompts, device="cuda").long(),
+                          -1, pad)
+        pool += [(p[p != pad], t) for p, t in zip(prompts, free)]
+    eos, pick, predicted = planted_eos(pool, COMPACT_TOKENS, COMPACT_SEGMENTS)
+    prompts = _batch_of([pool[i][0] for i in pick], pad)
+    log(f"  planted EOS {eos}: of {len(pool)} greedy rows without EOS, the token and 64 "
+        f"rows under which compaction shrinks the batch most often (menu they predict "
+        f"{predicted}); {len(pick)} prompts, width {prompts.shape[1]}")
+    ids = torch.as_tensor(prompts, device="cuda").long()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, stats = _greedy(torch, mc, params, ids, eos, pad,
+                         compaction_segments=COMPACT_SEGMENTS)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    t0 = time.perf_counter()
+    mono, _ = _greedy(torch, mc, params, ids, eos, pad)
+    mono_wall = time.perf_counter() - t0
+    log(f"  {quant} cache: compacting greedy rollout {wall:.3f} s, monolithic "
+        f"{mono_wall:.3f} s ({len(got)} rows, {COMPACT_TOKENS} tokens; the capture of "
+        f"each menu size's graph included)")
+    return eos, prompts, got, mono, stats, counts
+
+
+def check_compact_menu(what: str, stats: dict, counts: dict, kernel: str, L: int,
+                       least: int) -> dict:
+    """The menu's sizes, steps and launches: at least `least` compactions,
+    every size that decoded launched `kernel` and no other decode kernel,
+    and the whole run's `kernel` launches are the menu's. Returns {size:
+    launches}."""
+    menu = stats["menu"]
+    log(f"  {what}: menu (batch, steps, launches) {[(b, s, l.get(kernel, 0)) for b, s, l in menu]}; "
+        f"{stats['compactions']} compactions")
+    if stats["compactions"] < least:
+        fail(f"{what}: {stats['compactions']} compactions; the planted EOS must shrink the "
+             f"batch at least {least} times")
+    per_size = {}
+    for b, steps, launches in menu:
+        if steps > 0 and launches.get(kernel, 0) < L:
+            fail(f"{what}: batch {b} decoded {steps} steps with {launches.get(kernel, 0)} "
+                 f"{kernel} launches")
+        per_size[b] = per_size.get(b, 0) + launches.get(kernel, 0)
+    other = [k for k in COMPACT_KERNELS + ("paged_decode_attention",) if k != kernel and counts[k]]
+    if other:
+        fail(f"{what}: {other} ran on the {kernel} path")
+    # the prefill's flash forward and the decode loop's kernels are all the run launched
+    if sum(per_size.values()) != counts[kernel]:
+        fail(f"{what}: {kernel} launched {counts[kernel]} times, {sum(per_size.values())} "
+             "in the menu's segments")
+    return per_size
+
+
+def check_decode_q8(torch, F, shapes) -> dict:
+    """K5 at each (B, T_max) in `shapes` (H=12, KV=2, hd=128) on an int8
+    cache quantized as the model quantizes it (`core.model.quantize_kv`),
+    held against its plain version evaluated in f32 on the same int8
+    values and bf16 scales (2e-2, as phase 2's K5: f32 inside, the bf16
+    output rounds by up to one ulp of |out| < 4), with an empty window
+    (zeros); timed (events), its plain version and SDPA over the
+    dequantized cache. Returns {(B, T_max): result}."""
+    from nanorlhf_tpu_torch.core.model import quantize_kv
+    from nanorlhf_tpu_torch.ops import decode_attention as da
+
+    H, KV, hd = 12, 2, 128
+    results = {}
+    for B, T in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        start = torch.randint(0, 64, (B,), generator=gen, device="cuda")
+        filled = torch.maximum(torch.randint(1, T + 1, (B,), generator=gen, device="cuda"),
+                               start + 1)
+        filled[0] = T
+        filled[B - 1] = start[B - 1]
+        start, filled = start.int(), filled.int()
+        live = torch.arange(B, device="cuda") != B - 1
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        got = da.decode_attention_q8(q, kq, ks, vq, vs, start, filled)
+        what = f"decode_attention_q8 B={B} T_max={T}"
+        err = hold(torch, what, [(
+            "out", got, da.reference_decode_attention_q8(q.float(), kq, ks, vq, vs, start, filled),
+            da.reference_decode_attention_q8(q, kq, ks, vq, vs, start, filled), live)], 2e-2)
+        if got[B - 1].float().abs().max() != 0:
+            fail(f"{what}: a row with an empty window must return zeros")
+        ms = time_ms(torch, lambda: da.decode_attention_q8(q, kq, ks, vq, vs, start, filled), 40)
+        plain = time_ms(torch, lambda: da.reference_decode_attention_q8(
+            q, kq, ks, vq, vs, start, filled), 10)
+        kd, vd = da.dequantize_kv(kq, ks, q.dtype), da.dequantize_kv(vq, vs, q.dtype)
+        pos = torch.arange(T, device="cuda")[None, :]
+        mask = ((pos >= start[:, None]) & (pos < filled[:, None]))[:, None, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True), 20)
+        n_valid = float((filled - start).clamp(min=0).sum())
+        nbytes = 2 * n_valid * KV * (hd + 2) + 2 * 2 * q.numel() + 8 * B
+        bms, by = bound_ms(nbytes, 4.0 * n_valid * H * hd)
+        log(f"  {what}: kernel {ms:.4f} ms; plain {plain:.4f} ms; SDPA over the dequantized "
+            f"cache {lib:.4f} ms; bound {bms:.4f} ms ({by})")
+        results[(B, T)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                               bound_by=by, max_abs_err=err)
+    return results
+
+
+def compaction_phase(torch, F, card: str, batches, pad: int, layers: int | None = None) -> dict:
+    """Phase 18 (module docstring) over a pool of prompt `batches` of phase
+    4's 64 decode rows (one greedy row a prompt). Returns the kernels
+    line's `compact` entries."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+
+    t_phase = time.perf_counter()
+    with cut_depth(common_mod, layers):
+        mcfg, params, tok = common_mod.resolve_model(build_config().sft_model_path,
+                                                     COMPACT_SEED, device="cuda")
+    L = mcfg.num_hidden_layers
+    params = _rescaled(params, L)
+    entries: dict = {}
+    for quant, kernel, label in (("none", "decode_attention", "(a)"),
+                                 ("int8", "decode_attention_q8", "(b)")):
+        log(f"  {label} {quant} KV cache: 64 greedy rows, {COMPACT_TOKENS} tokens, "
+            f"{COMPACT_SEGMENTS} segments, {L} layers")
+        # each cache plants its own EOS: the int8 cache's greedy rows are its own
+        eos, prompts, got, mono, stats, counts = compact_rollouts(torch, mcfg, params,
+                                                                  batches, pad, quant)
+        Tp = prompts.shape[1]
+        per_size = check_compact_menu(f"{label} {quant} cache", stats, counts, kernel, L,
+                                      least=2 if layers is None else 1)
+        same = int((got == mono).all(1).sum())
+        log(f"  {label}: {same}/{len(got)} compacted greedy rows equal the monolithic "
+            f"run's token for token (cuBLAS picks its GEMM by batch size: near ties may part)")
+        if quant == "none":
+            check_greedy_tokens(torch, f"{label} compacted greedy rows", mcfg, params,
+                                _streams(got, eos, pad, prompts), pad, COMPACT_NEAR_TIE,
+                                width=Tp)
+        else:
+            compare_streams(torch, f"{label} compacted vs monolithic int8 greedy rows",
+                            mcfg, params,
+                            [(p, w, g) for (p, w), (_, g) in zip(
+                                _streams(mono, eos, pad, prompts),
+                                _streams(got, eos, pad, prompts))], pad, COMPACT_NEAR_TIE)
+        # one update through the trainer with compacting decode (sampled):
+        # its batch two prompts of its dataset, COMPACT_SPLIT copies each,
+        # at top-k COMPACT_TOP_K, the EOS planted from its own sampled rows
+        cfg = one_card_cut(build_config())
+        cfg.response_length = COMPACT_TOKENS
+        cfg.rollout_compaction_segments = COMPACT_SEGMENTS
+        cfg.kv_cache_quant = quant
+        cfg.rollout_top_k = COMPACT_TOP_K
+        cfg.save_steps, cfg.load_best_model_at_end = 0, False
+        cfg.output_dir = _compact_dir(quant)
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+        with cut_depth(common_mod, layers):
+            tr = common_mod.build_trainer(cfg, device="cuda")
+        try:
+            rows = tr.dataset.input_ids
+            other = next(r for r in rows[1:] if not np.array_equal(r, rows[0]))
+            tr.dataset.input_ids = np.stack([rows[0]] * COMPACT_SPLIT[0]
+                                            + [other] * COMPACT_SPLIT[1])
+            tr._reset_data_iterator()
+            planted: dict = {}
+            t0 = time.perf_counter()
+            with planting_eos(tr, planted):
+                tr.train(num_updates=1)
+            wall = time.perf_counter() - t0
+            row = tr.logger.latest()
+            loss, gnorm = row["loss/policy_avg_new"], row["policy/grad_norm_new"]
+            got = tr.last_compaction
+            sizes = [b for b, _, _ in got["menu"]] if got else []
+            log(f"  {label} one GRPO update with compacting decode (sampled at top-k "
+                f"{COMPACT_TOP_K}, {COMPACT_SPLIT[0]} + {COMPACT_SPLIT[1]} copies of two "
+                f"prompts, EOS {planted['eos']} planted from the trainer's own sampled rows: "
+                f"predicted menu {planted['menu']}): {wall:.3f} s (the planting run included), "
+                f"rollout {tr.last_timings['generate_s']:.3f} s, loss {loss:.6e}, grad_norm "
+                f"{gnorm:.6e}; the rollout's menu (batch, steps) "
+                f"{[(b, s) for b, s, _ in got['menu']] if got else None}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"{label}: the update with compacting decode ended non-finite")
+            if tr.last_launches["generate"][kernel] <= 0:
+                fail(f"{label}: the trainer's compacting rollout launched no {kernel}")
+            if not got or got["compactions"] < 1 or sizes[:2] != planted["menu"][:2]:
+                fail(f"{label}: the trainer's rollout decoded at {sizes}; its first compaction "
+                     f"must be the planted one, {planted['menu'][:2]}")
+        finally:
+            tr.close()
+            shutil.rmtree(cfg.output_dir, ignore_errors=True)
+        shapes = sorted({(b, Tp + COMPACT_TOKENS) for b in per_size}, reverse=True)
+        log(f"  {label} {kernel} at the menu's batch sizes against its plain version")
+        held = (check_decode(torch, F, Tp, shapes) if quant == "none"
+                else check_decode_q8(torch, F, shapes))
+        entries[kernel] = {
+            "launches": {str(b): n for b, n in per_size.items()},
+            "menu": [[b, s] for b, s, _ in stats["menu"]],
+            "max_abs_err": {str(b): held[(b, t)]["max_abs_err"] for b, t in shapes},
+            "ms": {str(b): held[(b, t)]["ms"] for b, t in shapes},
+            "plain_ms": {str(b): held[(b, t)]["plain_ms"] for b, t in shapes},
+            "bound_ms": {str(b): held[(b, t)]["bound_ms"] for b, t in shapes},
+        }
+    log(f"  phase 18 wall {time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return entries
+
+
+# --------------------------------------------------------------------------
+# phase 19: sequence parallelism, two ranks on the one card
+# --------------------------------------------------------------------------
+
+PHASE19 = ("phase 19: sequence parallelism — the flash ring over K1 and K2/K3 hops, the "
+           "dense GRPO update and sparse GRPO at sp = 2 (two ranks sharing the card, gloo, "
+           "host-staged hops); Qwen2.5-1.5B width")
+SP = 2
+SP_RING = dict(B=4, H=12, KV=2, T=2048, hd=128)
+SP_RING_PADS = (700 / 2048, 1100 / 2048, 64 / 2048)  # left pads, fractions of T
+SP_TOKENS = 512          # phase 4's response length
+SP_R1_TOKENS = 1024      # sparse GRPO's response length in this phase
+SP_SEED = 19
+# the ring's out against K1 over the whole sequence (f32 partials merged,
+# rounded once to bf16): within phase 2's 2e-2; its LSE (f32) within 1e-3;
+# dQ/dK/dV (per-hop bf16 partials summed in f32, against one kernel's bf16
+# sums) within 2e-2 of max|g|
+SP_OUT_TOL, SP_LSE_TOL, SP_GRAD_TOL = 2e-2, 1e-3, 2e-2
+# the dense update at sp = 2 against sp = 1: the ring (plain logits) against
+# K1 + K10 over 28 bf16 layers
+SP_LOGP_TOL, SP_LOSS_TOL, SP_GNORM_RTOL = 0.25, 1e-3, 5e-2
+
+
+def _sp_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_sp", *parts)
+
+
+def sp_ring(torch, rank: int, world: int) -> dict:
+    """(a) on one rank: the flash ring's forward (its out and global LSE)
+    and backward on this rank's shard against K1 and K2/K3 over the whole
+    sequence in this process; K1 and K2/K3 on a past hop (non-causal, rank
+    1 on rank 0's chunk) against their plain versions in f32; the launches
+    per hop, the ring's time against one process's kernels and the einsum
+    ring's, the hop's transport time."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.ops import attention as at
+    from nanorlhf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from nanorlhf_tpu_torch.parallel.ring_attention import ring_attention_flash, ring_forward
+
+    tr = make_mesh(MeshConfig(1, 1, 1, world)).transport
+    B, H, KV, T, hd = (SP_RING[k] for k in ("B", "H", "KV", "T", "hd"))
+    gen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = randn(B, H, T, hd), randn(B, KV, T, hd), randn(B, KV, T, hd)
+    valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    # left padding: row 1's first shard all pad (rank 1's past hop has no
+    # key for it), row 0 most of it, row 2 one tile
+    for b, frac in enumerate(SP_RING_PADS):
+        valid[b, :int(frac * T)] = False
+    do = randn(B, H, T, hd) * valid[:, None, :, None]
+    t = T // world
+    sl = slice(rank * t, (rank + 1) * t)
+    ql, kl, vl, dol = (x[:, :, sl].contiguous() for x in (q, k, v, do))
+    vl_valid = valid[:, sl].contiguous()
+    out_f, lse_f = at.flash_attention_forward(q, k, v, valid, True)
+    dq_f, dk_f, dv_f = at.flash_attention_backward(q, k, v, valid, out_f, lse_f, do, True)
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    o_r, l_r = ring_forward(ql, kl, vl, vl_valid, tr, True, True)
+    torch.cuda.synchronize()
+    fwd_counts = _build.launch_counts()
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (ql, kl, vl))
+    _build.reset_launch_counts()
+    out = ring_attention_flash(qg, kg, vg, vl_valid, tr, True)
+    out.backward(dol)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    rows = vl_valid[:, None, :, None]
+    err = {
+        "out": float(((o_r - out_f[:, :, sl].float()).abs() * rows).max()),
+        "lse": float(((l_r - lse_f[:, :, sl]).abs() * vl_valid[:, None, :]).max()),
+        **{n: float((g.float() - w[:, :, sl].float()).abs().max() / w.float().abs().max())
+           for n, g, w in (("dq", qg.grad, dq_f), ("dk", kg.grad, dk_f), ("dv", vg.grad, dv_f))},
+    }
+    hop = {}
+    if rank > 0:
+        # K1, K2/K3 at a past hop: rank 0's chunk, non-causal, global out/LSE
+        k0, v0 = (x[:, :, :t].contiguous() for x in (k, v))
+        m0 = valid[:, :t].contiguous()
+        o_c, l_c = at.flash_attention_forward(ql, k0, v0, m0, False)
+        o_p, l_p = at.flash_attention_reference(ql.float(), k0.float(), v0.float(), m0, False)
+        has_key = m0.any(1)[:, None, None, None]
+        hop["K1"] = float(((o_c.float() - o_p).abs() * has_key).max())
+        hop["K1_lse"] = float(((l_c - l_p).abs() * has_key[..., 0]).max())
+        o_g = out.detach().contiguous()
+        l_g = l_r.contiguous()
+        g_k = at.flash_attention_backward(ql, k0, v0, m0, o_g, l_g, dol, False)
+        g_p = at.flash_attention_backward_reference(ql.float(), k0.float(), v0.float(), m0,
+                                                    o_g.float(), l_g, dol.float(), False)
+        for n, a, b in zip(("K2_dq", "K3_dk", "K3_dv"), g_k, g_p):
+            hop[n] = float((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    h0, s0 = tr.hops, tr.hop_s
+    ring_ms = time_ms(torch, lambda: ring_forward(ql, kl, vl, vl_valid, tr, True, True), 10)
+    hop_fwd_s = (tr.hop_s - s0) / max(1, tr.hops - h0)
+
+    def fwd_bwd():
+        o = ring_attention_flash(qg, kg, vg, vl_valid, tr, True)
+        o.backward(dol)
+
+    h0, s0 = tr.hops, tr.hop_s
+    ring_fb_ms = time_ms(torch, fwd_bwd, 5)
+    hop_fb_s = (tr.hop_s - s0) / max(1, tr.hops - h0)
+    einsum_ms = time_ms(torch, lambda: ring_forward(ql, kl, vl, vl_valid, tr, True, False), 3)
+    full_ms = time_ms(torch, lambda: at.flash_attention_forward(q, k, v, valid, True), 10)
+    # the least this rank's ring forward could take: its q shard, the r + 1
+    # chunks it visits, out and LSE; the diagonal's causal half and r full chunks
+    n_hops = rank + 1
+    nbytes = 2 * (ql.numel() + n_hops * (kl.numel() + vl.numel()) + ql.numel()) + 4 * B * H * t
+    flops = 4.0 * B * H * t * t * hd * (rank + 0.5)
+    bms, by = bound_ms(nbytes, flops)
+    return {"rank": rank, "fwd_launches": fwd_counts, "fwd_bwd_launches": counts, "err": err,
+            "hop": hop, "ring_ms": ring_ms, "ring_fwd_bwd_ms": ring_fb_ms,
+            "einsum_ring_ms": einsum_ms, "full_k1_ms": full_ms, "bound_ms": bms,
+            "bound_by": by, "hop_wait_s_fwd": hop_fwd_s, "hop_wait_s_fwd_bwd": hop_fb_s,
+            "backend": tr.backend}
+
+
+def _rollout_digest(*arrays) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def sp_dense(torch, world: int, layers: int | None) -> dict:
+    """(b) on one rank (world 1: the reference in the parent): phase 4's
+    GRPO config at SP_TOKENS tokens through `common.build_trainer`, one
+    update; returns the rollout's digest, the scoring pass's logprobs, the
+    update's stats, the launches by half and the timings."""
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+
+    cfg = one_card_cut(build_config(sequence_parallel=world))
+    cfg.response_length = SP_TOKENS
+    cfg.save_steps, cfg.load_best_model_at_end = 0, False
+    cfg.output_dir = _sp_dir(f"dense_sp{world}")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    with cut_depth(common_mod, layers):
+        tr = common_mod.build_trainer(cfg, device="cuda")
+    seen = {}
+    real = trainer_mod.score_rollout
+
+    def spying(payload, *a, **kw):
+        ro = real(payload, *a, **kw)
+        seen.update(digest=_rollout_digest(payload["queries"], payload["responses"],
+                                           ro["scores"]),
+                    logprobs=ro["logprobs"], ref_logprobs=ro["ref_logprobs"],
+                    responses=ro["responses"])
+        return ro
+
+    trainer_mod.score_rollout = spying
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train(num_updates=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = tr.logger.latest()
+        return {**seen, "wall_s": wall, "row": {k: v for k, v in row.items()
+                                                 if isinstance(v, float)},
+                "launches": tr.last_launches, "timings": dict(tr.last_timings),
+                "L": tr.mcfg.num_hidden_layers, "opt_steps": tr.state["opt_steps"],
+                "grad_accum": cfg.gradient_accumulation_steps,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        trainer_mod.score_rollout = real
+        tr.close()
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+
+
+def sp_sparse(torch, world: int, layers: int | None) -> dict:
+    """(c) on one rank: `grpo_r1.build_trainer` at `r1_card_cut` with
+    SP_R1_TOKENS-token responses and sp = `world`, no accuracy eval, the
+    launcher's reward replaced by a planted one (crc32 of the text: scores
+    vary inside the groups, so the sparse filter keeps rows), one update."""
+    import shutil
+    import zlib
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints import grpo_r1
+    from nanorlhf_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = grpo_r1.r1_card_cut(grpo_r1.build_config())
+    cfg.response_length = SP_R1_TOKENS
+    cfg.mesh = MeshConfig(1, 1, 1, world)
+    cfg.save_steps, cfg.eval_steps, cfg.load_best_model_at_end = 0, 0, False
+    cfg.output_dir = _sp_dir(f"r1_sp{world}")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    with cut_depth(grpo_r1, layers):
+        tr = grpo_r1.build_trainer(cfg, limit=64, device="cuda")
+    tr.accuracy_func = None
+    ds = tr.dataset
+    if ds.input_ids.shape[1] % world:
+        # the sequence shards evenly over the ring (JAX's `_sp_round_len`
+        # raises on an odd qr width): one more column of left pad
+        from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
+
+        ds.input_ids = np.pad(ds.input_ids, ((0, 0), (world - ds.input_ids.shape[1] % world, 0)),
+                              constant_values=tr.tokenizer.pad_token_id)
+        tr._len_menu = shape_menu(cfg.response_length + ds.input_ids.shape[1], min_value=32)
+        tr._reset_data_iterator()
+    tr.reward_func = lambda texts, *_: np.asarray(
+        [(zlib.crc32(s.encode()) % 7) / 7.0 for s in texts], np.float32)
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train(num_updates=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = tr.update_log[-1]
+        return {"wall_s": wall, "skipped": rec["skipped"], "kept": rec["kept"],
+                "row": {k: v for k, v in (rec.get("metrics") or {}).items()
+                        if isinstance(v, float)},
+                "launches": rec.get("launches"), "buckets": rec.get("update_buckets"),
+                "L": tr.mcfg.num_hidden_layers}
+    finally:
+        tr.close()
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def recording_ring_hops(seen: set):
+    """Record each ring hop's kernel call — ("fwd" or "bwd", B, H, KV,
+    T_local, hd, causal) — as the ring calls its wrappers (which run, and
+    count, unchanged)."""
+    import importlib
+
+    # the package's `ring_attention` is the function (JAX's export names)
+    ra = importlib.import_module("nanorlhf_tpu_torch.parallel.ring_attention")
+    fwd, bwd = ra.flash_attention_forward, ra.flash_attention_backward
+
+    def rec_fwd(q, k, v, key_valid, causal=True):
+        seen.add(("fwd", *q.shape[:2], k.shape[1], *q.shape[2:], bool(causal)))
+        return fwd(q, k, v, key_valid, causal)
+
+    def rec_bwd(q, k, v, key_valid, out, lse, do, causal=True):
+        seen.add(("bwd", *q.shape[:2], k.shape[1], *q.shape[2:], bool(causal)))
+        return bwd(q, k, v, key_valid, out, lse, do, causal)
+
+    ra.flash_attention_forward, ra.flash_attention_backward = rec_fwd, rec_bwd
+    try:
+        yield
+    finally:
+        ra.flash_attention_forward, ra.flash_attention_backward = fwd, bwd
+
+
+def check_ring_hops(torch, seen: set) -> dict:
+    """K1 and K2/K3 at every ring hop shape that (b) and (c) gave them
+    (`recording_ring_hops`: the local widths there are not tile multiples,
+    so the kernels run masked tail tiles). For each (B, T_local): q, k, v
+    over two chunks (T = 2·T_local), left-padded — row 0 not at all, row 1
+    past the first chunk (its past hop has no key), row 2 to a column off
+    the 64-column tiles —, the global out and LSE of chunk 1's queries from
+    the f32 plain full attention. The diagonal hop (chunk 1 on itself,
+    causal) and the past hop (chunk 1's queries on chunk 0, non-causal)
+    held as phase 2 holds K1 and K2/K3: out within 2e-2 and per 64-row
+    tile within TILE_TOL, LSE within 1e-3 (a query row with no key in the
+    chunk is free), dQ/dK/dV — against the GLOBAL out and LSE, as the ring
+    runs them — within 1e-2 · max|g| and per tile within TILE_TOL. Returns
+    {"hop B=.. T_local=..": {label: error}} (gradients relative to max|g|)."""
+    from nanorlhf_tpu_torch.ops.attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_forward, flash_attention_reference)
+
+    results = {}
+    for B, H, KV, t, hd in sorted({x[1:6] for x in seen}):
+        calls = {(x[0], x[6]) for x in seen if x[1:6] == (B, H, KV, t, hd)}
+        gen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+        T = 2 * t
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        q, k, v = randn(B, H, T, hd), randn(B, KV, T, hd), randn(B, KV, T, hd)
+        pad = torch.randint(0, t, (B,), generator=gen, device="cuda")
+        for b, p in enumerate((0, t + t // 3, t // 2 + 3)[:B]):
+            pad[b] = p
+        valid = torch.arange(T, device="cuda")[None, :] >= pad[:, None]
+        rows_at = plain_rows(B, H, T)
+        g_out, g_lse = by_rows(torch, lambda *a: flash_attention_reference(*a, causal=True),
+                               rows_at, *_f32(q, k, v), valid)
+        q1, m1 = q[:, :, t:].contiguous(), valid[:, t:].contiguous()
+        qrow = m1[:, None, :]
+        o_glob = torch.where(qrow[..., None], g_out[:, :, t:], 0.0).to(q.dtype).contiguous()
+        l_glob = torch.where(qrow, g_lse[:, :, t:], 0.0).contiguous()
+        do = (randn(B, H, t, hd).float() * qrow[..., None]).to(torch.bfloat16)
+        del g_out, g_lse
+        for name, lo, causal in (("diagonal", t, True), ("past", 0, False)):
+            kc, vc = (x[:, :, lo:lo + t].contiguous() for x in (k, v))
+            mc = valid[:, lo:lo + t].contiguous()
+            what = (f"ring {name} hop B={B} H={H} KV={KV} T_local={t} hd={hd} "
+                    f"{'causal' if causal else 'non-causal'}")
+            rows = (qrow & mc.any(1)[:, None, None]).expand(B, H, t)
+            err = {}
+            if ("fwd", causal) in calls:
+                def plain_fn(*a):
+                    return flash_attention_reference(*a, causal=causal)
+
+                out, lse = flash_attention_forward(q1, kc, vc, mc, causal)
+                ref_out, ref_lse = by_rows(torch, plain_fn, rows_at, *_f32(q1, kc, vc), mc)
+                b_out, b_lse = by_rows(torch, plain_fn, rows_at, q1, kc, vc, mc)
+                keep = rows[..., None]
+                hold_tiles(torch, what, [("out", torch.where(keep, out, ref_out.to(out.dtype)),
+                                          ref_out, torch.where(keep, b_out, ref_out.to(b_out.dtype)))])
+                err["out"] = hold(torch, what, [("out", out, ref_out, b_out, rows)], 2e-2)
+                err["lse"] = hold(torch, what, [("lse", lse, ref_lse, b_lse, rows)], 1e-3)
+            if ("bwd", causal) in calls:
+                got = flash_attention_backward(q1, kc, vc, mc, o_glob, l_glob, do, causal)
+                want = flash_attention_backward_reference(*_f32(q1, kc, vc), mc, o_glob.float(),
+                                                          l_glob, do.float(), causal)
+                plain = flash_attention_backward_reference(q1, kc, vc, mc, o_glob, l_glob, do,
+                                                           causal)
+                hold_tiles(torch, f"{what} backward (global out and LSE)",
+                           list(zip(("dq", "dk", "dv"), got, want, plain)))
+                for label, g, w, b in zip(("dq", "dk", "dv"), got, want, plain):
+                    scale = float(w.abs().max())
+                    err[label] = hold(torch, f"{what} {label} (scale {scale:.3e})",
+                                      [(label, g, w, b, None)], 1e-2 * scale) / scale
+            if err:
+                results[f"{name} B={B} T_local={t}"] = err
+    return results
+
+
+def sp_rank(rank: int, world: int, layers: int | None) -> tuple:
+    """A spawned rank of phase 19 (`parallel.distributed.spawn`; the ranks
+    share the card, so gloo, host-staged): (a), (b) and (c) in turn, in one
+    group (each group costs its processes' start, torch's import, the
+    card's context and the kernels' load), and the ring hops' shapes that
+    (b) and (c) gave the kernels."""
+    import torch
+
+    from nanorlhf_tpu_torch import _build
+
+    _build.build_all()  # loads the libraries the parent built
+    ring = sp_ring(torch, rank, world)
+    hops: set = set()
+    with recording_ring_hops(hops):
+        dense, sparse = sp_dense(torch, world, layers), sp_sparse(torch, world, layers)
+    return ring, dense, sparse, hops
+
+
+def sp_phase(torch, card: str, layers: int | None = None) -> dict:
+    """Phase 19 (module docstring). Returns the kernels line's `sp`
+    entries."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(_sp_dir(), ignore_errors=True)
+    os.makedirs(_sp_dir(), exist_ok=True)
+    torch.cuda.empty_cache()
+    from nanorlhf_tpu_torch.parallel.distributed import spawn
+
+    log(f"  (b)'s reference: phase 4's GRPO config at {SP_TOKENS} tokens, sp = 1, in this "
+        f"process; then {SP} ranks spawned for (a), (b) and (c)")
+    ref = sp_dense(torch, 1, layers)
+    torch.cuda.empty_cache()
+    try:
+        ranks = spawn(sp_rank, SP, (layers,), timeout=1200, store_dir=_sp_dir())
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 19: {e}")
+    ring, dense, sparse = ([r[i] for r in ranks] for i in range(3))
+    hops = set().union(*(r[3] for r in ranks))
+    log(f"  (a) the flash ring alone: B={SP_RING['B']} H={SP_RING['H']} KV={SP_RING['KV']} "
+        f"T={SP_RING['T']} hd={SP_RING['hd']} over {SP} ranks, rows left-padded by "
+        f"{[int(f * SP_RING['T']) for f in SP_RING_PADS]} tokens")
+    for r in ring:
+        n = r["rank"] + 1
+        log(f"  rank {r['rank']} ({r['backend']}): K1 launches forward {r['fwd_launches']['flash_fwd']}, "
+            f"forward+backward K1/K2/K3 {r['fwd_bwd_launches']['flash_fwd']}/"
+            f"{r['fwd_bwd_launches']['flash_bwd_dq']}/{r['fwd_bwd_launches']['flash_bwd_dkv']} "
+            f"(rank r runs r + 1 hops); errors against one process's K1/K2/K3 "
+            f"{ {k: f'{v:.3e}' for k, v in r['err'].items()} }; past hop against the plain "
+            f"versions {({k: f'{v:.3e}' for k, v in r['hop'].items()})}; ring forward "
+            f"{r['ring_ms']:.3f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}), "
+            f"forward+backward {r['ring_fwd_bwd_ms']:.3f} ms, einsum ring {r['einsum_ring_ms']:.3f} ms, "
+            f"one process's K1 over T={SP_RING['T']} {r['full_k1_ms']:.3f} ms; hop wait "
+            f"{r['hop_wait_s_fwd'] * 1e3:.3f} ms forward, {r['hop_wait_s_fwd_bwd'] * 1e3:.3f} ms "
+            f"in forward+backward (two ranks sharing the card: not a multi-GPU number)")
+        if r["fwd_launches"]["flash_fwd"] != n or any(
+                r["fwd_bwd_launches"][k] != n for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            fail(f"ring rank {r['rank']}: launches {r['fwd_bwd_launches']}, expected {n} each")
+        bad = {k: v for k, v in r["err"].items()
+               if v > {"out": SP_OUT_TOL, "lse": SP_LSE_TOL}.get(k, SP_GRAD_TOL)}
+        bad.update({k: v for k, v in r["hop"].items()
+                    if v > {"K1": SP_OUT_TOL, "K1_lse": SP_LSE_TOL}.get(k, SP_GRAD_TOL)})
+        if bad:
+            fail(f"ring rank {r['rank']}: past tolerance {bad}")
+    if not ring[1]["hop"]:
+        fail("ring: rank 1 held no past hop")
+
+    log(f"  (b) the dense GRPO update (phase 4's config, {SP_TOKENS} tokens) at sp = {SP} "
+        f"against sp = 1, same seed")
+    L = ref["L"]
+    n_micro = ref["opt_steps"] * ref["grad_accum"]
+    valid = ref["responses"] != 0
+    for rank, got in enumerate(dense):
+        if got["digest"] != ref["digest"]:
+            fail(f"dense rank {rank}: its rollout differs from sp = 1's")
+        d = np.abs(got["logprobs"] - ref["logprobs"])[valid]
+        dr = np.abs(got["ref_logprobs"] - ref["ref_logprobs"])[valid]
+        a, b = got["row"], ref["row"]
+        dl = abs(a["loss/policy_avg_new"] - b["loss/policy_avg_new"])
+        dg = abs(a["policy/grad_norm_new"] - b["policy/grad_norm_new"]) / b["policy/grad_norm_new"]
+        upd = got["launches"]["update"]
+        log(f"  rank {rank}: rollout equal to sp = 1's (digest); scoring logprobs max "
+            f"|Δ| {d.max():.4e} (mean {d.mean():.4e}), ref {dr.max():.4e}; loss "
+            f"{a['loss/policy_avg_new']:.6e} vs {b['loss/policy_avg_new']:.6e}; grad_norm "
+            f"{a['policy/grad_norm_new']:.6e} vs {b['policy/grad_norm_new']:.6e} (rel {dg:.3e}); "
+            f"entropy {a['policy/entropy_avg_new']:.4f} vs {b['policy/entropy_avg_new']:.4f}; "
+            f"update launches {upd}; update wall {got['timings']['update_s']:.3f} s vs "
+            f"{ref['timings']['update_s']:.3f} s at sp = 1, whole update {got['wall_s']:.3f} s vs "
+            f"{ref['wall_s']:.3f} s; ring hops {a['sp/hops']:.0f}, hop wait {a['sp/hop_wait_s']:.3f} s; "
+            f"peak {got['peak_gb']:.2f} GB vs {ref['peak_gb']:.2f} GB (two ranks on one card: "
+            f"not a multi-GPU number)")
+        if max(d.max(), dr.max()) > SP_LOGP_TOL or dl > SP_LOSS_TOL or dg > SP_GNORM_RTOL:
+            fail(f"dense rank {rank}: sp = 2 against sp = 1 past tolerance (logprobs "
+                 f"{SP_LOGP_TOL}, loss {SP_LOSS_TOL}, grad_norm {SP_GNORM_RTOL} relative)")
+        want = {"flash_fwd": 2 * L * n_micro * (rank + 1), "flash_bwd_dq": L * n_micro * (rank + 1),
+                "flash_bwd_dkv": L * n_micro * (rank + 1), "fused_logprob": 0}
+        if any(upd[k] != v for k, v in want.items()):
+            fail(f"dense rank {rank}: update launches {upd}, expected {want} (K1 twice a layer "
+                 "a microbatch under full remat, K2/K3 once, per hop; no K10 on the ring)")
+        if a["sp/backend_nccl"] != 0.0 or a["sp/host_staged"] != 1.0:
+            fail(f"dense rank {rank}: the transport row says {a}")
+
+    log(f"  (c) sparse GRPO (`r1_card_cut`, {SP_R1_TOKENS}-token responses) at sp = {SP}")
+    for rank, got in enumerate(sparse):
+        loss = got["row"].get("loss/policy_avg_new", float("nan"))
+        log(f"  rank {rank}: {got['kept']} kept rows, skipped {got['skipped']}, loss "
+            f"{loss:.6e}, update buckets {got['buckets']}, launches {got['launches']}, "
+            f"wall {got['wall_s']:.3f} s")
+        if got["skipped"] or not math.isfinite(loss):
+            fail(f"sparse rank {rank}: the update was skipped or ended non-finite")
+        upd = got["launches"]["update"]
+        if upd["flash_bwd_dq"] <= 0 or upd["flash_bwd_dkv"] <= 0 or upd["flash_fwd"] <= 0:
+            fail(f"sparse rank {rank}: the ring's update launched {upd}")
+    if sparse[0]["row"] != sparse[1]["row"] and any(
+            abs(sparse[0]["row"][k] - sparse[1]["row"][k]) > 1e-6
+            for k in ("loss/policy_avg_new", "sparse/kept_frac")):
+        fail("sparse: the ranks' metric rows differ")
+    log(f"  (b) and (c): the ring's hops ran K1/K2/K3 at (kind, B, H, KV, T_local, hd, "
+        f"causal) {sorted(hops)}; each held against its plain version at that shape")
+    if not any(x[4] % 64 for x in hops):
+        fail(f"phase 19: no ring hop of (b) or (c) ran at a local width off the tiles: {hops}")
+    held = check_ring_hops(torch, hops)
+    shutil.rmtree(_sp_dir(), ignore_errors=True)
+    log(f"  phase 19 wall {time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return {
+        "flash_fwd": {"launches_per_rank": {
+            "ring_forward": [r["fwd_launches"]["flash_fwd"] for r in ring],
+            "dense_update": [g["launches"]["update"]["flash_fwd"] for g in dense],
+            "sparse_update": [g["launches"]["update"]["flash_fwd"] for g in sparse]},
+            "ring_max_abs_err": max(r["err"]["out"] for r in ring),
+            "hop_max_abs_err": ring[1]["hop"]["K1"],
+            "path_hops_max_abs_err": {k: e for k, v in held.items() for n, e in v.items()
+                                      if n == "out"},
+            "ring_ms": [r["ring_ms"] for r in ring], "einsum_ring_ms": [r["einsum_ring_ms"] for r in ring],
+            "bound_ms": [r["bound_ms"] for r in ring]},
+        **{name: {"launches_per_rank": {
+            "ring_backward": [r["fwd_bwd_launches"][name] for r in ring],
+            "dense_update": [g["launches"]["update"][name] for g in dense],
+            "sparse_update": [g["launches"]["update"][name] for g in sparse]},
+            "ring_rel_err": max(r["err"][key] for r in ring for key in keys),
+            "hop_rel_err": max(ring[1]["hop"][key] for key in hop_keys),
+            "path_hops_rel_err": {k: max(v[key] for key in keys) for k, v in held.items()
+                                  if keys[0] in v},
+            "ring_fwd_bwd_ms": [r["ring_fwd_bwd_ms"] for r in ring]}
+           for name, keys, hop_keys in (("flash_bwd_dq", ("dq",), ("K2_dq",)),
+                                        ("flash_bwd_dkv", ("dk", "dv"), ("K3_dk", "K3_dv")))},
+    }
+
+
 # `--learn`: the learning harness's knobs on the card (the Qwen2-1.5B
 # geometry at the toy 512 vocab; the binary phase on)
 LEARN_KNOBS = {"LEARN_MODEL": "1_5b", "LEARN_UPDATES": "30", "LEARN_BINARY_UPDATES": "10"}
@@ -7155,7 +8123,15 @@ def main() -> None:
                     help="build, then run only the learning-curve harness "
                          "(entrypoints/learning_run: sparse GRPO, shaped then binary reward) "
                          "at LEARN_MODEL=1_5b; not part of the default run")
+    ap.add_argument("--compact", action="store_true",
+                    help="build, then run only phase 18 (compacting decode over the "
+                         "contiguous and the int8 cache, 28 layers) and its holds")
+    ap.add_argument("--sp", action="store_true",
+                    help="build, then run only phase 19 (sequence parallelism: the flash "
+                         "ring, the dense and the sparse GRPO update at sp = 2 on the card, "
+                         "28 layers)")
     ap.add_argument("--sigterm-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--sigterm-layers", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--algos", action="store_true",
                     help="build, then run only phase 2's holds of the shapes phase 9 "
                          "gives the kernels, and phase 9 (one update of each of RLOO, "
@@ -7174,7 +8150,7 @@ def main() -> None:
 
     if args.sigterm_child:
         # phase 13 (i)'s child: the kernels are built, this only loads them
-        sigterm_child(args.sigterm_child, min(args.max_tokens, 512))
+        sigterm_child(args.sigterm_child, min(args.max_tokens, 512), args.sigterm_layers)
         return
     with closing_trainers():
         run(args, torch, F)
@@ -7244,6 +8220,10 @@ def run(args, torch, F) -> None:
                           shape_menu(ds.input_ids.shape[1], 16))
     prompt_width = first.shape[1]
     resp = args.max_tokens
+    # phase 18's pool of prompts: four batches of phase 4's 64 decode rows
+    compact_batches = [depad_queries(next(ds.loader(64, s)), tok.pad_token_id,
+                                     shape_menu(ds.input_ids.shape[1], 16))
+                       for s in (5, 6, 7, 8)]
     phase8_prompts = depad_queries(next(ds.loader(16, 4)), tok.pad_token_id,
                                    shape_menu(ds.input_ids.shape[1], 16))
     phase5_queries = depad_queries(next(ds.loader(16, 2)), tok.pad_token_id,
@@ -7322,6 +8302,20 @@ def run(args, torch, F) -> None:
         fleet_holds(torch, F, seen17, seen17s, None, prompt_width, phase8_prompts.shape[1])
         log(json.dumps({"fleet_kernels": fleet_entries(counts17, gens17)}))
         log(f"fleet: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.compact:
+        log(PHASE18)
+        compact = compaction_phase(torch, F, card, compact_batches, tok.pad_token_id)
+        log(json.dumps({"compact_kernels": compact}))
+        log(f"compact: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.sp:
+        log(PHASE19)
+        sp = sp_phase(torch, card)
+        log(json.dumps({"sp_kernels": sp}))
+        log(f"sp: every hold and check passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.learn:
@@ -7503,11 +8497,21 @@ def run(args, torch, F) -> None:
     spec_int8_rollout(torch)
 
     log("phase 8: the compiled decode loop, graph replay against the per-step body")
-    graph_loops(torch, phase8_prompts, tok.pad_token_id)
+    log(f"CUT: phase 8 runs the model's first {CUT_LAYERS} layers here "
+        f"(`--graph-loops` runs all 28), so that the whole script stays inside 1100 s of "
+        f"its time limit with phases 18 and 19; widths and the kernels' shapes are the "
+        f"launcher's")
+    graph_loops(torch, phase8_prompts, tok.pad_token_id, layers=CUT_LAYERS)
 
     log("phase 9: the other five algorithms (RLOO, ReMax, REINFORCE, RAFT, PPO), "
         "Qwen2.5-1.5B width")
-    other_algorithms(torch, short, prompt_width, fwd9, bwd9, fused9, card)
+    log(f"CUT: phase 9 runs the model's first {CUT_LAYERS} layers here (`--algos` runs "
+        f"all 28), so that the whole script stays inside 1100 s of its time limit with "
+        f"phases 18 and 19; widths, lengths and the kernels' shapes are the launcher's")
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+
+    with cut_depth(common_mod, CUT_LAYERS):
+        other_algorithms(torch, short, prompt_width, fwd9, bwd9, fused9, card)
 
     log("phase 10: checkpoints and data in and out, Qwen2.5-1.5B width, full depth")
     checkpoints_in_and_out(torch, F, short, {
@@ -7517,12 +8521,12 @@ def run(args, torch, F) -> None:
     log("phase 11: sparse GRPO and the R1-Zero launcher, 8,000-token responses, "
         "Qwen2-1.5B width, full depth")
     r1_seen = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
-    log(f"CUT: phase 11 trains 1 update of the model's first {R1_CUT_LAYERS} layers here "
+    log(f"CUT: phase 11 trains 1 update of the model's first {CUT_LAYERS} layers here "
         f"and runs no accuracy eval (`--r1` trains the launcher's 2 at 28 layers with an "
         f"eval before and after each), so that the whole script stays inside its time "
         f"limit with phases 13 and 14; widths, lengths and the kernels' shapes are the "
         f"launcher's")
-    counts11 = r1_zero(torch, r1_seen, updates=1, evals=False, layers=R1_CUT_LAYERS)
+    counts11 = r1_zero(torch, r1_seen, updates=1, evals=False, layers=CUT_LAYERS)
     log("  the kernels at the shapes phase 11 gave them, against their plain versions")
     r1 = r1_entries(hold_r1_shapes(torch, F, r1_seen), counts11)
 
@@ -7542,11 +8546,13 @@ def run(args, torch, F) -> None:
     log("phase 13: the host planes on the GRPO main path, Qwen2.5-1.5B width")
     seen13 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
     seen13v: collections.Counter = collections.Counter()
-    log("CUT: phase 13 reads the planes' overhead in one turn a side here (off/on; "
-        "`--host` takes two), so that the whole script stays inside its time limit with "
-        "phase 14")
-    host = host_planes(torch, short, phase8_prompts, phase5_queries, tok.pad_token_id,
-                       card, seen13, seen13v, turns=("off", "on"))
+    log(f"CUT: phase 13 reads the planes' overhead in one turn a side here (off/on; "
+        f"`--host` takes two) and runs the model's first {CUT_LAYERS} layers (`--host` "
+        f"runs all 28), so that the whole script stays inside 1100 s of its time limit "
+        f"with phases 14-19; widths, lengths and the kernels' shapes are the launcher's")
+    with cut_depth(common_mod, CUT_LAYERS):
+        host = host_planes(torch, short, phase8_prompts, phase5_queries, tok.pad_token_id,
+                           card, seen13, seen13v, turns=("off", "on"), layers=CUT_LAYERS)
     log("  the kernels at the shapes phase 13 gave them that no earlier phase held, "
         "against their plain versions")
     hold_new_shapes(torch, F, seen13, {
@@ -7591,12 +8597,11 @@ def run(args, torch, F) -> None:
     log(PHASE17)
     seen17 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
     seen17s = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
-    log(f"CUT: phase 17 runs the model's first {FLEET_CUT_LAYERS} layers here (`--fleet` "
+    log(f"CUT: phase 17 runs the model's first {CUT_LAYERS} layers here (`--fleet` "
         f"runs all 28), so that the whole script stays inside 1100 s of its time limit; "
         f"widths, lengths and the kernels' shapes are the launcher's")
-    from nanorlhf_tpu_torch.entrypoints import common as common_mod
 
-    with cut_depth(common_mod, FLEET_CUT_LAYERS):
+    with cut_depth(common_mod, CUT_LAYERS):
         counts17, gens17 = fleet_phase(torch, F, card, phase8_prompts, tok.pad_token_id,
                                        seen17, seen17s)
     fleet_holds(torch, F, seen17, seen17s, {
@@ -7611,6 +8616,19 @@ def run(args, torch, F) -> None:
                    | set(seen13["decode"]) | set(seen14["decode"]))},
         prompt_width, phase8_prompts.shape[1])
     fleet = fleet_entries(counts17, gens17)
+
+    log(PHASE18)
+    log(f"CUT: phase 18 runs the model's first {CUT_LAYERS} layers here (`--compact` "
+        f"runs all 28), so that the whole script stays inside 1100 s of its time limit; "
+        f"widths, lengths and the kernels' shapes are the launcher's")
+    compact = compaction_phase(torch, F, card, compact_batches, tok.pad_token_id,
+                               layers=CUT_LAYERS)
+
+    log(PHASE19)
+    log(f"CUT: phase 19 runs the model's first {CUT_LAYERS} layers here (`--sp` runs all "
+        f"28), so that the whole script stays inside 1100 s of its time limit; widths, "
+        f"lengths and the ring's shapes are the launcher's")
+    sp = sp_phase(torch, card, layers=CUT_LAYERS)
 
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
@@ -7639,6 +8657,8 @@ def run(args, torch, F) -> None:
             **({"serve": serve[name]} if name in serve else {}),
             **({"envs": envs[name]} if name in envs else {}),
             **({"fleet": fleet[name]} if name in fleet else {}),
+            **({"compact": compact[name]} if name in compact else {}),
+            **({"sp": sp[name]} if name in sp else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -16,7 +16,10 @@ retries, fallback and resume, and the launcher's tokenizer, dataset,
 token-cache and reward-model branches; sparse GRPO, the host planes,
 serving, multi-turn environments (`envs/`: the python-tool environment
 over a pooled executor, the episode driver on the paged session) and the
-chaos harness's serving soak (`chaos/`). All ten Pallas kernels
+chaos harness's serving soak (`chaos/`), the rollout orchestrator and
+fleet (`orchestrator/`), compacting decode (`sampler/compaction.py`) and
+sequence parallelism over `torch.distributed` (`parallel/`: the ring over
+the flash kernels, SP scoring and updates). All ten Pallas kernels
 of the JAX package have a hand-written Hopper counterpart under `csrc/`:
 the flash-attention forward and backward (dQ, dK/dV), the decode attention
 over the contiguous, paged and int8 caches, the k-query verify over the

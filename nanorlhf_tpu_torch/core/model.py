@@ -362,7 +362,7 @@ def _cache_views(kv_cache, paged, width: int, dtype):
 
 def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
                 cache_index, lora_layer=None, lora_scale=1.0,
-                decode_bounds=None, paged=None, verify_bounds=None):
+                decode_bounds=None, paged=None, verify_bounds=None, attn_fn=None):
     """One decoder layer. kv_cache: the layer's cache tuple — exact (k, v)
     or int8 (k_q, k_s, v_q, v_s), contiguous [B, KV, T_max, ...] or paged
     pools [N + 1, KV, P, ...] with `paged=(table [B, nb], page_size,
@@ -378,7 +378,12 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     (start, fill)` marks the speculative verify (T = Tq candidates written at
     per-row slots [fill, fill + Tq)): K6/K9 over an exact cache on the
     kernel route; otherwise — the plain route, and the int8 cache on every
-    route, as in JAX — the masked contraction over the cache views."""
+    route, as in JAX — the masked contraction over the cache views.
+
+    `attn_fn(q, k, v)`, when given, replaces the attention contraction (the
+    sequence-parallel ring, `parallel/sp.py`; no cache): q and k arrive
+    rotated at the positions the caller's tables give — global ones on a
+    sequence shard — and every other op stays this one body."""
     hd = config.actual_head_dim
     H, KV = config.num_attention_heads, config.num_key_value_heads
     B, T, _ = x.shape
@@ -394,7 +399,9 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if kv_cache is not None:
+    if attn_fn is not None:
+        out = attn_fn(q, k, v)
+    elif kv_cache is not None:
         _write_kv(kv_cache, k, v, cache_index, paged)
         quantized = len(kv_cache) == 4
         if verify_bounds is not None:
@@ -458,7 +465,7 @@ def _remat_context(policy: str) -> dict:
 
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
                 cache_index=0, lora_scale=1.0, decode_bounds=None,
-                remat: bool = False, paged=None, verify_bounds=None):
+                remat: bool = False, paged=None, verify_bounds=None, attn_fn=None):
     """Run the stacked layers in order. kv_caches: the stacked cache tuple
     ((k, v) or (k_q, k_s, v_q, v_s), each [L, ...], updated in place) or
     None; `paged=(table, page_size)` when it is a page pool.
@@ -468,7 +475,9 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
     of JAX's `jax.checkpoint` around the scan body. `remat_policy="full"`
     keeps only the layer's input, and the backward re-runs its forward;
     `"dots"` also keeps the outputs of its 2-D GEMMs (`_remat_context`).
-    Either changes memory, not values."""
+    Either changes memory, not values. `attn_fn`: see `_layer_body`; under
+    remat the backward's recompute runs it again (the ring's hops repeat in
+    the same order on every rank)."""
     remat_kw = _remat_context(config.remat_policy) if remat else {}
     if paged is not None and kv_caches is not None:
         # where this forward's K/V land in the pool: resolved once, not
@@ -484,12 +493,12 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
         kv = None if kv_caches is None else tuple(c[i] for c in kv_caches)
         if remat and kv is None:
             x = checkpoint(_layer_body, config, x, layer, cos, sin, mask, None,
-                           cache_index, lora_layer, lora_scale,
+                           cache_index, lora_layer, lora_scale, attn_fn=attn_fn,
                            use_reentrant=False, **remat_kw)
         else:
             x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
                             lora_layer, lora_scale, decode_bounds=decode_bounds,
-                            paged=paged, verify_bounds=verify_bounds)
+                            paged=paged, verify_bounds=verify_bounds, attn_fn=attn_fn)
     return x
 
 
@@ -529,8 +538,10 @@ def padding_inputs(query_responses: torch.Tensor, pad_token_id: int):
 
 
 def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
-                        lora_scale, remat: bool = False):
-    """embed → rope → causal+padding mask → layers."""
+                        lora_scale, remat: bool = False, attn_fn=None):
+    """embed → rope → causal+padding mask → layers. `attn_fn` overrides the
+    attention contraction (the sequence-parallel ring); the local mask is
+    then unused — the ring builds its own from global positions."""
     attention_mask = attention_mask.bool()
     x = params["embed_tokens"][input_ids]
     T = input_ids.shape[1]
@@ -538,7 +549,7 @@ def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
     causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
     mask = causal[None, None, :, :] & attention_mask[:, None, None, :]
     return _run_layers(config, params, x, cos, sin, mask, lora_scale=lora_scale,
-                       remat=remat)
+                       remat=remat, attn_fn=attn_fn)
 
 
 def _padded_hidden(params, config, query_responses, pad_token_id, lora_scale=1.0,

@@ -24,6 +24,7 @@ from nanorlhf_tpu_torch.core.params import load_hf_checkpoint
 from nanorlhf_tpu_torch.core.quant import quantize_layers, rollout_view
 from nanorlhf_tpu_torch.data.datasets import load_prompt_dataset
 from nanorlhf_tpu_torch.data.tokenizer import ToyTokenizer, load_tokenizer
+from nanorlhf_tpu_torch.parallel.distributed import initialize_multihost, rank_device
 from nanorlhf_tpu_torch.rewards.builders import make_rule_reward, make_torch_rm_reward
 from nanorlhf_tpu_torch.trainer.bucketing import shape_menu
 from nanorlhf_tpu_torch.trainer.config import RLConfig
@@ -111,11 +112,17 @@ def device_arg(what: str) -> str:
 
 
 def _device(device, who: str) -> torch.device:
+    """The device to build on. Under `torchrun --nproc-per-node N` (a world
+    of N, the sequence-parallel mesh) the process group comes up here
+    (`parallel.distributed.initialize_multihost`: NCCL where each rank owns
+    a card, gloo where they share one or on the CPU) and each rank takes
+    its card; a world of 1 changes nothing."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: device='cuda' but no CUDA device is "
                            "available (pass device='cpu' to run on the CPU)")
-    return device
+    initialize_multihost(device=device)
+    return rank_device(device)
 
 
 def _resolve_all(cfg: RLConfig, device):

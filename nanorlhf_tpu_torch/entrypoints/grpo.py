@@ -1,22 +1,26 @@
 """GRPO launcher — the port of `nanorlhf_tpu/entrypoints/grpo.py`.
 
 `build_config` is the JAX launcher's config literal, field for field. The
-knobs that select paths not ported yet (sequence parallelism, the
-orchestrator and fleet, disaggregated rollouts) are accepted for parity
-and make `run` raise NotImplementedError. `env_name="python_tool",
+knob that selects a path not ported yet (disaggregated rollouts) is
+accepted for parity and makes `run` raise NotImplementedError.
+`env_name="python_tool",
 env_max_turns > 1` trains multi-turn GRPO over the paged cache
 (`env_budgets` splits the response into turns and observations).
 
 Run (one GRPO update on the card, with the batch cut of `one_card_cut`):
     python -m nanorlhf_tpu_torch.entrypoints.grpo [--device cpu]
         [--page-size 128 --decode-rows 32] [--kv-cache-quant int8]
-        [--spec-k 4]
+        [--spec-k 4] [--compaction-segments 4]
+    torchrun --nproc-per-node 2 -m nanorlhf_tpu_torch.entrypoints.grpo --sp 2
 `--page-size` rolls out over the paged KV cache, `--decode-rows` (with a
 page size) through the continuous-batching scheduler with that many
 resident rows, `--kv-cache-quant int8` with the int8 KV cache, `--spec-k`
 with speculative decode (n-gram drafts of that many tokens, one verify
-forward per iteration). The defaults are the JAX launcher's: contiguous,
-exact, no speculative decode.
+forward per iteration), `--compaction-segments` with compacting decode,
+`--sp N` (under `torchrun --nproc-per-node N`) with sequence parallelism
+over the N ranks (gloo with host staging when they share one card). The
+defaults are the JAX launcher's: contiguous, exact, no speculative decode,
+one rank.
 """
 
 from nanorlhf_tpu_torch.entrypoints.common import run
@@ -135,8 +139,14 @@ if __name__ == "__main__":
                     help="kv_cache_quant: the rollout's KV cache in int8")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="rollout_spec_k: > 0 rolls out with speculative decode")
+    ap.add_argument("--compaction-segments", type=int, default=0,
+                    help="rollout_compaction_segments: > 0 rolls out with compacting decode")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence parallelism over N ranks: run under "
+                         "`torchrun --nproc-per-node N`")
     args = ap.parse_args()
-    cfg = one_card_cut(build_config(rollout_spec_k=args.spec_k))
+    cfg = one_card_cut(build_config(sequence_parallel=args.sp, rollout_spec_k=args.spec_k))
+    cfg.rollout_compaction_segments = args.compaction_segments
     cfg.rollout_page_size = args.page_size
     cfg.rollout_decode_rows = args.decode_rows
     cfg.kv_cache_quant = args.kv_cache_quant

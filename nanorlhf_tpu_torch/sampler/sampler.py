@@ -27,8 +27,8 @@ continuous-batching scheduler (`sampler/paged/scheduler.py`). `spec_k > 0`
 runs speculative decode on either layout and on the queued path, where the
 radix prefix cache (`prefix_cache`) and chunked prefill (`prefill_chunk`)
 compose with it. The int8 KV cache is the model config's `kv_cache_quant`.
-Compaction, not ported yet, raises NotImplementedError instead of being
-ignored.
+`compaction_segments > 0` runs compacting decode over the contiguous cache
+(`sampler/compaction.py`).
 """
 
 from __future__ import annotations
@@ -93,9 +93,7 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
         protects resident rows' cadence during a long admission.
 
     Per-row serving constraints (spec requires static greedy, no logprob
-    capture) are the `DecodeSession` constructor's. Then the one knob
-    this port has not ported, compacting decode, raises
-    NotImplementedError."""
+    capture) are the `DecodeSession` constructor's."""
     if sampling.page_size > 0 and sampling.compaction_segments > 0:
         raise ValueError(
             "page_size > 0 is incompatible with compaction_segments > 0: "
@@ -122,12 +120,6 @@ def compose_check(sampling: SamplingParams, *, prefix_cache: bool = False) -> No
             "page_size > 0 and decode_rows > 0 — chunked prefill "
             "interleaves a long admission with resident rows' decode "
             "chunks, and the monolithic paths have neither")
-    if sampling.compaction_segments > 0:
-        raise NotImplementedError(
-            "compaction_segments > 0 (compacting decode) is not ported to "
-            "nanorlhf_tpu_torch yet: the monolithic sampler (contiguous or "
-            "paged), speculative decode and the queued paged scheduler "
-            "(radix prefix cache, chunked prefill) are")
 
 
 def stream_generator(seed: int, stream: int, *index: int,
@@ -314,8 +306,11 @@ def _set_column(buf, col, where, value) -> None:
 
 def _loop_active(state, max_tokens):
     """The monolithic loop's condition, on the device: JAX's
-    `(step < max_tokens) & ~all(done)`."""
-    return (state["step"] < max_tokens) & ~state["done"].all()
+    `(step < max_tokens) & ~all(done)`; a compacting segment also stops at
+    its device-scalar `limit`."""
+    active = (state["step"] < max_tokens) & ~state["done"].all()
+    limit = state.get("limit")
+    return active if limit is None else active & (state["step"] < limit)
 
 
 def _decode_body(params, config, state, *, Tp, max_tokens, eos_token_id,
@@ -400,7 +395,8 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
              eos_token_id: int, pad_token_id: int, lora_scale: float = 1.0,
              timings: dict | None = None, paged_stats_out: list | None = None,
              spec_stats_out: list | None = None, tracer=None, latency=None,
-             prefix_cache=None, weight_refresh=None):
+             prefix_cache=None, weight_refresh=None,
+             compaction_stats_out: list | None = None):
     """vllm_generate-contract entry: [B*N, max_tokens], N consecutive per
     prompt; (tokens, logprobs) when `sampling.capture_logprobs`. `timings`:
     see `generate_tokens`.
@@ -433,7 +429,11 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
     on the QUEUED path only, installed in place into `params` between
     chunks (`paged/scheduler.py`); the monolithic paths have no host sync
     to swap at and ignore it, as in JAX (the trainer's
-    `rollout_inflight_swaps` requires the queued path)."""
+    `rollout_inflight_swaps` requires the queued path).
+
+    `sampling.compaction_segments > 0` (contiguous cache, no spec) runs
+    compacting decode (`sampler/compaction.py`); `compaction_stats_out`
+    then receives its menu of batch sizes, steps and launches."""
     compose_check(sampling, prefix_cache=getattr(prefix_cache, "enabled", False))
     total_rows = prompt_ids.shape[0] * sampling.n
     queued = (sampling.page_size > 0 and sampling.decode_rows > 0
@@ -473,6 +473,13 @@ def generate(params, config: ModelConfig, prompt_ids, prompt_mask,
         _monolithic_paged_stats(result, sampling, prompt_mask, fanout,
                                 pad_token_id, paged_stats_out)
         return result
+    if sampling.compaction_segments > 0:
+        from nanorlhf_tpu_torch.sampler.compaction import generate_tokens_compact
+
+        return generate_tokens_compact(
+            params, config, prompt_ids, prompt_mask, generator,
+            segments=sampling.compaction_segments, prompt_fanout=fanout,
+            stats_out=compaction_stats_out, **kw)
     result = generate_tokens(params, config, prompt_ids, prompt_mask, generator,
                              prompt_fanout=fanout, page_size=sampling.page_size,
                              **kw)

@@ -5,15 +5,16 @@ Same field names and defaults as the JAX `RLConfig`/`AlgoName` (a test pins
 them), so a launcher literal reads the same in both packages. The comments
 on each knob live in the JAX module. The paged cache with continuous
 batching, speculative decode, the int8 KV cache, int8 rollout weights
-(`rollout_quant`), both remat policies (`remat_policy`) and the naive
-update branch (`fused_logprob=False`) are ported; the knobs
-that select paths this port has not ported yet (compaction, the
-orchestrator, env multi-turn, sequence parallelism, ...) are carried for
-parity and make the port's sampler/trainer raise NotImplementedError when
-set.
+(`rollout_quant`), both remat policies (`remat_policy`), the naive
+update branch (`fused_logprob=False`), compacting decode and the rest of
+the rollout knobs are ported; the knobs that select paths this port has
+not ported yet (disaggregated rollout devices, the mesh's data, fsdp and
+tensor axes) are carried for parity and make the port's trainer raise
+NotImplementedError when set.
 
-`MeshConfig` is a copy too: on one GPU its only use is `finalize`'s
-world-size arithmetic.
+`MeshConfig` is a copy too: `parallel.mesh.make_mesh` resolves it over the
+torch.distributed world (the sp axis), and `finalize` counts the world's
+data-parallel ranks from it.
 """
 
 from __future__ import annotations

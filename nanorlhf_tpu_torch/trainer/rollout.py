@@ -149,11 +149,12 @@ def check_supported(cfg: RLConfig) -> None:
     """The JAX trainer's ValueErrors on the orchestrator's and the fleet's
     knobs (`check_fleet_values`) first; then raise NotImplementedError for
     every trainer knob that selects a path this port has not ported
-    (disaggregated rollout devices, sequence parallelism), instead of
+    (disaggregated rollout devices), instead of
     ignoring it, and run the decode features' legality matrix
     (`sampler.compose_check`, ValueError) once, as the JAX trainer does at
-    construction. Compaction reaches `compose_check` through
-    `sampling_params(cfg)`, which raises for it. Ported: the paged cache
+    construction. The mesh's axes are `parallel.mesh.make_mesh`'s to check
+    (sequence parallelism is ported; data, fsdp and tensor wait for A14b).
+    Ported: compacting decode, sequence parallelism, the paged cache
     and continuous batching, the int8 KV cache, speculative decode, int8
     rollout weights, the radix prefix cache, chunked prefill, multi-turn
     environments (validated by the trainer), the async orchestrator and
@@ -165,18 +166,16 @@ def check_supported(cfg: RLConfig) -> None:
         raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}")
     if cfg.rollout_quant not in ("none", "int8"):
         raise ValueError(f"rollout_quant={cfg.rollout_quant!r}")
-    unported = {
-        "rollout_devices > 0": cfg.rollout_devices > 0,
-        "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
-    }
-    on = [what for what, flag in unported.items() if flag]
-    if on:
+    if cfg.rollout_devices > 0 or cfg.rollout_mesh is not None:
         raise NotImplementedError(
-            f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
+            "rollout_devices > 0 (disaggregated rollout devices, rollout_mesh) is not "
+            "ported to nanorlhf_tpu_torch: it waits for A14b (the data, fsdp and "
+            "tensor axes, disaggregated rollout devices and multi-host)")
     compose_check(SamplingParams(page_size=cfg.rollout_page_size,
                                  decode_rows=cfg.rollout_decode_rows,
                                  spec_k=cfg.rollout_spec_k,
-                                 prefill_chunk=cfg.rollout_prefill_chunk),
+                                 prefill_chunk=cfg.rollout_prefill_chunk,
+                                 compaction_segments=cfg.rollout_compaction_segments),
                   prefix_cache=cfg.rollout_prefix_cache)
 
 
@@ -315,6 +314,7 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
     prompt_mask = queries_t != pad_id
     paged_stats: list = []
     spec_stats: list = []
+    compaction_stats: list = []
     gen_mcfg = rollout_model_config(mcfg, cfg)
     tracer, latency = _plane(planes, "tracer"), _plane(planes, "latency")
     out = {"queries": queries, "captured_logprobs": None, "greedy": None,
@@ -340,7 +340,7 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
             eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
             timings=t, paged_stats_out=paged_stats, spec_stats_out=spec_stats,
             tracer=tracer, latency=latency, prefix_cache=prefix_cache,
-            weight_refresh=weight_refresh)
+            weight_refresh=weight_refresh, compaction_stats_out=compaction_stats)
         if sp.capture_logprobs:
             result, captured = result
             out["captured_logprobs"] = captured.float().cpu().numpy()
@@ -359,6 +359,7 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
     t["generate_s"] = time.perf_counter() - t_start
     out["paged_stats"] = _host(paged_stats[0]) if paged_stats else None
     out["spec_stats"] = _host(spec_stats[0]) if spec_stats else None
+    out["compaction_stats"] = compaction_stats[0] if compaction_stats else None
     if weight_refresh is not None and out["paged_stats"] is not None:
         # swap provenance at the payload's top level: the lineage ledger and
         # the per-segment IS assembly read it from here
@@ -388,7 +389,7 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
                   reward_func, lora_scale: float, keep_generator: torch.Generator,
                   timings: dict | None = None, planes=None,
                   rollout_index: int | None = None, step: int | None = None,
-                  use_is: bool = False, use_seg: bool = False) -> dict:
+                  use_is: bool = False, use_seg: bool = False, mesh=None) -> dict:
     """The consumer half of one rollout (JAX's loop from the reward to the
     logprob pass): reward, [GRPO: group z-score, keep 1 of N], and the
     chunked logprob pass of `params` (with LoRA) and the ref. The capture
@@ -397,7 +398,8 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
     forward at all); with the IS correction (`use_is`) they are the
     behavior policy's and ride out as `behavior_logprobs`, with the
     per-token `segment_ages` when `use_seg` and the payload has segments.
-    Returns what `rollout_and_score` documents."""
+    `mesh` (sp > 1) scores around the ring. Returns what
+    `rollout_and_score` documents."""
     device = params["embed_tokens"].device
     pad_id = tokenizer.pad_token_id
     n = cfg.sample_n
@@ -490,7 +492,7 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
                 rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
                 lp, rlp = score_chunk(params, ref_params, mcfg, cfg, rows,
                                       context_length, pad_id, lora_scale,
-                                      score_policy=not score_capture)
+                                      score_policy=not score_capture, mesh=mesh)
                 if lp is not None:
                     lps.append(lp[:n_real].float().cpu().numpy())
                 rlps.append(rlp[:n_real].float().cpu().numpy())  # .cpu() waits

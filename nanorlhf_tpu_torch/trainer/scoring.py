@@ -4,7 +4,9 @@ scoring body of `RLTrainer._score_chunk_fn` (:1565-1598) and PPO's chunked
 value pass (`_value_pass`, :3091-3138), as plain functions. The fused
 branch (the default, `cfg.fused_logprob=True`) runs the final hidden
 states straight into the fused hidden→logprob op; the naive branch
-materializes logits. Sequence-parallel scoring is not ported.
+materializes logits. Under sequence parallelism (`mesh` with sp > 1) both
+passes go around the ring (`parallel.sp.sp_score_logprobs`,
+`sp_score_values`), as JAX's `_sp_on` branches do; K10 is not on that path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from nanorlhf_tpu_torch.core.model import (
 )
 from nanorlhf_tpu_torch.ops.fused_logprob import fused_logprob
 from nanorlhf_tpu_torch.ops.masking import logprobs_from_logits
+from nanorlhf_tpu_torch.parallel.sp import sp_score_logprobs, sp_score_values
 
 # activation budget of one scoring forward, in tokens (the JAX trainer's)
 ACTIVATION_TOKEN_BUDGET = 22 * 2316
@@ -66,19 +69,21 @@ def fused_response_logprobs(tree, mcfg, query_responses, responses, pad_id,
 @torch.no_grad()
 def score_chunk(params, ref_params, mcfg, cfg, query_responses,
                 context_length: int, pad_id: int, lora_scale: float = 1.0,
-                score_policy: bool = True):
+                score_policy: bool = True, mesh=None):
     """(policy logprobs, ref logprobs) [rows, T_resp] f32 for one chunk of
     query+response rows. The policy runs with its LoRA adapters; the ref
     tree has none. `ref_params=None` is the ref-free run (kl_coef 0): no
     ref forward, the ref logprobs are the policy's. `score_policy=False`
     (the sampler captured the policy's logprobs) runs the ref alone and
-    returns (None, ref logprobs)."""
-    if cfg.mesh.sp > 1:
-        raise NotImplementedError(
-            "sequence-parallel scoring (mesh.sp > 1) is not ported yet")
+    returns (None, ref logprobs). `mesh` (sp > 1): every rank scores the
+    same rows around the ring and gets the same result."""
     responses = query_responses[:, context_length:]
 
     def one(tree, scale):
+        if mesh is not None:
+            return sp_score_logprobs(tree, mcfg, query_responses, pad_id,
+                                     cfg.temperature, mesh, lora_scale=scale
+                                     )[:, context_length - 1:-1]
         if cfg.fused_logprob:
             return fused_response_logprobs(tree, mcfg, query_responses, responses,
                                            pad_id, context_length, cfg,
@@ -96,11 +101,12 @@ def score_chunk(params, ref_params, mcfg, cfg, query_responses,
 
 @torch.no_grad()
 def value_pass(value_params, mcfg, qr: np.ndarray, context_length: int,
-               pad_id: int, lora_scale: float = 1.0) -> np.ndarray:
+               pad_id: int, lora_scale: float = 1.0, mesh=None) -> np.ndarray:
     """PPO's value predictions [rows, T_resp] f32 of query+response rows:
     `score_forward` of the value tree (with its LoRA), sliced to the
     positions before each response token, in chunks of the activation
-    budget's rows (the scores are [B, T, 1]: no vocab cap applies)."""
+    budget's rows (the scores are [B, T, 1]: no vocab cap applies);
+    around the ring (`sp_score_values`) under `mesh`."""
     device = value_params["embed_tokens"].device
     total = qr.shape[0]
     chunk = max(1, min(total, ACTIVATION_TOKEN_BUDGET // qr.shape[1]))
@@ -108,6 +114,10 @@ def value_pass(value_params, mcfg, qr: np.ndarray, context_length: int,
     for i in range(0, total, chunk):
         n_real = min(chunk, total - i)
         rows = torch.as_tensor(pad_chunk(qr[i:i + chunk], chunk), device=device)
-        v = score_forward(value_params, mcfg, rows, pad_id, lora_scale=lora_scale)
+        if mesh is not None:
+            v = sp_score_values(value_params, mcfg, rows, pad_id, mesh,
+                                lora_scale=lora_scale)
+        else:
+            v = score_forward(value_params, mcfg, rows, pad_id, lora_scale=lora_scale)
         vals.append(v[:n_real, context_length - 1:-1, 0].cpu().numpy())
     return np.concatenate(vals)

@@ -56,8 +56,14 @@ alone (none at all when the run is ref-free, r1's setting), as in JAX
 ValueError: a skipped update consumes a rollout without publishing a
 version, which would wedge the bounded-staleness gate.
 
-Not ported (raises NotImplementedError): sequence parallelism (the SP
-score and grad functions).
+Sequence parallelism (JAX `sparse_grpo.py:192-288,338`): the buckets'
+scoring and gradients go around the ring (`score_chunk` and
+`microbatch_loss` with the trainer's sp mesh, JAX's `_sp_score_fn` and
+`_sp_grad_fn`), each bucket's width rounded up to a multiple of sp
+(`_sp_round_len`), each minibatch's summed gradients reduced over the
+group before its step. The skip and bucket decisions are made from the
+replicated rollout, so every rank makes the same collectives in the same
+order; a digest of the rollout and its rewards is held equal across ranks.
 """
 
 from __future__ import annotations
@@ -158,7 +164,22 @@ class SparseGRPOTrainer(RLTrainer):
         """A bucket's width: its longest row rounded up to the menu, at
         least one response token, at most the batch's width."""
         blen = round_up_to_menu(int(qr_len.max()), self._len_menu)
-        return min(max(blen, context_length + 1), cap)
+        return self._sp_round_len(min(max(blen, context_length + 1), cap), cap)
+
+    def _sp_round_len(self, blen: int, cap: int) -> int:
+        """A bucket width rounded up to an sp multiple (the sequence dim
+        shards evenly over the ring); `cap` is the physical qr width."""
+        n_sp = self.mesh.sp
+        if n_sp == 1:
+            return blen
+        blen = -(-blen // n_sp) * n_sp
+        if blen > cap:
+            if cap % n_sp != 0:
+                raise ValueError(
+                    f"qr width {cap} not divisible by sp={n_sp}; pick "
+                    f"response_length/prompt width as multiples of sp")
+            blen = cap
+        return blen
 
     def _gen_menu(self) -> list[int]:
         return self._len_menu
@@ -189,7 +210,7 @@ class SparseGRPOTrainer(RLTrainer):
             lp, rlp = score_chunk(
                 self.params, self.ref_params, self.mcfg, cfg,
                 torch.as_tensor(padded["qr"], device=self.device), context_length,
-                pad_id, self.lora_scale, score_policy=captured is None)
+                pad_id, self.lora_scale, score_policy=captured is None, mesh=self._sp)
             if captured is None:
                 logprobs[idxs, :width] = lp[:len(idxs)].float().cpu().numpy()
             if rlp is not None:
@@ -208,7 +229,7 @@ class SparseGRPOTrainer(RLTrainer):
         loss, aux = microbatch_loss(
             self.params, self.mcfg, self.cfg, mb, context_length,
             self.tokenizer.pad_token_id, self.lora_scale,
-            remat=self.cfg.gradient_checkpointing)
+            remat=self.cfg.gradient_checkpointing, mesh=self._sp)
         grads = torch.autograd.grad(loss * loss_scale, tensors, allow_unused=True)
         return ({p: (torch.zeros_like(t, dtype=torch.float32) if g is None else g.float())
                  for p, t, g in zip(paths, tensors, grads)},
@@ -283,7 +304,7 @@ class SparseGRPOTrainer(RLTrainer):
         """The summed, loss-scaled gradients {path: f32} of one minibatch's
         rows `mb_inds`, bucket by bucket under the backward budget. `stats`
         receives each bucket's loss stats, `buckets` its (real rows,
-        rows_b, width)."""
+        rows_b, width). Under sp the sum is reduced over the group."""
         ctx, qr_len = batch["context_length"], batch["qr_len"]
         grads_acc = None
         for bidx in create_batches(qr_len[mb_inds], self.backward_budget()):
@@ -299,6 +320,8 @@ class SparseGRPOTrainer(RLTrainer):
                 stats.append(aux)
             if buckets is not None:
                 buckets.append((len(sel), mb["responses"].shape[0], blen))
+        if self._sp is not None:
+            self._sp.transport.all_reduce_sum_(list(grads_acc.values()))
         return grads_acc
 
     # ------------------------------------------------------------------ #
@@ -359,6 +382,7 @@ class SparseGRPOTrainer(RLTrainer):
             raw_scores = self._call_reward(
                 [q + r for q, r in zip(question_n, decoded)], responses)
             t["reward_s"] = time.perf_counter() - t0
+            self._sp_agree_rollout(queries, responses, raw_scores)
             if self.latency.enabled:
                 self.latency.record("latency/reward_s", t["reward_s"])
             self.lineage.reward(index, step=self.state["global_step"],
@@ -487,6 +511,7 @@ class SparseGRPOTrainer(RLTrainer):
                 "time/reward_s": t["reward_s"],
                 "time/logprob_s": t["score_s"],
                 "time/update_s": t["update_s"],
+                **self._sp_metrics(),
             }
             # the dense loop's napkin model over this update's real work:
             # scoring and the update count only the kept rows; captured

@@ -66,13 +66,27 @@ weight the losses as the behavior policy's; `rollout_inflight_swaps`
 installs mid-rollout publishes into the queued paged session in place.
 The orchestrator's counters ride in `trainer_state.json`.
 
+Sequence parallelism (`cfg.mesh = MeshConfig(1, 1, 1, N)` on N ranks,
+`torchrun --nproc-per-node N`; JAX trainer.py:1503-1527): every rank
+builds the same trainer; rank 0 generates each rollout and every rank
+takes it (`RolloutStream`), grades it and checks a digest of the
+query-responses and rewards against the others' (`_sp_agree_rollout`);
+scoring, PPO's value pass and the
+update go around the ring (`parallel.sp`), the gradients summed over the
+group. Metrics, checkpoints and the host planes write on rank 0 only;
+every rank reads rank 0's checkpoints (a rollback or a resume waits for
+rank 0's writer first), and they agree on the best step at the end.
+
 Unported knobs raise (`check_trainer_supported`): disaggregated rollout
-devices and sequence parallelism; the JAX trainer's ValueErrors on the
-orchestrator's, the fleet's and the environments' knobs come first.
+devices and the mesh's data, fsdp and tensor axes (A14b); the JAX
+trainer's ValueErrors on the orchestrator's, the fleet's and the
+environments' knobs come first.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 import threading
 import time
@@ -126,6 +140,8 @@ from nanorlhf_tpu_torch.orchestrator.orchestrator import (
     reader_wait,
 )
 from nanorlhf_tpu_torch.orchestrator.sample_queue import ProducerFailed
+from nanorlhf_tpu_torch.parallel.distributed import world_size
+from nanorlhf_tpu_torch.parallel.mesh import make_mesh
 from nanorlhf_tpu_torch.trainer.metrics import MetricsLogger, staleness_histogram_metrics
 from nanorlhf_tpu_torch.trainer.optim import AdamWState, build_optimizer, flatten
 from nanorlhf_tpu_torch.trainer.rollout import (
@@ -284,7 +300,12 @@ class RolloutStream:
     current weights (one update stale once the caller steps), while the
     caller goes on with its update. Either way it records the consumed
     index in `trainer.state["rollouts"]`. The data cursor advances on the
-    calling thread, in index order."""
+    calling thread, in index order.
+
+    Under sequence parallelism rank 0 generates and every rank takes its
+    payload (a collective on the calling thread, after the generation or
+    the prefetch's join); the other ranks draw the same batches and
+    generate nothing."""
 
     def __init__(self, trainer):
         self._t = trainer
@@ -305,22 +326,29 @@ class RolloutStream:
     def fetch_or_dispatch(self) -> tuple[int, dict, bool]:
         """(index, payload, prefetched)."""
         t = self._t
+        generates = t.mesh.rank == 0
         if self._pending is not None:
             idx, job = self._pending
             self._pending = None
-            payload, prefetched = job.result(), True
+            payload, prefetched = (job.result() if job is not None else None), True
         else:
             idx, queries = self._draw()
-            t_call, tp_call = time.perf_counter(), t.tracer.now_us()
-            payload = t._rollout_body(queries, idx)
-            t._note_generation(idx, t_call, tp_call, payload["timings"]["generate_s"])
+            payload = None
+            if generates:
+                t_call, tp_call = time.perf_counter(), t.tracer.now_us()
+                payload = t._rollout_body(queries, idx)
+                t._note_generation(idx, t_call, tp_call, payload["timings"]["generate_s"])
             prefetched = False
+        payload = t._rank0_value(payload)
         t.state["rollouts"] = idx + 1
         return idx, payload, prefetched
 
     def prefetch(self) -> None:
         t = self._t
         idx, queries = self._draw()
+        if t.mesh.rank > 0:
+            self._pending = (idx, None)  # rank 0's payload arrives at the fetch
+            return
         tree = t._policy_snapshot()
         tp_call = t.tracer.now_us()
 
@@ -370,6 +398,20 @@ class RLTrainer:
     def __init__(self, config: RLConfig, model_config, tokenizer, params: dict,
                  dataset, reward_func, value_params: dict | None = None):
         check_trainer_supported(config)
+        # the mesh over the torch.distributed world (sp > 1: the ring)
+        self.mesh = make_mesh(config.mesh)
+        self._sp = self.mesh if self.mesh.sp > 1 else None
+        if self._sp is not None and config.rollout_orchestrator:
+            raise NotImplementedError(
+                "rollout_orchestrator with mesh.sp > 1 is not ported to "
+                "nanorlhf_tpu_torch: its producers would run on every rank; it waits for "
+                "A14b (disaggregated rollout devices)")
+        self._sp_hops = (0, 0.0)  # the transport's hops and wait at the last row
+        if self.mesh.rank > 0:
+            # metrics, checkpoints and the host planes write on rank 0 only
+            config = dataclasses.replace(config, report_to="none", telemetry=False,
+                                         lineage=False, status_port=0,
+                                         profile_at_step=None)
         # the rollout source (built by train()) and the orchestrator
         # journal a resumed checkpoint carried
         self._orchestrator = self._stream = self._orch_restore_state = None
@@ -383,10 +425,8 @@ class RLTrainer:
         self.device = params["embed_tokens"].device
         if config.total_episodes is None:
             config.total_episodes = int(config.num_train_epochs * len(dataset))
-        config.finalize_world(1)
+        config.finalize(world_size())
         if config.remat_policy != "full" and config.remat_policy != model_config.remat_policy:
-            import dataclasses
-
             self.mcfg = dataclasses.replace(model_config, remat_policy=config.remat_policy)
 
         self.params, ref, self.lora_cfg, self.lora_scale = build_policy(
@@ -425,6 +465,8 @@ class RLTrainer:
         # write itself runs on the manager's writer: `ckpt.last_write_s`)
         self.last_launches: dict = {}
         self.last_timings: dict = {}
+        # the latest compacting rollout's menu of batch sizes (None otherwise)
+        self.last_compaction = None
         self.last_stats: list = []
         self.last_save_s = None
         # the latest paged rollout's pool snapshot and session status
@@ -843,6 +885,59 @@ class RLTrainer:
             return got
 
 
+    # ------------------------------------------------------------------ #
+    # sequence parallelism (JAX trainer.py:1503-1527)
+    # ------------------------------------------------------------------ #
+
+    def _sp_on(self) -> bool:
+        return self._sp is not None
+
+    def _sp_check_widths(self, context_length: int) -> None:
+        """The sequence dim shards evenly over the sp ring: the context and
+        response widths must divide by sp (JAX's ValueError)."""
+        n_sp = self.mesh.sp
+        for name, width in (("context", context_length),
+                            ("response_length", self.cfg.response_length)):
+            if width % n_sp != 0:
+                raise ValueError(
+                    f"{name} width {width} not divisible by sp={n_sp}; pick "
+                    f"prompt/response widths as multiples of sp")
+
+    def _sp_agree_rollout(self, *arrays) -> None:
+        """Every rank holds rank 0's rollout and graded it itself: hold a
+        digest of its arrays (query-responses, rewards) against every
+        other rank's; a rank that differs fails the step on every rank."""
+        if self._sp is None:
+            return
+        h = hashlib.sha1()
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(str((a.dtype, a.shape)).encode() + a.tobytes())
+        digests = self._sp.transport.all_gather_object(h.hexdigest())
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"sp ranks generated different rollouts (digests by "
+                               f"rank {digests}): the ring would train on mixed data")
+
+    def _rank0_value(self, value):
+        """Rank 0's `value` on every rank (a collective under sp)."""
+        if self._sp is None:
+            return value
+        return self._sp.transport.all_gather_object(value)[0]
+
+    def _sp_metrics(self) -> dict:
+        """The sp transport's rows: the group's size, the backend (gloo or
+        NCCL; host staging of CUDA tensors under gloo) and this update's
+        ring hops and the seconds spent waiting for them."""
+        if self._sp is None:
+            return {}
+        tr = self._sp.transport
+        hops, hop_s = tr.hops - self._sp_hops[0], tr.hop_s - self._sp_hops[1]
+        self._sp_hops = (tr.hops, tr.hop_s)
+        return {"sp/size": float(self.mesh.sp),
+                "sp/backend_nccl": float(tr.backend == "nccl"),
+                "sp/host_staged": float(tr.backend != "nccl" and self.device.type == "cuda"),
+                "sp/hops": float(hops), "sp/hop_wait_s": hop_s}
+
     def _groups(self) -> dict:
         """The trainable leaves by optimizer group."""
         if self.value_trainable is None:
@@ -868,7 +963,8 @@ class RLTrainer:
                     self.params, self._groups(), self.optimizer, self.opt_state,
                     mb, self.mcfg, cfg, context_length,
                     self.tokenizer.pad_token_id, self.lora_scale,
-                    value=self.value_params, value_lora_scale=self.value_lora_scale)
+                    value=self.value_params, value_lora_scale=self.value_lora_scale,
+                    mesh=self._sp)
                 self.state["opt_steps"] += 1
                 all_stats.append(stats)
         return all_stats
@@ -935,13 +1031,13 @@ class RLTrainer:
         self.profile_window.stop()
         self._write_trace()
         if cfg.load_best_model_at_end and num_updates is None:
-            best = self.ckpt.best_step()
+            best = self._rank0_value(self.ckpt.best_step())
             if best is not None and best != self.state["global_step"]:
                 self._load_trainable(self.ckpt.restore(best, self.device))
                 if self._quant_layers is not None:
                     self._refresh_quant_layers()
                 print(f"loaded best checkpoint (step {best})")
-        if cfg.export_hf_dir and num_updates is None:
+        if cfg.export_hf_dir and num_updates is None and self.mesh.rank == 0:
             # after load_best: the exported policy is the one the run deploys
             print(f"exporting HF checkpoint to {cfg.export_hf_dir}")
             self.export_model(cfg.export_hf_dir)
@@ -969,6 +1065,7 @@ class RLTrainer:
         t["fetch_s"] = time.perf_counter() - t_start
         t_busy0 = time.perf_counter()
         self._note_payload(payload, index, orchestrated=use_orch)
+        self.last_compaction = payload.get("compaction_stats")
         self.state["episode"] += cfg.batch_size
         if (not use_orch and cfg.rollout_ahead
                 and self.state["global_step"] + 1 < target_step):
@@ -976,6 +1073,8 @@ class RLTrainer:
             # producer thread, while this thread grades, scores and updates
             self._stream.prefetch()
         counts1 = launch_counts()
+        if self._sp_on():
+            self._sp_check_widths(payload["queries"].shape[1])
         # GRPO draws its keep in the scoring half, RLOO and RAFT ("random")
         # theirs in the batch assembly: one stream an update
         keep_gen = stream_generator(cfg.seed, KEEP_STREAM, index)
@@ -983,7 +1082,8 @@ class RLTrainer:
             payload, self.params, self.ref_params, self.mcfg, cfg, tok,
             self.reward_func, self.lora_scale, keep_gen, timings=t, planes=self,
             rollout_index=index, step=self.state["global_step"],
-            use_is=self._use_is, use_seg=self._use_seg)
+            use_is=self._use_is, use_seg=self._use_seg, mesh=self._sp)
+        self._sp_agree_rollout(payload["queries"], payload["responses"], ro["scores"])
         if ro["keep"] is not None and n > 1:
             # the other n−1 completions per prompt left the batch
             self.lineage.drop(index, "keep_filter",
@@ -996,7 +1096,7 @@ class RLTrainer:
             ro, cfg, stop_id, pad_id, eos_id, keep_generator=keep_gen,
             value_fn=lambda qr: value_pass(self.value_params, self.mcfg, qr,
                                            context_length, pad_id,
-                                           self.value_lora_scale))
+                                           self.value_lora_scale, mesh=self._sp))
         t["assemble_s"] = time.perf_counter() - t0
         if cfg.algo in (AlgoName.RLOO, AlgoName.RAFT):
             self.lineage.drop(index, "keep_filter",
@@ -1054,6 +1154,7 @@ class RLTrainer:
         metrics.update(self._pipeline_metrics(ro, agg, staleness, got["queue_depth"],
                                               use_orch))
         metrics.update(self._host_metrics(t_start, n, context_length, ro, batch))
+        metrics.update(self._sp_metrics())
         self.state["global_step"] += 1
         step = self.state["global_step"]
         version = self._orchestrator.version if use_orch else step
@@ -1461,7 +1562,10 @@ class RLTrainer:
     def save_checkpoint(self, metrics: dict | None = None) -> str:
         """The trainable leaves of the policy (`params`) and, when
         `save_value_model`, of the value tree (`value`), with each group's
-        optimizer state when `save_optimizer_state`."""
+        optimizer state when `save_optimizer_state`. Under sp only rank 0
+        writes (the others return None)."""
+        if self.mesh.rank > 0:
+            return None
         cfg = self.cfg
         opt = None
         if cfg.save_optimizer_state:
@@ -1515,6 +1619,11 @@ class RLTrainer:
         than the latest abandons the newer trajectory (`truncate_after`).
         The random streams are functions of (seed, stream, step or rollout
         index), so the restored counters restore them too."""
+        if self._sp is not None:
+            # every rank reads rank 0's checkpoints: its writes land first
+            if self.mesh.rank == 0:
+                self.ckpt.wait()
+            self._rank0_value(None)
         latest = self.ckpt.latest_step()
         step = latest if step is None else step
         if step is None:
@@ -1526,7 +1635,7 @@ class RLTrainer:
         self._close_stream()
         tree = self.ckpt.restore(step, self.device)
         step = self.ckpt.last_restored_step
-        if latest is not None and step < latest:
+        if latest is not None and step < latest and self.mesh.rank == 0:
             self.ckpt.truncate_after(step)
         self._load_trainable(tree)
         if self._quant_layers is not None:

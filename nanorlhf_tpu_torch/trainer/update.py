@@ -30,7 +30,12 @@ and in none otherwise, and `segment_ages` under in-flight weight swaps;
 the PPO-style losses re-weight by them at `offpolicy_is_truncation` (RAFT's
 SFT loss has no ratio to correct).
 
-Not ported (raises): sequence parallelism.
+Sequence parallelism (`mesh` with sp > 1, JAX's `_sp_on` branch): the
+policy's logprobs and entropy (and PPO's values) come from the ring
+(`parallel.sp`), the same on every rank with only the rank's own shard
+carrying its graph, so each rank's backward holds its part of ONE loss;
+after the microbatches the accumulated gradients are summed over the sp
+group, then AdamW steps on every rank alike.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from nanorlhf_tpu_torch.algos.losses import (
 from nanorlhf_tpu_torch.core.model import padded_forward_logits, score_forward
 from nanorlhf_tpu_torch.ops.fused_logprob import chunked_entropy
 from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB, logprobs_from_logits
+from nanorlhf_tpu_torch.parallel.sp import sp_score_logprobs, sp_score_values
 from nanorlhf_tpu_torch.trainer.config import AlgoName
 from nanorlhf_tpu_torch.trainer.optim import MultiAdamW, flatten, global_norm, unflatten
 from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
@@ -60,24 +66,26 @@ _KEYS = {"query_responses", "responses", "logprobs", "ref_logprobs",
 
 
 def check_update_supported(cfg, minibatch: dict) -> None:
-    unported = {
-        "sequence parallelism (mesh.sp > 1)": cfg.mesh.sp > 1,
-    }
     extra = sorted(set(minibatch) - _KEYS)
     if extra:
-        unported[f"minibatch keys {extra}"] = True
-    on = [what for what, flag in unported.items() if flag]
-    if on:
         raise NotImplementedError(
-            f"not ported to nanorlhf_tpu_torch yet: {', '.join(on)}")
+            f"not ported to nanorlhf_tpu_torch yet: minibatch keys {extra}")
 
 
 def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                     pad_id: int, lora_scale: float, remat: bool,
-                    value: dict | None = None, value_lora_scale: float = 1.0):
+                    value: dict | None = None, value_lora_scale: float = 1.0,
+                    mesh=None):
     """(loss, aux) of one microbatch; aux holds the detached stats of the
-    algorithm's loss and `entropy`. `value` is PPO's value tree."""
-    if cfg.fused_logprob:
+    algorithm's loss and `entropy`. `value` is PPO's value tree; `mesh`
+    (sp > 1) routes the forwards around the ring."""
+    if mesh is not None:
+        lp, ent_tok = sp_score_logprobs(
+            policy, mcfg, mb["query_responses"], pad_id, cfg.temperature, mesh,
+            lora_scale=lora_scale, remat=remat, with_entropy=True,
+            entropy_from_position=context_length - 1)
+        new_logprobs = lp[:, context_length - 1:-1]
+    elif cfg.fused_logprob:
         new_logprobs, ent_tok = fused_response_logprobs(
             policy, mcfg, mb["query_responses"], mb["responses"], pad_id,
             context_length, cfg, lora_scale=lora_scale, with_entropy=True,
@@ -116,9 +124,13 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                                         mb["advantages"], mask, cfg.cliprange,
                                         **is_kw)
     if algo == AlgoName.PPO:
-        vpred = score_forward(value, mcfg, mb["query_responses"], pad_id,
-                              lora_scale=value_lora_scale,
-                              remat=remat)[:, context_length - 1:-1, 0]
+        if mesh is not None:
+            vpred = sp_score_values(value, mcfg, mb["query_responses"], pad_id, mesh,
+                                    lora_scale=value_lora_scale, remat=remat)
+        else:
+            vpred = score_forward(value, mcfg, mb["query_responses"], pad_id,
+                                  lora_scale=value_lora_scale, remat=remat)
+        vpred = vpred[:, context_length - 1:-1, 0]
         pm1 = mb["padding_mask_p1"]
         vpred = torch.where(pm1, torch.zeros_like(vpred), vpred)
         vf_loss, vf_aux = value_loss_clipped(vpred, mb["values"], mb["returns"],
@@ -132,12 +144,15 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
 def update_minibatch(policy: dict, trainable: dict, optimizer: MultiAdamW,
                      opt_state: dict, minibatch: dict, mcfg, cfg,
                      context_length: int, pad_id: int, lora_scale: float,
-                     value: dict | None = None, value_lora_scale: float = 1.0):
+                     value: dict | None = None, value_lora_scale: float = 1.0,
+                     mesh=None):
     """One optimizer step over `gradient_accumulation_steps` microbatches.
     `trainable` holds the trainable leaves by group, `{"policy": ...}` and
     for PPO `"value"` (the same tensors as in `policy` / `value`, with
     requires_grad); they are updated in place. Returns (opt_state, stats)
-    with python-float stats."""
+    with python-float stats. `mesh` (sp > 1): the microbatch forwards go
+    around the ring and the accumulated gradients are summed over the sp
+    group before the step."""
     check_update_supported(cfg, minibatch)
     grad_accum = cfg.gradient_accumulation_steps
     rows = minibatch["responses"].shape[0]
@@ -153,12 +168,15 @@ def update_minibatch(policy: dict, trainable: dict, optimizer: MultiAdamW,
         loss, aux = microbatch_loss(policy, mcfg, cfg, mb, context_length,
                                     pad_id, lora_scale,
                                     remat=cfg.gradient_checkpointing,
-                                    value=value, value_lora_scale=value_lora_scale)
+                                    value=value, value_lora_scale=value_lora_scale,
+                                    mesh=mesh)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         for a, gr in zip(acc, grads):
             if gr is not None:
                 a.add_(gr)
         auxes.append(aux)
+    if mesh is not None:
+        mesh.transport.all_reduce_sum_(acc)
     grads = unflatten({p: a.div_(grad_accum) for p, a in zip(paths, acc)})
     grad_norm = global_norm(flatten(grads).values())
     opt_state = optimizer.step(trainable, grads, opt_state)

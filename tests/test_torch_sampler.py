@@ -114,13 +114,19 @@ def test_sampled_distribution_by_enumeration(top_p, top_k, rng):
 def test_unported_sampling_knobs_raise(tiny):
     jcfg, jparams, cfg, tparams = tiny
     ids = torch.as_tensor(_prompts((3,), 3)).long()
-    with pytest.raises(NotImplementedError):
-        ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator(),
-                    ts.SamplingParams(compaction_segments=2), eos_token_id=1,
-                    pad_token_id=PAD)
+    # compaction_segments, ported by the compaction slice: greedy streams
+    # equal the monolithic loop's (tests/test_torch_compaction.py holds it
+    # against JAX's compaction)
+    greedy = dict(max_tokens=6, n=2, greedy=True)
+    compact = ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator(),
+                          ts.SamplingParams(compaction_segments=2, **greedy),
+                          eos_token_id=1, pad_token_id=PAD, lora_scale=LORA.scale)
+    mono = ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator(),
+                       ts.SamplingParams(**greedy), eos_token_id=1,
+                       pad_token_id=PAD, lora_scale=LORA.scale)
+    assert torch.equal(compact, mono)
     # spec_k, ported by the speculative slice: greedy streams equal the
     # monolithic loop's
-    greedy = dict(max_tokens=6, n=2, greedy=True)
     spec = ts.generate(tparams, cfg, ids, ids != PAD, torch.Generator(),
                        ts.SamplingParams(spec_k=2, **greedy), eos_token_id=1,
                        pad_token_id=PAD, lora_scale=LORA.scale)

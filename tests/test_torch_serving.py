@@ -317,6 +317,9 @@ def test_gateway_generate_and_prefix_reuse(served):
 
 def test_gateway_metrics_prometheus_valid(served):
     _, _, base = served
+    # a request of its own: the latency histograms and the prefix cache are
+    # read after at least one request, whichever tests ran before
+    _post(base, {"tokens": [5, 6, 7, 8, 9, 10], "greedy": True}).read()
     text = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
     assert validate_prometheus_text(text) == []
     assert "nanorlhf_serving_requests" in text

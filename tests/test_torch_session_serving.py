@@ -241,11 +241,10 @@ def test_compose_check_legal_as_jax(kw):
 
 
 def test_compaction_alone_is_legal_but_not_ported():
-    """JAX's last legal case, compaction alone: legal in the matrix, the
-    one knob the port still refuses (NotImplementedError)."""
+    """JAX's last legal case, compaction alone: legal in the matrix, and
+    since the compaction slice ported it, legal in the port too."""
     jax_compose_check(JaxSamplingParams(compaction_segments=2))
-    with pytest.raises(NotImplementedError, match="compaction"):
-        ts.compose_check(ts.SamplingParams(compaction_segments=2))
+    ts.compose_check(ts.SamplingParams(compaction_segments=2))
 
 
 @pytest.mark.parametrize("kw,match", [

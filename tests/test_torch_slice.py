@@ -196,7 +196,7 @@ UNPORTED_SAMPLER = [
 PORTED_KNOBS = ("kv_cache_quant", "rollout_page_size", "rollout_decode_rows",
                 "rollout_spec_k", "rollout_quant", "rollout_prefix_cache",
                 "rollout_prefill_chunk", "rollout_orchestrator", "rollout_workers",
-                "sampler_logprob_capture")
+                "sampler_logprob_capture", "rollout_compaction_segments")
 
 
 def _greedy_rollout(monkeypatch, knobs):
@@ -293,8 +293,19 @@ def test_unported_sampler_knobs_raise_from_the_rollout(knobs, monkeypatch):
 
 
 def test_sequence_parallel_raises():
-    with pytest.raises(NotImplementedError):
-        check_supported(build_config(sequence_parallel=2))
+    """Sequence parallelism is ported: the rollout's gate takes the
+    launcher's sp config, and on one process its mesh raises the ValueError
+    that names the launcher (`tests/test_torch_sp.py` trains it on spawned
+    ranks). Disaggregated rollout devices still raise NotImplementedError
+    naming A14b."""
+    from nanorlhf_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = build_config(sequence_parallel=2)
+    check_supported(cfg)
+    with pytest.raises(ValueError, match="torchrun"):
+        make_mesh(cfg.mesh)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        check_supported(build_config(rollout_devices=4))
 
 
 def test_rollout_generator_streams():

@@ -625,7 +625,9 @@ def test_build_config_matches_jax():
     ("env_name", "python_tool"),
 ])
 def test_unported_knobs_raise(knob, value, tmp_path):
-    """Sequence parallelism raises; a multi-turn environment is refused with
+    """Sequence parallelism on one process raises the mesh's ValueError
+    (it trains on spawned ranks, `tests/test_torch_sparse_grpo_sp.py`); a
+    multi-turn environment is refused with
     JAX's ValueError (the dense trainer drives it); the orchestrator is
     refused by `train()` with JAX's ValueError; rollout_ahead and sampler
     logprob capture are ported and train."""
@@ -659,7 +661,7 @@ def test_unported_knobs_raise(knob, value, tmp_path):
     # a multi-turn environment is ported for the dense trainer only: the
     # sparse one refuses it with JAX's ValueError (the paged cache set, so
     # that the dense trainer's own checks pass first)
-    refusal = (NotImplementedError, "not ported")
+    refusal = (ValueError, "torchrun")
     if knob == "env_name":
         cfg.env_max_turns, cfg.rollout_page_size = 2, 4
         cfg.env_turn_tokens = cfg.env_obs_budget = cfg.response_length // 4
