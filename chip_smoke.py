@@ -10,6 +10,9 @@ toolkit:
                                           # (or K4's, K6's, K10's) phase-2 holds
     python3 chip_smoke.py --plant-faults  # each fault of FAULTS in a copy of
                                           # the port must fail its hold
+    python3 chip_smoke.py --plant-mesh-faults  # each of MESH_FAULTS in a copy
+                                          # of the port must fail phase 20's
+                                          # leaf hold
     python3 chip_smoke.py --graph-loops   # build, then only phase 8 and the
                                           # eager-vs-replay decode profile
     python3 chip_smoke.py --algos         # build, then only phase 9 (and the
@@ -31,6 +34,7 @@ toolkit:
     python3 chip_smoke.py --compact       # build, then only phase 18 (and the
                                           # holds at its shapes)
     python3 chip_smoke.py --sp            # build, then only phase 19
+    python3 chip_smoke.py --mesh          # build, then only phase 20
     python3 chip_smoke.py --learn         # build, then only the learning-curve
                                           # harness (not in the default run)
 
@@ -229,7 +233,8 @@ Phases (any failure exits non-zero):
      update seconds and decode ms a step, and the phase's wall. The
      shapes phase 13 gave the kernels that no earlier phase held are held
      as in phase 2, and its launches reported under `host`;
- 14. serving, on the launcher's model (Qwen2.5-1.5B geometry, 28 layers,
+ 14. serving, on the launcher's model (Qwen2.5-1.5B geometry, 28 layers
+     under `--serve`, CUT_LAYERS in the full script, as phases 15-16;
      random weights from SERVE_SEED): the engine's session holds 32 rows,
      prompts left-padded to 512, 256 new tokens, pages of 128. (b) Two
      300-token prompts sharing 200 through a per-row session with the radix
@@ -366,7 +371,27 @@ Phases (any failure exits non-zero):
      the update's K1/K2/K3 launches per hop exactly, no K10, the transport
      rows; (c) one sparse GRPO update (`r1_card_cut` at SP_R1_TOKENS
      tokens, a planted crc32 reward) at sp = 2, finite, ranks agreeing;
-     launches per rank under `sp`.
+     launches per rank under `sp`;
+ 20. the data and fsdp axes: two ranks spawned on the one card (gloo,
+     staged; 28 layers and MESH_TOKENS under `--mesh`, CUT_LAYERS and
+     MESH_CUT_TOKENS in the full script), phase 4's GRPO config at top-k 1
+     with a planted reward (`mesh_reward`): one staged all-reduce of an
+     embedding-sized f32 gradient timed (`--mesh`); (a) one update at data = 2, each
+     rank decoding its 32 rows (K4), the gathered rollout's greedy tokens
+     held against the full forward's argmax within COMPACT_NEAR_TIE, then
+     a data = 1 update of that same rollout in this process: loss and grad
+     norm within SP_LOSS_TOL / SP_GNORM_RTOL, the trainable leaves equal
+     across ranks (digests) and held against data = 1's (`mesh_leaf_holds`:
+     each moving leaf's change within MESH_DELTA_RTOL and MESH_SIGN_AGREE,
+     the others within MESH_STILL_LRS · lr and one bf16 ulp a step);
+     (b) the same at fsdp = 2, plus each rank's parameter and AdamW bytes
+     at rest against `param_sharding_rules`' share (MESH_SHARE_RTOL), the
+     peak and the rollout view's transient, and its checkpoint (whole
+     leaves) resumed at data = 1 with equal leaves; (c) fsdp x sp =
+     (1, 2, 1, 2) on four ranks (CUT_LAYERS, one microbatch): scoring logprobs through
+     `sp_fsdp_forward_logits` within SP_LOGP_TOL of one process's, one
+     update finite with the ranks agreeing, the ring hops' shapes held as
+     in phase 19; launches per rank under `mesh`.
 
 `--learn` runs `entrypoints/learning_run.main` on the card (LEARN_KNOBS:
 Qwen2-1.5B geometry at the toy 512 vocab, 30 shaped updates, then 10
@@ -7956,6 +7981,512 @@ def sp_phase(torch, card: str, layers: int | None = None) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# phase 20: the data and fsdp mesh axes, ranks sharing the one card
+# --------------------------------------------------------------------------
+
+PHASE20 = ("phase 20: the data and fsdp mesh axes — one GRPO update at data = 2 and at "
+           "fsdp = 2 (two ranks sharing the card, gloo, host-staged collectives) against "
+           "data = 1 on the same rollout, and fsdp x sp = (1, 2, 1, 2) on four ranks; "
+           "Qwen2.5-1.5B width")
+MESH_TOKENS = 512        # phase 4's response length (`--mesh`)
+MESH_CUT_TOKENS = 128    # the full script's
+MESH_SEED = 20
+MESH_AXES = {"data": (2, 1, 1, 1), "fsdp": (1, 2, 1, 1)}
+MESH_SP_AXES = (1, 2, 1, 2)
+# the update's leaves at data = 2 / fsdp = 2 against data = 1's. An Adam
+# step moves an element by ~lr in the sign of its gradient, so a leaf that
+# moves (more than half its elements changed at data = 1: LoRA b, which
+# starts at zero) is held by its change Δ = after − before: the relative
+# norm ‖Δ − Δ₁‖ / ‖Δ₁‖ and the share of elements whose Δ has Δ₁'s sign.
+# Honest runs differ where a gradient sits at the summation noise of the
+# ranks' orders; a gradient from the wrong rows (half the batch: a
+# correlation of ~0.7, a quarter of the signs flipped) moves both past
+# these bounds (`--plant-mesh-faults`). The other leaves (lr is below the
+# ulp of most of their elements) are held by value: an Adam step moves an
+# element by at most ~lr (|u| <= 1.0014 over the first two steps; the
+# launcher has no weight decay) and its rounding by up to half a bf16 ulp of the
+# larger value, so two runs' leaves differ by at most 2.01·lr plus one ulp
+# a step; a wrong shard's values are ~|p| off
+MESH_DELTA_RTOL = 0.5
+MESH_SIGN_AGREE = 0.9
+MESH_STILL_LRS = 2.01
+# at-rest storage against `param_sharding_rules`' share
+MESH_SHARE_RTOL = 0.01
+
+
+def _mesh_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_mesh", *parts)
+
+
+@contextlib.contextmanager
+def mesh_model(module, layers: int | None):
+    """`cut_depth` plus phase 14's rescale (`_rescaled`): the same model on
+    every rank and in this process, its greedy rows clear of near ties
+    but for the ones COMPACT_NEAR_TIE allows."""
+    real = module.resolve_model
+
+    def rescaled(*args, **kwargs):
+        mcfg, params, tok = real(*args, **kwargs)
+        return mcfg, _rescaled(params, mcfg.num_hidden_layers), tok
+
+    module.resolve_model = rescaled
+    try:
+        with cut_depth(module, layers):
+            yield
+    finally:
+        module.resolve_model = real
+
+
+def mesh_reward(texts, eos_token):
+    """crc32 of the text plus 0.3 on every odd row: a greedy group's rows
+    (one text) still differ, and a rank grading its block of whole groups
+    gives each row the score the whole batch would."""
+    import zlib
+
+    import numpy as np
+
+    return np.asarray([(zlib.crc32(s.encode()) % 7) / 7.0 + 0.3 * (i % 2)
+                       for i, s in enumerate(texts)], np.float32)
+
+
+def mesh_config(axes, tokens: int, out: str, one_microbatch: bool = False):
+    """Phase 4's launcher config at `tokens` tokens and top-k 1 on mesh
+    `axes` (None: one process), the global batch the same on every mesh;
+    `one_microbatch`: its 16 prompts in one minibatch of one microbatch
+    ((c): the ring with gathered layers is the point there, the
+    accumulation is (a)'s and (b)'s, and each microbatch costs a staged
+    embedding gather and reduce-scatter)."""
+    from nanorlhf_tpu_torch.entrypoints.grpo import build_config, one_card_cut
+    from nanorlhf_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = one_card_cut(build_config())
+    if one_microbatch:
+        cfg.per_device_train_batch_size *= (cfg.gradient_accumulation_steps
+                                            * cfg.num_mini_batches)
+        cfg.gradient_accumulation_steps = cfg.num_mini_batches = 1
+    batch = 1 if axes is None else axes[0] * axes[1]
+    cfg.per_device_train_batch_size //= batch
+    cfg.response_length, cfg.rollout_top_k = tokens, 1
+    cfg.save_steps, cfg.load_best_model_at_end = 0, False
+    cfg.seed = MESH_SEED
+    cfg.output_dir = out
+    if axes is not None:
+        cfg.mesh = MeshConfig(*axes)
+    return cfg
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
+
+
+def mesh_update(torch, name: str, axes, tokens: int, layers: int | None,
+                keep_payload: bool, ring_hops: set | None = None,
+                save_moments: bool = False, one_microbatch: bool = False) -> dict:
+    """One update of `mesh_config(axes)` on this rank through
+    `common.build_trainer`, the reward planted (`mesh_reward`); returns the
+    payload it trained on (`keep_payload`), its metric row, launches per
+    half, timings, the rollout's decode shapes, the digest of the whole
+    trainable leaves, the bytes at rest, the peak and the rollout view's
+    transient, the seconds of its build, update and save, and a checkpoint
+    of the result under `_mesh_dir(name)` (with the AdamW moments when
+    `save_moments`); `one_microbatch` as `mesh_config`'s."""
+    from nanorlhf_tpu_torch import _build
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+    from nanorlhf_tpu_torch.trainer import trainer as trainer_mod
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    out = _mesh_dir(name)
+    cfg = mesh_config(axes, tokens, out, one_microbatch)
+    cfg.save_optimizer_state = save_moments
+    t_build = time.perf_counter()
+    with mesh_model(common_mod, layers):
+        tr = common_mod.build_trainer(cfg, device="cuda")
+    t_build = time.perf_counter() - t_build
+    tr.reward_func = mesh_reward
+    seen = {"view_bytes": 0}
+    scored = {}
+    real_view = tr._rollout_params
+    real_score = trainer_mod.score_rollout
+
+    def view(*a, **k):
+        before = torch.cuda.memory_allocated()
+        v = real_view(*a, **k)
+        seen["view_bytes"] = max(seen["view_bytes"], torch.cuda.memory_allocated() - before)
+        return v
+
+    def spying(payload, *a, **kw):
+        ro = real_score(payload, *a, **kw)
+        scored.update(logprobs=ro["logprobs"], responses=ro["responses"],
+                      queries=ro["queries"], payload=payload)
+        return ro
+
+    tr._rollout_params = view
+    trainer_mod.score_rollout = spying
+    decode = collections.Counter()
+    try:
+        params_bytes = _bytes(tr.params)
+        adam_bytes = sum(_bytes(st.mu) + _bytes(st.nu) for st in tr.opt_state.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording_decode_shapes(decode), \
+                (recording_ring_hops(ring_hops) if ring_hops is not None
+                 else contextlib.nullcontext()):
+            tr.train(num_updates=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        row = {k: v for k, v in tr.logger.latest().items() if isinstance(v, float)}
+        t_save = time.perf_counter()
+        tr.save_checkpoint()
+        tr.ckpt.wait()
+        t_save = time.perf_counter() - t_save
+        whole = tr._whole(tr.trainable, "policy")
+        digest = _rollout_digest(*(t.detach().float().cpu().numpy()
+                                   for t in flatten(whole).values()))
+        payload = scored.pop("payload")
+        return {"rank": tr.mesh.rank, "coords": tr.mesh.coords,
+                "payload": payload if keep_payload else None,
+                "digest": _rollout_digest(payload["queries"], payload["responses"]),
+                "scored": scored if keep_payload else None,
+                "row": row, "launches": tr.last_launches, "timings": dict(tr.last_timings),
+                "decode_shapes": dict(decode), "wall_s": wall, "leaves_digest": digest,
+                "build_s": t_build, "save_s": t_save,
+                "params_bytes": params_bytes, "adam_bytes": adam_bytes,
+                "rest_bytes": rest, "peak_bytes": peak, "view_bytes": seen["view_bytes"],
+                "L": tr.mcfg.num_hidden_layers, "out": out}
+    finally:
+        trainer_mod.score_rollout = real_score
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+
+
+def embed_grad_collective(torch, world: int) -> dict:
+    """The seconds one gradient all-reduce of an embedding-sized f32 leaf
+    ([151936, 1536], 0.93 GB) takes on this rank's batch line: the staged
+    collective a LoRA update's embedding gradient rides once a minibatch."""
+    from nanorlhf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    tr = make_mesh(MeshConfig(world, 1, 1, 1)).batch_transport
+    g = torch.ones((151936, 1536), dtype=torch.float32, device="cuda")
+    tr.all_reduce_sum_([g])  # warm: the pinned buffer
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        g.fill_(1.0)
+        t0 = time.perf_counter()
+        tr.all_reduce_sum_([g])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ok = bool((g == world).all())
+    del g
+    torch.cuda.empty_cache()
+    return {"s": min(times), "all_s": times, "bytes": 151936 * 1536 * 4, "ok": ok}
+
+
+def mesh_rank(rank: int, world: int, tokens: int, layers: int | None,
+              collective: bool) -> dict:
+    """A spawned rank of phase 20 (a) and (b): the embedding-gradient
+    collective (`collective`), then one update at data = 2 and one at
+    fsdp = 2, each trainer closed before the next."""
+    import torch
+
+    from nanorlhf_tpu_torch import _build
+
+    _build.build_all()  # loads the libraries the parent built
+    coll = embed_grad_collective(torch, world) if collective else None
+    return {"collective": coll,
+            **{name: mesh_update(torch, name, axes, tokens, layers, keep_payload=rank == 0,
+                                 save_moments=name == "fsdp")
+               for name, axes in MESH_AXES.items()}}
+
+
+def mesh_sp_rank(rank: int, world: int, tokens: int, layers: int | None) -> dict:
+    """A spawned rank of phase 20 (c): one update at fsdp x sp = (1, 2, 1,
+    2), the ring hops' shapes recorded."""
+    import torch
+
+    from nanorlhf_tpu_torch import _build
+
+    _build.build_all()
+    hops: set = set()
+    got = mesh_update(torch, "fsdp_sp", MESH_SP_AXES, tokens, layers, keep_payload=True,
+                      ring_hops=hops, one_microbatch=True)
+    got["hops"] = hops
+    return got
+
+
+def mesh_leaf_holds(torch, got: dict, want: dict, before: dict, steps: int) -> dict:
+    """The update's leaves `got` (a mesh run's, whole) against data = 1's
+    `want`, both from `before`: over the leaves that move (MESH_DELTA_RTOL
+    above) the largest relative norm of the change's difference and the
+    smallest share of agreeing signs, with their leaves; over the others
+    the largest difference past `steps` bf16 ulps of the larger of the two
+    values."""
+    out = {"rel": 0.0, "rel_leaf": None, "agree": 1.0, "agree_leaf": None,
+           "still_gap": 0.0, "moving": 0}
+    for path, w in want.items():
+        d1 = w.float() - before[path].float()
+        d = got[path].float() - before[path].float()
+        if float((d1 != 0).float().mean()) > 0.5:
+            out["moving"] += 1
+            rel = float((d - d1).norm() / d1.norm())
+            nz = d1 != 0
+            agree = float((torch.sign(d[nz]) == torch.sign(d1[nz])).float().mean())
+            if rel >= out["rel"]:
+                out["rel"], out["rel_leaf"] = rel, "/".join(path)
+            if agree <= out["agree"]:
+                out["agree"], out["agree_leaf"] = agree, "/".join(path)
+        else:
+            g, w = got[path].float(), w.float()
+            gap = (g - w).abs() - steps * bf16_ulp(torch, torch.maximum(g.abs(), w.abs()))
+            out["still_gap"] = max(out["still_gap"], float(gap.max()))
+    return out
+
+
+def mesh_reference(torch, payload: dict, tokens: int, layers: int | None):
+    """The data = 1 trainer (this process) on the same seed: the greedy
+    rows of `payload` held against its full forward, then one update on
+    `payload` itself (its rollout replaced). Returns the trainer (open),
+    its row, the update's seconds and the trainable leaves before it."""
+    import numpy as np
+
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    cfg = mesh_config(None, tokens, _mesh_dir("data1"))
+    with mesh_model(common_mod, layers):
+        tr = common_mod.build_trainer(cfg, device="cuda")
+    tr.reward_func = mesh_reward
+    tok = tr.tokenizer
+    prompts = np.repeat(payload["queries"], cfg.sample_n, axis=0)
+    pairs = _streams(payload["responses"], tok.eos_token_id, tok.pad_token_id, prompts)
+    check_greedy_tokens(torch, "(a) the data = 2 rollout's greedy rows", tr.mcfg, tr.params,
+                        pairs, tok.pad_token_id, COMPACT_NEAR_TIE,
+                        width=payload["queries"].shape[1], lora_scale=tr.lora_scale)
+    tr._rollout_body = lambda *a, **k: payload
+    before = {p: t.detach().clone() for p, t in flatten(tr.trainable).items()}
+    t0 = time.perf_counter()
+    tr.train(num_updates=1)
+    torch.cuda.synchronize()
+    row = {k: v for k, v in tr.logger.latest().items() if isinstance(v, float)}
+    return tr, row, time.perf_counter() - t0, before
+
+
+def mesh_phase(torch, card: str, tokens: int = MESH_TOKENS, layers: int | None = None,
+               sp_layers: int | None = CUT_LAYERS, collective: bool = True) -> dict:
+    """Phase 20 (module docstring); `collective`: time the embedding-sized
+    all-reduce (`--mesh`). Returns the kernels line's `mesh` entries."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nanorlhf_tpu_torch.parallel.distributed import spawn
+    from nanorlhf_tpu_torch.parallel.fsdp import rule_share
+    from nanorlhf_tpu_torch.trainer.checkpoint import CheckpointManager
+    from nanorlhf_tpu_torch.trainer.optim import flatten
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(_mesh_dir(), ignore_errors=True)
+    os.makedirs(_mesh_dir(), exist_ok=True)
+    torch.cuda.empty_cache()
+    log(f"  (a) data = 2 and (b) fsdp = 2: {2} ranks spawned, phase 4's GRPO config at "
+        f"{tokens} tokens and top-k 1, {layers or 28} layers, the reward planted "
+        f"(`mesh_reward`); then data = 1 in this process on (a)'s rollout")
+    try:
+        ranks = spawn(mesh_rank, 2, (tokens, layers, collective), timeout=1200,
+                      store_dir=_mesh_dir())
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 20: {e}")
+    for r in ranks if collective else []:
+        c = r["collective"]
+        log(f"  rank {r['data']['rank']}: one staged all-reduce of an embedding-sized f32 "
+            f"gradient ({c['bytes'] / 1e9:.3f} GB) over the batch line: {c['s']:.3f} s "
+            f"(of {[round(x, 3) for x in c['all_s']]}); two ranks sharing one card over "
+            f"gloo through pinned host memory: not a multi-GPU number")
+        if not c["ok"]:
+            fail("phase 20: the embedding-sized all-reduce summed wrong")
+    payload = ranks[0]["data"]["payload"]
+    log(f"  [{time.perf_counter() - t_phase:.1f} s] the two ranks' group done; per rank, "
+        f"build / update / checkpoint s: " + "; ".join(
+            f"{name} {[(round(r[name]['build_s'], 1), round(r[name]['wall_s'], 1), round(r[name]['save_s'], 1)) for r in ranks]}"
+            for name in MESH_AXES))
+
+    ref, ref_row, ref_wall, before = mesh_reference(torch, payload, tokens, layers)
+    try:
+        L = ref.mcfg.num_hidden_layers
+        want = {p: t.detach() for p, t in flatten(ref.trainable).items()}
+        steps = ref.cfg.num_ppo_epochs * ref.cfg.num_mini_batches
+        lr = ref.cfg.learning_rate
+        full_params = _bytes(ref.params)
+        full_adam = sum(_bytes(st.mu) + _bytes(st.nu) for st in ref.opt_state.values())
+        share_p = rule_share(ref.params, 2)
+        share_a = rule_share(ref.trainable, 2)
+        entries = {}
+        for name in MESH_AXES:
+            runs = [r[name] for r in ranks]
+            tag = "(a)" if name == "data" else "(b)"
+            # every hold of this run is read and logged, then the run fails
+            # naming each that missed
+            bad = []
+            if len({g["digest"] for g in runs} | {ranks[0]["data"]["digest"]}) != 1:
+                bad.append("the ranks' gathered rollouts differ from (a)'s")
+            if len({g["leaves_digest"] for g in runs}) != 1:
+                bad.append("the ranks' trainable leaves differ after the update")
+            saved = CheckpointManager(runs[0]["out"]).restore(1, "cuda")["params"]
+            lh = mesh_leaf_holds(torch, flatten(saved), want, before, steps)
+            for g in runs:
+                a = g["row"]
+                dl = abs(a["loss/policy_avg_new"] - ref_row["loss/policy_avg_new"])
+                dg = (abs(a["policy/grad_norm_new"] - ref_row["policy/grad_norm_new"])
+                      / ref_row["policy/grad_norm_new"])
+                upd, gen = g["launches"]["update"], g["launches"]["generate"]
+                coll = {k: round(v, 3) for k, v in a.items() if k.startswith("mesh/")
+                        and k.endswith("_s")}
+                log(f"  {tag} {name} = 2, rank {g['rank']}: loss {a['loss/policy_avg_new']:.6e} "
+                    f"vs {ref_row['loss/policy_avg_new']:.6e} at data = 1; grad_norm "
+                    f"{a['policy/grad_norm_new']:.6e} vs {ref_row['policy/grad_norm_new']:.6e} "
+                    f"(rel {dg:.3e}); update wall {g['timings']['update_s']:.3f} s vs "
+                    f"{ref.last_timings['update_s']:.3f} s at data = 1, whole update "
+                    f"{g['wall_s']:.3f} s; collectives {coll}; launches generate {gen}, "
+                    f"update {upd}; decode (rows, T_max) {sorted(g['decode_shapes'])}")
+                if dl > SP_LOSS_TOL or dg > SP_GNORM_RTOL:
+                    bad.append(f"rank {g['rank']}: loss or grad_norm past "
+                               f"{SP_LOSS_TOL} / {SP_GNORM_RTOL} of data = 1's")
+                if gen["decode_attention"] <= 0 or any(b != 32 for b, _ in g["decode_shapes"]):
+                    bad.append(f"rank {g['rank']}: K4 decoded rows {g['decode_shapes']} "
+                               f"(32 a rank expected)")
+                if min(upd["flash_fwd"], upd["flash_bwd_dq"], upd["flash_bwd_dkv"],
+                       upd["fused_logprob"]) <= 0:
+                    bad.append(f"rank {g['rank']}: the update launched {upd}")
+            log(f"  {tag} {name} = 2: the update's leaves (rank 0's checkpoint, whole) "
+                f"against data = 1's, each from the same start: over the {lh['moving']} "
+                f"leaves that move, ‖Δ − Δ₁‖ / ‖Δ₁‖ at most {lh['rel']:.4f} "
+                f"({lh['rel_leaf']}; bound {MESH_DELTA_RTOL}) and Δ's sign agreeing with "
+                f"Δ₁'s on at least {lh['agree']:.4f} of the elements ({lh['agree_leaf']}; "
+                f"bound {MESH_SIGN_AGREE}); the others within {steps} bf16 ulps plus "
+                f"{lh['still_gap']:.3e} (bound {MESH_STILL_LRS} · lr a step = "
+                f"{MESH_STILL_LRS * lr * steps:.3e})")
+            if lh["moving"] == 0 or lh["rel"] > MESH_DELTA_RTOL \
+                    or lh["agree"] < MESH_SIGN_AGREE \
+                    or lh["still_gap"] > MESH_STILL_LRS * lr * steps:
+                bad.append("the update's leaves are off data = 1's (the leaf hold)")
+            if bad:
+                fail(f"{tag} {name} = 2: " + "; ".join(bad))
+            entries[name] = runs
+        # (b)'s storage at rest and its peak
+        for g in entries["fsdp"]:
+            sp_, sa = g["params_bytes"] / full_params, g["adam_bytes"] / full_adam
+            log(f"  (b) fsdp = 2, rank {g['rank']}: parameters at rest "
+                f"{g['params_bytes'] / 1e9:.3f} GB = {sp_:.4f} of data = 1's "
+                f"{full_params / 1e9:.3f} GB (rules: {share_p:.4f}); AdamW moments "
+                f"{g['adam_bytes'] / 1e9:.3f} GB = {sa:.4f} of {full_adam / 1e9:.3f} GB "
+                f"(rules: {share_a:.4f}); allocated at rest {g['rest_bytes'] / 1e9:.3f} GB, "
+                f"peak in the update {g['peak_bytes'] / 1e9:.3f} GB, of which the rollout "
+                f"view gathered whole for generate {g['view_bytes'] / 1e9:.3f} GB "
+                f"(transient, freed after it)")
+            if abs(sp_ / share_p - 1) > MESH_SHARE_RTOL or abs(sa / share_a - 1) > MESH_SHARE_RTOL:
+                fail("(b) fsdp = 2: storage at rest is not the rules' share")
+        for g in entries["data"]:
+            log(f"  (a) data = 2, rank {g['rank']}: parameters at rest "
+                f"{g['params_bytes'] / 1e9:.3f} GB, AdamW {g['adam_bytes'] / 1e9:.3f} GB, "
+                f"peak {g['peak_bytes'] / 1e9:.3f} GB")
+        # (b)'s checkpoint resumes at data = 1 with equal leaves
+        tree = CheckpointManager(entries["fsdp"][0]["out"]).restore(1, "cuda")
+        ref.ckpt = CheckpointManager(entries["fsdp"][0]["out"])
+        ref.resume_from_checkpoint()
+        live = flatten(ref.trainable)
+        same = all(torch.equal(live[p].detach(), t) for p, t in flatten(tree["params"]).items())
+        mom = all(torch.equal(flatten(ref.opt_state["policy"].mu)[p], t)
+                  for p, t in flatten(tree["opt_state"]["policy"]["mu"]).items())
+        log(f"  (b) the fsdp = 2 checkpoint (whole leaves, rank 0's write) resumed at "
+            f"data = 1: leaves equal {same}, first moments equal {mom}")
+        if not (same and mom):
+            fail("(b) the fsdp = 2 checkpoint did not resume at data = 1 with equal leaves")
+    finally:
+        ref.close()
+        del ref
+        torch.cuda.empty_cache()
+
+    log(f"  [{time.perf_counter() - t_phase:.1f} s] (c) fsdp x sp = {MESH_SP_AXES}: four "
+        f"ranks on the card, {sp_layers or 28} layers, {tokens} tokens, the 16 prompts "
+        f"in one microbatch")
+    try:
+        sp_ranks = spawn(mesh_sp_rank, 4, (tokens, sp_layers), timeout=1200,
+                         store_dir=_mesh_dir())
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 20 (c): {e}")
+    # one process's scoring of the same rows
+    from nanorlhf_tpu_torch.entrypoints import common as common_mod
+    from nanorlhf_tpu_torch.trainer.scoring import score_chunk
+    from nanorlhf_tpu_torch.trainer.trainer import build_policy
+
+    cfg = mesh_config(None, tokens, _mesh_dir("data1_sp"))
+    with mesh_model(common_mod, sp_layers):
+        mcfg, params, tok = common_mod.resolve_model(cfg.sft_model_path, cfg.seed,
+                                                     attention_impl=cfg.attention_impl,
+                                                     device="cuda")
+    policy, refp, _, lora_scale = build_policy(cfg, mcfg, params)
+    sc = sp_ranks[0]["scored"]
+    ctx = sc["queries"].shape[1]
+    qr = torch.as_tensor(np.concatenate([sc["queries"], sc["responses"]], 1), device="cuda")
+    with torch.no_grad():
+        one, _ = score_chunk(policy, refp, mcfg, cfg, qr, ctx, tok.pad_token_id, lora_scale)
+    one = one.float().cpu().numpy()
+    valid = sc["responses"] != tok.pad_token_id
+    del policy, refp, params
+    torch.cuda.empty_cache()
+    hops = set().union(*(g["hops"] for g in sp_ranks))
+    log(f"  [{time.perf_counter() - t_phase:.1f} s] the four ranks' group and one "
+        f"process's scoring done; per rank build / update s "
+        f"{[(round(g['build_s'], 1), round(g['wall_s'], 1)) for g in sp_ranks]}")
+    for g in sp_ranks:
+        d = np.abs(g["scored"]["logprobs"] - one)[valid]
+        a = g["row"]
+        upd = g["launches"]["update"]
+        log(f"  (c) rank {g['rank']} (coords {g['coords']}): scoring logprobs through "
+            f"sp_fsdp_forward_logits against one process's: max |Δ| {d.max():.4e} (mean "
+            f"{d.mean():.4e}); loss {a['loss/policy_avg_new']:.6e}, grad_norm "
+            f"{a['policy/grad_norm_new']:.6e}; update launches K1/K2/K3 "
+            f"{upd['flash_fwd']}/{upd['flash_bwd_dq']}/{upd['flash_bwd_dkv']} (ring hops "
+            f"{a['sp/hops']:.0f}: sp rank r runs r + 1 hops a ring), K10 "
+            f"{upd['fused_logprob']}; wall {g['wall_s']:.3f} s; peak "
+            f"{g['peak_bytes'] / 1e9:.2f} GB")
+        if d.max() > SP_LOGP_TOL:
+            fail(f"(c) rank {g['rank']}: scoring logprobs past SP_LOGP_TOL")
+        if not all(math.isfinite(a[k]) for k in ("loss/policy_avg_new", "policy/grad_norm_new")):
+            fail(f"(c) rank {g['rank']}: the update ended non-finite")
+        if upd["flash_fwd"] <= 0 or upd["flash_bwd_dq"] <= 0 or upd["flash_bwd_dkv"] <= 0:
+            fail(f"(c) rank {g['rank']}: the ring's update launched {upd}")
+    if len({g["leaves_digest"] for g in sp_ranks}) != 1 or len(
+            {g["row"]["loss/policy_avg_new"] for g in sp_ranks}) != 1:
+        fail("(c): the ranks disagree after the update")
+    log(f"  (c) the ring's hops ran K1/K2/K3 at (kind, B, H, KV, T_local, hd, causal) "
+        f"{sorted(hops)}; each held against its plain version at that shape")
+    held = check_ring_hops(torch, hops)
+    shutil.rmtree(_mesh_dir(), ignore_errors=True)
+    log(f"  phase 20 wall {time.perf_counter() - t_phase:.1f} s (data = 1 update "
+        f"{ref_wall:.1f} s); card: {card}")
+    runs = {"data2_update": entries["data"], "fsdp2_update": entries["fsdp"],
+            "fsdp_sp_update": sp_ranks}
+    return {name: {"launches_per_rank": {
+                k: [g["launches"]["update" if name != "decode_attention" else "generate"][name]
+                    for g in v] for k, v in runs.items()},
+                **({"path_hops_max_abs_err": {k: e for k, v in held.items()
+                                              for n, e in v.items() if n == "out"}}
+                   if name == "flash_fwd" else {})}
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_logprob",
+                         "decode_attention")}
+
+
 # `--learn`: the learning harness's knobs on the card (the Qwen2-1.5B
 # geometry at the toy 512 vocab; the binary phase on)
 LEARN_KNOBS = {"LEARN_MODEL": "1_5b", "LEARN_UPDATES": "30", "LEARN_BINARY_UPDATES": "10"}
@@ -8060,6 +8591,63 @@ def plant_faults() -> None:
     log(f"every planted fault failed its hold ({len(FAULTS)})")
 
 
+# Faults of the mesh path's gradient sum that phase 20's leaf hold must
+# catch, each planted in its own copy of the port: (what, file under the
+# package, text, planted text). The first keeps the ranks agreeing (rank
+# 0's rows' gradient on both): no digest can see it.
+MESH_FAULTS = (
+    ("rank 0's gradient on every batch rank (the batch line's all-reduce a broadcast)",
+     "parallel/fsdp.py", "        mesh.batch_transport.all_reduce_sum_(whole)",
+     "        [mesh.batch_transport.broadcast_(g, 0) for g in whole]"),
+    ("replicated leaves' gradients not summed over fsdp",
+     "parallel/fsdp.py", "    if mesh.batch > 1:\n        mesh.batch_transport",
+     "    if mesh.batch > 1 and mesh.fsdp == 1:\n        mesh.batch_transport"),
+)
+
+
+def plant_mesh_faults() -> None:
+    """Plant each of MESH_FAULTS in a copy of the port under output/faults/
+    (its built libraries copied along: the faults are Python) and run that
+    copy's `chip_smoke.py --mesh`: each must fail on the leaf hold. Prints
+    the leaf hold's lines."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, "output", "faults")
+    shutil.rmtree(base, ignore_errors=True)
+    missed = []
+    for i, (what, source, text, planted) in enumerate(MESH_FAULTS):
+        tree = os.path.join(base, f"mesh{i}")
+        shutil.copytree(os.path.join(root, "nanorlhf_tpu_torch"),
+                        os.path.join(tree, "nanorlhf_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.abspath(__file__), tree)
+        path = os.path.join(tree, "nanorlhf_tpu_torch", source)
+        with open(path) as f:
+            code = f.read()
+        if text not in code:
+            fail(f"fault {what!r}: its text is not in {source}")
+        with open(path, "w") as f:
+            f.write(code.replace(text, planted))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "chip_smoke.py", "--mesh"], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        caught = run.returncode != 0 and "the leaf hold" in run.stderr
+        log(f"  planted fault {what} ({source}): "
+            f"{'caught' if caught else 'NOT CAUGHT'} in {time.perf_counter() - t0:.1f} s")
+        for line in run.stdout.splitlines():
+            if "the update's leaves" in line or "grad_norm" in line:
+                log(f"    {line.strip()}")
+        log(f"    {(run.stderr.strip().splitlines() or [''])[-1]}")
+        if not caught:
+            missed.append(what)
+    shutil.rmtree(base, ignore_errors=True)
+    if missed:
+        fail(f"planted mesh faults passed the leaf hold: {missed}")
+    log(f"every planted mesh fault failed the leaf hold ({len(MESH_FAULTS)})")
+
+
 def _demo_config():
     """The launcher's model geometry (Qwen2.5-1.5B), as `resolve_model`
     builds it."""
@@ -8084,6 +8672,10 @@ def main() -> None:
     ap.add_argument("--plant-faults", action="store_true",
                     help="plant each of FAULTS in its own copy of the port under "
                          "output/faults/ and check that its hold fails")
+    ap.add_argument("--plant-mesh-faults", action="store_true",
+                    help="build, then plant each of MESH_FAULTS in its own copy of the "
+                         "port under output/faults/ and check that phase 20's leaf hold "
+                         "fails in that copy's --mesh")
     ap.add_argument("--graph-loops", action="store_true",
                     help="build, then run only phase 8 (each decode loop's graph "
                          "replay against its per-step body) and the decode-step "
@@ -8130,6 +8722,10 @@ def main() -> None:
                     help="build, then run only phase 19 (sequence parallelism: the flash "
                          "ring, the dense and the sparse GRPO update at sp = 2 on the card, "
                          "28 layers)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="build, then run only phase 20 (the data and fsdp axes: a GRPO "
+                         "update at data = 2 and fsdp = 2 on two ranks, 28 layers, and "
+                         "fsdp x sp on four)")
     ap.add_argument("--sigterm-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--sigterm-layers", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--algos", action="store_true",
@@ -8211,6 +8807,10 @@ def run(args, torch, F) -> None:
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  [{k.source_name}] {line.strip()}")
+    if args.plant_mesh_faults:
+        plant_mesh_faults()
+        log(f"card: {card}")
+        return
 
     # the prompt width the rollout path uses: the first synthetic batch,
     # de-padded to the shape menu
@@ -8316,6 +8916,13 @@ def run(args, torch, F) -> None:
         sp = sp_phase(torch, card)
         log(json.dumps({"sp_kernels": sp}))
         log(f"sp: every hold and check passed; total wall "
+            f"{time.perf_counter() - t_all:.1f} s; card: {card}")
+        return
+    if args.mesh:
+        log(PHASE20)
+        mesh = mesh_phase(torch, card)
+        log(json.dumps({"mesh_kernels": mesh}))
+        log(f"mesh: every hold and check passed; total wall "
             f"{time.perf_counter() - t_all:.1f} s; card: {card}")
         return
     if args.learn:
@@ -8565,9 +9172,14 @@ def run(args, torch, F) -> None:
     hold_host_verify(torch, seen13v, {("decode_verify_attention",) + k6_shape}, prompt_width)
 
     log(PHASE14)
+    log(f"CUT: phases 14-16 run the model's first {CUT_LAYERS} layers here (`--serve` "
+        f"and `--envs` run all 28), so that the whole script stays inside 1150 s of its "
+        f"time limit on a slow host; widths, lengths and the kernels' shapes are the "
+        f"launcher's")
     seen14v: collections.Counter = collections.Counter()
     seen14 = {k: collections.Counter() for k in ("fwd", "bwd", "fused", "decode")}
-    counts14 = serving(torch, card, seen14v, seen14)
+    with cut_depth(common_mod, CUT_LAYERS):
+        counts14 = serving(torch, card, seen14v, seen14)
     log("  the kernels at the shapes phase 14 gave them that no earlier phase held, "
         "against their plain versions")
     hold_new_shapes(torch, F, seen14, {
@@ -8582,16 +9194,17 @@ def run(args, torch, F) -> None:
     serve = serve_entries(torch, F, seen14v, counts14,
                           {("paged_decode_verify_attention",) + k9_shape})
 
-    counts15, counts16, soak_k9 = envs_phases(torch, F, card, held={
-        "fwd": ({fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"])
-                | set(seen13["fwd"]) | set(seen14["fwd"])),
-        "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
-                | {s[1:6] for s in seen12["bwd"]} | {s[1:6] for s in seen13["bwd"]}
-                | {s[1:6] for s in seen14["bwd"]}),
-        "fused": (fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"])
-                  | set(seen13["fused"]) | set(seen14["fused"])),
-        "decode": (set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])
-                   | set(seen13["decode"]) | set(seen14["decode"]))})
+    with cut_depth(common_mod, CUT_LAYERS):
+        counts15, counts16, soak_k9 = envs_phases(torch, F, card, held={
+            "fwd": ({fwd_long} | fwd_shapes | fwd9 | set(r1_seen["fwd"]) | set(seen12["fwd"])
+                    | set(seen13["fwd"]) | set(seen14["fwd"])),
+            "bwd": (bwd_shapes | bwd9 | {s[1:6] for s in r1_seen["bwd"]}
+                    | {s[1:6] for s in seen12["bwd"]} | {s[1:6] for s in seen13["bwd"]}
+                    | {s[1:6] for s in seen14["bwd"]}),
+            "fused": (fused_shapes | fused9 | set(r1_seen["fused"]) | set(seen12["fused"])
+                      | set(seen13["fused"]) | set(seen14["fused"])),
+            "decode": (set(decode_shapes) | set(r1_seen["decode"]) | set(seen12["decode"])
+                       | set(seen13["decode"]) | set(seen14["decode"]))})
     envs = env_entries(torch, F, counts15, counts16, soak_k9)
 
     log(PHASE17)
@@ -8630,6 +9243,13 @@ def run(args, torch, F) -> None:
         f"lengths and the ring's shapes are the launcher's")
     sp = sp_phase(torch, card, layers=CUT_LAYERS)
 
+    log(PHASE20)
+    log(f"CUT: phase 20 runs the model's first {CUT_LAYERS} layers at {MESH_CUT_TOKENS} "
+        f"tokens here (`--mesh` runs all 28 at {MESH_TOKENS}), so that the whole script "
+        f"stays inside 1150 s of its time limit; widths are the launcher's")
+    mesh = mesh_phase(torch, card, tokens=MESH_CUT_TOKENS, layers=CUT_LAYERS,
+                      collective=False)
+
     # each kernel's launches from the run of the path that runs it, counts
     # reset just before that run: the contiguous update (phase 4), the
     # paged update (phase 5), the int8 rollouts (phase 6), the speculative
@@ -8659,6 +9279,7 @@ def run(args, torch, F) -> None:
             **({"fleet": fleet[name]} if name in fleet else {}),
             **({"compact": compact[name]} if name in compact else {}),
             **({"sp": sp[name]} if name in sp else {}),
+            **({"mesh": mesh[name]} if name in mesh else {}),
         })
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

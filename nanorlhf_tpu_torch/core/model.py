@@ -362,7 +362,8 @@ def _cache_views(kv_cache, paged, width: int, dtype):
 
 def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
                 cache_index, lora_layer=None, lora_scale=1.0,
-                decode_bounds=None, paged=None, verify_bounds=None, attn_fn=None):
+                decode_bounds=None, paged=None, verify_bounds=None, attn_fn=None,
+                layer_transform=None):
     """One decoder layer. kv_cache: the layer's cache tuple — exact (k, v)
     or int8 (k_q, k_s, v_q, v_s), contiguous [B, KV, T_max, ...] or paged
     pools [N + 1, KV, P, ...] with `paged=(table [B, nb], page_size,
@@ -383,7 +384,10 @@ def _layer_body(config: ModelConfig, x, layer, cos, sin, mask, kv_cache,
     `attn_fn(q, k, v)`, when given, replaces the attention contraction (the
     sequence-parallel ring, `parallel/sp.py`; no cache): q and k arrive
     rotated at the positions the caller's tables give — global ones on a
-    sequence shard — and every other op stays this one body."""
+    sequence shard — and every other op stays this one body.
+    `layer_transform`: see `_run_layers`."""
+    if layer_transform is not None:
+        layer, lora_layer = layer_transform(layer, lora_layer)
     hd = config.actual_head_dim
     H, KV = config.num_attention_heads, config.num_key_value_heads
     B, T, _ = x.shape
@@ -465,7 +469,8 @@ def _remat_context(policy: str) -> dict:
 
 def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
                 cache_index=0, lora_scale=1.0, decode_bounds=None,
-                remat: bool = False, paged=None, verify_bounds=None, attn_fn=None):
+                remat: bool = False, paged=None, verify_bounds=None, attn_fn=None,
+                layer_transform=None):
     """Run the stacked layers in order. kv_caches: the stacked cache tuple
     ((k, v) or (k_q, k_s, v_q, v_s), each [L, ...], updated in place) or
     None; `paged=(table, page_size)` when it is a page pool.
@@ -477,7 +482,15 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
     `"dots"` also keeps the outputs of its 2-D GEMMs (`_remat_context`).
     Either changes memory, not values. `attn_fn`: see `_layer_body`; under
     remat the backward's recompute runs it again (the ring's hops repeat in
-    the same order on every rank)."""
+    the same order on every rank).
+
+    `layer_transform(layer, lora_layer) -> (layer, lora_layer)` runs just
+    before each layer's math (JAX's hook): the fsdp gather, so a layer's
+    sharded leaves are gathered one layer at a time; under remat it runs
+    inside the checkpointed layer, so the backward's recompute gathers
+    again. It takes no cache (ValueError)."""
+    if layer_transform is not None and kv_caches is not None:
+        raise ValueError("layer_transform runs on cache-free forwards only")
     remat_kw = _remat_context(config.remat_policy) if remat else {}
     if paged is not None and kv_caches is not None:
         # where this forward's K/V land in the pool: resolved once, not
@@ -494,11 +507,13 @@ def _run_layers(config, params, x, cos, sin, mask, kv_caches=None,
         if remat and kv is None:
             x = checkpoint(_layer_body, config, x, layer, cos, sin, mask, None,
                            cache_index, lora_layer, lora_scale, attn_fn=attn_fn,
+                           layer_transform=layer_transform,
                            use_reentrant=False, **remat_kw)
         else:
             x = _layer_body(config, x, layer, cos, sin, mask, kv, cache_index,
                             lora_layer, lora_scale, decode_bounds=decode_bounds,
-                            paged=paged, verify_bounds=verify_bounds, attn_fn=attn_fn)
+                            paged=paged, verify_bounds=verify_bounds, attn_fn=attn_fn,
+                            layer_transform=layer_transform)
     return x
 
 
@@ -538,10 +553,12 @@ def padding_inputs(query_responses: torch.Tensor, pad_token_id: int):
 
 
 def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
-                        lora_scale, remat: bool = False, attn_fn=None):
+                        lora_scale, remat: bool = False, attn_fn=None,
+                        layer_transform=None):
     """embed → rope → causal+padding mask → layers. `attn_fn` overrides the
     attention contraction (the sequence-parallel ring); the local mask is
-    then unused — the ring builds its own from global positions."""
+    then unused — the ring builds its own from global positions.
+    `layer_transform`: `_run_layers`'s per-layer hook (the fsdp gather)."""
     attention_mask = attention_mask.bool()
     x = params["embed_tokens"][input_ids]
     T = input_ids.shape[1]
@@ -549,27 +566,29 @@ def _hidden_from_inputs(params, config, input_ids, attention_mask, position_ids,
     causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
     mask = causal[None, None, :, :] & attention_mask[:, None, None, :]
     return _run_layers(config, params, x, cos, sin, mask, lora_scale=lora_scale,
-                       remat=remat, attn_fn=attn_fn)
+                       remat=remat, attn_fn=attn_fn, layer_transform=layer_transform)
 
 
 def _padded_hidden(params, config, query_responses, pad_token_id, lora_scale=1.0,
-                   remat: bool = False):
+                   remat: bool = False, layer_transform=None):
     input_ids, attention_mask, position_ids = padding_inputs(
         query_responses, pad_token_id)
     return _hidden_from_inputs(params, config, input_ids, attention_mask,
-                               position_ids, lora_scale, remat)
+                               position_ids, lora_scale, remat,
+                               layer_transform=layer_transform)
 
 
 def padded_forward_logits(params, config, query_responses, pad_token_id,
                           lora_scale: float = 1.0,
                           response_context_length: int | None = None,
-                          remat: bool = False):
+                          remat: bool = False, layer_transform=None):
     """Padding-robust forward → logits [B, T, V]. With
     `response_context_length=ctx`, next-token logits for the response
     positions only (hidden sliced [ctx-1:-1] before the head). `remat`
-    checkpoints each layer (the training path)."""
+    checkpoints each layer (the training path); `layer_transform` is
+    `_run_layers`'s hook (the fsdp gather)."""
     x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
-                       remat)
+                       remat, layer_transform)
     if response_context_length is not None:
         x = x[:, response_context_length - 1 : -1]
     return _logits(config, params, x)
@@ -578,11 +597,11 @@ def padded_forward_logits(params, config, query_responses, pad_token_id,
 def padded_forward_hidden(params, config, query_responses, pad_token_id,
                           lora_scale: float = 1.0,
                           response_context_length: int | None = None,
-                          remat: bool = False):
+                          remat: bool = False, layer_transform=None):
     """`padded_forward_logits` minus the vocab projection: final-normed
     hidden states [B, T', D], the fused logprob op's input."""
     x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
-                       remat)
+                       remat, layer_transform)
     if response_context_length is not None:
         x = x[:, response_context_length - 1 : -1]
     return rms_norm(x, params["norm"], config.rms_norm_eps)
@@ -601,13 +620,14 @@ def init_score_head(config: ModelConfig, generator: torch.Generator,
 
 
 def score_forward(params, config, query_responses, pad_token_id,
-                  lora_scale: float = 1.0, remat: bool = False) -> torch.Tensor:
+                  lora_scale: float = 1.0, remat: bool = False,
+                  layer_transform=None) -> torch.Tensor:
     """Per-position scores [B, T, num_labels] f32 of a tree carrying
     "score": the final-normed hidden states of `_padded_hidden` (the flash
     route on the card) times the head, in f32. The head is a [D, 1]
     product, a plain matmul as in JAX."""
     x = _padded_hidden(params, config, query_responses, pad_token_id, lora_scale,
-                       remat)
+                       remat, layer_transform)
     x = rms_norm(x, params["norm"], config.rms_norm_eps)
     return torch.matmul(x.float(), params["score"].float())
 

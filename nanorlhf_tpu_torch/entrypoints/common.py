@@ -113,7 +113,7 @@ def device_arg(what: str) -> str:
 
 def _device(device, who: str) -> torch.device:
     """The device to build on. Under `torchrun --nproc-per-node N` (a world
-    of N, the sequence-parallel mesh) the process group comes up here
+    of N: the config's mesh, data = N by default) the process group comes up here
     (`parallel.distributed.initialize_multihost`: NCCL where each rank owns
     a card, gloo where they share one or on the CPU) and each rank takes
     its card; a world of 1 changes nothing."""

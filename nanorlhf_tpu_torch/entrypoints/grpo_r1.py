@@ -139,7 +139,11 @@ def build_prompt_dataset(train_qa, tokenizer, max_prompt_len: int = 512,
     the cut and the tokenizer: a relaunch skips tokenizing."""
     ids = None
     cache_path = fp = None
-    if cache_dir is not None:
+    # a tokenizer whose decode table fills as it encodes (the toy one,
+    # `parallel_safe` False) must encode its prompts: from the cache its
+    # decode would give `<unk:…>` texts — on one rank of several, graded
+    # texts that differ from the others'
+    if cache_dir is not None and getattr(tokenizer, "parallel_safe", True):
         from nanorlhf_tpu_torch.data.token_cache import (
             corpus_fingerprint, load_token_cache, save_token_cache, tokenizer_identity)
 

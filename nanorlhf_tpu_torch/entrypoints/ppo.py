@@ -73,7 +73,7 @@ def value_init_phase(cfg: RLConfig, run_value_init: bool = True,
             value_lora_cfg=trainer.value_lora_cfg,
             generator=stream_generator(cfg.seed, VALUE_INIT_STREAM,
                                        device=trainer.device),
-            fused_logprob_scoring=cfg.fused_logprob)
+            fused_logprob_scoring=cfg.fused_logprob, mesh=trainer._par)
 
     return hook
 

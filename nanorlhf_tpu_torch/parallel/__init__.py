@@ -1,17 +1,24 @@
-"""Sequence parallelism over torch.distributed — the port of
-`nanorlhf_tpu/parallel/` at `MeshConfig(data=1, fsdp=1, tensor=1, sp=N)`.
-JAX's data/fsdp/tensor names (`param_sharding_rules`, `shard_params`,
-`batch_sharding`, `sp_fsdp_forward_logits`) wait for A14b."""
+"""The mesh over torch.distributed — the port of `nanorlhf_tpu/parallel/`
+at `MeshConfig(data, fsdp, 1, sp)`: the batch over (data, fsdp), params
+sharded over fsdp, the sequence over the sp ring. The tensor axis waits
+for A14c."""
 
 from nanorlhf_tpu_torch.parallel.distributed import (
     broadcast_host_value,
     initialize_multihost,
     spawn,
 )
-from nanorlhf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from nanorlhf_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    batch_sharding,
+    make_mesh,
+    param_sharding_rules,
+    shard_params,
+)
 from nanorlhf_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_flash
 from nanorlhf_tpu_torch.parallel.sp import (
     sp_forward_logits,
+    sp_fsdp_forward_logits,
     sp_score_logprobs,
     sp_score_values,
 )
@@ -19,9 +26,13 @@ from nanorlhf_tpu_torch.parallel.sp import (
 __all__ = [
     "MeshConfig",
     "make_mesh",
+    "param_sharding_rules",
+    "shard_params",
+    "batch_sharding",
     "ring_attention",
     "ring_attention_flash",
     "sp_forward_logits",
+    "sp_fsdp_forward_logits",
     "sp_score_logprobs",
     "sp_score_values",
     "initialize_multihost",

@@ -102,11 +102,24 @@ def broadcast_host_value(value: int) -> int:
     return int(t.item())
 
 
+def any_rank(flag: bool) -> bool:
+    """Whether `flag` is set on any rank of the world (a MAX all-reduce;
+    every rank must call it at the same point)."""
+    if world_size() == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        t = t.to(rank_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 class Transport:
     """The collectives of one group over its backend. Under gloo a CUDA
     tensor goes through a pinned host buffer (`_host` / `_back`); under
     NCCL and for CPU tensors it goes as it is. `hop_s` accumulates the
-    seconds spent waiting for ring hops, `hops` counts them."""
+    seconds spent waiting for ring hops, `hops` counts them; `op_s` the
+    seconds of the gathers, reduce-scatters and all-reduces by op."""
 
     def __init__(self, group, backend: str):
         self.group = group
@@ -118,6 +131,10 @@ class Transport:
         self._pinned: dict = {}
         self.hop_s = 0.0
         self.hops = 0
+        self.op_s: dict = {}
+
+    def _timed(self, op: str, t0: float) -> None:
+        self.op_s[op] = self.op_s.get(op, 0.0) + time.perf_counter() - t0
 
     def staged(self, t: torch.Tensor) -> bool:
         return t.is_cuda and self.backend != "nccl"
@@ -141,6 +158,7 @@ class Transport:
         """Sum each tensor over the group, in place (one flat f32 buffer)."""
         if not tensors:
             return
+        t0 = time.perf_counter()
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
         if self.staged(flat):
             host = self._host(flat.view(torch.uint8), "reduce").view(torch.float32)
@@ -153,6 +171,9 @@ class Transport:
             n = t.numel()
             t.copy_(flat[i:i + n].view(t.shape))
             i += n
+        if flat.is_cuda:
+            torch.cuda.current_stream(flat.device).synchronize()
+        self._timed("all_reduce", t0)
 
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's copy of `t` (detached), in rank order."""
@@ -165,6 +186,58 @@ class Transport:
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
         return parts
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tiled all-gather: every rank's `t` concatenated along `dim`
+        in rank order (detached; the bytes travel, so any dtype goes)."""
+        t0 = time.perf_counter()
+        x = t.detach().movedim(dim, 0).contiguous()
+        flat = x.reshape(-1).view(torch.uint8)
+        staged = self.staged(flat)
+        src = self._host(flat, "gather_in") if staged else flat
+        out = torch.empty((self.size, flat.numel()), dtype=torch.uint8, device=src.device)
+        dist.all_gather(list(out.unbind(0)), src, group=self.group)
+        if staged:
+            out = out.to(t.device, non_blocking=True)
+        full = out.view(t.dtype).reshape((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        self._timed("all_gather", t0)
+        return full.movedim(0, dim).contiguous()
+
+    def reduce_scatter_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of `t` over the group, cut along `dim` into `size`
+        contiguous blocks: this rank's block, in f32 (the transpose of
+        `all_gather_dim`). NCCL reduce-scatters; gloo all-reduces the whole
+        tensor and keeps the block (it has no reduce-scatter)."""
+        t0 = time.perf_counter()
+        x = t.detach().float().movedim(dim, 0).contiguous()
+        n = x.shape[0] // self.size
+        if self.backend == "nccl":
+            out = torch.empty((n,) + tuple(x.shape[1:]), dtype=torch.float32,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, x, group=self.group)
+        else:
+            if self.staged(x):
+                host = self._host(x.reshape(-1).view(torch.uint8), "scatter")
+                host = host.view(torch.float32)
+                dist.all_reduce(host, group=self.group)
+                out = host.view(x.shape)[self.rank * n:(self.rank + 1) * n].to(
+                    t.device, non_blocking=True)
+            else:
+                dist.all_reduce(x, group=self.group)
+                out = x[self.rank * n:(self.rank + 1) * n]
+        self._timed("reduce_scatter", t0)
+        return out.movedim(0, dim).contiguous()
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Overwrite `t` with the group's rank `src`'s copy, in place."""
+        flat = t.detach().reshape(-1).view(torch.uint8)
+        if self.staged(flat):
+            host = self._host(flat, "broadcast")
+            dist.broadcast(host, dist.get_global_rank(self.group, src), group=self.group)
+            flat.copy_(host, non_blocking=True)
+        else:
+            dist.broadcast(flat, dist.get_global_rank(self.group, src), group=self.group)
+        return t
 
     def all_gather_object(self, obj) -> list:
         out = [None] * self.size

@@ -24,7 +24,11 @@ everywhere, and each rank's backward carries only its own shard's part
 other ranks' queries): summing the gradients over the group gives the
 gradient of ONE loss. An autograd-aware gather would count it N times.
 
-`sp_fsdp_forward_logits` (params sharded over an fsdp axis) waits for A14b.
+With `fsdp_axis="fsdp"` (and `sp_fsdp_forward_logits`) the params are
+sharded over the mesh's fsdp group at rest and each forward reads
+`parallel.fsdp.forward_view`: the embedding and heads gathered up front,
+each layer gathered as it runs (JAX's `_sp_fsdp_forward_local`), the
+gradients reduce-scattered back onto the shards.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from nanorlhf_tpu_torch.ops.masking import (
     guard_temperature,
     logprobs_from_logits,
 )
+from nanorlhf_tpu_torch.parallel.fsdp import forward_view
 from nanorlhf_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_flash
 
 
@@ -63,11 +68,21 @@ def _shard(mesh, width: int) -> slice:
         raise ValueError(f"sequence width {width} not divisible by sp={n}; pick "
                          "prompt/response widths as multiples of sp")
     t = width // n
-    return slice(mesh.rank * t, (mesh.rank + 1) * t)
+    return slice(mesh.sp_rank * t, (mesh.sp_rank + 1) * t)
+
+
+def _view(params, mesh, fsdp_axis):
+    """(tree, layer_transform) the forward reads: the fsdp view when
+    `fsdp_axis` names the mesh's fsdp axis, else the tree as it is."""
+    if fsdp_axis is None:
+        return params, None
+    if fsdp_axis != "fsdp":
+        raise ValueError(f"fsdp_axis={fsdp_axis!r}: the port's mesh names it 'fsdp'")
+    return forward_view(params, mesh)
 
 
 def _sp_hidden_local(params, config, input_ids, attention_mask, position_ids, mesh,
-                     lora_scale, remat, attn_impl):
+                     lora_scale, remat, attn_impl, layer_transform=None):
     """This rank's shard through the shared forward recipe, attention
     routed around the ring: final hidden states [B, T/N, D] (not normed)."""
     sl = _shard(mesh, input_ids.shape[1])
@@ -75,7 +90,8 @@ def _sp_hidden_local(params, config, input_ids, attention_mask, position_ids, me
     return _hidden_from_inputs(
         params, config, input_ids[:, sl], key_valid, position_ids[:, sl], lora_scale,
         remat, attn_fn=_ring_attn_fn(key_valid, mesh.transport,
-                                     attn_impl or config.attention_impl))
+                                     attn_impl or config.attention_impl),
+        layer_transform=layer_transform)
 
 
 def _gather_own(mesh, local: torch.Tensor) -> torch.Tensor:
@@ -83,26 +99,42 @@ def _gather_own(mesh, local: torch.Tensor) -> torch.Tensor:
     along dim 1: this rank's shard keeps its graph, the others are values
     (module docstring)."""
     parts = mesh.transport.all_gather(local)
-    parts[mesh.rank] = local
+    parts[mesh.sp_rank] = local
     return torch.cat(parts, dim=1)
 
 
 def sp_forward_logits(params, config, input_ids, attention_mask, position_ids, mesh,
                       lora_scale: float = 1.0, remat: bool = False,
-                      attn_impl: str | None = None) -> torch.Tensor:
+                      attn_impl: str | None = None,
+                      fsdp_axis: str | None = None) -> torch.Tensor:
     """Full-model forward with the sequence dim sharded over the sp group:
     global [B, T] ids, mask and positions in (T divisible by N), THIS
     rank's logits shard [B, T/N, V] out (JAX returns the global array
-    sharded over T; here each rank holds its shard)."""
+    sharded over T; here each rank holds its shard). `fsdp_axis`: the
+    params are sharded over the mesh's fsdp group (`_view`)."""
+    params, hook = _view(params, mesh, fsdp_axis)
     x = _sp_hidden_local(params, config, input_ids, attention_mask, position_ids, mesh,
-                         lora_scale, remat, attn_impl)
+                         lora_scale, remat, attn_impl, hook)
     return _logits(config, params, x)
+
+
+def sp_fsdp_forward_logits(params, config, input_ids, attention_mask, position_ids,
+                           mesh, lora_scale: float = 1.0, remat: bool = False,
+                           attn_impl: str | None = None) -> torch.Tensor:
+    """`sp_forward_logits` with fsdp-sharded params (JAX's
+    `sp_fsdp_forward_logits`): sharded at rest, the embedding gathered up
+    front, each layer gathered one at a time, the head last; resident
+    params per rank ≈ params / fsdp + one whole layer + the embedding
+    (and an untied head)."""
+    return sp_forward_logits(params, config, input_ids, attention_mask, position_ids,
+                             mesh, lora_scale, remat, attn_impl, fsdp_axis="fsdp")
 
 
 def sp_score_logprobs(params, config, query_responses, pad_token_id: int,
                       temperature: float, mesh, lora_scale: float = 1.0,
                       remat: bool = False, with_entropy: bool = False,
-                      entropy_from_position: int = 0, attn_impl: str | None = None):
+                      entropy_from_position: int = 0, attn_impl: str | None = None,
+                      fsdp_axis: str | None = None, entropy_rows: bool = False):
     """Per-position next-token logprobs [B, T] f32 under sequence
     parallelism: entry t holds log p(token_{t+1} | tokens_{<=t}), the final
     position 0. Callers slice [:, ctx-1:T-1] for the response logprobs, as
@@ -110,12 +142,15 @@ def sp_score_logprobs(params, config, query_responses, pad_token_id: int,
     temperature-scaled logits over global positions [entropy_from_position,
     T-1) (callers pass context_length - 1, the dense path's scope), summed
     per shard and reduced over the group. The result is the same on every
-    rank; only this rank's shard carries its graph (module docstring)."""
+    rank; only this rank's shard carries its graph (module docstring).
+    `entropy_rows`: the entropy is each row's mean [B] instead (their mean
+    is the scalar). `fsdp_axis`: the params are sharded over the fsdp group
+    (`_view`)."""
     input_ids, attention_mask, position_ids = padding_inputs(query_responses, pad_token_id)
     T = query_responses.shape[1]
     sl = _shard(mesh, T)
     logits = sp_forward_logits(params, config, input_ids, attention_mask, position_ids,
-                               mesh, lora_scale, remat, attn_impl)
+                               mesh, lora_scale, remat, attn_impl, fsdp_axis)
     # the label of local position t is the global id at t + 1 (the last
     # shard's last label wraps around; that position is set to 0 below)
     labels = torch.roll(query_responses, -1, dims=1)[:, sl]
@@ -126,10 +161,11 @@ def sp_score_logprobs(params, config, query_responses, pad_token_id: int,
         in_span = ((gpos >= entropy_from_position) & (gpos < T - 1)).float()
         with torch.no_grad():
             ent = entropy_from_logits(logits.float() / guard_temperature(temperature))
-            sums = torch.stack([(ent * in_span).sum(),
-                                in_span.sum() * ent.shape[0]]).float()
+            sums = torch.cat([(ent * in_span).sum(1),
+                              in_span.sum().reshape(1)]).float()
             mesh.transport.all_reduce_sum_([sums])
-        entropy = sums[0] / torch.clamp_min(sums[1], 1.0)
+        per_row = sums[:-1] / torch.clamp_min(sums[-1], 1.0)
+        entropy = per_row if entropy_rows else per_row.mean()
     lp = _gather_own(mesh, lp)
     lp = torch.cat([lp[:, :-1], torch.zeros_like(lp[:, -1:])], dim=1)
     return (lp, entropy) if with_entropy else lp
@@ -137,14 +173,16 @@ def sp_score_logprobs(params, config, query_responses, pad_token_id: int,
 
 def sp_score_values(params, config, query_responses, pad_token_id: int, mesh,
                     lora_scale: float = 1.0, remat: bool = False,
-                    attn_impl: str | None = None) -> torch.Tensor:
+                    attn_impl: str | None = None,
+                    fsdp_axis: str | None = None) -> torch.Tensor:
     """Per-position value/RM scores [B, T, num_labels] f32 under sequence
     parallelism (`core.model.score_forward` at ring scale: the final-normed
     hidden states of each shard times the score head, in f32; nothing
     crosses shard edges after the ring). Same on every rank; only this
     rank's shard carries its graph."""
     input_ids, attention_mask, position_ids = padding_inputs(query_responses, pad_token_id)
+    params, hook = _view(params, mesh, fsdp_axis)
     x = _sp_hidden_local(params, config, input_ids, attention_mask, position_ids, mesh,
-                         lora_scale, remat, attn_impl)
+                         lora_scale, remat, attn_impl, hook)
     x = rms_norm(x, params["norm"], config.rms_norm_eps)
     return _gather_own(mesh, x.float() @ params["score"].float())

@@ -27,7 +27,12 @@ from the monolithic loop's — same distribution, not the same bits. Greedy
 output is the monolithic loop's exactly on the CPU.
 
 `batch_sharding` (JAX's mesh-aware carry, `_shard_state` /
-`_batch_axis_size`) waits for A14b.
+`_batch_axis_size`) takes the port's mesh: the carry is per rank — each
+batch rank compacts its own `parallel.mesh.batch_sharding` block of the
+prompts (so the batch-axis term of JAX's smallest menu size is 1 on each
+rank, which leaves `_MIN_BATCH`), and the rows are all-gathered at the end,
+so the result is the whole batch's, as in JAX. A greedy block is the
+one-rank run's rows.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from nanorlhf_tpu_torch._build import launch_counts
+from nanorlhf_tpu_torch.parallel.mesh import batch_sharding
 from nanorlhf_tpu_torch.sampler.graph import SYNC_EVERY, ChunkedLoop, check_decode_loop
 from nanorlhf_tpu_torch.sampler.sampler import (
     _decode_body,
@@ -107,12 +113,17 @@ def generate_tokens_compact(params, config, prompt_ids, prompt_mask,
     host sync per segment. `timings` as `generate_tokens` (the graph
     counters summed over the menu sizes). `stats_out` receives one dict:
     `menu`, one (batch, steps, kernel launches) entry per batch size in
-    the order decoded, and `compactions`."""
-    if batch_sharding is not None:
-        raise NotImplementedError(
-            "compaction under a batch sharding (JAX's `_shard_state` carry) is not "
-            "ported to nanorlhf_tpu_torch: it waits for A14b (the data, fsdp and "
-            "tensor axes)")
+    the order decoded, and `compactions`. `batch_sharding` (a
+    `parallel.mesh.Mesh`): this rank compacts its block of the prompts and
+    the blocks are gathered (module docstring)."""
+    if batch_sharding is not None and batch_sharding.batch > 1:
+        return _compact_block(
+            params, config, prompt_ids, prompt_mask, generator, batch_sharding,
+            max_tokens=max_tokens, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+            segments=segments, temperature=temperature, top_p=top_p, greedy=greedy,
+            lora_scale=lora_scale, top_k=top_k, capture_logprobs=capture_logprobs,
+            approx_top_k=approx_top_k, prompt_fanout=prompt_fanout, timings=timings,
+            sync_every=sync_every, decode_loop=decode_loop, stats_out=stats_out)
     check_decode_loop(decode_loop, sync_every)
     device = prompt_ids.device
     B0, Tp = prompt_ids.shape
@@ -201,3 +212,16 @@ def generate_tokens_compact(params, config, prompt_ids, prompt_mask,
                           "compactions": len(menu) - 1})
     out = torch.as_tensor(final_out, device=device)
     return (out, torch.as_tensor(final_lp, device=device)) if capture_logprobs else out
+
+
+def _compact_block(params, config, prompt_ids, prompt_mask, generator, mesh, **kw):
+    """The per-rank carry: this batch rank's block of the prompts through
+    the one-rank loop, then every rank's rows gathered in rank order."""
+    block = batch_sharding(mesh, prompt_ids.shape[0])
+    got = generate_tokens_compact(params, config, prompt_ids[block], prompt_mask[block],
+                                  generator, **kw)
+    tr = mesh.batch_transport
+    if kw["capture_logprobs"]:
+        out, lp = got
+        return (torch.cat(tr.all_gather(out)), torch.cat(tr.all_gather(lp)))
+    return torch.cat(tr.all_gather(got))

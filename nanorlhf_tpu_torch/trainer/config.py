@@ -8,13 +8,13 @@ batching, speculative decode, the int8 KV cache, int8 rollout weights
 (`rollout_quant`), both remat policies (`remat_policy`), the naive
 update branch (`fused_logprob=False`), compacting decode and the rest of
 the rollout knobs are ported; the knobs that select paths this port has
-not ported yet (disaggregated rollout devices, the mesh's data, fsdp and
-tensor axes) are carried for parity and make the port's trainer raise
+not ported yet (disaggregated rollout devices, the mesh's tensor axis)
+are carried for parity and make the port's trainer raise
 NotImplementedError when set.
 
 `MeshConfig` is a copy too: `parallel.mesh.make_mesh` resolves it over the
-torch.distributed world (the sp axis), and `finalize` counts the world's
-data-parallel ranks from it.
+torch.distributed world (the data, fsdp and sp axes), and `finalize`
+counts the world's data-parallel ranks (data × fsdp) from it.
 """
 
 from __future__ import annotations

@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from nanorlhf_tpu_torch.parallel.fsdp import group_norms
+
 
 def flatten(tree: dict, prefix: tuple = ()) -> dict:
     """{path tuple: leaf} of a nested dict."""
@@ -82,11 +84,6 @@ def lr_schedule(lr: float, total_steps: int, min_lr_rate: float,
     return schedule
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ ‖t‖²) over the leaves, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
-
-
 @dataclasses.dataclass
 class AdamWState:
     count: int
@@ -113,13 +110,19 @@ class AdamW:
                           unflatten({p: z.clone() for p, z in zeros.items()}))
 
     @torch.no_grad()
-    def step(self, trainable: dict, grads: dict, state: AdamWState) -> AdamWState:
+    def step(self, trainable: dict, grads: dict, state: AdamWState,
+             mesh=None, g_norm: torch.Tensor | None = None) -> AdamWState:
         """One update of `trainable` (in place) from `grads` (f32, same
-        tree). Returns the new state; the old one's moments are reused."""
+        tree). Returns the new state; the old one's moments are reused.
+        Under an fsdp `mesh` the leaves, the gradients and the moments are
+        this rank's shards, and the clip reads the unsharded tree's norm:
+        `g_norm` when the caller has it (`parallel.fsdp.group_norms`), else
+        computed here."""
         params, g_flat = flatten(trainable), flatten(grads)
         mu, nu = flatten(state.mu), flatten(state.nu)
         if self.max_grad_norm:
-            g_norm = global_norm(g_flat.values())
+            if g_norm is None:
+                g_norm = group_norms({None: g_flat}, mesh)[None]
             if not bool(g_norm < self.max_grad_norm):
                 g_flat = {p: g / g_norm * self.max_grad_norm
                           for p, g in g_flat.items()}
@@ -142,21 +145,28 @@ class AdamW:
 class MultiAdamW:
     """optax.multi_transform labelled by the trainable tree's top-level keys:
     `groups[k]` steps `trainable[k]`. States are `{group: AdamWState}` over
-    the groups the tree holds."""
+    the groups the tree holds. `mesh`: the leaves are fsdp shards (each
+    group's clip reads the unsharded norm)."""
 
-    def __init__(self, groups: dict):
+    def __init__(self, groups: dict, mesh=None):
         self.groups = groups
+        self.mesh = mesh
 
     def init(self, trainable: dict) -> dict:
         return {k: self.groups[k].init(v) for k, v in trainable.items()}
 
-    def step(self, trainable: dict, grads: dict, state: dict) -> dict:
-        return {k: self.groups[k].step(v, grads[k], state[k])
+    def step(self, trainable: dict, grads: dict, state: dict,
+             norms: dict | None = None) -> dict:
+        """Each group's step; `norms`: {group: unsharded gradient norm}
+        when the caller computed them (`parallel.fsdp.group_norms`)."""
+        return {k: self.groups[k].step(v, grads[k], state[k], mesh=self.mesh,
+                                       g_norm=None if norms is None else norms[k])
                 for k, v in trainable.items()}
 
 
-def build_optimizer(cfg) -> MultiAdamW:
-    """The optimizer of an RLConfig: the policy and value groups."""
+def build_optimizer(cfg, mesh=None) -> MultiAdamW:
+    """The optimizer of an RLConfig: the policy and value groups (over
+    fsdp shards under `mesh`)."""
     total_steps = max(1, cfg.num_total_batches * cfg.num_ppo_epochs
                       * cfg.num_mini_batches)
 
@@ -166,4 +176,5 @@ def build_optimizer(cfg) -> MultiAdamW:
                      max_grad_norm=cfg.max_grad_norm)
 
     return MultiAdamW({"policy": adamw(cfg.learning_rate),
-                       "value": adamw(cfg.value_learning_rate or cfg.learning_rate)})
+                       "value": adamw(cfg.value_learning_rate or cfg.learning_rate)},
+                      mesh=mesh)

@@ -31,6 +31,17 @@ the truncated-IS correction they are the behavior policy's instead, the
 policy forward still runs, and the kept rows carry `behavior_logprobs`
 (and `segment_ages` when in-flight swaps left segments).
 
+On a mesh with batch ranks (data × fsdp > 1; `mesh`) every rank holds the
+same global prompt batch: `generate_rollout` de-pads it, generates only the
+rank's `batch_sharding` block of prompts (each with its N samples) through
+the normal `generate` — the decode loop holds no collective — from a
+generator that folds in the batch rank, then all-gathers the responses
+(and the captured logprobs, ReMax's greedy rows), so every rank holds the
+global rollout. `score_rollout` grades each rank's own rows and gathers
+the scores; advantages, the keep and the permutations are then drawn on
+the global batch, the same on every rank, and the scoring forwards split
+each chunk's rows over the batch ranks (`scoring.score_chunk`).
+
 The reward goes through `dispatch_reward` (JAX `_dispatch_reward`): the
 `reward.exec` fault site and `reward_retries` retries with backoff, a
 `reward.dispatch` span on the "reward" track, `latency/reward_s` and the
@@ -62,6 +73,7 @@ from nanorlhf_tpu_torch.algos.advantages import (
     rloo_advantage,
     sparse_terminal_rewards,
 )
+from nanorlhf_tpu_torch.parallel.mesh import A14C, batch_sharding
 from nanorlhf_tpu_torch.resilience.retry import retry_with_backoff
 from nanorlhf_tpu_torch.ops.masking import (
     INVALID_LOGPROB,
@@ -153,8 +165,8 @@ def check_supported(cfg: RLConfig) -> None:
     ignoring it, and run the decode features' legality matrix
     (`sampler.compose_check`, ValueError) once, as the JAX trainer does at
     construction. The mesh's axes are `parallel.mesh.make_mesh`'s to check
-    (sequence parallelism is ported; data, fsdp and tensor wait for A14b).
-    Ported: compacting decode, sequence parallelism, the paged cache
+    (data, fsdp and sp are ported; tensor waits for A14c). Ported:
+    compacting decode, sequence parallelism, the paged cache
     and continuous batching, the int8 KV cache, speculative decode, int8
     rollout weights, the radix prefix cache, chunked prefill, multi-turn
     environments (validated by the trainer), the async orchestrator and
@@ -169,8 +181,7 @@ def check_supported(cfg: RLConfig) -> None:
     if cfg.rollout_devices > 0 or cfg.rollout_mesh is not None:
         raise NotImplementedError(
             "rollout_devices > 0 (disaggregated rollout devices, rollout_mesh) is not "
-            "ported to nanorlhf_tpu_torch: it waits for A14b (the data, fsdp and "
-            "tensor axes, disaggregated rollout devices and multi-host)")
+            f"ported to nanorlhf_tpu_torch: it waits for {A14C}")
     compose_check(SamplingParams(page_size=cfg.rollout_page_size,
                                  decode_rows=cfg.rollout_decode_rows,
                                  spec_k=cfg.rollout_spec_k,
@@ -179,11 +190,22 @@ def check_supported(cfg: RLConfig) -> None:
                   prefix_cache=cfg.rollout_prefix_cache)
 
 
-def rollout_generator(seed: int, rollout_index: int, device) -> torch.Generator:
+def rollout_generator(seed: int, rollout_index: int, device,
+                      batch_rank: int = 0) -> torch.Generator:
     """The generation stream of rollout `rollout_index`, the torch
     counterpart of the trainer's `fold_in(fold_in(PRNGKey(seed), 0x5E11),
-    index)`."""
-    return stream_generator(seed, _ROLLOUT_STREAM, rollout_index, device=device)
+    index)`; batch rank r > 0 folds r in, so no two ranks' rows share
+    their draws (rank 0 keeps the one-rank stream)."""
+    index = (rollout_index,) if batch_rank == 0 else (rollout_index, batch_rank)
+    return stream_generator(seed, _ROLLOUT_STREAM, *index, device=device)
+
+
+def gather_rows(mesh, rows: np.ndarray | None) -> np.ndarray | None:
+    """Every batch rank's block of host rows, concatenated in rank order
+    (the block itself without batch ranks)."""
+    if rows is None or mesh is None or mesh.batch == 1:
+        return rows
+    return np.concatenate(mesh.batch_transport.all_gather_object(rows))
 
 
 def rollout_model_config(mcfg, cfg: RLConfig):
@@ -287,7 +309,8 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
                      ctx_menu: list[int] | None = None,
                      sampling: SamplingParams | None = None,
                      timings: dict | None = None, planes=None,
-                     prefix_cache=None, env=None, weight_refresh=None) -> dict:
+                     prefix_cache=None, env=None, weight_refresh=None,
+                     mesh=None) -> dict:
     """The producer half of one rollout (JAX's `rollout_body`): de-pad the
     [B, T] left-padded prompt ids, then generate from `gen_params` (the
     live policy, its int8 view, or a published snapshot) — ReMax also
@@ -299,7 +322,9 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
     phases, `generate_s`) and, under `weight_refresh`, `segments`,
     `swap_installs` and `swap_wait_s` hoisted from the paged stats.
     `planes` gives generation the tracer, the latency hub and the fault
-    injector."""
+    injector. `mesh` with batch ranks: the global prompts are de-padded,
+    this rank generates its block and the rows are all-gathered (module
+    docstring; a multi-turn `env` is refused there, A14c)."""
     check_supported(cfg)
     if cfg.rollout_prefix_cache and prefix_cache is None:
         from nanorlhf_tpu_torch.serving.radix import RadixCache
@@ -310,7 +335,11 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
     t_start = time.perf_counter()
     if ctx_menu is not None:
         queries = depad_queries(queries, pad_id, ctx_menu)
-    queries_t = torch.as_tensor(queries, dtype=torch.int64, device=device)
+    if env is not None and mesh is not None and mesh.batch > 1:
+        raise NotImplementedError(
+            f"multi-turn environments on data x fsdp > 1 wait for {A14C}")
+    block = batch_sharding(mesh, queries.shape[0])
+    queries_t = torch.as_tensor(queries[block], dtype=torch.int64, device=device)
     prompt_mask = queries_t != pad_id
     paged_stats: list = []
     spec_stats: list = []
@@ -356,6 +385,8 @@ def generate_rollout(gen_params, mcfg, cfg: RLConfig, tokenizer, queries: np.nda
         t.update({f"greedy_{k}": v for k, v in tg.items()})
         if "graph_capture_s" in tg:
             t["graph_capture_s"] = t.get("graph_capture_s", 0.0) + tg["graph_capture_s"]
+    for key in ("responses", "captured_logprobs", "greedy"):
+        out[key] = gather_rows(mesh, out[key])
     t["generate_s"] = time.perf_counter() - t_start
     out["paged_stats"] = _host(paged_stats[0]) if paged_stats else None
     out["spec_stats"] = _host(spec_stats[0]) if spec_stats else None
@@ -398,8 +429,9 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
     forward at all); with the IS correction (`use_is`) they are the
     behavior policy's and ride out as `behavior_logprobs`, with the
     per-token `segment_ages` when `use_seg` and the payload has segments.
-    `mesh` (sp > 1) scores around the ring. Returns what
-    `rollout_and_score` documents."""
+    `mesh`: sp > 1 scores around the ring; batch ranks each grade their
+    own rows (the scores are gathered) and split every scoring chunk's
+    rows. Returns what `rollout_and_score` documents."""
     device = params["embed_tokens"].device
     pad_id = tokenizer.pad_token_id
     n = cfg.sample_n
@@ -427,19 +459,21 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
                 for rec in envp["turns"]:
                     lineage.turn(rollout_index, step=step, **rec)
         else:
-            scores = dispatch_reward(
-                reward_func, [q + r for q, r in zip(question_n, responses_decoded)],
+            texts = [q + r for q, r in zip(question_n, responses_decoded)]
+            scores = gather_rows(mesh, dispatch_reward(
+                reward_func, texts[batch_sharding(mesh, len(texts))],
                 tokenizer.eos_token, cfg.reward_retries, planes,
-                rollout_index=rollout_index, step=step)
+                rollout_index=rollout_index, step=step))
     batch = queries.shape[0]
     out = {"queries": queries, "scores": scores, "keep": None}
     if envp is not None:
         out["env"] = envp
     if payload["greedy"] is not None:
-        out["greedy_scores"] = dispatch_reward(
-            reward_func, [q + r for q, r in zip(question_strings,
-                                                tokenizer.batch_decode(payload["greedy"]))],
-            tokenizer.eos_token, cfg.reward_retries, planes)
+        texts = [q + r for q, r in zip(question_strings,
+                                       tokenizer.batch_decode(payload["greedy"]))]
+        out["greedy_scores"] = gather_rows(mesh, dispatch_reward(
+            reward_func, texts[batch_sharding(mesh, len(texts))],
+            tokenizer.eos_token, cfg.reward_retries, planes))
     seg_ages = None
     if use_seg and payload.get("segments") is not None:
         seg_ages = segment_ages(payload["segments"], responses_np.shape)
@@ -480,6 +514,9 @@ def score_rollout(payload: dict, params, ref_params, mcfg, cfg: RLConfig, tokeni
         1, forward_token_budget(mcfg.vocab_size, fused_logprob=cfg.fused_logprob)
         // (context_length + cfg.response_length))
     chunk = max(1, min(total, chunk))
+    if mesh is not None:
+        # every chunk splits evenly over the batch ranks
+        chunk = -(-chunk // mesh.batch) * mesh.batch
     # the sampler's logprobs stand for the policy's unless they are the
     # stale behavior policy's (truncated IS)
     score_capture = captured is not None and not use_is

@@ -64,6 +64,16 @@ scoring and gradients go around the ring (`score_chunk` and
 group before its step. The skip and bucket decisions are made from the
 replicated rollout, so every rank makes the same collectives in the same
 order; a digest of the rollout and its rewards is held equal across ranks.
+
+Batch ranks (data × fsdp > 1; JAX `sparse_grpo.py:96,596-599`, where GSPMD
+splits any row count over the batch axes): each rank grades its own block
+of the global rollout's rows and the scores are gathered, so the sparse
+filter runs on the global batch; each bucket's rows, rounded up the rows
+menu as in JAX, are then rounded up to a multiple of data × fsdp with
+masked all-pad rows (they add nothing to the loss or to its count), and
+every rank forwards its block of each bucket (`score_chunk`,
+`microbatch_loss`); the minibatch's gradients are summed over the mesh
+(`parallel.fsdp.reduce_grads`) before each rank's AdamW steps its shards.
 """
 
 from __future__ import annotations
@@ -94,10 +104,13 @@ from nanorlhf_tpu_torch.trainer.bucketing import (
     round_up_to_menu,
     shape_menu,
 )
+from nanorlhf_tpu_torch.parallel.fsdp import reduce_grads
+from nanorlhf_tpu_torch.parallel.mesh import batch_sharding
 from nanorlhf_tpu_torch.trainer.optim import flatten, unflatten
 from nanorlhf_tpu_torch.trainer.rollout import (
     KEEP_STREAM,
     PERM_STREAM,
+    gather_rows,
     stream_generator,
 )
 from nanorlhf_tpu_torch.trainer.scoring import forward_token_budget, score_chunk
@@ -151,6 +164,13 @@ class SparseGRPOTrainer(RLTrainer):
     # ------------------------------------------------------------------ #
 
     def _call_reward(self, pmt_and_responses, responses_ids):
+        """The rewards of the global rows: each batch rank grades its own
+        block and the blocks are gathered."""
+        block = batch_sharding(self._par, len(pmt_and_responses))
+        return gather_rows(self._par, self._grade(pmt_and_responses[block],
+                                                  responses_ids[block]))
+
+    def _grade(self, pmt_and_responses, responses_ids):
         try:
             return np.asarray(
                 self.reward_func(pmt_and_responses, responses_ids, self.tokenizer),
@@ -184,6 +204,12 @@ class SparseGRPOTrainer(RLTrainer):
     def _gen_menu(self) -> list[int]:
         return self._len_menu
 
+    def _bucket_rows(self, n: int) -> int:
+        """A bucket's rows: `n` rounded up the rows menu, then to a
+        multiple of the batch ranks (masked pad rows)."""
+        rows_b = round_up_to_menu(n, self._rows_menu)
+        return -(-rows_b // self.mesh.batch) * self.mesh.batch
+
     def score_buckets(self, qr: np.ndarray, qr_len: np.ndarray, context_length: int,
                       max_resp: int, buckets: list | None = None,
                       captured: np.ndarray | None = None):
@@ -204,13 +230,13 @@ class SparseGRPOTrainer(RLTrainer):
         skip = captured is not None and self._ref_free
         for idxs in ([] if skip else create_batches(qr_len, budget)):
             blen = self._bucket_len(qr_len[idxs], context_length, qr.shape[1])
-            rows_b = round_up_to_menu(len(idxs), self._rows_menu)
+            rows_b = self._bucket_rows(len(idxs))
             padded = pad_rows({"qr": qr[idxs][:, :blen]}, rows_b, {"qr": pad_id})
             width = blen - context_length
             lp, rlp = score_chunk(
                 self.params, self.ref_params, self.mcfg, cfg,
                 torch.as_tensor(padded["qr"], device=self.device), context_length,
-                pad_id, self.lora_scale, score_policy=captured is None, mesh=self._sp)
+                pad_id, self.lora_scale, score_policy=captured is None, mesh=self._par)
             if captured is None:
                 logprobs[idxs, :width] = lp[:len(idxs)].float().cpu().numpy()
             if rlp is not None:
@@ -229,7 +255,7 @@ class SparseGRPOTrainer(RLTrainer):
         loss, aux = microbatch_loss(
             self.params, self.mcfg, self.cfg, mb, context_length,
             self.tokenizer.pad_token_id, self.lora_scale,
-            remat=self.cfg.gradient_checkpointing, mesh=self._sp)
+            remat=self.cfg.gradient_checkpointing, mesh=self._par)
         grads = torch.autograd.grad(loss * loss_scale, tensors, allow_unused=True)
         return ({p: (torch.zeros_like(t, dtype=torch.float32) if g is None else g.float())
                  for p, t, g in zip(paths, tensors, grads)},
@@ -238,11 +264,12 @@ class SparseGRPOTrainer(RLTrainer):
     def bucket_batch(self, batch: dict, sel: np.ndarray) -> tuple[dict, int]:
         """The device minibatch of the `kept_batch` rows `sel` at their
         bucket's width, padded to the rows menu with all-pad, fully masked
-        rows; and the width."""
+        rows; and the width. Rows padded past the menu for the batch ranks
+        leave `menu_rows` (JAX's count: the entropy stat's rows)."""
         ctx = batch["context_length"]
         blen = self._bucket_len(batch["qr_len"][sel], ctx, batch["qr"].shape[1])
         width = blen - ctx
-        rows_b = round_up_to_menu(len(sel), self._rows_menu)
+        rows_b = self._bucket_rows(len(sel))
         pad_id = self.tokenizer.pad_token_id
         mb = pad_rows(
             {"query_responses": batch["qr"][sel][:, :blen],
@@ -252,6 +279,9 @@ class SparseGRPOTrainer(RLTrainer):
             {"query_responses": pad_id, "responses": pad_id,
              "logprobs": INVALID_LOGPROB, "ref_logprobs": INVALID_LOGPROB,
              "padding_mask": True})
+        menu_rows = round_up_to_menu(len(sel), self._rows_menu)
+        if rows_b > menu_rows:
+            mb["menu_rows"] = np.asarray(menu_rows)
         return {k: torch.as_tensor(v, device=self.device) for k, v in mb.items()}, blen
 
     def backward_budget(self) -> int:
@@ -304,7 +334,8 @@ class SparseGRPOTrainer(RLTrainer):
         """The summed, loss-scaled gradients {path: f32} of one minibatch's
         rows `mb_inds`, bucket by bucket under the backward budget. `stats`
         receives each bucket's loss stats, `buckets` its (real rows,
-        rows_b, width). Under sp the sum is reduced over the group."""
+        rows_b, width). On a mesh the sum is reduced over it
+        (`reduce_grads`)."""
         ctx, qr_len = batch["context_length"], batch["qr_len"]
         grads_acc = None
         for bidx in create_batches(qr_len[mb_inds], self.backward_budget()):
@@ -320,8 +351,7 @@ class SparseGRPOTrainer(RLTrainer):
                 stats.append(aux)
             if buckets is not None:
                 buckets.append((len(sel), mb["responses"].shape[0], blen))
-        if self._sp is not None:
-            self._sp.transport.all_reduce_sum_(list(grads_acc.values()))
+        reduce_grads(self._par, list(grads_acc), list(grads_acc.values()))
         return grads_acc
 
     # ------------------------------------------------------------------ #
@@ -427,7 +457,7 @@ class SparseGRPOTrainer(RLTrainer):
                 record.update(skipped=True, timings=t,
                               launches={"generate": _diff(counts1, counts0)})
                 # a streak of skips must not swallow SIGTERM
-                if self._preemption.triggered:
+                if self._preempt_requested():
                     self._preempt(False, {})
                 continue
 
@@ -512,6 +542,7 @@ class SparseGRPOTrainer(RLTrainer):
                 "time/logprob_s": t["score_s"],
                 "time/update_s": t["update_s"],
                 **self._sp_metrics(),
+                **self._mesh_metrics(),
             }
             # the dense loop's napkin model over this update's real work:
             # scoring and the update count only the kept rows; captured
@@ -573,7 +604,7 @@ class SparseGRPOTrainer(RLTrainer):
                     "train.update", span_t0, self.tracer.now_us() - span_t0,
                     step=step, rollout_index=index, staleness=0,
                     policy_version=step, kept_rows=local_bs)
-            if self._preemption.triggered:
+            if self._preempt_requested():
                 self._preempt(saved, metrics)
         # train() returning means every checkpoint is durable
         self.ckpt.wait()

@@ -77,10 +77,25 @@ group. Metrics, checkpoints and the host planes write on rank 0 only;
 every rank reads rank 0's checkpoints (a rollback or a resume waits for
 rank 0's writer first), and they agree on the best step at the end.
 
+The data and fsdp axes (`cfg.mesh = MeshConfig(d, f, 1, s)` on d·f·s
+ranks; the default `MeshConfig()` puts every rank on data; JAX
+trainer.py:513-516): the policy, ref and value trees are sharded over fsdp
+(`parallel.mesh.shard_params`) and so are the AdamW moments; every rank
+draws the same global batch, generates its own block of prompts from a
+rollout view gathered whole once per generate (int8 rollout weights
+quantize that view) and freed after it, grades its rows, and the rollout
+is all-gathered, so advantages, keeps and permutations are global; every
+scoring and update forward splits its rows over the batch ranks
+(`scoring.score_chunk`, `update.microbatch_loss`), gathering each layer
+over fsdp as it runs. Checkpoints hold the unsharded leaves (gathered,
+written by rank 0) and each rank slices its shard on resume, so a
+checkpoint moves between meshes. Under data × fsdp > 1 the async
+orchestrator and fleet, `rollout_ahead` and multi-turn environments raise
+NotImplementedError naming A14c.
+
 Unported knobs raise (`check_trainer_supported`): disaggregated rollout
-devices and the mesh's data, fsdp and tensor axes (A14b); the JAX
-trainer's ValueErrors on the orchestrator's, the fleet's and the
-environments' knobs come first.
+devices and the tensor axis (A14c); the JAX trainer's ValueErrors on the
+orchestrator's, the fleet's and the environments' knobs come first.
 """
 
 from __future__ import annotations
@@ -93,6 +108,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nanorlhf_tpu_torch._build import launch_counts
 from nanorlhf_tpu_torch.core.lora import (
@@ -140,8 +156,9 @@ from nanorlhf_tpu_torch.orchestrator.orchestrator import (
     reader_wait,
 )
 from nanorlhf_tpu_torch.orchestrator.sample_queue import ProducerFailed
-from nanorlhf_tpu_torch.parallel.distributed import world_size
-from nanorlhf_tpu_torch.parallel.mesh import make_mesh
+from nanorlhf_tpu_torch.parallel.distributed import any_rank, world_size
+from nanorlhf_tpu_torch.parallel.fsdp import full_tree, shard_of
+from nanorlhf_tpu_torch.parallel.mesh import A14C, make_mesh, shard_params
 from nanorlhf_tpu_torch.trainer.metrics import MetricsLogger, staleness_histogram_metrics
 from nanorlhf_tpu_torch.trainer.optim import AdamWState, build_optimizer, flatten
 from nanorlhf_tpu_torch.trainer.rollout import (
@@ -207,6 +224,24 @@ def check_trainer_supported(cfg: RLConfig) -> None:
     then the rollout's knobs) and the update's knobs."""
     check_supported(cfg)
     check_update_supported(cfg, {})
+
+
+def check_mesh_supported(cfg: RLConfig, mesh) -> None:
+    """The paths that do not run on this mesh raise NotImplementedError
+    naming A14c rather than fall back: the async orchestrator and fleet on
+    more than one rank (their producers would run on every rank), and
+    `rollout_ahead` and multi-turn environments on batch ranks."""
+    if mesh.sp * mesh.batch > 1 and cfg.rollout_orchestrator:
+        raise NotImplementedError(
+            f"rollout_orchestrator on a mesh of {mesh.sp * mesh.batch} ranks is not "
+            f"ported to nanorlhf_tpu_torch: it waits for {A14C}")
+    if mesh.batch > 1:
+        for knob, on in (("rollout_ahead", cfg.rollout_ahead),
+                         ("env_max_turns > 1", cfg.env_name and cfg.env_max_turns > 1)):
+            if on:
+                raise NotImplementedError(
+                    f"{knob} on data x fsdp = {mesh.batch} ranks is not ported to "
+                    f"nanorlhf_tpu_torch: it waits for {A14C}")
 
 
 def _trainable_leaves(tree: dict, mask: dict) -> dict:
@@ -302,10 +337,12 @@ class RolloutStream:
     index in `trainer.state["rollouts"]`. The data cursor advances on the
     calling thread, in index order.
 
-    Under sequence parallelism rank 0 generates and every rank takes its
-    payload (a collective on the calling thread, after the generation or
-    the prefetch's join); the other ranks draw the same batches and
-    generate nothing."""
+    Under sequence parallelism the first rank of each sp line generates
+    and every rank of the line takes its payload (a collective on the
+    calling thread, after the generation or the prefetch's join); the
+    other ranks draw the same batches and generate nothing. Batch ranks
+    each generate their block inside `generate_rollout` and gather the
+    rows there."""
 
     def __init__(self, trainer):
         self._t = trainer
@@ -326,7 +363,7 @@ class RolloutStream:
     def fetch_or_dispatch(self) -> tuple[int, dict, bool]:
         """(index, payload, prefetched)."""
         t = self._t
-        generates = t.mesh.rank == 0
+        generates = t.mesh.sp_rank == 0
         if self._pending is not None:
             idx, job = self._pending
             self._pending = None
@@ -339,15 +376,15 @@ class RolloutStream:
                 payload = t._rollout_body(queries, idx)
                 t._note_generation(idx, t_call, tp_call, payload["timings"]["generate_s"])
             prefetched = False
-        payload = t._rank0_value(payload)
+        payload = t._sp_line_value(payload)
         t.state["rollouts"] = idx + 1
         return idx, payload, prefetched
 
     def prefetch(self) -> None:
         t = self._t
         idx, queries = self._draw()
-        if t.mesh.rank > 0:
-            self._pending = (idx, None)  # rank 0's payload arrives at the fetch
+        if t.mesh.sp_rank > 0:
+            self._pending = (idx, None)  # the line's payload arrives at the fetch
             return
         tree = t._policy_snapshot()
         tp_call = t.tracer.now_us()
@@ -398,16 +435,15 @@ class RLTrainer:
     def __init__(self, config: RLConfig, model_config, tokenizer, params: dict,
                  dataset, reward_func, value_params: dict | None = None):
         check_trainer_supported(config)
-        # the mesh over the torch.distributed world (sp > 1: the ring)
+        # the mesh over the torch.distributed world: `_par` is what the
+        # scoring and update passes read (None on one rank), `_sp` the ring
         self.mesh = make_mesh(config.mesh)
         self._sp = self.mesh if self.mesh.sp > 1 else None
-        if self._sp is not None and config.rollout_orchestrator:
-            raise NotImplementedError(
-                "rollout_orchestrator with mesh.sp > 1 is not ported to "
-                "nanorlhf_tpu_torch: its producers would run on every rank; it waits for "
-                "A14b (disaggregated rollout devices)")
+        self._par = self.mesh if world_size() > 1 else None
+        check_mesh_supported(config, self.mesh)
         self._sp_hops = (0, 0.0)  # the transport's hops and wait at the last row
-        if self.mesh.rank > 0:
+        self._mesh_s: dict = {}  # the batch/fsdp transports' seconds at the last row
+        if not self.mesh.writer:
             # metrics, checkpoints and the host planes write on rank 0 only
             config = dataclasses.replace(config, report_to="none", telemetry=False,
                                          lineage=False, status_port=0,
@@ -431,6 +467,14 @@ class RLTrainer:
 
         self.params, ref, self.lora_cfg, self.lora_scale = build_policy(
             config, self.mcfg, params)
+        # fsdp: params (and below, the value tree) sharded at rest; the memo
+        # keeps the ref's frozen base the policy's shards
+        self._shard_memo: dict = {}
+        # the MFU model's parameter count: the unsharded tree's
+        self._flops_params = flops_param_count(self.params)
+        if self.mesh.fsdp > 1:
+            self.params = shard_params(self.params, self.mesh, self._shard_memo)
+            ref = shard_params(ref, self.mesh, self._shard_memo)
         self._ref_free = not (config.score_ref_logprobs
                               if config.score_ref_logprobs is not None
                               else config.kl_coef != 0.0)
@@ -443,15 +487,17 @@ class RLTrainer:
         self.trainable = _trainable_leaves(
             self.params, trainable_mask(self.params, self.lora_cfg))
         self._build_value(value_params, ref)
+        self._shard_memo.clear()  # releases the whole leaves
         groups = self._groups()
         for t in flatten(groups).values():
             t.requires_grad_(True)
-        self.optimizer = build_optimizer(config)
+        self.optimizer = build_optimizer(config, self._par)
         self.opt_state = self.optimizer.init(groups)
         # int8 rollout weights (core/quant.py): the frozen base quantized
         # once under LoRA; full fine-tuning re-quantizes at each rollout
         self._quant_layers = None
-        if config.rollout_quant == "int8":
+        if config.rollout_quant == "int8" and self.mesh.fsdp == 1:
+            # (under fsdp each generate quantizes its gathered view)
             self._refresh_quant_layers()
 
         self._build_planes()
@@ -544,7 +590,6 @@ class RLTrainer:
                                  ring_len=config.flight_recorder_len)
         self._telemetry_dir = config.telemetry_dir or config.output_dir
         # the analytic MFU model's inputs (telemetry/mfu.py)
-        self._flops_params = flops_param_count(self.params)
         self._peak_flops, self._peak_flops_known = peak_flops_per_chip(self.device)
         self._n_devices = 1
         self._recompiles = recompile_counter()
@@ -604,6 +649,9 @@ class RLTrainer:
                     self.mcfg, self.value_lora_cfg, gen,
                     dtype=value_params["embed_tokens"].dtype, device=self.device)}
         self.value_params = _unshared(value_params, (self.params, ref))
+        if self.mesh.fsdp > 1:
+            self.value_params = shard_params(self.value_params, self.mesh,
+                                             self._shard_memo)
         self.value_trainable = _trainable_leaves(
             self.value_params, value_trainable_mask(self.value_params,
                                                     self.value_lora_cfg))
@@ -616,7 +664,14 @@ class RLTrainer:
         snapshot `tree`), with int8 base projections when `rollout_quant`
         is on (LoRA, embeddings and norms stay the tree's tensors). Under
         full fine-tuning the base moved since the last rollout, so it is
-        quantized anew (a snapshot's own layers, for a snapshot)."""
+        quantized anew (a snapshot's own layers, for a snapshot). Under fsdp
+        the live tree is gathered whole (the caller frees it after its
+        generate) and int8 weights quantize that view."""
+        if self.mesh.fsdp > 1:
+            full = full_tree(self.params, self.mesh)
+            if self.cfg.rollout_quant == "int8":
+                return rollout_view(full, quantize_layers(full["layers"]))
+            return full
         if self._quant_layers is None:
             return self.params if tree is None else tree
         if tree is not None:
@@ -717,7 +772,8 @@ class RLTrainer:
         on_trainer = tree is None
         return generate_rollout(
             gen_params, self.mcfg, cfg, self.tokenizer, queries,
-            rollout_generator(cfg.seed, index, self.device), self.lora_scale,
+            rollout_generator(cfg.seed, index, self.device, self.mesh.batch_rank),
+            self.lora_scale, mesh=self._par,
             ctx_menu=self._gen_menu(), planes=self,
             # the trainer's radix cache keeps cumulative stats; a producer
             # thread takes a fresh one (the scheduler resets it per call)
@@ -918,11 +974,20 @@ class RLTrainer:
             raise RuntimeError(f"sp ranks generated different rollouts (digests by "
                                f"rank {digests}): the ring would train on mixed data")
 
-    def _rank0_value(self, value):
-        """Rank 0's `value` on every rank (a collective under sp)."""
+    def _sp_line_value(self, value):
+        """The value of this sp line's first rank on every rank of the line
+        (a collective under sp)."""
         if self._sp is None:
             return value
         return self._sp.transport.all_gather_object(value)[0]
+
+    def _rank0_value(self, value):
+        """Rank 0's `value` on every rank (a collective over the world)."""
+        if self._par is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
 
     def _sp_metrics(self) -> dict:
         """The sp transport's rows: the group's size, the backend (gloo or
@@ -937,6 +1002,27 @@ class RLTrainer:
                 "sp/backend_nccl": float(tr.backend == "nccl"),
                 "sp/host_staged": float(tr.backend != "nccl" and self.device.type == "cuda"),
                 "sp/hops": float(hops), "sp/hop_wait_s": hop_s}
+
+    def _mesh_metrics(self) -> dict:
+        """The batch and fsdp lines' rows: their sizes and this update's
+        seconds in each transport's collectives (`Transport.op_s`: the
+        gathers, the reduce-scatters and the gradient all-reduces, host
+        staging included)."""
+        m = self.mesh
+        if m.batch == 1:
+            return {}
+        out = {"mesh/data": float(m.data), "mesh/fsdp": float(m.fsdp)}
+        lines = {"data": m.data_transport, "fsdp": m.fsdp_transport}
+        if m.batch_transport not in lines.values():
+            lines["batch"] = m.batch_transport
+        for name, tr in lines.items():
+            if tr is None:
+                continue
+            for op, sec in tr.op_s.items():
+                key = f"mesh/{name}_{op}_s"
+                out[key] = sec - self._mesh_s.get(key, 0.0)
+                self._mesh_s[key] = sec
+        return out
 
     def _groups(self) -> dict:
         """The trainable leaves by optimizer group."""
@@ -964,7 +1050,7 @@ class RLTrainer:
                     mb, self.mcfg, cfg, context_length,
                     self.tokenizer.pad_token_id, self.lora_scale,
                     value=self.value_params, value_lora_scale=self.value_lora_scale,
-                    mesh=self._sp)
+                    mesh=self._par)
                 self.state["opt_steps"] += 1
                 all_stats.append(stats)
         return all_stats
@@ -993,6 +1079,12 @@ class RLTrainer:
                                    queue_index=adm["queue_index"],
                                    iteration=adm["iteration"])
         self._snapshot_pages(payload.get("paged_stats"))
+
+    def _preempt_requested(self) -> bool:
+        """SIGTERM's flag at an update boundary, agreed over the world:
+        a signal on any rank stops every rank at the same step (under fsdp
+        the emergency save gathers the leaves, a collective)."""
+        return any_rank(self._preemption.triggered)
 
     def _preempt(self, saved: bool, metrics: dict) -> None:
         """At an update boundary after SIGTERM: commit an emergency
@@ -1037,7 +1129,7 @@ class RLTrainer:
                 if self._quant_layers is not None:
                     self._refresh_quant_layers()
                 print(f"loaded best checkpoint (step {best})")
-        if cfg.export_hf_dir and num_updates is None and self.mesh.rank == 0:
+        if cfg.export_hf_dir and num_updates is None:
             # after load_best: the exported policy is the one the run deploys
             print(f"exporting HF checkpoint to {cfg.export_hf_dir}")
             self.export_model(cfg.export_hf_dir)
@@ -1082,7 +1174,7 @@ class RLTrainer:
             payload, self.params, self.ref_params, self.mcfg, cfg, tok,
             self.reward_func, self.lora_scale, keep_gen, timings=t, planes=self,
             rollout_index=index, step=self.state["global_step"],
-            use_is=self._use_is, use_seg=self._use_seg, mesh=self._sp)
+            use_is=self._use_is, use_seg=self._use_seg, mesh=self._par)
         self._sp_agree_rollout(payload["queries"], payload["responses"], ro["scores"])
         if ro["keep"] is not None and n > 1:
             # the other n−1 completions per prompt left the batch
@@ -1096,7 +1188,7 @@ class RLTrainer:
             ro, cfg, stop_id, pad_id, eos_id, keep_generator=keep_gen,
             value_fn=lambda qr: value_pass(self.value_params, self.mcfg, qr,
                                            context_length, pad_id,
-                                           self.value_lora_scale, mesh=self._sp))
+                                           self.value_lora_scale, mesh=self._par))
         t["assemble_s"] = time.perf_counter() - t0
         if cfg.algo in (AlgoName.RLOO, AlgoName.RAFT):
             self.lineage.drop(index, "keep_filter",
@@ -1155,6 +1247,7 @@ class RLTrainer:
                                               use_orch))
         metrics.update(self._host_metrics(t_start, n, context_length, ro, batch))
         metrics.update(self._sp_metrics())
+        metrics.update(self._mesh_metrics())
         self.state["global_step"] += 1
         step = self.state["global_step"]
         version = self._orchestrator.version if use_orch else step
@@ -1207,7 +1300,7 @@ class RLTrainer:
                 policy_version=version)
             self.tracer.counter("staleness", staleness)
         # SIGTERM is polled here, where the state is consistent
-        if self._preemption.triggered:
+        if self._preempt_requested():
             self._preempt(saved, metrics)
 
     def _pipeline_metrics(self, ro: dict, agg: dict, staleness: int,
@@ -1562,17 +1655,20 @@ class RLTrainer:
     def save_checkpoint(self, metrics: dict | None = None) -> str:
         """The trainable leaves of the policy (`params`) and, when
         `save_value_model`, of the value tree (`value`), with each group's
-        optimizer state when `save_optimizer_state`. Under sp only rank 0
-        writes (the others return None)."""
-        if self.mesh.rank > 0:
-            return None
+        optimizer state when `save_optimizer_state`. The leaves are the
+        unsharded ones: under fsdp every rank takes part in gathering them.
+        Only rank 0 writes (the others return None)."""
         cfg = self.cfg
         opt = None
         if cfg.save_optimizer_state:
-            opt = {g: {"count": st.count, "mu": st.mu, "nu": st.nu}
+            opt = {g: {"count": st.count, "mu": self._whole(st.mu, g),
+                       "nu": self._whole(st.nu, g)}
                    for g, st in self.opt_state.items()}
-        value = (self.value_trainable
+        value = (self._whole(self.value_trainable, "value")
                  if cfg.save_value_model and self.value_trainable is not None else None)
+        trainable = self._whole(self.trainable, "policy")
+        if not self.mesh.writer:
+            return None
         metrics = metrics or {}
         extra = {k: self.state[k] for k in ("episode", "opt_steps", "rollouts")}
         # the planes' journals: recovery itself resumes (rollback spend,
@@ -1592,20 +1688,25 @@ class RLTrainer:
         if journal is not None:
             extra["orchestrator"] = journal
         return self.ckpt.save(
-            self.state["global_step"], self.trainable, opt_state=opt,
+            self.state["global_step"], trainable, opt_state=opt,
             metric_old=metrics.get(cfg.metric_for_best_model),
             extra_state=extra, value=value)
+
+    def _whole(self, tree: dict, group: str) -> dict:
+        """A trainable-shaped tree (leaves or moments) of `group` with its
+        fsdp shards gathered whole (the tree itself without fsdp)."""
+        return full_tree(tree, self._par, (group,))
 
     @torch.no_grad()
     def _load_trainable(self, tree: dict) -> None:
         """Copy a checkpoint tree's `params` (and `value`) into the live
-        trainable leaves."""
+        trainable leaves (this rank's shard of each whole leaf)."""
         for key, live_tree in (("params", self.trainable), ("value", self.value_trainable)):
             if key not in tree:
                 continue
             live = flatten(live_tree)
             for path, t in flatten(tree[key]).items():
-                live[path].copy_(t)
+                live[path].copy_(shard_of(t, path, self._par))
 
     @torch.no_grad()
     def resume_from_checkpoint(self, step: int | None = None) -> dict:
@@ -1619,9 +1720,9 @@ class RLTrainer:
         than the latest abandons the newer trajectory (`truncate_after`).
         The random streams are functions of (seed, stream, step or rollout
         index), so the restored counters restore them too."""
-        if self._sp is not None:
+        if self._par is not None:
             # every rank reads rank 0's checkpoints: its writes land first
-            if self.mesh.rank == 0:
+            if self.mesh.writer:
                 self.ckpt.wait()
             self._rank0_value(None)
         latest = self.ckpt.latest_step()
@@ -1635,7 +1736,7 @@ class RLTrainer:
         self._close_stream()
         tree = self.ckpt.restore(step, self.device)
         step = self.ckpt.last_restored_step
-        if latest is not None and step < latest and self.mesh.rank == 0:
+        if latest is not None and step < latest and self.mesh.writer:
             self.ckpt.truncate_after(step)
         self._load_trainable(tree)
         if self._quant_layers is not None:
@@ -1645,7 +1746,7 @@ class RLTrainer:
             for name in ("mu", "nu"):
                 live = flatten(getattr(st, name))
                 for path, t in flatten(opt[name]).items():
-                    live[path].copy_(t)
+                    live[path].copy_(shard_of(t, path, self._par))
             self.opt_state[group] = AdamWState(int(opt["count"]), st.mu, st.nu)
         state = self.ckpt.load_trainer_state(step)
         self.state.update(global_step=state["step"],
@@ -1669,9 +1770,14 @@ class RLTrainer:
     def export_model(self, out_dir: str, dtype: str = "bfloat16") -> str:
         """Write the current policy as an HF checkpoint directory, LoRA
         folded into the base kernels at `lora_scale`, with the tokenizer's
-        special ids (and its files, when it can save them)."""
+        special ids (and its files, when it can save them). On a mesh every
+        rank takes part (fsdp gathers the leaves) and rank 0 writes (the
+        others return None)."""
+        params = full_tree(self.params, self._par)
+        if not self.mesh.writer:
+            return None
         return export_hf_checkpoint(
-            self.mcfg, self.params, out_dir,
+            self.mcfg, params, out_dir,
             lora_scale=self.lora_scale if self.cfg.use_lora else None,
             dtype=dtype, tokenizer=self.tokenizer)
 

@@ -36,6 +36,19 @@ policy's logprobs and entropy (and PPO's values) come from the ring
 carrying its graph, so each rank's backward holds its part of ONE loss;
 after the microbatches the accumulated gradients are summed over the sp
 group, then AdamW steps on every rank alike.
+
+Batch ranks (`mesh` with data × fsdp > 1): every rank holds the global
+minibatch; each forwards its own block of each microbatch's rows
+(`batch_sharding`) and gathers the others' per-token logprobs (PPO: values)
+as values (`parallel.mesh.own_rows`), so the loss is the GLOBAL masked
+mean — the same number on every rank — and each rank's backward carries
+its own rows' part of it. An average of per-rank means would weight the
+ranks' tokens unequally whenever their valid-token counts differ. The
+gradient sum is then `parallel.fsdp.reduce_grads` (fsdp-sharded leaves
+were reduce-scattered inside the forward's gathers), the norm and the clip
+are the unsharded tree's (`parallel.fsdp.group_norms`, computed once per
+step for the stat and every group's clip), and each rank's AdamW steps its
+own shards.
 """
 
 from __future__ import annotations
@@ -52,9 +65,16 @@ from nanorlhf_tpu_torch.algos.losses import (
 from nanorlhf_tpu_torch.core.model import padded_forward_logits, score_forward
 from nanorlhf_tpu_torch.ops.fused_logprob import chunked_entropy
 from nanorlhf_tpu_torch.ops.masking import INVALID_LOGPROB, logprobs_from_logits
+from nanorlhf_tpu_torch.parallel.fsdp import forward_view, group_norms, reduce_grads
+from nanorlhf_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    fsdp_axis,
+    own_rows,
+    ring,
+)
 from nanorlhf_tpu_torch.parallel.sp import sp_score_logprobs, sp_score_values
 from nanorlhf_tpu_torch.trainer.config import AlgoName
-from nanorlhf_tpu_torch.trainer.optim import MultiAdamW, flatten, global_norm, unflatten
+from nanorlhf_tpu_torch.trainer.optim import MultiAdamW, flatten, unflatten
 from nanorlhf_tpu_torch.trainer.scoring import fused_response_logprobs
 
 # minibatch keys the update reads (each algorithm a subset); anything else
@@ -77,26 +97,35 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                     value: dict | None = None, value_lora_scale: float = 1.0,
                     mesh=None):
     """(loss, aux) of one microbatch; aux holds the detached stats of the
-    algorithm's loss and `entropy`. `value` is PPO's value tree; `mesh`
-    (sp > 1) routes the forwards around the ring."""
-    if mesh is not None:
+    algorithm's loss and `entropy`. `value` is PPO's value tree; `mesh`:
+    sp > 1 routes the forwards around the ring, batch ranks forward their
+    block of the rows and the loss is the global one (module docstring)."""
+    rows = batch_sharding(mesh, mb["responses"].shape[0])
+    qr, responses = mb["query_responses"][rows], mb["responses"][rows]
+    if ring(mesh):
         lp, ent_tok = sp_score_logprobs(
-            policy, mcfg, mb["query_responses"], pad_id, cfg.temperature, mesh,
+            policy, mcfg, qr, pad_id, cfg.temperature, mesh,
             lora_scale=lora_scale, remat=remat, with_entropy=True,
-            entropy_from_position=context_length - 1)
+            entropy_from_position=context_length - 1, fsdp_axis=fsdp_axis(mesh),
+            entropy_rows=True)
         new_logprobs = lp[:, context_length - 1:-1]
     elif cfg.fused_logprob:
         new_logprobs, ent_tok = fused_response_logprobs(
-            policy, mcfg, mb["query_responses"], mb["responses"], pad_id,
-            context_length, cfg, lora_scale=lora_scale, with_entropy=True,
-            remat=remat)
+            policy, mcfg, qr, responses, pad_id, context_length, cfg,
+            lora_scale=lora_scale, with_entropy=True, remat=remat, mesh=mesh)
     else:
+        view, hook = forward_view(policy, mesh)
         logits = padded_forward_logits(
-            policy, mcfg, mb["query_responses"], pad_id, lora_scale=lora_scale,
-            response_context_length=context_length, remat=remat)
+            view, mcfg, qr, pad_id, lora_scale=lora_scale,
+            response_context_length=context_length, remat=remat, layer_transform=hook)
         ent_tok = chunked_entropy(logits, cfg.temperature, chunk=cfg.fused_logprob_chunk)
-        new_logprobs = logprobs_from_logits(logits, mb["responses"], cfg.temperature)
-    entropy = ent_tok.mean().detach()
+        new_logprobs = logprobs_from_logits(logits, responses, cfg.temperature)
+    # the entropy stat over the rows of JAX's bucket: `menu_rows` when the
+    # sparse trainer padded a bucket past its rows menu for the batch ranks
+    # (those masked rows are not JAX's); every row otherwise
+    ent_rows = own_rows(mesh, ent_tok.detach().reshape(ent_tok.shape[0], -1).mean(1))
+    entropy = ent_rows[:int(mb.get("menu_rows", ent_rows.shape[0]))].mean()
+    new_logprobs = own_rows(mesh, new_logprobs)
     new_logprobs = torch.where(mb["padding_mask"],
                                torch.full_like(new_logprobs, INVALID_LOGPROB),
                                new_logprobs)
@@ -124,13 +153,15 @@ def microbatch_loss(policy: dict, mcfg, cfg, mb: dict, context_length: int,
                                         mb["advantages"], mask, cfg.cliprange,
                                         **is_kw)
     if algo == AlgoName.PPO:
-        if mesh is not None:
-            vpred = sp_score_values(value, mcfg, mb["query_responses"], pad_id, mesh,
-                                    lora_scale=value_lora_scale, remat=remat)
+        if ring(mesh):
+            vpred = sp_score_values(value, mcfg, qr, pad_id, mesh,
+                                    lora_scale=value_lora_scale, remat=remat,
+                                    fsdp_axis=fsdp_axis(mesh))
         else:
-            vpred = score_forward(value, mcfg, mb["query_responses"], pad_id,
-                                  lora_scale=value_lora_scale, remat=remat)
-        vpred = vpred[:, context_length - 1:-1, 0]
+            view, hook = forward_view(value, mesh)
+            vpred = score_forward(view, mcfg, qr, pad_id, lora_scale=value_lora_scale,
+                                  remat=remat, layer_transform=hook)
+        vpred = own_rows(mesh, vpred[:, context_length - 1:-1, 0])
         pm1 = mb["padding_mask_p1"]
         vpred = torch.where(pm1, torch.zeros_like(vpred), vpred)
         vf_loss, vf_aux = value_loss_clipped(vpred, mb["values"], mb["returns"],
@@ -150,9 +181,11 @@ def update_minibatch(policy: dict, trainable: dict, optimizer: MultiAdamW,
     `trainable` holds the trainable leaves by group, `{"policy": ...}` and
     for PPO `"value"` (the same tensors as in `policy` / `value`, with
     requires_grad); they are updated in place. Returns (opt_state, stats)
-    with python-float stats. `mesh` (sp > 1): the microbatch forwards go
-    around the ring and the accumulated gradients are summed over the sp
-    group before the step."""
+    with python-float stats. `mesh`: the microbatch forwards go around the
+    sp ring and/or split their rows over the batch ranks, and the
+    accumulated gradients are summed over the mesh (`reduce_grads`) before
+    the step; the norm is the unsharded tree's (and so is the clip of an
+    optimizer built over the mesh, `build_optimizer(cfg, mesh)`)."""
     check_update_supported(cfg, minibatch)
     grad_accum = cfg.gradient_accumulation_steps
     rows = minibatch["responses"].shape[0]
@@ -175,11 +208,11 @@ def update_minibatch(policy: dict, trainable: dict, optimizer: MultiAdamW,
             if gr is not None:
                 a.add_(gr)
         auxes.append(aux)
-    if mesh is not None:
-        mesh.transport.all_reduce_sum_(acc)
+    reduce_grads(mesh, paths, acc)
     grads = unflatten({p: a.div_(grad_accum) for p, a in zip(paths, acc)})
-    grad_norm = global_norm(flatten(grads).values())
-    opt_state = optimizer.step(trainable, grads, opt_state)
+    norms = group_norms({k: flatten(v) for k, v in grads.items()}, mesh)
+    grad_norm = torch.sqrt(sum(n.square() for n in norms.values()))
+    opt_state = optimizer.step(trainable, grads, opt_state, norms=norms)
     stats = {k: float(torch.stack([a[k].float() for a in auxes]).mean())
              for k in auxes[0]}
     stats["grad_norm"] = float(grad_norm)

@@ -9,6 +9,14 @@ learning rate on a plateau and stopping early after
 The split and each epoch's permutation come from numpy's
 `default_rng(0)` and `default_rng(epoch)`, as in JAX, so the two pick the
 same rows; the rollout's draws come from the caller's torch generator.
+
+On the trainer's mesh (`mesh`, JAX's "on the shared mesh"): the trees are
+the trainer's fsdp shards. The one rollout is generated whole on every
+rank from the gathered policy (the same generator on every rank, so the
+same rows) and scored with the layers gathered as they run; each
+regression batch splits its rows over the batch ranks (a loss over the
+global rows, `parallel.mesh.own_rows`), the gradients are summed over the
+mesh and every rank's Adam steps its shards.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from nanorlhf_tpu_torch.ops.masking import (
     response_padding_masks,
     truncate_response,
 )
+from nanorlhf_tpu_torch.parallel.fsdp import forward_view, full_tree, reduce_grads
+from nanorlhf_tpu_torch.parallel.mesh import batch_sharding, own_rows
 from nanorlhf_tpu_torch.sampler.sampler import SamplingParams, generate
 from nanorlhf_tpu_torch.trainer.optim import AdamW, flatten, unflatten
 from nanorlhf_tpu_torch.trainer.trainer import _trainable_leaves
@@ -59,15 +69,18 @@ class ValueInitConfig:
 @torch.no_grad()
 def _rollout_returns(policy_params, ref_params, reward_func, prompts, tokenizer,
                      model_config, response_length, temperature, kl_coef, gamma,
-                     whiten_rewards, lora_scale, generator, fused_logprob_scoring):
+                     whiten_rewards, lora_scale, generator, fused_logprob_scoring,
+                     mesh=None):
     """(query+response ids, returns [N, R] f32, padding_mask_p1) of one
-    n = 1 rollout of `prompts` with KL-shaped rewards."""
+    n = 1 rollout of `prompts` with KL-shaped rewards (every rank the
+    whole rollout on a mesh)."""
     pad_id, eos_id = tokenizer.pad_token_id, tokenizer.eos_token_id
     device = policy_params["embed_tokens"].device
     context_length = prompts.shape[1]
     prompts_t = torch.as_tensor(prompts, dtype=torch.int64, device=device)
     responses = generate(
-        policy_params, model_config, prompts_t, prompts_t != pad_id, generator,
+        full_tree(policy_params, mesh), model_config, prompts_t, prompts_t != pad_id,
+        generator,
         SamplingParams(temperature=temperature, top_p=0.95, n=1,
                        max_tokens=response_length),
         eos_token_id=eos_id, pad_token_id=pad_id, lora_scale=lora_scale,
@@ -82,15 +95,18 @@ def _rollout_returns(policy_params, ref_params, reward_func, prompts, tokenizer,
 
     def score_one(p, ids, scale):
         resp = ids[:, context_length:]
+        p, hook = forward_view(p, mesh)
         if fused_logprob_scoring:
             w, w_t = unembedding(model_config, p)
             return fused_logprob(
                 padded_forward_hidden(p, model_config, ids, pad_id, lora_scale=scale,
-                                      response_context_length=context_length),
+                                      response_context_length=context_length,
+                                      layer_transform=hook),
                 w, resp, temperature, transposed=w_t)
         return logprobs_from_logits(
             padded_forward_logits(p, model_config, ids, pad_id, lora_scale=scale,
-                                  response_context_length=context_length),
+                                  response_context_length=context_length,
+                                  layer_transform=hook),
             resp, temperature)
 
     # ref_params=None (ref-free, kl_coef 0): no ref forward; the KL shaping
@@ -131,7 +147,7 @@ def finetune_value_model(value_params: dict, policy_params: dict,
                          whiten_rewards: bool = False, lora_scale: float = 1.0,
                          value_lora_cfg=None,
                          generator: torch.Generator | None = None,
-                         fused_logprob_scoring: bool = True) -> dict:
+                         fused_logprob_scoring: bool = True, mesh=None) -> dict:
     """Regress `value_params` onto the returns of one rollout of `prompts`
     ([N, Tp] left-padded; the first `train_data_size` rows). With
     `value_lora_cfg` only the value tree's trainable partition trains (its
@@ -139,7 +155,8 @@ def finetune_value_model(value_params: dict, policy_params: dict,
     "lora" subtree), else every leaf. Plain Adam (no weight decay). The
     best epoch's trainable leaves are written back into `value_params` IN
     PLACE, and the tree is returned. `generator` (default: seeded 0) drives
-    the rollout's sampling."""
+    the rollout's sampling. `mesh`: the trainer's (module docstring); a
+    training batch must split over its batch ranks."""
     device = value_params["embed_tokens"].device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -149,7 +166,7 @@ def finetune_value_model(value_params: dict, policy_params: dict,
     qr, returns, padding_mask_p1 = _rollout_returns(
         policy_params, ref_params, reward_func, prompts, tokenizer, model_config,
         response_length, temperature, kl_coef, gamma, whiten_rewards, lora_scale,
-        generator, fused_logprob_scoring)
+        generator, fused_logprob_scoring, mesh)
 
     n = qr.shape[0]
     n_train = int(n * vcfg.train_split_rate)
@@ -167,12 +184,18 @@ def finetune_value_model(value_params: dict, policy_params: dict,
     optimizer = AdamW(lambda count: lr[0], eps=1e-8, weight_decay=0.0)
     opt_state = optimizer.init(trainable)
 
-    def vloss(idx):
+    def vloss(idx, split: bool = True):
+        # a training batch splits its rows over the batch ranks; the
+        # validation forward (no backward) runs whole on every rank
+        m = mesh if split else None
         ids = torch.as_tensor(qr[idx], device=device)
         labels = torch.as_tensor(returns[idx], device=device)
         pm1 = torch.as_tensor(padding_mask_p1[idx], device=device)
-        vpred = score_forward(value_params, model_config, ids, pad_id,
-                              lora_scale=value_lora_scale)[:, context_length - 1:-1, 0]
+        view, hook = forward_view(value_params, mesh)
+        vpred = score_forward(view, model_config, ids[batch_sharding(m, len(idx))],
+                              pad_id, lora_scale=value_lora_scale,
+                              layer_transform=hook)[:, context_length - 1:-1, 0]
+        vpred = own_rows(m, vpred)
         vpred = torch.where(pm1, torch.zeros_like(vpred), vpred)
         return 0.5 * masked_mean(torch.square(vpred - labels), ~pm1)
 
@@ -184,11 +207,13 @@ def finetune_value_model(value_params: dict, policy_params: dict,
     for epoch in range(vcfg.num_train_epochs):
         ep_perm = np.random.default_rng(epoch).permutation(len(tr))
         for i in range(0, len(tr) - bs + 1, bs):
-            grads = torch.autograd.grad(vloss(tr[ep_perm[i:i + bs]]), tensors)
+            grads = [g.float() for g in
+                     torch.autograd.grad(vloss(tr[ep_perm[i:i + bs]]), tensors)]
+            reduce_grads(mesh, paths, grads, over_sp=False)
             opt_state = optimizer.step(trainable, unflatten(dict(zip(paths, grads))),
-                                       opt_state)
+                                       opt_state, mesh=mesh)
         with torch.no_grad():
-            val_losses = [float(vloss(va[i:i + bs]))
+            val_losses = [float(vloss(va[i:i + bs], split=False))
                           for i in range(0, max(1, len(va) - bs + 1), bs)] or [0.0]
         val_loss = float(np.mean(val_losses))
         print(f"[value-init] epoch {epoch}: val_loss={val_loss:.5f}")

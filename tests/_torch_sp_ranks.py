@@ -22,9 +22,10 @@ from nanorlhf_tpu_torch.parallel.distributed import spawn
 JOIN_TIMEOUT = 120.0
 
 
-def shared_spawn(tmp_path_factory, key: str, fn, world: int, args: tuple = ()):
-    """`spawn(fn, world, args)`, run once per session: under xdist the
-    session's temporary root is shared by the workers, and the first to
+def shared_spawn(tmp_path_factory, key: str, fn, world: int, args: tuple = (),
+                 timeout: float = JOIN_TIMEOUT):
+    """`spawn(fn, world, args, timeout)`, run once per session: under xdist
+    the session's temporary root is shared by the workers, and the first to
     take the lock spawns the group and leaves its result for the others."""
     base = tmp_path_factory.getbasetemp()
     root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
@@ -36,7 +37,7 @@ def shared_spawn(tmp_path_factory, key: str, fn, world: int, args: tuple = ()):
                 return pickle.loads(result.read_bytes())
             store = root / f"sp_{key}_store"
             store.mkdir(exist_ok=True)
-            out = spawn(fn, world, args, timeout=JOIN_TIMEOUT, store_dir=str(store))
+            out = spawn(fn, world, args, timeout=timeout, store_dir=str(store))
             result.write_bytes(pickle.dumps(out))
             return out
         finally:

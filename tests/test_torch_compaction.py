@@ -147,13 +147,32 @@ def test_capture_logprobs_with_compaction(tiny, eos):
     assert np.isfinite(lp.numpy()[live]).all() and (lp.numpy()[live] <= 0).all()
 
 
-def test_batch_sharding_waits_for_a14b(tiny):
+def test_batch_sharding_waits_for_a14b(tiny, eos, tmp_path_factory):
+    """The per-rank carry (`batch_sharding=mesh`, data = 2 on spawned gloo
+    ranks): each rank compacts its own block of 32 greedy rows (16 a rank,
+    JAX's smallest menu term 1 a rank, so `_MIN_BATCH`) and the gathered
+    rows equal the one-rank compacting run's and JAX's, on every rank."""
+    import _torch_mesh_ranks as M
+    import _torch_sp_ranks as R
+    from nanorlhf_tpu_torch.bridge import params_to_numpy
+
     _, _, pcfg, tparams, ids = tiny
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tc.generate_tokens_compact(
-            tparams, pcfg, torch.as_tensor(ids).long(), torch.as_tensor(ids != PAD),
-            torch.Generator(), max_tokens=4, eos_token_id=3, pad_token_id=PAD,
-            segments=2, batch_sharding=object())
+    ids = np.concatenate([ids, ids[::-1]])
+    arg = {"axes": (2, 1, 1, 1), "cfg": dataclasses.asdict(pcfg),
+           "tree": params_to_numpy(tparams), "ids": ids, "pad": PAD, "eos": eos,
+           "max_tokens": MAX, "segments": 6, "lora_scale": LORA.scale}
+    ranks = R.shared_spawn(tmp_path_factory, "compaction_carry", M.run_cases, 2,
+                           ([("compaction", arg)],))
+    stats: list = []
+    one = _port(tiny, ids, eos, stats=stats, greedy=True, max_tokens=MAX,
+                compaction_segments=6).numpy()
+    want = _jax(tiny, ids, eos, greedy=True, max_tokens=MAX, compaction_segments=6)
+    np.testing.assert_array_equal(one, want)
+    for (got,) in ranks:
+        np.testing.assert_array_equal(got["out"], one)
+        sizes = [m[0] for m in got["menu"]]
+        assert sizes[0] == ROWS and len(sizes) >= 2, got["menu"]
+        assert all(b >= tc._MIN_BATCH for b in sizes)
 
 
 def _planted_eos(tokens: np.ndarray, pad: int, max_tokens: int, segments: int):

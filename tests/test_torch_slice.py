@@ -297,14 +297,14 @@ def test_sequence_parallel_raises():
     launcher's sp config, and on one process its mesh raises the ValueError
     that names the launcher (`tests/test_torch_sp.py` trains it on spawned
     ranks). Disaggregated rollout devices still raise NotImplementedError
-    naming A14b."""
+    naming A14c."""
     from nanorlhf_tpu_torch.parallel.mesh import make_mesh
 
     cfg = build_config(sequence_parallel=2)
     check_supported(cfg)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(cfg.mesh)
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(NotImplementedError, match="A14c"):
         check_supported(build_config(rollout_devices=4))
 
 

@@ -218,21 +218,41 @@ def test_sp_width_divisibility_enforced(trained):
 
 def test_mesh_axes_beyond_sp_wait_for_a14b(monkeypatch):
     """A mesh that does not cover the world is a ValueError naming the
-    launcher; JAX's `sp > 1 with tensor > 1` ValueError; the data, fsdp and
-    tensor axes raise NotImplementedError naming A14b (a world of 4 faked
-    for the axis checks)."""
+    launcher; JAX's `sp > 1 with tensor > 1` ValueError; the data and fsdp
+    axes resolve (a world of 4 faked, its groups recorded: one per axis
+    line, every rank creating every group in one order) and the tensor
+    axis raises NotImplementedError naming A14c."""
+    import types
+
     from nanorlhf_tpu_torch.parallel import mesh as pmesh
 
     assert make_mesh(MeshConfig()).sp == 1
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(MeshConfig(1, 1, 1, 2))
+    made = []
     monkeypatch.setattr(pmesh, "world_size", lambda: 4)
+    monkeypatch.setattr(pmesh, "dist", types.SimpleNamespace(
+        get_rank=lambda: 3, get_backend=lambda: "gloo",
+        new_group=lambda ranks: made.append(tuple(ranks)) or tuple(ranks),
+        group=types.SimpleNamespace(WORLD="world")))
+    monkeypatch.setattr(pmesh, "Transport", lambda group, backend: group)
     with pytest.raises(ValueError, match="sp > 1 with tensor > 1 is not supported"):
         make_mesh(MeshConfig(1, 1, 2, 2))
-    for axes in (MeshConfig(), MeshConfig(1, 4, 1, 1), MeshConfig(1, 1, 4, 1),
-                 MeshConfig(2, 1, 1, 2)):
-        with pytest.raises(NotImplementedError, match="A14b"):
+    for axes in (MeshConfig(1, 1, 4, 1), MeshConfig(2, 1, 2, 1)):
+        with pytest.raises(NotImplementedError, match="A14c"):
             make_mesh(axes)
+    m = make_mesh(MeshConfig())
+    assert (m.data, m.fsdp, m.sp, m.coords) == (4, 1, 1, (3, 0, 0, 0))
+    assert m.batch_transport == m.data_transport == "world" and made == []
+    m = make_mesh(MeshConfig(2, 1, 1, 2))
+    assert (m.data, m.sp, m.coords, m.batch_rank, m.sp_rank) == (2, 2, (1, 0, 0, 1), 1, 1)
+    assert made == [(0, 2), (1, 3), (0, 1), (2, 3)]
+    assert (m.data_transport, m.transport, m.batch_transport) == ((1, 3), (2, 3), (1, 3))
+    made.clear()
+    m = make_mesh(MeshConfig(1, 2, 1, 2))
+    assert (m.fsdp, m.sp, m.fsdp_rank, m.batch_rank) == (2, 2, 1, 1)
+    assert made == [(0, 2), (1, 3), (0, 1), (2, 3)]
+    assert (m.fsdp_transport, m.transport, m.batch_transport) == ((1, 3), (2, 3), (1, 3))
 
 
 def test_spawn_brings_the_group_down_when_a_rank_fails(tmp_path):

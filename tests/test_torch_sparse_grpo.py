@@ -602,6 +602,20 @@ def test_budgets_at_8k_rows_match_jax(fused):
         assert all(len(b) == 1 for b in got if lengths[b].max() > budget)
 
 
+def test_toy_prompts_decode_on_every_rank_with_a_token_cache(tmp_path):
+    """Two ranks build the r1 prompts over one token cache directory, the
+    second after the first wrote it: the toy tokenizer's decode table fills
+    only as it encodes, so both must encode and decode the same texts."""
+    qa = grpo_r1.synthetic_math_corpus(16)
+    cache = str(tmp_path / "token_cache")
+    toks = [ToyTokenizer(V), ToyTokenizer(V)]
+    dss = [grpo_r1.build_prompt_dataset(qa, t, max_prompt_len=16, cache_dir=cache)
+           for t in toks]
+    np.testing.assert_array_equal(dss[0].input_ids, dss[1].input_ids)
+    texts = [t.batch_decode(ds.input_ids) for t, ds in zip(toks, dss)]
+    assert texts[0] == texts[1] and not any("<unk:" in x for x in texts[1])
+
+
 def test_build_config_matches_jax():
     def norm(cfg):
         d = dataclasses.asdict(cfg)

@@ -247,7 +247,8 @@ class _JointClip(MultiAdamW):
         super().__init__(inner.groups)
         self.max_norm = max_norm
 
-    def step(self, trainable, grads, state):
+    def step(self, trainable, grads, state, norms=None):
+        # `norms` (the groups' own) go unused: the groups do not clip
         norm = float(torch.sqrt(sum(g.float().pow(2).sum()
                                     for g in flatten(grads).values())))
         if norm >= self.max_norm:
